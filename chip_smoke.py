@@ -5,17 +5,25 @@
 
 Phases:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds csrc/*.cu (its -Xptxas -v report is printed), and the
-     Triton Adam kernel is launched once;
-  3. each kernel against its plain PyTorch version, on the card, at the main
-     path's shapes;
-  4. the main path: run_recbole(model="BPR") for 2 epochs on an ml-1m-shaped
-     dataset written from a seed, with every kernel's launch count reset just
-     before and read just after (each must be > 0);
-  5. quality: BPR on the bundled ml-100k under PARITY.md's protocol, test
-     recall@10 held to a band;
-  6. timing with CUDA events at the phase-3 shapes: kernel, plain version,
-     the one-call library yardstick, and the card's bound for the same work.
+  2. build: nvcc builds csrc/*.cu, one process per source, all at once (its
+     -Xptxas -v report is printed), and the Triton Adam kernel is launched
+     once;
+  3. each of the four kernels against its plain PyTorch version, on the
+     card, at the main paths' shapes and at edge shapes, and twice on the
+     same input to compare the two results bit for bit;
+  4. the main paths, each with every kernel's launch count set to 0 just
+     before and read just after (each kernel of the path must be > 0):
+     a. run_recbole(model="BPR") for 2 epochs on an ml-1m-shaped dataset
+        written from a seed;
+     b. DeepFM at the full Criteo width (13 float + 26 token fields, a
+        (2,565,692, 11) merged table, batch 2048, 2,292,530 rows from a
+        seed) through Config -> data_preparation -> get_model ->
+        get_trainer -> fit with validation -> evaluate(test), 2 epochs;
+  5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's test
+     recall@10 and DeepFM's test AUC, each held to a floor;
+  6. timing with CUDA events at the main paths' shapes: kernel, plain
+     version, the one-call library yardstick, and the card's bound for the
+     same work.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
@@ -46,12 +54,41 @@ JAX_ML100K = {"recall@10": 0.2342, "mrr@10": 0.4522, "ndcg@10": 0.2805,
               "hit@10": 0.7582, "precision@10": 0.1951}
 RECALL_FLOOR = 0.21
 
+# the Criteo shape the JAX package benches (scripts/bench_ctr.py:44-52): rows,
+# float fields, and the token vocabulary of each field (2,565,692 ids in all)
+CRITEO = dict(
+    n=2_292_530, n_float=13,
+    vocabs=[1_200_000, 530_000, 310_000, 190_000, 120_000, 80_000, 50_000,
+            30_000, 20_000, 12_000, 8_000, 5_000, 3_000, 2_000, 1_500,
+            1_000, 800, 600, 500, 400, 300, 200, 150, 100, 80, 62])
+CRITEO_BATCH, CRITEO_DIM = 2048, 11
+# the leaves Adam sweeps in one DeepFM step at that shape: the merged table,
+# float_embedding, float_weight, the 0-d first_order_bias, three MLP layers
+# over 39 fields x 10, and the output layer
+DEEPFM_LEAF_SHAPES = [(sum(CRITEO["vocabs"]), CRITEO_DIM), (13, 10), (13,), (), (390, 128),
+                      (128,), (128, 128), (128,), (128, 128), (128,), (128, 1), (1,)]
+# ml-100k under the CTR quick-start protocol (PARITY.md:72-91): DeepFM test
+# AUC of the JAX package over 3 seeds 0.7811-0.7919, of the original RecBole
+# 0.7781-0.7881
+ML100K_CTR = {
+    "threshold": {"rating": 4},
+    "load_col": {"inter": ["user_id", "item_id", "rating", "timestamp"],
+                 "user": ["user_id", "age", "gender", "occupation"],
+                 "item": ["item_id", "release_year", "class"]},
+    "epochs": 50}
+AUC_FLOOR = 0.77
+
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
 # adam_leaf: rtol 1e-6 of each element, plus 1e-6 of the tensor's largest
 # magnitude: the kernel contracts b*m + (1-b)*g into one FMA, and where the
 # two terms cancel the result keeps an absolute error of an ulp of the terms
 ADAM_RTOL = 1e-6
+# embedding gradients: the kernels add a row's cotangents in fp32 in the
+# order of r, index_add_ in the order its atomics land, so each element may
+# differ by the rounding of its own terms: 1e-5 of the sum of their
+# magnitudes, plus 1e-7
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-7
 
 
 def log(msg):
@@ -102,10 +139,60 @@ def adam_leaves(torch, shapes, seed):
     rng = np.random.RandomState(seed)
     out = []
     for shape in shapes:
-        p = rng.randn(*shape).astype(np.float32) * 0.1
-        grads = [rng.randn(*shape).astype(np.float32) * 1e-3 for _ in range(3)]
+        p = np.asarray(rng.standard_normal(shape) * 0.1, np.float32)
+        grads = [np.asarray(rng.standard_normal(shape) * 1e-3, np.float32) for _ in range(3)]
         out.append((p, grads))
     return out
+
+
+def criteo_field_spec():
+    offs = np.concatenate([[0], np.cumsum(CRITEO["vocabs"])[:-1]])
+    return tuple((int(o), int(v)) for o, v in zip(offs, CRITEO["vocabs"]))
+
+
+def grad_inputs(torch, B, spec, D, seed):
+    """One step's backward inputs as the main path gives them: (B, F) global
+    ids drawn like the synthetic Criteo columns (cubic skew toward each
+    field's first ids) and a (B, F, D) cotangent."""
+    rng = np.random.RandomState(seed)
+    ids = np.stack([off + 1 + np.floor((vocab - 2) * rng.random_sample(B) ** 3.0)
+                    .astype(np.int64) for off, vocab in spec], axis=1)
+    g = rng.randn(B, len(spec), D).astype(np.float32) * 1e-2
+    dev = torch.device("cuda")
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(g).to(dev)
+
+
+def synth_ctr_columns(shape, seed=42):
+    """Post-remap columns of a pure-feature CTR dataset (the draw of
+    scripts/bench_ctr.py's _synth_columns): a 25%-positive label, uniform
+    floats, and power-law token ids in 1..vocab-1 (0 is [PAD])."""
+    rng = np.random.RandomState(seed)
+    n = shape["n"]
+    cols = {"label": (rng.random_sample(n) < 0.25).astype(np.float32)}
+    for j in range(shape["n_float"]):
+        cols[f"I{j + 1}"] = rng.random_sample(n).astype(np.float32)
+    for j, vocab in enumerate(shape["vocabs"]):
+        r = rng.random_sample(n)
+        cols[f"C{j + 1}"] = (1 + np.floor((vocab - 2) * r ** 3.0)).astype(np.int32)
+    return cols
+
+
+def synth_ctr_dataset(config, shape, seed=42):
+    """The port's Dataset filled with those columns directly: no atomic-file
+    round trip at millions of rows."""
+    from recbole_tpu_torch.data.dataset import Dataset
+    from recbole_tpu_torch.utils.enums import FeatureSource, FeatureType
+    ds = Dataset(config, _build=False)
+    ds.inter_feat = synth_ctr_columns(shape, seed)
+    for field in ds.inter_feat:
+        ds.field2type[field] = (FeatureType.TOKEN if field.startswith("C")
+                                else FeatureType.FLOAT)
+        ds.field2source[field] = FeatureSource.INTERACTION
+    for j, vocab in enumerate(shape["vocabs"]):
+        # a stand-in vocabulary: its length drives num()
+        ds.field2id_token[f"C{j + 1}"] = np.arange(vocab)
+        ds.field2token_id[f"C{j + 1}"] = {}
+    return ds
 
 
 def write_ml1m_shape(path, seed=42):
@@ -142,7 +229,7 @@ def phase_build(torch):
     from recbole_tpu_torch.ops import cuda_build
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     t0 = time.time()
-    logs = cuda_build.build(["masked_topk"])
+    logs = cuda_build.build(["masked_topk", "embed_grad"])
     log(f"[build] nvcc {time.time() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -208,8 +295,91 @@ def check_adam(torch, shapes, seed):
                 raise AssertionError(f"adam_leaf differs at {p0.shape}: max "
                                      f"{float((a - b).abs().max())}")
             err = max(err, float((a - b).abs().max()))
-    log(f"[check] adam_leaf {shapes} x3 steps: max|err| {err:.3e}")
+    log(f"[check] adam_leaf {len(shapes)} leaves, {shapes[0]} to {shapes[-1]}, x3 steps: "
+        f"max|err| {err:.3e}")
     return err
+
+
+def _grad_agrees(torch, out, ref, ids, g, n_rows, id_base, what):
+    """max|out - ref|, held to GRAD_RTOL * sum|g| + GRAD_ATOL elementwise."""
+    scale = torch.zeros_like(ref).index_add_(
+        0, ids.reshape(-1) - id_base, g.reshape(-1, g.shape[-1]).abs().float())
+    diff = (out - ref).abs()
+    if not bool((diff <= GRAD_RTOL * scale + GRAD_ATOL).all()):
+        raise AssertionError(f"{what}: max|err| {float(diff.max())} beyond "
+                             f"{GRAD_RTOL} * sum|g| + {GRAD_ATOL}")
+    return float(diff.max())
+
+
+def check_embed_grad(torch, name, cases):
+    """One of the two embedding-gradient kernels against its plain version
+    on each (label, ids, g, n_rows, id_base) case, and a second run of the
+    kernel on the same input compared bit for bit."""
+    from recbole_tpu_torch.ops import embed_grad as eg
+    kernel = getattr(eg, f"{name}_cuda")
+    plain = getattr(eg, f"{name}_torch")
+    worst = 0.0
+    for label, ids, g, n_rows, id_base, *hint in cases:
+        kw = {"id_base": id_base, **(hint[0] if hint else {})}
+        out = kernel(ids, g, n_rows, **kw)
+        torch.cuda.synchronize()
+        again = kernel(ids, g, n_rows, **kw)
+        ref = plain(ids, g, n_rows, id_base=id_base)
+        err = _grad_agrees(torch, out, ref, ids, g, n_rows, id_base, f"{name} {label}")
+        same = bool(torch.equal(out, again))
+        log(f"[check] {name} {label}: R={ids.numel()} n_rows={n_rows} "
+            f"D={g.shape[-1]} max|err| {err:.3e} (tolerance {GRAD_RTOL} * sum|g| + "
+            f"{GRAD_ATOL}); two runs bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"{name} {label}: two runs differ, the kernel "
+                                 "is meant to be deterministic")
+        worst = max(worst, err)
+    return worst
+
+
+def embed_grad_cases(torch):
+    """The main paths' shapes and the edge shapes, for both kernels."""
+    spec = criteo_field_spec()
+    n_large = sum(v > 16384 for _, v in spec)
+    ids, g = grad_inputs(torch, CRITEO_BATCH, spec, CRITEO_DIM, seed=5)
+    small_off, small_rows = spec[n_large][0], sum(v for _, v in spec[n_large:])
+    large_rows = spec[n_large][0]
+    # ml-100k under the CTR protocol: user_id, item_id, age, gender,
+    # occupation, release_year, all small
+    ml = tuple(zip(np.concatenate([[0], np.cumsum([944, 1683, 62, 3, 22, 73])[:-1]]).tolist(),
+                   [944, 1683, 62, 3, 22, 73]))
+    ml_ids, ml_g = grad_inputs(torch, CRITEO_BATCH, ml, CRITEO_DIM, seed=6)
+    flat_ids = ids[:, n_large:].reshape(-1).contiguous()
+    flat_g = g[:, n_large:].reshape(-1, CRITEO_DIM).contiguous()
+    col_off = torch.tensor([o for o, _ in spec[n_large:]] + [spec[-1][0] + spec[-1][1]],
+                           device="cuda")
+    ml_off = torch.tensor([o for o, _ in ml] + [ml[-1][0] + ml[-1][1]], device="cuda")
+    onehot = [
+        ("criteo small fields, (B, 17) block in place", ids[:, n_large:], g[:, n_large:],
+         small_rows, small_off),
+        ("criteo small fields, block in place with column ranges", ids[:, n_large:],
+         g[:, n_large:], small_rows, small_off, {"col_off": col_off}),
+        ("ml-100k fields with column ranges", ml_ids, ml_g, sum(v for _, v in ml), 0,
+         {"col_off": ml_off}),
+        ("criteo small fields, contiguous", flat_ids, flat_g, small_rows, small_off),
+        ("ml-100k fields", ml_ids, ml_g, sum(v for _, v in ml), 0),
+        ("D=1", flat_ids, flat_g[:, :1].contiguous(), small_rows, small_off),
+        ("R=1", flat_ids[:1], flat_g[:1], small_rows, small_off),
+        ("every id equal", torch.full_like(flat_ids, small_off + 7), flat_g, small_rows,
+         small_off),
+        ("bf16 cotangent", flat_ids, flat_g.to(torch.bfloat16), small_rows, small_off),
+    ]
+    big_ids = ids[:, :n_large].reshape(-1).contiguous()
+    big_g = g[:, :n_large].reshape(-1, CRITEO_DIM).contiguous()
+    windowed = [
+        ("criteo large fields, (B, 9) block in place", ids[:, :n_large], g[:, :n_large],
+         large_rows, 0),
+        ("criteo large fields, contiguous", big_ids, big_g, large_rows, 0),
+        ("every id equal", torch.full_like(big_ids, 1_234_567), big_g, large_rows, 0),
+        ("D=1", big_ids, big_g[:, :1].contiguous(), large_rows, 0),
+        ("R=1", big_ids[:1], big_g[:1], large_rows, 0),
+    ]
+    return {"onehot_matmul_grad": onehot, "windowed_grad": windowed}
 
 
 def capture_epoch_times():
@@ -226,29 +396,50 @@ def capture_epoch_times():
                 times["eval"].append(record.args[1])
             return True
 
-    logging.getLogger("recbole_tpu_torch").addFilter(Grab())
-    return times
+    logger = logging.getLogger("recbole_tpu_torch")
+    grab = Grab()
+    logger.addFilter(grab)
+    return times, lambda: logger.removeFilter(grab)
 
 
-def check_result(result):
+def check_result(result, keys):
     for split in ("best_valid_result", "test_result"):
         vals = result[split]
-        if set(vals) != set(JAX_ML100K) or not all(
-                np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals.values()):
+        if set(vals) != set(keys) or not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"bad {split}: {vals}")
 
 
-def phase_main_path(torch, tmp):
-    from recbole_tpu_torch import run_recbole
+def kernel_wrappers():
+    from recbole_tpu_torch.ops import embed_grad as eg
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda
+    return {"masked_topk": masked_topk_cuda, "adam_leaf": adam_leaf_triton,
+            "onehot_matmul_grad": eg.onehot_matmul_grad_cuda,
+            "windowed_grad": eg.windowed_grad_cuda}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches(path, must_launch):
+    launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    log(f"[{path}] launches {launches}")
+    never = [name for name in must_launch if launches[name] <= 0]
+    if never:
+        raise AssertionError(f"kernels of the {path} path never launched: {never}")
+    return launches
+
+
+def phase_bpr(torch, tmp):
+    from recbole_tpu_torch import run_recbole
     t0 = time.time()
     write_ml1m_shape(os.path.join(tmp, "data", "ml-1m-shape", "ml-1m-shape.inter"))
-    log(f"[main] wrote the ml-1m-shaped .inter in {time.time() - t0:.1f}s")
-    times = capture_epoch_times()
+    log(f"[bpr] wrote the ml-1m-shaped .inter in {time.time() - t0:.1f}s")
+    times, release = capture_epoch_times()
     torch.cuda.reset_peak_memory_stats()
-    masked_topk_cuda.launches = 0
-    adam_leaf_triton.launches = 0
+    reset_launches()
     t0 = time.time()
     result = run_recbole(model="BPR", dataset="ml-1m-shape", config_dict={
         "data_path": os.path.join(tmp, "data"), "epochs": 2,
@@ -258,20 +449,118 @@ def phase_main_path(torch, tmp):
         "show_progress": False})
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"masked_topk": masked_topk_cuda.launches,
-                "adam_leaf": adam_leaf_triton.launches}
-    log(f"[main] run_recbole BPR ml-1m-shape 2 epochs: {wall:.2f}s wall")
-    log(f"[main] result {json.dumps(result)}")
-    log(f"[main] launches {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    check_result(result)
+    launches = read_launches("bpr", ("masked_topk", "adam_leaf"))
+    release()
+    log(f"[bpr] run_recbole BPR ml-1m-shape 2 epochs: {wall:.2f}s wall")
+    log(f"[bpr] result {json.dumps(result)}")
+    check_result(result, JAX_ML100K)
     n_train = round(ML1M[2] * 0.8)
-    log(f"[main] epoch seconds {times['train']} (epoch 0 includes the upload); "
+    log(f"[bpr] epoch seconds {times['train']} (epoch 0 includes the upload); "
         f"train examples/s (epoch 1): {n_train / times['train'][-1]:.1f}")
-    log(f"[main] full-sort valid eval seconds {times['eval']}")
-    log(f"[main] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(f"[bpr] full-sort valid eval seconds {times['eval']}")
+    log(f"[bpr] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     return launches
+
+
+def phase_deepfm(torch, tmp):
+    """DeepFM at the full Criteo width through the normal entry points, cut
+    to 2 epochs. The labels are random at this shape, so AUC is about 0.5
+    and only its finiteness is checked."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import data_preparation
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import get_trainer
+    from recbole_tpu_torch.utils.logger import init_logger
+    from recbole_tpu_torch.utils.utils import init_seed
+    config = Config("DeepFM", "criteo-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "epochs": 2, "device": "cuda",
+        "USER_ID_FIELD": None, "ITEM_ID_FIELD": None, "LABEL_FIELD": "label",
+        "TIME_FIELD": None, "train_batch_size": CRITEO_BATCH,
+        "checkpoint_dir": os.path.join(tmp, "saved"),
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO",
+        "show_progress": False}, _parse_cmd_line=False)
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    t0 = time.time()
+    dataset = synth_ctr_dataset(config, CRITEO)
+    train, valid, test = data_preparation(config, dataset)
+    log(f"[deepfm] criteo-shaped dataset and splits in {time.time() - t0:.1f}s: "
+        f"train {train.n} valid {valid.n} test {test.n} rows")
+    model = get_model("DeepFM")(config, train.dataset)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    log(f"[deepfm] parameters {shapes}")
+    if shapes["token_embedding"] != (sum(CRITEO["vocabs"]), CRITEO_DIM) \
+            or model.num_fields != 39:
+        raise AssertionError("DeepFM was not built at the full Criteo width")
+    trainer = get_trainer(config["MODEL_TYPE"], "DeepFM")(config, model)
+    times, release = capture_epoch_times()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    best_score, best_valid = trainer.fit(train, valid, saved=False)
+    test_result = trainer.evaluate(test, load_best_model=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches("deepfm", ("adam_leaf", "onehot_matmul_grad", "windowed_grad"))
+    release()
+    result = {"best_valid_result": best_valid, "test_result": test_result}
+    log(f"[deepfm] fit (2 epochs, validation each) + test: {wall:.2f}s wall")
+    log(f"[deepfm] result {json.dumps(result)}")
+    check_result(result, ("auc", "logloss"))
+    steps = 2 * len(train)
+    log(f"[deepfm] {steps} steps; launches per step: adam_leaf "
+        f"{launches['adam_leaf'] / steps:.2f}, onehot_matmul_grad "
+        f"{launches['onehot_matmul_grad'] / steps:.2f}, windowed_grad "
+        f"{launches['windowed_grad'] / steps:.2f}")
+    log(f"[deepfm] epoch seconds {times['train']} (epoch 0 includes the upload); "
+        f"train examples/s (epoch 1): {train.n / times['train'][-1]:.1f}; "
+        f"ms/step (epoch 1): {1e3 * times['train'][-1] / len(train):.3f}")
+    log(f"[deepfm] value-metric valid pass seconds {times['eval']}")
+    log(f"[deepfm] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    profile_steps(torch, trainer, train)
+    return launches
+
+
+def profile_steps(torch, trainer, train, steps=20):
+    """Where a steady train step's time goes: ``steps`` more steps under
+    torch.profiler. Logs the wall time, the time the card is busy, the
+    kernel launches per step, and the ops that hold the card longest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mode = trainer._build_mode(train)
+    B = train.batch_size
+
+    def run(first, count):
+        for i in range(first, first + count):
+            idx = torch.arange(i * B, (i + 1) * B, device="cuda")
+            mode["step"](trainer._take_batch(mode["tables"], idx), mode["consts"])
+        torch.cuda.synchronize()
+
+    run(0, 5)
+    t0 = time.time()
+    run(5, steps)
+    wall = (time.time() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(5 + steps, steps)
+    events = prof.key_averages()
+    # the kernels and copies themselves; the operator events repeat their time
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    busy = sum(device_us(e) for e in on_card) / steps / 1e3
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))) / steps
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"[deepfm] steady step: {wall:.3f} ms wall (unprofiled), card busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%; "
+        f"{launches:.1f} kernel launches per step")
+    for e in sorted(on_card, key=device_us, reverse=True)[:10]:
+        log(f"[deepfm]   {device_us(e) / steps / 1e3:8.4f} ms/step  x{e.count / steps:5.1f}  "
+            f"{e.key[:90]}")
 
 
 def phase_quality(torch, tmp):
@@ -287,13 +576,47 @@ def phase_quality(torch, tmp):
         f"valid mrr@10 {result['best_valid_score']}")
     for key, ref in JAX_ML100K.items():
         log(f"[quality]   {key:<13} port {test[key]:.4f}   JAX (TPU v5e, PARITY.md) {ref:.4f}")
-    check_result(result)
+    check_result(result, JAX_ML100K)
     if test["recall@10"] < RECALL_FLOOR:
         raise AssertionError(f"ml-100k test recall@10 {test['recall@10']} < {RECALL_FLOOR}")
 
+    t0 = time.time()
+    result = run_recbole(model="DeepFM", dataset="ml-100k", config_dict={
+        **ML100K_CTR, "device": "cuda",
+        "checkpoint_dir": os.path.join(tmp, "saved100k"),
+        "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING",
+        "show_progress": False})
+    test = result["test_result"]
+    log(f"[quality] ml-100k DeepFM (CTR protocol, early stopping on AUC) "
+        f"{time.time() - t0:.1f}s; best valid {result['best_valid_result']}")
+    log(f"[quality]   test auc {test['auc']:.4f} logloss {test['logloss']:.4f}   JAX "
+        "package, 3 seeds (PARITY.md): auc 0.7811-0.7919, logloss mean 0.5690")
+    check_result(result, ("auc", "logloss"))
+    if test["auc"] < AUC_FLOOR:
+        raise AssertionError(f"ml-100k DeepFM test AUC {test['auc']} < {AUC_FLOOR}")
+
+
+def time_adam(torch, leaves, iters):
+    from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton, adam_leaf_torch
+
+    def step(fn):
+        for p, m, v, g in leaves:
+            fn(p, m, v, g, 10.0, 1000.0, b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
+
+    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
+    for prm, (_, _, _, g) in zip(params, leaves):
+        prm.grad = g.clone()
+    opt = torch.optim.Adam(params, lr=1e-3, fused=True)
+    n = sum(p.numel() for p, _, _, _ in leaves)
+    t = {"ms": cuda_ms(torch, lambda: step(adam_leaf_triton), iters),
+         "plain_ms": cuda_ms(torch, lambda: step(adam_leaf_torch), iters),
+         "library_ms": cuda_ms(torch, opt.step, iters)}
+    t["bound_ms"], t["bound_by"] = bound(14.0 * n, 28 * n)
+    return n, t
+
 
 def phase_timing(torch):
-    from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton, adam_leaf_torch
+    from recbole_tpu_torch.ops import embed_grad as eg
     from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda, masked_topk_torch
     out = {}
     B, N, D, k = 4096, ML1M[1] + 1, 64, 10
@@ -315,24 +638,68 @@ def phase_timing(torch):
     leaves = [[torch.from_numpy(p).cuda(), torch.zeros(p.shape, device="cuda"),
                torch.zeros(p.shape, device="cuda"), torch.from_numpy(g[0]).cuda()]
               for p, g in adam_leaves(torch, shapes, seed=2)]
-
-    def step(fn):
-        for p, m, v, g in leaves:
-            fn(p, m, v, g, 10.0, 1000.0, b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
-
-    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
-    for prm, (_, _, _, g) in zip(params, leaves):
-        prm.grad = g.clone()
-    opt = torch.optim.Adam(params, lr=1e-3, fused=True)
-    n = sum(p.numel() for p, _, _, _ in leaves)
-    t = {"ms": cuda_ms(torch, lambda: step(adam_leaf_triton), 200),
-         "plain_ms": cuda_ms(torch, lambda: step(adam_leaf_torch), 200),
-         "library_ms": cuda_ms(torch, opt.step, 200)}
-    t["bound_ms"], t["bound_by"] = bound(14.0 * n, 28 * n)
+    n, t = time_adam(torch, leaves, 200)
     out["adam_leaf"] = t
     log(f"[time] adam_leaf one step over {shapes} ({n} elements, "
         f"{len(shapes)} launches): {t}")
+    # the DeepFM-Criteo leaf set: the merged table and eleven small leaves
+    shapes = DEEPFM_LEAF_SHAPES
+    leaves = [[torch.randn(shape, device="cuda") * 0.1, torch.zeros(shape, device="cuda"),
+               torch.zeros(shape, device="cuda"), torch.randn(shape, device="cuda") * 1e-3]
+              for shape in shapes]
+    n, t = time_adam(torch, leaves, 20)
+    out["adam_leaf"]["deepfm_criteo"] = t
+    log(f"[time] adam_leaf one step over the DeepFM-Criteo leaves ({n} elements, "
+        f"{len(shapes)} launches): {t}")
+    del leaves
+
+    # one step's backward at the Criteo shape: the 17 small fields through
+    # the one-hot kernel, the 9 large ones through the windowed kernel, each
+    # reading its column block in place. index_add_ into zeros is the library
+    # call for both.
+    spec = criteo_field_spec()
+    n_large = sum(v > 16384 for _, v in spec)
+    ids, g = grad_inputs(torch, CRITEO_BATCH, spec, CRITEO_DIM, seed=8)
+    for name, cols, off in (("onehot_matmul_grad", slice(n_large, None), spec[n_large][0]),
+                            ("windowed_grad", slice(0, n_large), 0)):
+        bids, bg = ids[:, cols], g[:, cols]
+        n_rows = sum(v for _, v in spec[cols])
+        kernel, plain = getattr(eg, f"{name}_cuda"), getattr(eg, f"{name}_torch")
+        # as GroupedTakeRows.backward calls them: the one-hot kernel is told
+        # the fields' column ranges
+        hint = {"col_off": torch.tensor([o for o, _ in spec[cols]] + [sum(spec[-1])],
+                                        device="cuda")} if name == "onehot_matmul_grad" else {}
+        dest = torch.empty((n_rows, CRITEO_DIM), device="cuda")
+        local = (bids.reshape(-1) - off).contiguous()
+        flat = bg.reshape(-1, CRITEO_DIM).contiguous()
+
+        def library():
+            return dest.zero_().index_add_(0, local, flat)
+
+        iters = 200 if n_rows < 100_000 else 50
+        t = {"ms": cuda_ms(torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off,
+                                                 **hint), iters),
+             "plain_ms": cuda_ms(torch, lambda: plain(bids, bg, n_rows, out=dest, id_base=off),
+                                 iters),
+             "library_ms": cuda_ms(torch, library, iters)}
+        R = bids.numel()
+        t["bound_ms"], t["bound_by"] = bound(
+            float(R * CRITEO_DIM), R * 8 + R * CRITEO_DIM * 4 + n_rows * CRITEO_DIM * 4)
+        out[name] = t
+        log(f"[time] {name} R={R} n_rows={n_rows} D={CRITEO_DIM}: {t}")
     return out
+
+
+KERNEL_META = {
+    "masked_topk": {"route": "cuda", "source": "recbole_tpu_torch/csrc/masked_topk.cu",
+                    "replaces": "recbole_tpu/ops/masked_topk.py:94"},
+    "adam_leaf": {"route": "triton", "source": "recbole_tpu_torch/ops/fused_adam.py",
+                  "replaces": "recbole_tpu/ops/fused_adam.py:75"},
+    "onehot_matmul_grad": {"route": "cuda", "source": "recbole_tpu_torch/csrc/embed_grad.cu",
+                           "replaces": "recbole_tpu/ops/embed_grad.py:78"},
+    "windowed_grad": {"route": "cuda", "source": "recbole_tpu_torch/csrc/embed_grad.cu",
+                      "replaces": "recbole_tpu/ops/embed_grad.py:170"},
+}
 
 
 def main():
@@ -348,19 +715,20 @@ def main():
     phase_build(torch)
     err = {"masked_topk": max(check_topk(torch, 4096, ML1M[1] + 1, 64, 10, seed=0),
                               check_topk(torch, 943, 1683, 64, 10, seed=3)),
-           "adam_leaf": check_adam(torch, [(ML1M[0] + 1, 64), (ML1M[1] + 1, 64)], seed=4)}
+           "adam_leaf": max(check_adam(torch, [(ML1M[0] + 1, 64), (ML1M[1] + 1, 64)], seed=4),
+                            check_adam(torch, DEEPFM_LEAF_SHAPES, seed=9))}
+    for kname, cases in embed_grad_cases(torch).items():
+        err[kname] = check_embed_grad(torch, kname, cases)
+    by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(torch, tmp)
+        by_path["bpr"] = phase_bpr(torch, tmp)
+        by_path["deepfm"] = phase_deepfm(torch, tmp)
         phase_quality(torch, tmp)
     timing = phase_timing(torch)
-    meta = {
-        "masked_topk": {"route": "cuda", "source": "recbole_tpu_torch/csrc/masked_topk.cu",
-                        "replaces": "recbole_tpu/ops/masked_topk.py:94"},
-        "adam_leaf": {"route": "triton", "source": "recbole_tpu_torch/ops/fused_adam.py",
-                      "replaces": "recbole_tpu/ops/fused_adam.py:75"},
-    }
-    kernels = [{"name": kname, **meta[kname], "launches": launches[kname],
-                "max_abs_err": err[kname], **timing[kname]} for kname in meta]
+    kernels = [{"name": kname, **KERNEL_META[kname],
+                "launches": sum(path[kname] for path in by_path.values()),
+                "launches_by_path": {p: path[kname] for p, path in by_path.items()},
+                "max_abs_err": err[kname], **timing[kname]} for kname in KERNEL_META]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

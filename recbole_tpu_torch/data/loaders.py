@@ -1,7 +1,7 @@
 """Batch pipelines.
 
-Port of recbole_tpu/data/loaders.py: ``TrainLoader`` (:17) and
-``FullSortEvalLoader`` (:345). The train loader only holds the columnar
+Port of recbole_tpu/data/loaders.py: ``TrainLoader`` (:17),
+``RowEvalLoader`` (:271) and ``FullSortEvalLoader`` (:345). The train loader only holds the columnar
 training table: the trainer uploads it to the device once and slices
 shuffled batches there, the eager counterpart of the JAX trainer's scanned
 epoch (trainer.py:503-509). Negatives are drawn on the device by the
@@ -30,6 +30,44 @@ class TrainLoader:
     def columns(self):
         """Full training table as columnar numpy arrays."""
         return dict(self.fields)
+
+
+class RowEvalLoader:
+    """Plain row batches for INDIVIDUAL (value-metric) evaluation: AUC/LogLoss/
+    MAE/RMSE over (label, prediction) pairs (parity: reference LossEvaluator
+    path, evaluators.py:289-367: CTR protocols are ungrouped, no sampling).
+    The trainer uploads ``fields`` once and slices batches on the device;
+    iterating yields the same batches as padded numpy arrays with a
+    ``_mask`` column."""
+
+    def __init__(self, config, dataset, batch_size=None):
+        self.config = config
+        self.dataset = dataset
+        # rows are a handful of scalars, so the dispatch count, not memory,
+        # bounds this path; floor the batch well above the top-k default
+        self.batch_size = batch_size or max(config["eval_batch_size"] or 4096,
+                                            65536)
+        self.fields = {f: np.asarray(v) for f, v in dataset.inter_feat.items()
+                       if v.dtype != object}
+        self.n = len(dataset)
+
+    def __len__(self):
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        B = self.batch_size
+        for start in range(0, self.n, B):
+            sl = slice(start, min(start + B, self.n))
+            cnt = sl.stop - sl.start
+            pad = B - cnt
+            batch = {}
+            for f, col in self.fields.items():
+                out = np.zeros((B,) + col.shape[1:], dtype=col.dtype)
+                out[:cnt] = col[sl]
+                batch[f] = out
+            batch["_mask"] = np.concatenate([np.ones(cnt, np.float32),
+                                             np.zeros(pad, np.float32)])
+            yield batch
 
 
 class FullSortEvalLoader:

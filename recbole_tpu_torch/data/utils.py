@@ -1,17 +1,21 @@
 """Dataset/dataloader assembly.
 
-Port of recbole_tpu/data/utils.py (:44-178) for the general model family:
-``create_dataset`` and ``data_preparation``, including the fork's
-validation override. When the protocol is full-sort and no benchmark split
-files are given, ``valid_full_to_uni1000`` downgrades VALIDATION to
-uniform-1000 sampled ranking (reference data/utils.py:84-88); that reaches
-the sampled loader, which is not ported yet and raises.
+Port of recbole_tpu/data/utils.py (:44-178) for the general and context
+model families: ``create_dataset`` and ``data_preparation``, including the
+pure-feature CTR case (``USER_ID_FIELD: ~``), the value-metric
+``RowEvalLoader`` and the fork's validation override. When the protocol is
+full-sort and no benchmark split files are given, ``valid_full_to_uni1000``
+downgrades VALIDATION to uniform-1000 sampled ranking (reference
+data/utils.py:84-88); that reaches the sampled loader, which is not ported
+yet and raises, as do the sequential, knowledge and social datasets and
+``eval_use_dataset_negatives``.
 """
 
 import numpy as np
 
 from .dataset import Dataset
-from .loaders import TrainLoader, FullSortEvalLoader, SampledEvalLoader
+from .loaders import (TrainLoader, FullSortEvalLoader, SampledEvalLoader,
+                      RowEvalLoader)
 from ..config.eval_setting import EvalSetting
 from ..sampler.sampler import PhaseHistory
 from ..utils.enums import ModelType, EvaluatorType
@@ -19,10 +23,11 @@ from ..utils.logger import get_logger
 
 
 def create_dataset(config):
-    """The general family's Dataset (parity: data/utils.py:44-60). The
-    sequential, knowledge and social datasets are not ported yet."""
+    """The plain Dataset of the general and context families (parity:
+    data/utils.py:44-60). The sequential, knowledge and social datasets are
+    not ported yet."""
     model_type = config["MODEL_TYPE"]
-    if model_type is not ModelType.GENERAL:
+    if model_type not in (ModelType.GENERAL, ModelType.CONTEXT):
         raise NotImplementedError(
             f"{model_type} datasets are not ported yet (ROADMAP Queue 1)")
     return Dataset(config)
@@ -40,10 +45,16 @@ def data_preparation(config, dataset):
                 len(train_ds), len(valid_ds), len(test_ds))
 
     uid_f, iid_f = dataset.uid_field, dataset.iid_field
-    splits = {phase: (np.asarray(ds.inter_feat[uid_f]),
-                      np.asarray(ds.inter_feat[iid_f]))
-              for phase, ds in (("train", train_ds), ("valid", valid_ds),
-                                ("test", test_ds))}
+    # pure-feature CTR datasets (Criteo/Avazu style: USER_ID_FIELD: ~) carry no
+    # user/item ids; ranking history tables degenerate to empty
+    has_ui = uid_f in train_ds.inter_feat and iid_f in train_ds.inter_feat
+    splits = {}
+    for phase, ds in (("train", train_ds), ("valid", valid_ds), ("test", test_ds)):
+        if has_ui:
+            splits[phase] = (np.asarray(ds.inter_feat[uid_f]),
+                             np.asarray(ds.inter_feat[iid_f]))
+        else:
+            splits[phase] = (np.zeros(0, np.int64), np.zeros(0, np.int64))
     phase_history = PhaseHistory(dataset.user_num, dataset.item_num, splits)
 
     train_loader = TrainLoader(config, train_ds)
@@ -67,9 +78,7 @@ def data_preparation(config, dataset):
 
 def _make_eval_loader(config, split_ds, full_ds, neg_args):
     if config["eval_type"] is EvaluatorType.INDIVIDUAL:
-        raise NotImplementedError(
-            "value metrics (AUC/LogLoss/MAE/RMSE) are not ported yet "
-            "(ROADMAP Queue 1, item 6)")
+        return RowEvalLoader(config, split_ds)
     if config["eval_use_dataset_negatives"]:
         from .loaders import DatasetNegEvalLoader
         return DatasetNegEvalLoader(config, split_ds, full_ds.item_num)

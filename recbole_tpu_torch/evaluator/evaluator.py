@@ -1,16 +1,17 @@
 """Evaluator: per-batch metric partial sums + host-side aggregation.
 
-Port of recbole_tpu/evaluator/evaluator.py's ``topk_metric_sums`` (:16) and
-``TopKCollector``. Each batch contributes per-metric (K,) partial sums over
-its valid users, computed on the device; the trainer sums them there and
-moves them to the host once per evaluation. GAUC and the value metrics are
-not ported yet.
+Port of recbole_tpu/evaluator/evaluator.py's ``topk_metric_sums`` (:16),
+``TopKCollector`` and ``ValueCollector`` (:132). Each batch contributes
+per-metric (K,) partial sums over its valid users, computed on the device;
+the trainer sums them there and moves them to the host once per evaluation.
+The value metrics are computed on the device over the whole split and only
+the scalars come back. GAUC is not ported yet.
 """
 
 import numpy as np
 import torch
 
-from .metrics import TOPK_METRIC_FNS
+from .metrics import TOPK_METRIC_FNS, VALUE_METRIC_FNS
 
 
 def topk_metric_sums(metrics, pos_index, pos_len, user_mask):
@@ -69,3 +70,41 @@ class TopKCollector:
             for k in self.topk:
                 result[f"{m}@{k}"] = round(float(means[k - 1]), self.decimals)
         return result
+
+
+class ValueCollector:
+    """Accumulator for individual (value) metrics: AUC/MAE/RMSE/LogLoss.
+
+    The reference stacks all (true, pred) pairs and computes at the end
+    (evaluators.py:289-367); so does this, on the tensors' device: AUC needs
+    a global sort anyway. One host transfer brings back the scalars.
+    """
+
+    def __init__(self, config):
+        self.metrics = [m.lower() for m in config["metrics"]]
+        unported = [m for m in self.metrics if m not in VALUE_METRIC_FNS]
+        if unported:
+            raise NotImplementedError(f"metrics {unported} are not value metrics")
+        self.decimals = config["metric_decimal_place"]
+        self.reset()
+
+    def reset(self):
+        self._trues = []
+        self._preds = []
+
+    def collect(self, trues, preds, mask=None):
+        trues = trues.reshape(-1).to(torch.float32)
+        preds = preds.reshape(-1).to(torch.float32)
+        if mask is not None:
+            keep = mask.reshape(-1) > 0
+            trues, preds = trues[keep], preds[keep]
+        self._trues.append(trues)
+        self._preds.append(preds)
+
+    def evaluate(self):
+        trues = torch.cat(self._trues)
+        preds = torch.cat(self._preds)
+        values = torch.stack([VALUE_METRIC_FNS[m](trues, preds)
+                              for m in self.metrics]).cpu().tolist()
+        return {m: round(float(v), self.decimals)
+                for m, v in zip(self.metrics, values)}

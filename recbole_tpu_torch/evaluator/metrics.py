@@ -1,8 +1,8 @@
-"""Top-k ranking metrics as (B, K) tensor programs.
+"""Top-k ranking metrics as (B, K) tensor programs, and the value metrics.
 
-Port of recbole_tpu/evaluator/metrics.py's top-k functions, with the same
-float32 arithmetic (parity target: reference numpy metric fns,
-recbole/evaluator/metrics.py:27-355). Value metrics are not ported yet.
+Port of recbole_tpu/evaluator/metrics.py, with the same float32 arithmetic
+(parity target: reference numpy metric fns,
+recbole/evaluator/metrics.py:27-355). GAUC is not ported yet.
 
 All top-k fns take:
     pos_index: (B, K) 0/1 float — whether the item at rank k is a positive
@@ -74,4 +74,51 @@ TOPK_METRIC_FNS = {
     "recall": recall_,
     "ndcg": ndcg_,
     "precision": precision_,
+}
+
+
+# ---------------------------------------------------------------- value metrics
+# trues and preds are (n,) float32 tensors on one device
+
+def auc_(trues, preds):
+    """Pairwise-rank AUC over the full prediction set; ties get their
+    average rank (parity: reference auc_, metrics.py:224). A run of equal
+    predictions holds consecutive ranks, so its mean is the midpoint of its
+    first and last rank: no scatter is needed."""
+    order = torch.argsort(preds)
+    sorted_true = trues[order]
+    sorted_pred = preds[order]
+    n = preds.shape[0]
+    idx = _arange(0, n, preds)
+    edge = sorted_pred[1:] != sorted_pred[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=preds.device)
+    first = torch.cummax(torch.where(torch.cat([one, edge]), idx, 0), dim=0).values
+    last = torch.flip(torch.cummin(torch.flip(
+        torch.where(torch.cat([edge, one]), idx, n - 1), [0]), dim=0).values, [0])
+    avg_rank = (first + last).to(torch.float32) * 0.5 + 1.0
+    n_pos = torch.sum(sorted_true)
+    n_neg = n - n_pos
+    rank_sum_pos = torch.sum(avg_rank * sorted_true)
+    return (rank_sum_pos - n_pos * (n_pos + 1) / 2.0) / torch.clamp(n_pos * n_neg, min=1.0)
+
+
+def mae_(trues, preds):
+    return torch.mean(torch.abs(trues - preds))
+
+
+def rmse_(trues, preds):
+    return torch.sqrt(torch.mean((trues - preds) ** 2))
+
+
+def log_loss_(trues, preds):
+    eps = 1e-7  # float32-safe (1 - 1e-15 rounds to 1.0 in f32 -> nan)
+    p = torch.clamp(preds, eps, 1.0 - eps)
+    return -torch.mean(trues * torch.log(p) + (1.0 - trues) * torch.log(1.0 - p))
+
+
+VALUE_METRIC_FNS = {
+    "auc": auc_,
+    "mae": mae_,
+    "rmse": rmse_,
+    "logloss": log_loss_,
 }

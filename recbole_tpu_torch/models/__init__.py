@@ -2,8 +2,10 @@
 
 Port of recbole_tpu/models/__init__.py. Models self-register with
 @register_model at import time; get_model imports the category packages
-lazily on first lookup (case-insensitive, exact-case preferred). The port
-holds the general family's BPR so far.
+lazily on first lookup (case-insensitive, exact-case preferred). Ported so
+far: the general family's BPR, and the context family's base with DeepFM, FM
+and LR. Any other name raises ``ValueError`` from ``get_model``; the other
+11 context models and the remaining families are ROADMAP Queue 1.
 """
 
 import importlib
@@ -11,7 +13,7 @@ import pkgutil
 
 _REGISTRY = {}
 _LOADED = False
-_CATEGORIES = ("general",)
+_CATEGORIES = ("general", "context")
 
 
 def register_model(name):

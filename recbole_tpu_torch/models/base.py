@@ -35,8 +35,9 @@ class AbstractRecommender(nn.Module):
         return torch.Generator(device=self.device).manual_seed(
             int(self.config["seed"] or 0))
 
-    def calculate_loss(self, batch):
-        """Scalar training loss."""
+    def calculate_loss(self, batch, generator=None):
+        """Scalar training loss. ``generator`` is the trainer's
+        torch.Generator, for models that draw dropout masks."""
         raise NotImplementedError
 
     def predict(self, batch):

@@ -30,7 +30,7 @@ class BPR(GeneralRecommender):
         self.item_embedding = nn.Parameter(embedding_init(
             gen, self.n_items, self.embedding_size, self.device))
 
-    def calculate_loss(self, batch):
+    def calculate_loss(self, batch, generator=None):
         u = embed(self.user_embedding, batch[self.USER_ID])
         pos = embed(self.item_embedding, batch[self.ITEM_ID])
         neg = embed(self.item_embedding, batch[self.NEG_ITEM_ID])

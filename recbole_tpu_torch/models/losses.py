@@ -1,8 +1,8 @@
 """Loss functions.
 
-Port of recbole_tpu/models/losses.py's ``bpr_loss``. It takes an optional
-per-row ``weight``; padding rows carry weight 0 and the mean is taken over
-the weight sum.
+Port of recbole_tpu/models/losses.py's ``bpr_loss``, ``bce_loss`` and
+``mse_loss``. Each takes an optional per-row ``weight``; padding rows carry
+weight 0 and the mean is taken over the weight sum.
 """
 
 import torch
@@ -18,3 +18,14 @@ def _wmean(values, weight):
 def bpr_loss(pos_score, neg_score, weight=None, gamma=1e-10):
     """-log sigmoid(pos - neg)  (parity: BPRLoss, loss.py:23)."""
     return _wmean(-torch.log(gamma + torch.sigmoid(pos_score - neg_score)), weight)
+
+
+def bce_loss(logits, labels, weight=None):
+    """Numerically-stable binary cross entropy on logits."""
+    loss = (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+    return _wmean(loss, weight)
+
+
+def mse_loss(preds, labels, weight=None):
+    return _wmean(torch.square(preds - labels), weight)

@@ -1,22 +1,33 @@
-"""Trainer: train step, epoch loop, checkpoints and full-sort evaluation.
+"""Trainer: train step, epoch loop, checkpoints, full-sort and value-metric
+evaluation.
 
 Port of recbole_tpu/trainer/trainer.py's base ``Trainer`` (parity target:
 reference Trainer, recbole/trainer/trainer.py:62-452). The JAX trainer jits
 one step and scans an epoch; here the same pieces run eagerly on the
 model's device:
 
-  * the training table is uploaded once and shuffled batches are sliced on
-    the device (the counterpart of ``_upload_columns`` under scan_epochs);
+  * the training table is uploaded once, as one matrix per dtype, and
+    shuffled batches are gathered on the device, one gather per matrix
+    whatever the number of columns (the counterpart of the JAX trainer's
+    ``_upload_columns`` under scan_epochs);
   * negatives are drawn on the device inside the step (``_make_rec_augment``,
-    the pairwise branch);
+    the pairwise branch); labeled rows (the CTR protocols: no sampling, or no
+    user/item ids at all) pass through as they are;
+  * the model is in train mode only inside the step, and draws its dropout
+    masks from the trainer's generator;
   * Adam is the single-pass in-place sweep of ops/fused_adam.py for every
     float32 leaf (``_fused_adam_apply``);
   * full-sort evaluation always goes through ops/masked_topk.py, and each
-    batch reduces to per-metric partial sums on the device.
+    batch reduces to per-metric partial sums on the device;
+  * value-metric evaluation (``_evaluate_individual``) uploads the eval
+    table once, predicts in device-sliced batches, and computes AUC/LogLoss
+    on the device.
 
-Other learners, gradient clipping, weight decay, the sampled and labeled
-eval steps, the non-fused ``all_item_scores`` path, bfloat16 eval scores and
-the trainer subclasses are not ported yet (ROADMAP Queue 1).
+``get_trainer`` serves the general and context families. Still raising:
+other learners, gradient clipping, weight decay, the POINTWISE branch that
+samples negatives, dataset negatives and the both-way sampler, the sampled
+and labeled eval steps, the non-fused ``all_item_scores`` path, bfloat16
+eval scores and the trainer subclasses (ROADMAP Queue 1).
 """
 
 import os
@@ -28,7 +39,8 @@ import torch
 from ..utils.enums import InputType, ModelType
 from ..utils.logger import get_logger, get_local_time, set_color
 from ..utils.utils import early_stopping, calculate_valid_score, dict2str, ensure_dir
-from ..evaluator.evaluator import topk_metric_sums, TopKCollector
+from ..data.loaders import RowEvalLoader
+from ..evaluator.evaluator import topk_metric_sums, TopKCollector, ValueCollector
 from ..sampler.sampler import sample_negatives
 from ..ops.fused_adam import adam_leaf
 from ..ops.masked_topk import masked_topk
@@ -98,25 +110,32 @@ class Trainer:
     # ------------------------------------------------------------- train step
 
     def _make_rec_augment(self, train_data):
-        """Device-side negative sampling for pairwise models (parity: the
-        PAIRWISE branch of trainer.py:166-289). Returns (augment, consts)."""
+        """Device-side batch shaping (parity: trainer.py:166-289): labeled
+        rows pass through (the pure-feature protocol, and no sampling),
+        pairwise models get sampled negatives. Returns (augment, consts)."""
         model = self.model
         cfg = self.config
-        if model.input_type is not InputType.PAIRWISE:
-            raise NotImplementedError(
-                f"{model.input_type} training is not ported yet (ROADMAP "
-                "Queue 1, item 3)")
+        uid_f = cfg["USER_ID_FIELD"]
+        iid_f = cfg["ITEM_ID_FIELD"]
         if cfg["train_use_dataset_negatives"] or cfg["train_use_bothway_sampler"]:
             raise NotImplementedError(
                 "train_use_dataset_negatives and train_use_bothway_sampler are "
                 "not ported yet (ROADMAP Queue 1, item 3)")
         neg_args = cfg["train_neg_sample_args"]
         k = int(neg_args.get("by") or 0) if neg_args["strategy"] == "by" else 0
+        if uid_f is None or iid_f is None or (
+                k == 0 and model.input_type is not InputType.PAIRWISE):
+            # pure-feature CTR protocol (Criteo/Avazu: USER_ID_FIELD: ~), or
+            # labeled rows used as they are: nothing to sample
+            return (lambda batch, generator, consts: batch), {}
+        if model.input_type is not InputType.PAIRWISE:
+            raise NotImplementedError(
+                f"{model.input_type} training with sampled negatives is not "
+                "ported yet (ROADMAP Queue 1, item 3)")
         if k < 1:
             raise ValueError("pairwise training needs training_neg_sample_num >= 1")
         rounds = cfg["neg_sampling_resample_rounds"]
-        uid_f = cfg["USER_ID_FIELD"]
-        neg_f = cfg["NEG_PREFIX"] + cfg["ITEM_ID_FIELD"]
+        neg_f = cfg["NEG_PREFIX"] + iid_f
         n_items = train_data.n_items
         train_data.phase_history.assert_sampleable("train")
         hist, hlen = train_data.phase_history.device_tables("train", self.device)
@@ -167,31 +186,59 @@ class Trainer:
 
     def _make_step_core(self, augment, loss_method):
         """step_core(batch, consts) -> detached loss: augment, loss, gradients
-        and the fused Adam update, drawing randomness from ``self.generator``
-        (parity: trainer.py:356-395)."""
+        and the fused Adam update, drawing randomness (negatives, dropout
+        masks) from ``self.generator`` (parity: trainer.py:356-395). The
+        model is in train mode for the loss only."""
         params = dict(self.model.named_parameters())
 
         def step_core(batch, consts):
             batch = augment(batch, self.generator, consts)
-            loss = loss_method(batch)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            self.model.train()
+            try:
+                loss = loss_method(batch, generator=self.generator)
+            finally:
+                self.model.eval()
+            # a leaf the loss does not reach (LR never reads the embedding
+            # of a float field) gets a zero gradient, as jax.grad gives it
+            grads = {name: torch.zeros_like(params[name]) if g is None else g
+                     for name, g in zip(params, torch.autograd.grad(
+                         loss, list(params.values()), allow_unused=True))}
             self._fused_adam_apply(grads)
             return loss.detach()
 
         return step_core
 
-    def _upload_columns(self, cols):
-        """The whole training table on the device, ids as int64."""
-        return {f: torch.as_tensor(v, device=self.device).to(
-                    torch.int64 if np.issubdtype(v.dtype, np.integer) else torch.float32)
-                for f, v in cols.items()}
+    def _upload_table(self, cols):
+        """A whole train or eval table on the device as one (n, k) matrix per
+        dtype and row shape (ids int64, everything else float32), so that a
+        batch costs one gather or slice per matrix, not one per column: the
+        CTR protocols have tens of columns. Returns [(fields, matrix)]."""
+        groups = {}
+        for f, v in cols.items():
+            kind = np.int64 if np.issubdtype(v.dtype, np.integer) else np.float32
+            groups.setdefault((kind, v.shape[1:]), []).append(f)
+        return [(fields, torch.as_tensor(
+                    np.stack([cols[f].astype(kind, copy=False) for f in fields], axis=1),
+                    device=self.device))
+                for (kind, _), fields in groups.items()]
+
+    @staticmethod
+    def _take_batch(tables, idx):
+        """Rows ``idx`` (an index tensor or a slice) of every matrix, as a dict
+        of per-field column views."""
+        batch = {}
+        for fields, matrix in tables:
+            rows = matrix[idx]
+            for j, f in enumerate(fields):
+                batch[f] = rows[:, j]
+        return batch
 
     def _build_mode(self, train_data):
         if self._mode is None:
             augment, consts = self._make_rec_augment(train_data)
             self._mode = {"step": self._make_step_core(augment, self.model.calculate_loss),
                           "consts": consts,
-                          "columns": self._upload_columns(train_data.columns())}
+                          "tables": self._upload_table(train_data.columns())}
         return self._mode
 
     def _train_epoch(self, train_data, epoch_idx):
@@ -207,8 +254,7 @@ class Trainer:
         total = torch.zeros((), device=self.device)
         for start in range(0, n, B):
             idx = order[start:start + B]
-            batch = {f: col[idx] for f, col in mode["columns"].items()}
-            total += mode["step"](batch, mode["consts"])
+            total += mode["step"](self._take_batch(mode["tables"], idx), mode["consts"])
         total = float(total)
         if np.isnan(total):
             raise ValueError(f"Training loss is nan at epoch {epoch_idx}")
@@ -374,10 +420,33 @@ class Trainer:
                     torch.int64 if np.issubdtype(v.dtype, np.integer) else torch.float32)
                 for k, v in batch.items()}
 
+    def _evaluate_individual(self, eval_data):
+        """Value-metric path: predictions against labels over plain rows
+        (parity: trainer.py:1205-1257; reference LossEvaluator,
+        evaluators.py:289-367). The eval table is uploaded once and kept
+        with the loader; batches are sliced on the device; the metrics are
+        computed there and only their values return to the host."""
+        label_f = self.config["LABEL_FIELD"]
+        cached = getattr(eval_data, "_individual_cache", None)
+        if cached is None or cached[0] is not self:
+            cached = (self, self._upload_table(eval_data.fields))
+            eval_data._individual_cache = cached
+        tables = cached[1]
+        n, B = eval_data.n, eval_data.batch_size
+        collector = ValueCollector(self.config)
+        self.model.eval()
+        with torch.no_grad():
+            for start in range(0, n, B):
+                batch = self._take_batch(tables, slice(start, start + B))
+                collector.collect(batch[label_f], self.model.predict(batch))
+        return collector.evaluate()
+
     def evaluate(self, eval_data, load_best_model=True, model_file=None,
                  show_progress=False):
         if load_best_model:
             self.load_params(model_file or self.saved_model_file)
+        if isinstance(eval_data, RowEvalLoader):
+            return self._evaluate_individual(eval_data)
         collector = TopKCollector(self.config)
         metrics = tuple(collector.topk_metrics)
         max_k = collector.max_k
@@ -402,8 +471,8 @@ class Trainer:
 
 def get_trainer(model_type, model_name):
     """parity: reference get_trainer (utils/utils.py:78-96). The port has
-    the base Trainer for the general family so far."""
-    if model_type is not ModelType.GENERAL:
+    the base Trainer, which serves the general and context families."""
+    if model_type not in (ModelType.GENERAL, ModelType.CONTEXT):
         raise NotImplementedError(
             f"trainers for {model_type} models are not ported yet (ROADMAP "
             "Queue 1)")

@@ -171,3 +171,74 @@ def test_unported_paths_raise(synth_dataset_dir, tmp_path, monkeypatch):
         port_utils.init_device(Config("BPR", "synth", _parse_cmd_line=False,
                                       config_dict={**cfg, "mesh_shape": {"data": 2}}))
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# ------------------------------------------------------ the context (CTR) path
+
+_CTR = {"threshold": {"rating": 4}, "normalize_all": True,
+        "load_col": {"inter": ["user_id", "item_id", "rating", "timestamp"],
+                     "user": ["user_id", "age", "gender", "interests"],
+                     "item": ["item_id", "genre", "price"]}}
+
+
+def _ctr_loaders(model, dataset, cfg):
+    jc = JaxConfig(model, dataset, config_dict=cfg, _parse_cmd_line=False)
+    pc = Config(model, dataset, config_dict=cfg, _parse_cmd_line=False)
+    jax_init_seed(jc["seed"])
+    jloaders = jax_data_preparation(jc, jax_create_dataset(jc))
+    init_seed(pc["seed"])
+    ploaders = data_preparation(pc, create_dataset(pc))
+    return jc, pc, jloaders, ploaders
+
+
+def _same_row_loaders(jloaders, ploaders):
+    jtrain, ptrain = jloaders[0], ploaders[0]
+    assert set(jtrain.columns()) == set(ptrain.columns())
+    for f, v in jtrain.columns().items():
+        np.testing.assert_array_equal(v, ptrain.columns()[f], err_msg=f)
+    for jl, pl in zip(jloaders[1:], ploaders[1:]):
+        assert type(pl).__name__ == type(jl).__name__ == "RowEvalLoader"
+        assert (pl.n, pl.batch_size, len(pl)) == (jl.n, jl.batch_size, len(jl))
+        assert pl.batch_size >= 65536           # the value-metric batch floor
+        for jb, pb in zip(jl, pl):
+            assert set(jb) == set(pb)
+            for f in jb:
+                np.testing.assert_array_equal(jb[f], pb[f], err_msg=f)
+
+
+def test_ctr_config_and_row_loaders_match_jax(synth_dataset_dir, tmp_path):
+    """DeepFM's config (its defaults, the CONTEXT quick-start overrides) and
+    the labeled train table and value-metric eval batches, exactly."""
+    cfg = {**_config_dict(tmp_path, synth_dataset_dir), **_CTR}
+    jc, pc, jloaders, ploaders = _ctr_loaders("DeepFM", "synth", cfg)
+    j = {k: _norm(v) for k, v in jc.final.items() if k != "device"}
+    p = {k: _norm(v) for k, v in pc.final.items() if k != "device"}
+    assert j == p
+    assert pc["metrics"] == ["AUC", "LogLoss"] and pc["valid_metric"] == "AUC"
+    assert pc["mlp_hidden_size"] == [128, 128, 128] and pc["dropout_prob"] == 0.2
+    _same_row_loaders(jloaders, ploaders)
+    assert set(ploaders[0].columns()) == {"user_id", "item_id", "timestamp", "label"}
+
+
+def test_pure_feature_dataset_matches_jax(tmp_path):
+    """USER_ID_FIELD: ~ (the Criteo/Avazu protocol): no id columns, empty
+    phase histories, the same rows in the same splits."""
+    d = tmp_path / "criteo" / "criteo"
+    d.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    with open(d / "criteo.inter", "w") as fh:
+        fh.write("label:float\tI1:float\tC1:token\tC2:token\n")
+        for _ in range(300):
+            fh.write(f"{rng.randint(0, 2)}\t{rng.random_sample():.4f}\t"
+                     f"c{rng.randint(0, 20)}\tv{rng.randint(0, 50)}\n")
+    cfg = {**_config_dict(tmp_path, str(tmp_path / "criteo")),
+           "USER_ID_FIELD": None, "ITEM_ID_FIELD": None, "LABEL_FIELD": "label",
+           "load_col": {"inter": "*"}}
+    _, _, jloaders, ploaders = _ctr_loaders("FM", "criteo", cfg)
+    _same_row_loaders(jloaders, ploaders)
+    ptrain = ploaders[0]
+    assert set(ptrain.columns()) == {"label", "I1", "C1", "C2"}
+    assert ptrain.phase_history.history["train"].shape[1] in (0, 1)
+    assert int(ptrain.phase_history.hist_len["test"].sum()) == 0
+    for field in ("C1", "C2"):
+        assert ptrain.dataset.num(field) == jloaders[0].dataset.num(field)

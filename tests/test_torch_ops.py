@@ -8,12 +8,15 @@ path's shapes, and skip where torch finds no CUDA device.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+from recbole_tpu.ops import embed_grad as jax_eg
 from recbole_tpu.ops.fused_adam import adam_leaf_kernel
 from recbole_tpu.ops.masked_topk import masked_topk_pallas, masked_topk_xla
+from recbole_tpu_torch.ops import embed_grad as port_eg
 from recbole_tpu_torch.ops import fused_adam, masked_topk as port_topk
 
 B1, B2, LR, EPS = 0.9, 0.999, 1e-3, 1e-8
@@ -161,6 +164,192 @@ def test_adam_launcher_refuses_cpu_tensors():
     assert fused_adam.adam_leaf_triton.launches == before
 
 
+# ------------------------------------------------------- embedding gradients
+
+def _grad_inputs(R, V, D, seed, dtype=np.float32):
+    """Heavy duplicates (ids drawn with a cubic skew toward 0), id 0 present."""
+    rng = np.random.RandomState(seed)
+    ids = np.floor(V * rng.random_sample(R) ** 3.0).astype(np.int64)
+    if R:
+        ids[R // 2] = 0
+    g = rng.randn(R, D).astype(np.float32)
+    return ids, g
+
+
+def _abs_sums(ids, g, V):
+    """sum over r with ids[r] == v of |g[r, d]|: the scale of the hi + lo bound."""
+    out = np.zeros((V, g.shape[1]), np.float64)
+    np.add.at(out, ids, np.abs(g.astype(np.float64)))
+    return out
+
+
+def _hi_lo_bound(ids, g, V):
+    """The plain version is the exact fp32 sum; the JAX functions feed the
+    matrix unit a bf16 hi + lo pair of each fp32 term and so drop what lies
+    below 16 mantissa bits: |diff| <= 2^-16 * sum|g| + 1e-6 elementwise."""
+    return 2.0 ** -16 * _abs_sums(ids, g, V) + 1e-6
+
+
+@pytest.mark.parametrize("D", [1, 11, 64])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_onehot_grad_plain_matches_jax(D, bf16):
+    """R = 1000 (not a multiple of the Pallas kernel's 512-row chunk) into
+    V = 300 rows, against the Pallas kernel in interpret mode and the XLA
+    scan. A bf16 cotangent is upcast losslessly by both, so only the fp32
+    sum order differs there."""
+    from jax.experimental.pallas import tpu as pltpu
+    R, V = 1000, 300
+    ids, g = _grad_inputs(R, V, D, seed=D)
+    tg = torch.from_numpy(g)
+    jg = jnp.asarray(g)
+    if bf16:
+        tg = tg.to(torch.bfloat16)
+        jg = jg.astype(jnp.bfloat16)
+        g = tg.to(torch.float32).numpy()
+    out = port_eg.onehot_matmul_grad(torch.from_numpy(ids), tg, V)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (V, D)
+    exact = np.zeros((V, D), np.float64)
+    np.add.at(exact, ids, g.astype(np.float64))
+    np.testing.assert_allclose(out.numpy(), exact, rtol=1e-5, atol=1e-5)
+    bound = _hi_lo_bound(ids, g, V)
+    with pltpu.force_tpu_interpret_mode():
+        ref_pl = jax_eg.onehot_matmul_grad(jnp.asarray(ids, jnp.int32), jg, V)
+    ref_xla = jax_eg.onehot_matmul_grad_xla(jnp.asarray(ids, jnp.int32), jg, V)
+    for ref in (ref_pl, ref_xla):
+        assert (np.abs(out.numpy() - np.asarray(ref)) <= bound).all()
+
+
+def test_windowed_grad_plain_matches_jax_and_numpy():
+    """Against the Pallas kernel in interpret mode and numpy's add.at:
+    rtol 1e-6 (plus 1e-6 absolute where a row's terms cancel). All three
+    add exact fp32 terms; only the order differs."""
+    from jax.experimental.pallas import tpu as pltpu
+    R, V, D = 1000, 300, 11
+    ids, g = _grad_inputs(R, V, D, seed=7)
+    out = port_eg.windowed_grad(torch.from_numpy(ids), torch.from_numpy(g), V)
+    ref_np = np.zeros((V, D), np.float32)
+    np.add.at(ref_np, ids, g)
+    with pltpu.force_tpu_interpret_mode():
+        ref_pl = jax_eg.windowed_grad(jnp.asarray(ids, jnp.int32), jnp.asarray(g), V)
+    np.testing.assert_allclose(out.numpy(), ref_np, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_pl), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", [port_eg.onehot_matmul_grad_torch, port_eg.windowed_grad_torch])
+def test_embed_grad_plain_edge_cases(fn):
+    """No rows at all, one row, every id equal, a (B, fs) column block with
+    an id base, and writing into a row range of a larger table."""
+    assert torch.count_nonzero(fn(torch.zeros(0, dtype=torch.int64),
+                                  torch.zeros((0, 3)), 5)) == 0
+    one = fn(torch.tensor([2]), torch.tensor([[1.0, 2.0]]), 4)
+    assert one.tolist() == [[0, 0], [0, 0], [1, 2], [0, 0]]
+    g = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    same = fn(torch.full((6,), 3), g, 5)
+    assert same[3].tolist() == [30.0, 36.0] and torch.count_nonzero(same) == 2
+    ids = torch.tensor([[10, 3, 21], [11, 4, 20], [10, 4, 22]])
+    gg = torch.arange(18, dtype=torch.float32).reshape(3, 3, 2)
+    table = torch.full((30, 2), -1.0)
+    fn(ids[:, 2:3], gg[:, 2:3], 5, out=table[20:25], id_base=20)
+    assert table[20].tolist() == [10.0, 11.0] and table[21].tolist() == [4.0, 5.0]
+    assert table[22].tolist() == [16.0, 17.0] and table[23].tolist() == [0.0, 0.0]
+    assert (table[:20] == -1).all() and (table[25:] == -1).all()
+
+
+def test_embed_grad_launchers_refuse_cpu_tensors():
+    ids, g = _grad_inputs(8, 5, 3, seed=0)
+    for fn in (port_eg.onehot_matmul_grad_cuda, port_eg.windowed_grad_cuda):
+        before = fn.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(torch.from_numpy(ids), torch.from_numpy(g), 5)
+        assert fn.launches == before
+
+
+def test_field_runs_group_adjacent_fields_of_one_class():
+    spec = ((0, 20000), (20000, 30000), (50000, 100), (50100, 50), (50150, 17000), (67150, 7))
+    assert port_eg.field_runs(spec) == [
+        (0, 2, 0, 50000, False), (2, 4, 50000, 150, True),
+        (4, 5, 50150, 17000, False), (5, 6, 67150, 7, True)]
+
+
+# one field above SMALL_VOCAB_MAX rows between small ones
+_FIELD_VOCABS = (40, 7, 17000, 300)
+
+
+def _field_case(seed, D):
+    rng = np.random.RandomState(seed)
+    offs = np.concatenate([[0], np.cumsum(_FIELD_VOCABS)[:-1]])
+    spec = tuple((int(o), int(v)) for o, v in zip(offs, _FIELD_VOCABS))
+    V, B = int(sum(_FIELD_VOCABS)), 96
+    ids = np.stack([o + np.floor(v * rng.random_sample(B) ** 3.0).astype(np.int64)
+                    for o, v in spec], axis=1)
+    table = rng.randn(V, D).astype(np.float32)
+    w = rng.randn(B, len(spec), D).astype(np.float32)
+    return spec, V, ids, table, w
+
+
+@pytest.mark.parametrize("D", [11, 1])
+def test_grouped_take_rows_matches_jax_grad(D):
+    """Forward exactly, and the (V, D) gradient of sum(w * rows) against
+    jax.grad through grouped_take_rows, within the hi + lo bound (its small
+    fields go through the one-hot matmul; the large field's scatter adds
+    exact terms)."""
+    spec, V, ids, table, w = _field_case(3, D)
+    jrows = jax_eg.grouped_take_rows(spec, jnp.asarray(table), jnp.asarray(ids, jnp.int32))
+    jgrad = jax.grad(lambda t: jnp.sum(jax_eg.grouped_take_rows(
+        spec, t, jnp.asarray(ids, jnp.int32)) * jnp.asarray(w)))(jnp.asarray(table))
+    t = torch.from_numpy(table).requires_grad_()
+    rows = port_eg.grouped_take_rows(spec, t, torch.from_numpy(ids))
+    np.testing.assert_array_equal(rows.detach().numpy(), np.asarray(jrows))
+    (rows * torch.from_numpy(w)).sum().backward()
+    bound = _hi_lo_bound(ids.reshape(-1), w.reshape(-1, D), V)
+    assert tuple(t.grad.shape) == (V, D)
+    assert (np.abs(t.grad.numpy() - np.asarray(jgrad)) <= bound).all()
+
+
+def test_grouped_take_rows_zero_fills_rows_outside_every_field():
+    """A field_spec that leaves gaps in the table: rows no field covers get
+    a zero gradient, not uninitialised memory."""
+    spec = ((2, 5), (10, 4))
+    t = torch.randn(20, 3, requires_grad=True)
+    ids = torch.tensor([[2, 10], [6, 13], [6, 10]])
+    port_eg.grouped_take_rows(spec, t, ids).sum().backward()
+    want = torch.zeros(20, 3)
+    want[2], want[6], want[10], want[13] = 1.0, 2.0, 2.0, 1.0
+    assert torch.equal(t.grad, want)
+
+
+def test_grouped_take_rows_on_a_column_view_lands_in_that_column():
+    """The standalone first-order path: the lookup reads the (V, 1) view of
+    column D of the merged table, and autograd puts the dense gradient there."""
+    spec, V, ids, table, w = _field_case(5, 4)
+    t = torch.from_numpy(table).requires_grad_()
+    rows = port_eg.grouped_take_rows(spec, t[:, -1:], torch.from_numpy(ids))
+    (rows[..., 0] * torch.from_numpy(w[..., 0])).sum().backward()
+    ref = np.zeros(V, np.float32)
+    np.add.at(ref, ids.reshape(-1), w[..., 0].reshape(-1))
+    np.testing.assert_allclose(t.grad[:, -1].numpy(), ref, rtol=1e-6, atol=1e-6)
+    assert torch.count_nonzero(t.grad[:, :-1]) == 0
+
+
+@pytest.mark.parametrize("n", [500, 17000])
+def test_take_rows_dense_grad_matches_jax_grad(n):
+    """rows of shape (B, L) into x (n, 8): below and above SMALL_VOCAB_MAX
+    rows, against jax.grad through take_rows_dense_grad, hi + lo bound."""
+    rng = np.random.RandomState(n)
+    D = 8
+    x = rng.randn(n, D).astype(np.float32)
+    rows = np.floor(n * rng.random_sample((12, 9)) ** 3.0).astype(np.int64)
+    w = rng.randn(12, 9, D).astype(np.float32)
+    jgrad = jax.grad(lambda t: jnp.sum(jax_eg.take_rows_dense_grad(
+        n, t, jnp.asarray(rows, jnp.int32)) * jnp.asarray(w)))(jnp.asarray(x))
+    t = torch.from_numpy(x).requires_grad_()
+    out = port_eg.take_rows_dense_grad(n, t, torch.from_numpy(rows))
+    np.testing.assert_array_equal(out.detach().numpy(), x[rows])
+    (out * torch.from_numpy(w)).sum().backward()
+    bound = _hi_lo_bound(rows.reshape(-1), w.reshape(-1, D), n)
+    assert (np.abs(t.grad.numpy() - np.asarray(jgrad)) <= bound).all()
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.mark.cuda
@@ -216,3 +405,96 @@ def test_adam_kernel_matches_plain_on_card(cuda_device, shape):
         out[name] = (tp, tm, tv)
     for a, b in zip(out["kernel"], out["plain"]):
         assert bool(((a - b).abs() <= 1e-6 * (b.abs() + b.abs().max())).all())
+
+
+# cotangents are summed in fp32 in the order of r by the kernels and in any
+# order by index_add_: |diff| <= 1e-5 * sum|g| + 1e-7 elementwise
+def _grad_close(out, ref, ids, g, V):
+    bound = 1e-5 * _abs_sums(ids, g, V) + 1e-7
+    return bool((np.abs(out.cpu().numpy() - ref.cpu().numpy()) <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V,D", [(34816, 35692, 11), (2048 * 8, 2700, 11), (5000, 900, 1),
+                                   (1, 17, 11), (0, 9, 4), (3000, 700, 64)])
+def test_onehot_grad_kernel_matches_plain_on_card(cuda_device, R, V, D):
+    ids, g = _grad_inputs(R, V, D, seed=R + D)
+    tid, tg = torch.from_numpy(ids).to(cuda_device), torch.from_numpy(g).to(cuda_device)
+    before = port_eg.onehot_matmul_grad_cuda.launches
+    out = port_eg.onehot_matmul_grad(tid, tg, V)
+    assert port_eg.onehot_matmul_grad_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert _grad_close(out, port_eg.onehot_matmul_grad_torch(tid, tg, V), ids, g, V)
+    assert torch.equal(out, port_eg.onehot_matmul_grad(tid, tg, V))   # deterministic
+    same = torch.zeros_like(tid)
+    out = port_eg.onehot_matmul_grad(same, tg, V)
+    assert _grad_close(out, port_eg.onehot_matmul_grad_torch(same, tg, V),
+                       np.zeros_like(ids), g, V)
+    bf = tg.to(torch.bfloat16)
+    assert _grad_close(port_eg.onehot_matmul_grad(tid, bf, V),
+                       port_eg.onehot_matmul_grad_torch(tid, bf, V), ids, g, V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V,D", [(18432, 2530000, 11), (4000, 70000, 1), (1, 17, 11),
+                                   (0, 9, 4), (3000, 20000, 64)])
+def test_windowed_grad_kernel_matches_plain_on_card(cuda_device, R, V, D):
+    ids, g = _grad_inputs(R, V, D, seed=R + D)
+    tid, tg = torch.from_numpy(ids).to(cuda_device), torch.from_numpy(g).to(cuda_device)
+    before = port_eg.windowed_grad_cuda.launches
+    out = port_eg.windowed_grad(tid, tg, V)
+    assert port_eg.windowed_grad_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert _grad_close(out, port_eg.windowed_grad_torch(tid, tg, V), ids, g, V)
+    assert torch.equal(out, port_eg.windowed_grad(tid, tg, V))   # deterministic
+    same = torch.full_like(tid, V - 1)
+    assert _grad_close(port_eg.windowed_grad(same, tg, V),
+                       port_eg.windowed_grad_torch(same, tg, V),
+                       np.full_like(ids, V - 1), g, V)
+
+
+@pytest.mark.cuda
+def test_embed_grad_launchers_refuse_int32_ids_on_card(cuda_device):
+    """The kernels take int64 ids, as the trainer uploads them; int32 ids
+    raise and launch nothing."""
+    ids, g = _grad_inputs(8, 5, 3, seed=0)
+    tid = torch.from_numpy(ids).to(cuda_device).to(torch.int32)
+    tg = torch.from_numpy(g).to(cuda_device)
+    for fn in (port_eg.onehot_matmul_grad_cuda, port_eg.windowed_grad_cuda):
+        before = fn.launches
+        with pytest.raises(TypeError, match="int64"):
+            fn(tid, tg, 5)
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_grouped_take_rows_kernels_match_plain_on_card(cuda_device):
+    """The (B, fs) column blocks read in place, each run writing its own row
+    range: the CUDA backward against the same Function on the CPU."""
+    spec, V, ids, table, w = _field_case(9, 11)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        t = torch.from_numpy(table).to(dev).requires_grad_()
+        rows = port_eg.grouped_take_rows(spec, t, torch.from_numpy(ids).to(dev))
+        (rows * torch.from_numpy(w).to(dev)).sum().backward()
+        grads[str(dev)] = t.grad.cpu()
+    bound = 1e-5 * _abs_sums(ids.reshape(-1), w.reshape(-1, 11), V) + 1e-7
+    assert (np.abs(grads["cpu"].numpy() - grads[str(cuda_device)].numpy()) <= bound).all()
+
+
+@pytest.mark.cuda
+def test_onehot_grad_kernel_column_ranges_on_card(cuda_device):
+    """Told each column's id range, a block scans only the columns that meet
+    its rows: the same bits as the full scan, whatever the block's offset."""
+    spec, V, ids, table, w = _field_case(4, 11)
+    tid = torch.from_numpy(ids).to(cuda_device)
+    tw = torch.from_numpy(w).to(cuda_device)
+    for f0, f1 in ((0, 2), (3, 4), (0, 4)):
+        off, rows = spec[f0][0], sum(v for _, v in spec[f0:f1])
+        col_off = torch.tensor([o for o, _ in spec[f0:f1]] + [off + rows], device=cuda_device)
+        full = port_eg.onehot_matmul_grad(tid[:, f0:f1], tw[:, f0:f1], rows, id_base=off)
+        ranged = port_eg.onehot_matmul_grad(tid[:, f0:f1], tw[:, f0:f1], rows, id_base=off,
+                                            col_off=col_off)
+        assert torch.equal(full, ranged)
+        ref = port_eg.onehot_matmul_grad_torch(tid[:, f0:f1], tw[:, f0:f1], rows, id_base=off)
+        torch.testing.assert_close(ranged, ref, rtol=1e-5, atol=1e-6)

@@ -1,6 +1,7 @@
 """The port's trainer against the JAX package's: a five-step train
-trajectory from the same weights, batches and negatives, full-sort metrics
-from the same weights, an end-to-end smoke run, and checkpoint resume."""
+trajectory from the same weights, batches and negatives, full-sort and
+value metrics from the same weights, end-to-end smoke runs (BPR, DeepFM),
+and checkpoint resume."""
 
 import numpy as np
 import jax
@@ -16,10 +17,10 @@ from recbole_tpu.trainer.trainer import Trainer as JaxTrainer
 from recbole_tpu.utils.utils import init_seed as jax_init_seed
 from recbole_tpu_torch import run_recbole
 from recbole_tpu_torch.config.configurator import Config
-from recbole_tpu_torch.convert import export_params, load_jax_params
+from recbole_tpu_torch.convert import export_params, flatten_tree, load_jax_params
 from recbole_tpu_torch.data.utils import create_dataset, data_preparation
 from recbole_tpu_torch.models import get_model
-from recbole_tpu_torch.trainer.trainer import Trainer, invalid_item_mask
+from recbole_tpu_torch.trainer.trainer import Trainer, get_trainer, invalid_item_mask
 from recbole_tpu_torch.utils.utils import init_seed
 
 
@@ -38,12 +39,20 @@ def _cfg(data_dir, tmp_path, **extra):
             "valid_full_to_uni1000": False, "device": "cpu", **extra}
 
 
-def _port_pipeline(cfg):
-    pc = Config("BPR", "synth", config_dict=cfg, _parse_cmd_line=False)
+def _port_pipeline(cfg, model_name="BPR"):
+    pc = Config(model_name, "synth", config_dict=cfg, _parse_cmd_line=False)
     init_seed(pc["seed"])
     train, valid, test = data_preparation(pc, create_dataset(pc))
-    model = get_model("BPR")(pc, train.dataset)
+    model = get_model(model_name)(pc, train.dataset)
     return Trainer(pc, model), model, train, valid, test
+
+
+# the CTR protocol on the synthetic dataset (tests/test_context.py:7-19), with
+# a token_seq field on each side
+CTR = {"threshold": {"rating": 4}, "normalize_all": True,
+       "load_col": {"inter": ["user_id", "item_id", "rating", "timestamp"],
+                    "user": ["user_id", "age", "gender", "interests"],
+                    "item": ["item_id", "genre", "price"]}}
 
 
 def test_five_steps_and_full_sort_metrics_match_jax(synth_dataset_dir, tmp_path):
@@ -170,4 +179,144 @@ def test_resume_matches_straight_run(synth_dataset_dir, tmp_path):
         assert torch.equal(p, dict(rmodel.named_parameters())[name]), name
         assert torch.equal(straight.opt_state["mu"][name], resumed.opt_state["mu"][name])
     assert straight.opt_state["count"] == resumed.opt_state["count"]
+    assert straight.train_loss_dict == resumed.train_loss_dict
+
+
+def test_deepfm_five_steps_and_value_metrics_match_jax(synth_dataset_dir, tmp_path):
+    """Five DeepFM steps on the same rows (dropout 0, no shuffle), the JAX
+    step core with its fused Adam against the port's: loss at rtol 2e-4;
+    params at rtol 2e-4 / atol 1e-5, every element of every leaf outside
+    the MLP's weight matrices. In those, at least 99.9% of a leaf's elements
+    meet that bound and every element is within 1.5e-4, about a seventh of
+    one Adam step (lr 1e-3). Read on this test's inputs: the only leaf with
+    misses is mlp.2.w, 8 of its 16,384 elements, worst |diff| 7.0e-5; the
+    next worst leaf is mlp.1.w at 1.4e-5 with no miss, and every leaf
+    outside the MLP is within 1.6e-6. Where a dense-layer gradient element
+    is a cancelling sum near zero, Adam's normalised update
+    m / (sqrt(v) + eps) turns the two packages' fp32 sum orders into steps
+    that differ by a fraction of lr. Then _evaluate_individual on the valid
+    and test splits from the same (JAX-trained) weights: AUC and LogLoss
+    agree to 4 decimals."""
+    cfg = _cfg(synth_dataset_dir, tmp_path, dropout_prob=0.0, **CTR)
+    jc = JaxConfig("DeepFM", "synth", config_dict=cfg, _parse_cmd_line=False)
+    jax_init_seed(jc["seed"])
+    jtrain, jvalid, jtest = jax_data_preparation(jc, jax_create_dataset(jc))
+    jmodel = jax_get_model("DeepFM")(jc, jtrain.dataset)
+    jtrainer = JaxTrainer(jc, jmodel)
+    params = jmodel.init_params(jax.random.key(0))
+
+    ptrainer, pmodel, ptrain, pvalid, ptest = _port_pipeline(cfg, "DeepFM")
+    assert type(ptrainer) is get_trainer(ptrainer.config["MODEL_TYPE"], "DeepFM")
+    load_jax_params(pmodel, jax.tree.map(np.asarray, params))
+
+    jtrainer._fused_adam = True
+    opt_state = jtrainer._fused_adam_init(params)
+    jaugment, jconsts = jtrainer._make_rec_augment(jtrain)
+    jstep = jtrainer._make_step_core(jaugment, jmodel.calculate_loss)
+    ptrainer.opt_state = ptrainer._fused_adam_init()
+    paugment, pconsts = ptrainer._make_rec_augment(ptrain)
+    pstep = ptrainer._make_step_core(paugment, pmodel.calculate_loss)
+
+    cols = ptrain.columns()
+    key = jax.random.key(1)
+    for step in range(5):
+        rows = slice(step * 256, (step + 1) * 256)
+        batch = {f: v[rows] for f, v in cols.items()}
+        params, opt_state, key, jloss, _ = jstep(
+            params, opt_state, key, {f: jnp.asarray(v) for f, v in batch.items()}, jconsts)
+        ploss = pstep(ptrainer._take_batch(ptrainer._upload_table(batch), slice(None)), pconsts)
+        np.testing.assert_allclose(float(ploss), float(jloss), rtol=2e-4)
+        assert not pmodel.training      # train mode only inside the step
+    got = flatten_tree(export_params(pmodel))
+    for name, ref in flatten_tree(jax.tree.map(np.asarray, params)).items():
+        diff = np.abs(got[name] - ref)
+        within = np.mean(diff <= 1e-5 + 2e-4 * np.abs(ref))
+        if name.startswith("mlp.") and name.endswith(".w"):
+            assert within >= 0.999, (name, within)
+            assert diff.max() <= 1.5e-4, (name, diff.max())
+        else:
+            assert within == 1.0, (name, diff.max())
+
+    jtrainer.params = params
+    load_jax_params(pmodel, jax.tree.map(np.asarray, params))
+    for jdata, pdata in ((jvalid, pvalid), (jtest, ptest)):
+        jres = jtrainer.evaluate(jdata, load_best_model=False)
+        pres = ptrainer.evaluate(pdata, load_best_model=False)
+        assert set(jres) == set(pres) == {"auc", "logloss"}
+        for k in jres:
+            assert abs(jres[k] - pres[k]) <= 1e-4, (k, jres[k], pres[k])
+
+
+def test_training_table_is_one_matrix_per_dtype(synth_dataset_dir, tmp_path):
+    """The uploaded table holds the id columns in one int64 matrix and the
+    float columns in one float32 matrix; a batch gathered from them equals
+    the rows of the loader's columns."""
+    trainer, _, train, _, _ = _port_pipeline(_cfg(synth_dataset_dir, tmp_path, **CTR), "DeepFM")
+    tables = trainer._upload_table(train.columns())
+    assert sorted(tuple(m.shape[1:]) + (str(m.dtype),) for _, m in tables) == [
+        (2, "torch.float32"), (2, "torch.int64")]
+    idx = torch.tensor([5, 0, 17, 5])
+    batch = trainer._take_batch(tables, idx)
+    assert set(batch) == set(train.columns())
+    for f, v in train.columns().items():
+        np.testing.assert_array_equal(batch[f].numpy(), v[idx.numpy()].astype(batch[f].numpy().dtype))
+
+
+def test_evaluate_individual_batches_do_not_change_the_result(synth_dataset_dir, tmp_path):
+    """One batch over the whole split or ragged batches of 37 rows: the same
+    predictions reach the metrics."""
+    trainer, _, _, valid, _ = _port_pipeline(
+        _cfg(synth_dataset_dir, tmp_path, **CTR), "DeepFM")
+    whole = trainer.evaluate(valid, load_best_model=False)
+    assert valid.batch_size >= 65536 and len(valid) == 1
+    valid.batch_size = 37
+    assert trainer.evaluate(valid, load_best_model=False) == whole
+
+
+@pytest.mark.parametrize("model", ["DeepFM", "FM", "LR"])
+def test_ctr_end_to_end_on_cpu(model, synth_dataset_dir, tmp_path):
+    """Port twin of tests/test_context.py::test_ctr_model_smoke."""
+    result = run_recbole(model=model, dataset="synth", config_dict=_cfg(
+        synth_dataset_dir, tmp_path, **CTR), saved=True)
+    tr = result["test_result"]
+    assert set(tr) == {"auc", "logloss"}
+    assert 0.0 <= tr["auc"] <= 1.0 and tr["logloss"] > 0.0
+    assert set(result["best_valid_result"]) == {"auc", "logloss"}
+    assert result["valid_score_bigger"] is True
+
+
+def test_pointwise_training_with_sampled_negatives_still_raises(synth_dataset_dir, tmp_path):
+    trainer, _, train, _, _ = _port_pipeline(
+        _cfg(synth_dataset_dir, tmp_path, training_neg_sample_num=1, **CTR), "DeepFM")
+    with pytest.raises(NotImplementedError, match="sampled negatives"):
+        trainer._make_rec_augment(train)
+
+
+def test_deepfm_without_device_cpu_raises_where_there_is_no_card(synth_dataset_dir, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = _cfg(synth_dataset_dir, tmp_path, **CTR)
+    del cfg["device"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_recbole(model="DeepFM", dataset="synth", config_dict=cfg)
+
+
+def test_deepfm_resume_matches_straight_run(synth_dataset_dir, tmp_path):
+    """With dropout on: the checkpoint carries the generator state, so two
+    epochs, a checkpoint and two more equal four epochs straight."""
+    def cfg(sub, **extra):
+        return _cfg(synth_dataset_dir, tmp_path / sub, **CTR, **extra)
+    straight, smodel, strain, _, _ = _port_pipeline(cfg("a", epochs=4), "DeepFM")
+    assert smodel.mlp.dropout == 0.2
+    straight.fit(strain, None, saved=False, verbose=False)
+
+    first, _, ftrain, _, _ = _port_pipeline(cfg("b"), "DeepFM")
+    first.fit(ftrain, None, saved=True, verbose=False)
+    resumed, rmodel, rtrain, _, _ = _port_pipeline(cfg("c", epochs=4), "DeepFM")
+    resumed.resume_checkpoint(first.saved_model_file)
+    resumed.fit(rtrain, None, saved=False, verbose=False)
+
+    for name, p in smodel.named_parameters():
+        assert torch.equal(p, dict(rmodel.named_parameters())[name]), name
+        assert torch.equal(straight.opt_state["nu"][name], resumed.opt_state["nu"][name])
     assert straight.train_loss_dict == resumed.train_loss_dict
