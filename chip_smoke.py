@@ -5,12 +5,15 @@
 
 Phases:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds csrc/*.cu, one process per source, all at once (its
-     -Xptxas -v report is printed), and the Triton Adam kernel is launched
-     once;
-  3. each of the four kernels against its plain PyTorch version, on the
-     card, at the main paths' shapes and at edge shapes, and twice on the
-     same input to compare the two results bit for bit;
+  2. build: nvcc builds the three csrc/*.cu, one process per source, all at
+     once (its -Xptxas -v report is printed), and the Triton Adam kernel is
+     launched once;
+  3. each kernel against its plain PyTorch version, on the card, at the main
+     paths' shapes and at edge shapes, and twice on the same input to
+     compare the two results bit for bit; the whole-layer transformer
+     kernels in both instances (bf16-rounded and fp32 operands), forward and
+     backward, with dropout off and on (the plain version is handed the
+     masks the kernels draw);
   4. the main paths, each with every kernel's launch count set to 0 just
      before and read just after (each kernel of the path must be > 0):
      a. run_recbole(model="BPR") for 2 epochs on an ml-1m-shaped dataset
@@ -19,8 +22,14 @@ Phases:
         (2,565,692, 11) merged table, batch 2048, 2,292,530 rows from a
         seed) through Config -> data_preparation -> get_model ->
         get_trainer -> fit with validation -> evaluate(test), 2 epochs;
-  5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's test
-     recall@10 and DeepFM's test AUC, each held to a floor;
+     c. run_recbole(model="SASRec") at its default widths (2 layers, 2
+        heads, hidden 64, inner 256, 50 positions, dropout 0.5, CE) for 2
+        epochs on the same ml-1m-shaped file under TO_LS,full, then 20
+        steps under torch.profiler; and one epoch of the same model on
+        ml-100k with fused_attention "layer" under compute_dtype float32,
+        which goes through the fp32 instance of the transformer kernels;
+  5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's and
+     SASRec's test recall@10 and DeepFM's test AUC, each held to a floor;
   6. timing with CUDA events at the main paths' shapes: kernel, plain
      version, the one-call library yardstick, and the card's bound for the
      same work.
@@ -43,8 +52,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, bf16 in them (dense), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # ml-1m's shape (users, items, interactions)
@@ -67,6 +77,11 @@ CRITEO_BATCH, CRITEO_DIM = 2048, 11
 # over 39 fields x 10, and the output layer
 DEEPFM_LEAF_SHAPES = [(sum(CRITEO["vocabs"]), CRITEO_DIM), (13, 10), (13,), (), (390, 128),
                       (128,), (128, 128), (128,), (128, 128), (128,), (128, 1), (1,)]
+# the distinct shapes among the 36 leaves Adam sweeps in one SASRec step at the
+# ml-1m shape: item and position embeddings, the input LayerNorm, and per layer
+# four (64, 64) projections, two FFN matrices, their biases and two LayerNorms
+SASREC_LEAF_SHAPES = [(ML1M[1] + 1, 64), (50, 64), (64, 64), (64,), (64, 256), (256,),
+                      (256, 64)]
 # ml-100k under the CTR quick-start protocol (PARITY.md:72-91): DeepFM test
 # AUC of the JAX package over 3 seeds 0.7811-0.7919, of the original RecBole
 # 0.7781-0.7881
@@ -77,6 +92,13 @@ ML100K_CTR = {
                  "item": ["item_id", "release_year", "class"]},
     "epochs": 50}
 AUC_FLOOR = 0.77
+# ml-100k SASRec under the TO_LS full-sort protocol of PARITY.md:124-152 (the
+# "seq" preset of scripts/parity_head2head.py): the JAX package on a TPU, 3
+# seeds, test recall@10 0.1304-0.1442, with its layer2 kernel 0.1326
+ML100K_SEQ = {"eval_setting": "TO_LS,full", "training_neg_sample_num": 0,
+              "load_col": {"inter": ["user_id", "item_id", "rating", "timestamp"]},
+              "epochs": 50}
+SASREC_RECALL_FLOOR = 0.115
 
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
@@ -95,8 +117,8 @@ def log(msg):
     print(msg, flush=True)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -160,6 +182,18 @@ def grad_inputs(torch, B, spec, D, seed):
     g = rng.randn(B, len(spec), D).astype(np.float32) * 1e-2
     dev = torch.device("cuda")
     return torch.from_numpy(ids).to(dev), torch.from_numpy(g).to(dev)
+
+
+def seq_grad_inputs(torch, seed):
+    """The backward of embed_seq in a SASRec step at the ml-1m shape: 2048 x
+    50 item ids, power-law items, 15% of them [PAD] (id 0) as in the
+    ml-1m-shaped train table, and their (R, 64) cotangent."""
+    R, V, D = SASREC["B"] * SASREC["L"], ML1M[1] + 1, SASREC["D"]
+    rng = np.random.RandomState(seed)
+    ids = 1 + np.floor((V - 1) * rng.random_sample(R) ** 2.2).astype(np.int64)
+    ids[rng.random_sample(R) < 0.15] = 0
+    g = rng.randn(R, D).astype(np.float32) * 1e-2
+    return torch.from_numpy(np.minimum(ids, V - 1)).cuda(), torch.from_numpy(g).cuda()
 
 
 def synth_ctr_columns(shape, seed=42):
@@ -229,7 +263,7 @@ def phase_build(torch):
     from recbole_tpu_torch.ops import cuda_build
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     t0 = time.time()
-    logs = cuda_build.build(["masked_topk", "embed_grad"])
+    logs = cuda_build.build(["masked_topk", "embed_grad", "trm_layer"])
     log(f"[build] nvcc {time.time() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -242,9 +276,14 @@ def phase_build(torch):
     log(f"[build] triton adam_leaf first launch {time.time() - t0:.1f}s")
 
 
-def check_topk(torch, B, N, D, k, seed):
+def check_topk(torch, B, N, D, k, seed, pad_only=False):
+    """``pad_only``: the mask a sequential full-sort pass gives, column 0
+    ([PAD]) set and nothing else, in place of a user's history."""
     from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda, masked_topk_torch
     q, items, mask = topk_inputs(torch, B, N, D, seed)
+    if pad_only:
+        mask.zero_()
+        mask[:, 0] = 1
     kv, ki = masked_topk_cuda(q, items, mask, k)
     torch.cuda.synchronize()
     pv, pi = masked_topk_torch(q, items, mask, k)
@@ -269,7 +308,8 @@ def check_topk(torch, B, N, D, k, seed):
     if bool(torch.gather(mask.cpu(), 1, ki).any()):
         raise AssertionError("masked_topk returned a masked item")
     err = float((kv - pv).abs().max())
-    log(f"[check] masked_topk B={B} N={N} D={D} k={k}: max|err| {err:.3e}, "
+    log(f"[check] masked_topk B={B} N={N} D={D} k={k}{' only [PAD] masked' if pad_only else ''}: "
+        f"max|err| {err:.3e}, "
         f"near-tie id swaps {swaps} of {B * k}")
     return err
 
@@ -368,6 +408,10 @@ def embed_grad_cases(torch):
         ("every id equal", torch.full_like(flat_ids, small_off + 7), flat_g, small_rows,
          small_off),
         ("bf16 cotangent", flat_ids, flat_g.to(torch.bfloat16), small_rows, small_off),
+        ("SASRec step, ids cut into slices", *seq_grad_inputs(torch, seed=12), ML1M[1] + 1, 0),
+        ("SASRec step, every id [PAD]", torch.zeros(SASREC["B"] * SASREC["L"], dtype=torch.int64,
+                                                     device="cuda"),
+         seq_grad_inputs(torch, seed=13)[1], ML1M[1] + 1, 0),
     ]
     big_ids = ids[:, :n_large].reshape(-1).contiguous()
     big_g = g[:, :n_large].reshape(-1, CRITEO_DIM).contiguous()
@@ -380,6 +424,160 @@ def embed_grad_cases(torch):
         ("R=1", big_ids[:1], big_g[:1], large_rows, 0),
     ]
     return {"onehot_matmul_grad": onehot, "windowed_grad": windowed}
+
+
+# whole-layer transformer kernels against the plain version, as the largest
+# |difference| of a tensor over its largest |value|. fp32 instance: the same
+# fp32 arithmetic in another order (sums over up to 102,400 rows, erff and
+# expf against the library's). bf16 instance: both round the same operands at
+# the same places, but an fp32 sum that lands on the other side of a rounding
+# boundary moves an operand by one bf16 step (2^-8 of its value), and the
+# layer chains a dozen such products. A parameter gradient whose true value
+# is 0 is measured against a hundredth of the layer's largest gradient
+TRM_TOL = {False: 2e-4, True: 1e-2}
+# SASRec's default widths (sasrec.py:25-29) at the train batch
+SASREC = dict(B=2048, L=50, D=64, H=2, I=256)
+
+
+def trm_inputs(torch, B, L, D, H, I, seed, empty_row=False):
+    """x, 16 parameters (all of them away from their initial zeros and
+    ones), key validity from random lengths, and a cotangent."""
+    from recbole_tpu_torch.ops.trm_layer import param_shapes
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    params = {}
+    for k, shape in param_shapes(D, I).items():
+        if len(shape) == 2:
+            lim = np.sqrt(6.0 / sum(shape))
+            v = rng.uniform(-lim, lim, shape)
+        elif k.endswith("_g"):
+            v = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            v = 0.1 * rng.randn(*shape)
+        params[k] = torch.from_numpy(v.astype(np.float32)).to(dev)
+    x = torch.from_numpy((0.5 * rng.randn(B, L, D)).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.randn(B, L, D).astype(np.float32)).to(dev)
+    lens = rng.randint(1, L + 1, B)
+    if empty_row:
+        lens[0] = 0
+    valid = torch.from_numpy((np.arange(L)[None, :] < lens[:, None]).astype(np.int32)).to(dev)
+    return x, params, valid, dy
+
+
+def trm_cases():
+    """(label, shape, causal, act, bf16, dropout, empty_row, backward). The
+    SASRec run's own batches are among them: 2,048 and the ragged last 1,097
+    in training, 4,096 and the ragged last 1,944 in a full-sort pass (forward
+    only, no dropout)."""
+    small = dict(B=1, L=8, D=16, H=2, I=32)
+    cases = []
+    for bf16 in (True, False):
+        for causal in (True, False):
+            for rate in (0.0, 0.5):
+                cases.append(("SASRec shape", SASREC, causal, "gelu", bf16, rate, not causal))
+        for act in ("relu", "swish", "tanh", "sigmoid"):
+            cases.append(("B=7", dict(SASREC, B=7), True, act, bf16, 0.5, False))
+        cases.append(("B=1 L=8", small, False, "gelu", bf16, 0.0, True))
+        cases.append(("B=7 L=8", dict(small, B=7), True, "gelu", bf16, 0.5, False))
+        cases.append(("B=1 L=50", dict(SASREC, B=1), True, "gelu", bf16, 0.5, False))
+        cases.append(("ragged B=1001, I=384", dict(SASREC, B=1001, I=384), False, "gelu", bf16,
+                      0.5, True))
+        cases.append(("last train batch", dict(SASREC, B=1097), True, "gelu", bf16, 0.5, False))
+    cases = [(*c, True) for c in cases]
+    for bf16 in (True, False):
+        cases.append(("eval batch", dict(SASREC, B=4096), True, "gelu", bf16, 0.0, False, False))
+        cases.append(("last eval batch", dict(SASREC, B=1944), True, "gelu", bf16, 0.0, False,
+                      False))
+    return cases
+
+
+def check_keep_rate(mask, rate, what):
+    """A keep mask holds 0 and 1 / (1 - rate) only, and keeps a share within
+    4 sigma of 1 - rate."""
+    n = mask.numel()
+    kept = int((mask > 0).sum())
+    inv = 1.0 / (1.0 - rate)
+    if not bool(((mask == 0) | ((mask - inv).abs() < 1e-6)).all()):
+        raise AssertionError(f"{what}: values other than 0 and {inv}")
+    sigma = (rate * (1.0 - rate) / n) ** 0.5
+    if abs(kept / n - (1.0 - rate)) > 4 * sigma + 1e-12:
+        raise AssertionError(f"{what}: kept {kept / n:.5f} of {n}, expected {1 - rate} "
+                             f"+- {4 * sigma:.5f}")
+    return kept / n
+
+
+def check_trm_layer(torch):
+    """trm_layer_fwd / trm_layer_bwd against the plain version on the card:
+    y, dx and the 16 parameter gradients, both instances, with the dropout
+    masks the kernels draw handed to the plain version; and two runs of the
+    kernels compared bit for bit."""
+    from recbole_tpu_torch.ops import trm_layer as tl
+    worst = {f"{name}_{way}": 0.0 for name in ("trm_layer", "fused_transformer_layer")
+             for way in ("fwd", "bwd")}
+    for n, (label, shape, causal, act, bf16, rate, empty_row, backward) in enumerate(trm_cases()):
+        B, L, D, H, I = (shape[k] for k in "BLDHI")
+        x, params, valid, dy = trm_inputs(torch, B, L, D, H, I, seed=100 + n,
+                                          empty_row=empty_row)
+        seed = torch.tensor([0x1234567 + 77 * n], dtype=torch.int64, device="cuda")
+        kw = dict(n_heads=H, causal=causal, act=act, eps=1e-12, dropout=rate,
+                  attn_dropout=rate, layer=n % 3, bf16=bf16)
+
+        def run():
+            out = {"y": tl.trm_layer_fwd_cuda(x, params, valid, seed, **kw)}
+            if backward:
+                out["dx"], g = tl.trm_layer_bwd_cuda(x, params, valid, dy, seed, **kw)
+                out.update(g)
+            torch.cuda.synchronize()
+            return out
+
+        got, again = run(), run()
+        same = all(torch.equal(got[k], again[k]) for k in got)
+        masks, kept = None, ""
+        if rate > 0.0:
+            masks = tl.trm_dropout_masks_cuda(seed, B, H, L, D, rate, rate, layer=n % 3)
+            kept = " kept " + "/".join(
+                f"{check_keep_rate(masks[k], rate, f'{label} {k} mask'):.4f}"
+                for k in ("attn", "attn_out", "ffn"))
+            other = tl.trm_dropout_masks_cuda(seed, B, H, L, D, rate, rate, layer=n % 3 + 1)
+            if bool(torch.equal(other["ffn"], masks["ffn"])):
+                raise AssertionError("two layers drew the same dropout mask")
+        cfg = (H, causal, act, 1e-12, bf16)
+        ref = {"y": tl.trm_layer_torch_fwd(x, params, valid, masks, *cfg)}
+        # a gradient that is 0 but for rounding (bk: the softmax does not see
+        # a key bias) is held to a hundredth of the largest gradient instead
+        floor = 1e-30
+        if backward:
+            ref["dx"], ref_g = tl.trm_layer_torch_bwd(x, params, valid, masks, dy, *cfg)
+            ref.update(ref_g)
+            floor = 1e-2 * max(float(v.abs().max()) for v in ref_g.values())
+
+        def rel(k):
+            least = 1e-30 if k in ("y", "dx") else floor
+            return float((got[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), least)
+
+        errs = {k: rel(k) for k in got}
+        e_fwd = errs.pop("y")
+        e_bwd = max(errs.values(), default=0.0)
+        tol = TRM_TOL[bf16]
+        detail = (f"dx {errs['dx']:.3e}, worst gradient {max(errs, key=errs.get)} {e_bwd:.3e}"
+                  if backward else "forward only")
+        log(f"[check] trm_layer {'bf16' if bf16 else 'fp32'} ({label}) B={B} L={L} D={D} H={H} "
+            f"I={I} causal={causal} act={act} dropout={rate} empty_row={empty_row}: "
+            f"y {e_fwd:.3e}, {detail} (tolerance {tol} of the tensor's "
+            f"largest value){kept}; two runs bit-identical: {same}")
+        if not all(bool(torch.isfinite(got[k]).all()) for k in ("y", "dx") if k in got):
+            raise AssertionError(f"trm_layer {label}: non-finite output")
+        if e_fwd > tol or e_bwd > tol:
+            raise AssertionError(f"trm_layer {label}: beyond tolerance {tol}: y {e_fwd}, {errs}")
+        if not same:
+            raise AssertionError(f"trm_layer {label}: two runs differ, the kernels are "
+                                 "meant to be deterministic")
+        name = "trm_layer" if bf16 else "fused_transformer_layer"
+        worst[f"{name}_fwd"] = max(worst[f"{name}_fwd"],
+                                   float((got["y"] - ref["y"]).abs().max()))
+        worst[f"{name}_bwd"] = max([worst[f"{name}_bwd"],
+                                    *(float((got[k] - ref[k]).abs().max()) for k in errs)])
+    return worst
 
 
 def capture_epoch_times():
@@ -411,20 +609,31 @@ def check_result(result, keys):
 
 def kernel_wrappers():
     from recbole_tpu_torch.ops import embed_grad as eg
+    from recbole_tpu_torch.ops import trm_layer as tl
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda
     return {"masked_topk": masked_topk_cuda, "adam_leaf": adam_leaf_triton,
             "onehot_matmul_grad": eg.onehot_matmul_grad_cuda,
-            "windowed_grad": eg.windowed_grad_cuda}
+            "windowed_grad": eg.windowed_grad_cuda,
+            "trm_layer_fwd": tl.trm_layer_fwd_cuda, "trm_layer_bwd": tl.trm_layer_bwd_cuda}
 
 
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_fp32"):
+            fn.launches_fp32 = 0
 
 
 def read_launches(path, must_launch):
-    launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """The wrappers' counts; the transformer wrappers count both instances,
+    told apart here: trm_layer_* is the bf16 instance's share,
+    fused_transformer_layer_* the fp32 instance's."""
+    launches = {}
+    for name, fn in kernel_wrappers().items():
+        launches[name] = fn.launches - getattr(fn, "launches_fp32", 0)
+        if hasattr(fn, "launches_fp32"):
+            launches[name.replace("trm_layer", "fused_transformer_layer")] = fn.launches_fp32
     log(f"[{path}] launches {launches}")
     never = [name for name in must_launch if launches[name] <= 0]
     if never:
@@ -517,11 +726,101 @@ def phase_deepfm(torch, tmp):
         f"ms/step (epoch 1): {1e3 * times['train'][-1] / len(train):.3f}")
     log(f"[deepfm] value-metric valid pass seconds {times['eval']}")
     log(f"[deepfm] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    profile_steps(torch, trainer, train)
+    profile_steps(torch, trainer, train, "deepfm")
     return launches
 
 
-def profile_steps(torch, trainer, train, steps=20):
+def phase_sasrec(torch, tmp):
+    """SASRec at its default widths on the ml-1m-shaped file (written by
+    phase_bpr, with timestamps), TO_LS,full, cut to 2 epochs; then 20 steady
+    steps under the profiler."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import get_trainer
+    from recbole_tpu_torch.utils.logger import init_logger
+    from recbole_tpu_torch.utils.utils import init_seed
+    config = Config("SASRec", "ml-1m-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "epochs": 2, "device": "cuda",
+        "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
+        "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False},
+        _parse_cmd_line=False)
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    t0 = time.time()
+    train, valid, test = data_preparation(config, create_dataset(config))
+    log(f"[sasrec] dataset, TO_LS splits and loaders in {time.time() - t0:.1f}s: train "
+        f"{train.n} valid {valid.n} test {test.n} examples, eval batch {valid.batch_size}")
+    model = get_model("SASRec")(config, train.dataset)
+    widths = {k: config[k] for k in ("n_layers", "n_heads", "hidden_size", "inner_size",
+                                     "MAX_ITEM_LIST_LENGTH", "hidden_dropout_prob",
+                                     "attn_dropout_prob", "hidden_act", "loss_type",
+                                     "fused_attention", "train_batch_size")}
+    log(f"[sasrec] widths {widths}; compute dtype {model.compute_dtype}; "
+        f"{sum(p.numel() for p in model.parameters())} parameters in "
+        f"{len(list(model.parameters()))} leaves")
+    if (widths["n_layers"], widths["n_heads"], widths["hidden_size"], widths["inner_size"],
+            widths["MAX_ITEM_LIST_LENGTH"], widths["train_batch_size"]) != (2, 2, 64, 256, 50, 2048) \
+            or model.cdt != torch.bfloat16 or widths["fused_attention"] != "layer2":
+        raise AssertionError("SASRec was not built at its default widths")
+    trainer = get_trainer(config["MODEL_TYPE"], "SASRec")(config, model)
+    times, release = capture_epoch_times()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    best_score, best_valid = trainer.fit(train, valid, saved=False)
+    test_result = trainer.evaluate(test, load_best_model=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches("sasrec", ("trm_layer_fwd", "trm_layer_bwd", "onehot_matmul_grad",
+                                        "adam_leaf", "masked_topk"))
+    release()
+    if launches["windowed_grad"] or launches["fused_transformer_layer_fwd"]:
+        raise AssertionError(f"kernels off the SASRec path were launched: {launches}")
+    result = {"best_valid_result": best_valid, "test_result": test_result}
+    log(f"[sasrec] fit (2 epochs, validation each) + test: {wall:.2f}s wall")
+    log(f"[sasrec] result {json.dumps(result)}")
+    check_result(result, JAX_ML100K)
+    steps = 2 * len(train)
+    log(f"[sasrec] {steps} steps; launches per step: trm_layer_bwd "
+        f"{launches['trm_layer_bwd'] / steps:.2f}, onehot_matmul_grad "
+        f"{launches['onehot_matmul_grad'] / steps:.2f}, adam_leaf "
+        f"{launches['adam_leaf'] / steps:.2f}; trm_layer_fwd {launches['trm_layer_fwd']} = "
+        f"2 a step + 2 an eval batch")
+    log(f"[sasrec] epoch seconds {times['train']} (epoch 0 includes the upload); "
+        f"train examples/s (epoch 1): {train.n / times['train'][-1]:.1f}; "
+        f"ms/step (epoch 1): {1e3 * times['train'][-1] / len(train):.3f}")
+    log(f"[sasrec] full-sort valid pass seconds {times['eval']}")
+    log(f"[sasrec] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    profile_steps(torch, trainer, train, "sasrec")
+    return launches
+
+
+def phase_sasrec_fp32(torch, tmp):
+    """One epoch of SASRec on ml-100k with fused_attention "layer" under
+    compute_dtype float32: the path through the fp32 instance."""
+    from recbole_tpu_torch import run_recbole
+    reset_launches()
+    t0 = time.time()
+    result = run_recbole(model="SASRec", dataset="ml-100k", config_dict={
+        **ML100K_SEQ, "epochs": 1, "fused_attention": "layer", "compute_dtype": "float32",
+        "valid_full_to_uni1000": False, "device": "cuda",
+        "checkpoint_dir": os.path.join(tmp, "saved100k"),
+        "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING", "show_progress": False})
+    torch.cuda.synchronize()
+    launches = read_launches("sasrec_fp32", ("fused_transformer_layer_fwd",
+                                             "fused_transformer_layer_bwd",
+                                             "onehot_matmul_grad", "adam_leaf", "masked_topk"))
+    if launches["trm_layer_fwd"] or launches["trm_layer_bwd"]:
+        raise AssertionError(f"the bf16 instance ran under compute_dtype float32: {launches}")
+    log(f"[sasrec_fp32] ml-100k, 1 epoch, fused_attention layer, float32: "
+        f"{time.time() - t0:.1f}s; test {json.dumps(result['test_result'])}")
+    check_result(result, JAX_ML100K)
+    return launches
+
+
+def profile_steps(torch, trainer, train, tag, steps=20):
     """Where a steady train step's time goes: ``steps`` more steps under
     torch.profiler. Logs the wall time, the time the card is busy, the
     kernel launches per step, and the ops that hold the card longest."""
@@ -555,11 +854,11 @@ def profile_steps(torch, trainer, train, steps=20):
                    if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))) / steps
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
-    log(f"[deepfm] steady step: {wall:.3f} ms wall (unprofiled), card busy {busy:.3f} ms "
+    log(f"[{tag}] steady step: {wall:.3f} ms wall (unprofiled), card busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%; "
         f"{launches:.1f} kernel launches per step")
     for e in sorted(on_card, key=device_us, reverse=True)[:10]:
-        log(f"[deepfm]   {device_us(e) / steps / 1e3:8.4f} ms/step  x{e.count / steps:5.1f}  "
+        log(f"[{tag}]   {device_us(e) / steps / 1e3:8.4f} ms/step  x{e.count / steps:5.1f}  "
             f"{e.key[:90]}")
 
 
@@ -594,6 +893,22 @@ def phase_quality(torch, tmp):
     check_result(result, ("auc", "logloss"))
     if test["auc"] < AUC_FLOOR:
         raise AssertionError(f"ml-100k DeepFM test AUC {test['auc']} < {AUC_FLOOR}")
+
+    t0 = time.time()
+    result = run_recbole(model="SASRec", dataset="ml-100k", config_dict={
+        **ML100K_SEQ, "valid_full_to_uni1000": False, "device": "cuda",
+        "checkpoint_dir": os.path.join(tmp, "saved100k"),
+        "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING",
+        "show_progress": False})
+    test = result["test_result"]
+    log(f"[quality] ml-100k SASRec (TO_LS full-sort, early stopping on mrr@10) "
+        f"{time.time() - t0:.1f}s; best valid {result['best_valid_result']}")
+    log(f"[quality]   test {json.dumps(test)}   JAX package on a TPU, 3 seeds "
+        "(PARITY.md:124-152): recall@10 0.1304-0.1442, ndcg@10 0.0597-0.0668")
+    check_result(result, JAX_ML100K)
+    if test["recall@10"] < SASREC_RECALL_FLOOR:
+        raise AssertionError(f"ml-100k SASRec test recall@10 {test['recall@10']} < "
+                             f"{SASREC_RECALL_FLOOR}")
 
 
 def time_adam(torch, leaves, iters):
@@ -687,6 +1002,88 @@ def phase_timing(torch):
             float(R * CRITEO_DIM), R * 8 + R * CRITEO_DIM * 4 + n_rows * CRITEO_DIM * 4)
         out[name] = t
         log(f"[time] {name} R={R} n_rows={n_rows} D={CRITEO_DIM}: {t}")
+    out["onehot_matmul_grad"]["sasrec"] = time_onehot_sasrec(torch)
+    out.update(time_trm_layer(torch))
+    return out
+
+
+def time_onehot_sasrec(torch):
+    """The one-hot kernel as TakeRowsDenseGrad calls it in a SASRec step at
+    the ml-1m shape: R = 2048 x 50 ids into 3,707 rows of width 64."""
+    from recbole_tpu_torch.ops import embed_grad as eg
+    R, V, D = SASREC["B"] * SASREC["L"], ML1M[1] + 1, SASREC["D"]
+    ids, g = seq_grad_inputs(torch, seed=11)
+    dest = torch.empty((V, D), device="cuda")
+    t = {"ms": cuda_ms(torch, lambda: eg.onehot_matmul_grad_cuda(ids, g, V, out=dest), 50),
+         "plain_ms": cuda_ms(torch, lambda: eg.onehot_matmul_grad_torch(ids, g, V, out=dest), 50),
+         "library_ms": cuda_ms(torch, lambda: dest.zero_().index_add_(0, ids, g), 50)}
+    t["bound_ms"], t["bound_by"] = bound(float(R * D), R * 8 + R * D * 4 + V * D * 4)
+    log(f"[time] onehot_matmul_grad at the SASRec step's shape R={R} n_rows={V} D={D}: {t}")
+    return t
+
+
+def trm_work(B, L, D, H, I, causal, backward):
+    """Operations and bytes of one layer call: the four projections, the
+    FFN and the per-head attention products (each head over its own D / H
+    lanes; a causal layer needs the L (L + 1) / 2 query-key pairs at or below
+    the diagonal only), the backward with the forward it recomputes (each
+    forward product has two backward products); x and y (and dy, dx) and the
+    parameters (and their gradients) moved once."""
+    R = B * L
+    pairs = L * (L + 1) // 2 if causal else L * L
+    fwd = 2.0 * R * D * D * 4 + 2.0 * R * D * I * 2 + 4.0 * B * pairs * D
+    P = 4 * D * D + 2 * D * I + 9 * D + I
+    if backward:
+        return 3.0 * fwd, 4 * (3 * R * D + B * L + 2 * P)
+    return fwd, 4 * (2 * R * D + B * L + P)
+
+
+def time_trm_layer(torch):
+    """Both kernels, both instances, at SASRec's train shape with dropout
+    0.5, beside the plain version, the bound and the library's layer
+    (nn.TransformerEncoderLayer without dropout: forward, and forward +
+    backward beside the backward kernel, which recomputes the forward)."""
+    from recbole_tpu_torch.ops import trm_layer as tl
+    B, L, D, H, I = (SASREC[k] for k in "BLDHI")
+    x, params, valid, dy = trm_inputs(torch, B, L, D, H, I, seed=21)
+    seed = torch.tensor([21], dtype=torch.int64, device="cuda")
+    lib = torch.nn.TransformerEncoderLayer(D, H, I, dropout=0.0, activation="gelu",
+                                           batch_first=True, device="cuda")
+    lib.train()
+    causal = torch.triu(torch.ones(L, L, dtype=torch.bool, device="cuda"), diagonal=1)
+    pad = valid == 0
+    xg = x.clone().requires_grad_(True)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return lib(x, src_mask=causal, src_key_padding_mask=pad)
+
+    def lib_fwd_bwd():
+        for p in lib.parameters():
+            p.grad = None
+        xg.grad = None
+        lib(xg, src_mask=causal, src_key_padding_mask=pad).backward(dy)
+
+    library = {"fwd": cuda_ms(torch, lib_fwd, 10), "bwd": cuda_ms(torch, lib_fwd_bwd, 10)}
+    out = {}
+    for bf16, name in ((True, "trm_layer"), (False, "fused_transformer_layer")):
+        kw = dict(n_heads=H, causal=True, act="gelu", dropout=0.5, attn_dropout=0.5, bf16=bf16)
+        masks = tl.trm_dropout_masks_cuda(seed, B, H, L, D, 0.5, 0.5)
+        cfg = (H, True, "gelu", 1e-12, bf16)
+        calls = {
+            "fwd": (lambda: tl.trm_layer_fwd_cuda(x, params, valid, seed, **kw),
+                    lambda: tl.trm_layer_torch_fwd(x, params, valid, masks, *cfg)),
+            "bwd": (lambda: tl.trm_layer_bwd_cuda(x, params, valid, dy, seed, **kw),
+                    lambda: tl.trm_layer_torch_bwd(x, params, valid, masks, dy, *cfg))}
+        for way, (kernel, plain) in calls.items():
+            t = {"ms": cuda_ms(torch, kernel, 20), "plain_ms": cuda_ms(torch, plain, 10),
+                 "library_ms": library[way]}
+            flops, nbytes = trm_work(B, L, D, H, I, True, way == "bwd")
+            t["bound_ms"], t["bound_by"] = bound(
+                flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+            out[f"{name}_{way}"] = t
+            log(f"[time] {name}_{way} B={B} L={L} D={D} H={H} I={I} causal, dropout 0.5 "
+                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): {t}")
     return out
 
 
@@ -699,6 +1096,18 @@ KERNEL_META = {
                            "replaces": "recbole_tpu/ops/embed_grad.py:78"},
     "windowed_grad": {"route": "cuda", "source": "recbole_tpu_torch/csrc/embed_grad.cu",
                       "replaces": "recbole_tpu/ops/embed_grad.py:170"},
+    # the two whole-layer kernels, each in its bf16 instance (the JAX package's
+    # trm_layer.py) and its fp32 instance (fused_transformer.py)
+    "trm_layer_fwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/trm_layer.cu",
+                      "replaces": "recbole_tpu/ops/trm_layer.py:433"},
+    "trm_layer_bwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/trm_layer.cu",
+                      "replaces": "recbole_tpu/ops/trm_layer.py:433"},
+    "fused_transformer_layer_fwd": {"route": "cuda",
+                                    "source": "recbole_tpu_torch/csrc/trm_layer.cu",
+                                    "replaces": "recbole_tpu/ops/fused_transformer.py:409"},
+    "fused_transformer_layer_bwd": {"route": "cuda",
+                                    "source": "recbole_tpu_torch/csrc/trm_layer.cu",
+                                    "replaces": "recbole_tpu/ops/fused_transformer.py:409"},
 }
 
 
@@ -714,15 +1123,22 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build(torch)
     err = {"masked_topk": max(check_topk(torch, 4096, ML1M[1] + 1, 64, 10, seed=0),
-                              check_topk(torch, 943, 1683, 64, 10, seed=3)),
+                              check_topk(torch, 943, 1683, 64, 10, seed=3),
+                              # SASRec's full-sort batches: 4,096, then the last 1,944
+                              check_topk(torch, 4096, ML1M[1] + 1, 64, 10, seed=14, pad_only=True),
+                              check_topk(torch, 1944, ML1M[1] + 1, 64, 10, seed=15, pad_only=True)),
            "adam_leaf": max(check_adam(torch, [(ML1M[0] + 1, 64), (ML1M[1] + 1, 64)], seed=4),
-                            check_adam(torch, DEEPFM_LEAF_SHAPES, seed=9))}
+                            check_adam(torch, DEEPFM_LEAF_SHAPES, seed=9),
+                            check_adam(torch, SASREC_LEAF_SHAPES, seed=16))}
     for kname, cases in embed_grad_cases(torch).items():
         err[kname] = check_embed_grad(torch, kname, cases)
+    err.update(check_trm_layer(torch))
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         by_path["bpr"] = phase_bpr(torch, tmp)
         by_path["deepfm"] = phase_deepfm(torch, tmp)
+        by_path["sasrec"] = phase_sasrec(torch, tmp)
+        by_path["sasrec_fp32"] = phase_sasrec_fp32(torch, tmp)
         phase_quality(torch, tmp)
     timing = phase_timing(torch)
     kernels = [{"name": kname, **KERNEL_META[kname],

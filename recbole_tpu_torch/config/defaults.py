@@ -38,7 +38,7 @@ TRAINING_DEFAULTS = {
     "draw_loss_pic": False,
     # --- keys added by the JAX package; see the README's port section ---
     "param_dtype": "float32",       # master params
-    "compute_dtype": "auto",        # the port's BPR computes in float32
+    "compute_dtype": "auto",        # float32; bfloat16 for the sequential family
     "neg_sampling_resample_rounds": 8,  # bounded device-side rejection rounds
     "prng_impl": "rbg",             # JAX key type; the port uses torch.Generator
     "donate_buffers": True,         # JAX buffer donation; no effect in the port
@@ -47,7 +47,7 @@ TRAINING_DEFAULTS = {
     "scan_epochs": True,
     "scan_epochs_max_bytes": 2 << 30,
     "profile_trace_dir": None,      # not ported yet (ROADMAP Queue 1, item 12)
-    "fused_attention": "layer2",    # sequential family, not ported yet
+    "fused_attention": "layer2",    # the whole-layer transformer kernel
     # KG trainer loop policies (parity: KGTrainer/MKRTrainer config keys)
     "train_rec_step": None,
     "train_kg_step": None,

@@ -2,11 +2,13 @@
 modules.
 
 A JAX param tree is a dict whose values are arrays, dicts, or lists of
-dicts (``mlp_init`` returns a list of ``{"w", "b"}`` layers). Its leaves
+dicts (``mlp_init`` returns a list of ``{"w", "b"}`` layers, ``transformer_init``
+a list of 16-leaf layer dicts). Its leaves
 are addressed by dotted paths, list positions as numbers:
 ``params["mlp"][1]["w"]`` is ``"mlp.1.w"``. The port's modules name their
 parameters by exactly these paths (``MLPLayers`` in ``models/layers.py``
-names layer i's leaves ``<i>.w`` and ``<i>.b``), so the name map of every
+names layer i's leaves ``<i>.w`` and ``<i>.b``, ``TransformerEncoder`` names
+them ``<i>.wq`` ... ``<i>.ln2_b``), so the name map of every
 ported model is the identity, and linear weights are (in, out) in
 both packages, so no leaf is transposed. A model whose names must differ
 gets its own map here when it is ported.

@@ -34,6 +34,13 @@
 // [col_off[f], col_off[f + 1]) (the CTR family's per-field vocabularies). A
 // block of the unsorted kernel then scans only the columns whose range meets
 // its tile, B ids each instead of B * fs, which pays for much smaller tiles.
+//
+// Splits. A small vocabulary hit by many ids (the sequential family's
+// (B, L) gather into a few thousand items, a third of the ids the [PAD] row)
+// has few tiles and one of them takes most of the matches. The caller may
+// then cut the ids into ``splits`` slices: blockIdx.y takes slice y and
+// writes its own (n_rows, D) partial, and sum_splits_kernel adds the partials
+// in slice order, so the result still does not depend on timing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
 onehot_grad_kernel(const int64_t* __restrict__ ids, int64_t ids_stride, int fs,
                    const int64_t* __restrict__ col_off, const G* __restrict__ g,
                    int64_t g_stride, int R, int D, int64_t id_base, int n_rows, int T, int C,
-                   float* __restrict__ out) {
+                   int b_chunk, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* acc = reinterpret_cast<float*>(smem_raw);        // T * D
   float* stage = acc + (size_t)T * D;                     // C * D
@@ -198,9 +205,12 @@ onehot_grad_kernel(const int64_t* __restrict__ ids, int64_t ids_stride, int fs,
     f_lo = ends_before;
     nf = max(fs - starts_after - f_lo, 0);
   }
-  const int nq = (R / fs) * nf;  // ids to scan: position q is (q / nf, f_lo + q % nf)
+  // ids to scan: position q is (q / nf, f_lo + q % nf); slice blockIdx.y takes
+  // the rows [b_lo, b_hi) of the (R / fs, fs) id matrix
+  const int b_lo = blockIdx.y * b_chunk, b_hi = min(R / fs, b_lo + b_chunk);
+  const int nq = b_hi * nf;
 
-  for (int base = 0; base < nq; base += kScanStep) {
+  for (int base = b_lo * nf; base < nq; base += kScanStep) {
     int row[kIdsPerThread];
     int hits = 0;
 #pragma unroll
@@ -256,8 +266,18 @@ onehot_grad_kernel(const int64_t* __restrict__ ids, int64_t ids_stride, int fs,
   }
   flush_matches(g, fs, g_stride, D, C, list_len, list_r, list_row, acc, stage);
   __syncthreads();
-  float* o = out + (size_t)v0 * D;
+  float* o = out + ((size_t)blockIdx.y * n_rows + v0) * D;
   for (int i = tid; i < rows * D; i += kThreads) o[i] = acc[i];
+}
+
+// out[i] = sum of the slices' partials, in slice order
+__global__ void sum_splits_kernel(const float* __restrict__ partials, int splits, size_t n,
+                                  float* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int y = 0; y < splits; ++y) s += partials[(size_t)y * n + i];
+  out[i] = s;
 }
 
 // ------------------------------------------------------------------ sorted ids
@@ -373,23 +393,38 @@ windowed_grad_kernel(const int64_t* __restrict__ sids, const int64_t* __restrict
   for (int i = tid; i < n; i += kThreads) o[i] = tile[i];
 }
 
+// Rows of a one-hot tile, 0 when no tile of this width fits. With column
+// ranges a block scans a fraction of the ids, so tiles can be small and the
+// hot rows of a skewed vocabulary spread over more blocks.
+inline int onehot_tile(int D, bool ranged) {
+  const int per = D > 0 ? kSmemFloats / D : 0;
+  return per < 2 ? 0 : min(ranged ? kTileRanged : kTile, per / 2);
+}
+
 template <typename G>
 int launch_onehot(const int64_t* ids, int64_t ids_stride, int fs, const int64_t* col_off,
                   const G* g, int64_t g_stride, int R, int D, int64_t id_base, int n_rows,
-                  float* out, cudaStream_t stream) {
+                  int splits, float* partials, float* out, cudaStream_t stream) {
   const int per = kSmemFloats / D;  // tile rows + staged rows that fit
-  if (per < 2) return (int)cudaErrorInvalidValue;
-  // with column ranges a block scans a fraction of the ids, so tiles can be
-  // small and the hot rows of a skewed vocabulary spread over more blocks
-  const int T = min(col_off != nullptr ? kTileRanged : kTile, per / 2);
+  const int T = onehot_tile(D, col_off != nullptr);
+  if (T < 1) return (int)cudaErrorInvalidValue;
   const int C = min(256, per - T);
   const size_t smem = sizeof(float) * (size_t)(T + C) * D + sizeof(int) * 2 * kListCap;
   cudaError_t err = cudaFuncSetAttribute(onehot_grad_kernel<G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (n_rows + T - 1) / T;
-  onehot_grad_kernel<G><<<grid, kThreads, smem, stream>>>(
-      ids, ids_stride, fs, col_off, g, g_stride, R, D, id_base, n_rows, T, C, out);
+  if (splits < 1 || splits > 65535 || (splits > 1 && partials == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int nb = R / fs;
+  const int b_chunk = max((nb + splits - 1) / splits, 1);
+  onehot_grad_kernel<G><<<dim3(grid, splits), kThreads, smem, stream>>>(
+      ids, ids_stride, fs, col_off, g, g_stride, R, D, id_base, n_rows, T, C, b_chunk,
+      splits > 1 ? partials : out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t n = (size_t)n_rows * D;
+  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partials, splits, n, out);
   return (int)cudaGetLastError();
 }
 
@@ -410,23 +445,38 @@ int launch_windowed(const int64_t* sids, const int64_t* order, const G* g, int f
 
 }  // namespace
 
+// Into how many slices embed_grad_onehot's caller cuts the ids. A vocabulary
+// of few tiles hit by many ids (a sequential model's (B, L) gather) leaves
+// most SMs idle and one tile with most of the matches, so the ids are cut into
+// slices of about 4,096 rows, each with its own partial result, summed in
+// slice order. Many tiles, or a batch of a few thousand rows, stay at one
+// slice. A function of the shapes only, so the result's bits do not change
+// from run to run. Returns 0 for a D no tile fits.
+extern "C" int embed_grad_onehot_splits(int R, int fs, int n_rows, int D, int ranged) {
+  const int T = onehot_tile(D, ranged != 0);
+  if (T < 1) return 0;
+  if ((n_rows + T - 1) / T >= 512) return 1;
+  return max(1, min(32, R / max(fs, 1) / 4096));
+}
+
 // ids int64, R of them (0 <= R < 2^30, a multiple of fs) in the layout
 // described at the top; col_off null or fs + 1 int64 column ranges; g float32
 // (g_is_bf16 == 0) or bfloat16, 1 <= D <= 4096; out (n_rows, D) float32
 // contiguous, 1 <= n_rows < 2^31. Ids outside [id_base, id_base + n_rows)
-// match no row. Returns the CUDA error code.
+// match no row. splits >= 1 slices of the ids, with partials (splits, n_rows,
+// D) float32 scratch when splits > 1. Returns the CUDA error code.
 extern "C" int embed_grad_onehot(const void* ids, long long ids_stride, int fs,
                                  const void* col_off, const void* g, long long g_stride,
                                  int g_is_bf16, int R, int D, long long id_base, int n_rows,
-                                 float* out, void* stream) {
+                                 int splits, float* partials, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* i64 = static_cast<const int64_t*>(ids);
   const int64_t* co = static_cast<const int64_t*>(col_off);
   if (g_is_bf16)
     return launch_onehot(i64, ids_stride, fs, co, static_cast<const __nv_bfloat16*>(g),
-                         g_stride, R, D, id_base, n_rows, out, s);
+                         g_stride, R, D, id_base, n_rows, splits, partials, out, s);
   return launch_onehot(i64, ids_stride, fs, co, static_cast<const float*>(g), g_stride, R, D,
-                       id_base, n_rows, out, s);
+                       id_base, n_rows, splits, partials, out, s);
 }
 
 // sids int64 (R,) sorted ascending by a stable sort, order int64 (R,) its

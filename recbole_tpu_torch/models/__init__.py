@@ -3,9 +3,10 @@
 Port of recbole_tpu/models/__init__.py. Models self-register with
 @register_model at import time; get_model imports the category packages
 lazily on first lookup (case-insensitive, exact-case preferred). Ported so
-far: the general family's BPR, and the context family's base with DeepFM, FM
-and LR. Any other name raises ``ValueError`` from ``get_model``; the other
-11 context models and the remaining families are ROADMAP Queue 1.
+far: the general family's BPR, the context family's base with DeepFM, FM
+and LR, and the sequential family's base with SASRec. Any other name raises
+``ValueError`` from ``get_model``; the other 11 context models, the other 24
+sequential models and the remaining families are ROADMAP Queue 1.
 """
 
 import importlib
@@ -13,7 +14,7 @@ import pkgutil
 
 _REGISTRY = {}
 _LOADED = False
-_CATEGORIES = ("general", "context")
+_CATEGORIES = ("general", "context", "sequential")
 
 
 def register_model(name):

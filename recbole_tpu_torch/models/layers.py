@@ -1,9 +1,13 @@
 """Shared layers.
 
-Port of recbole_tpu/models/layers.py's ``xavier_normal``, ``embedding_init``
-(row 0 zeroed, :71-74), ``embed``, ``activation`` (:106-116), ``bn_apply``
+Port of recbole_tpu/models/layers.py's ``xavier_normal``, ``xavier_uniform``,
+``normal_init``, ``embedding_init`` (row 0 zeroed, :71-74), ``embed``,
+``cast_compute``/``dot_c`` (:84-101), ``activation`` (:106-116), ``bn_apply``
 (:119-134), the MLP (``mlp_init``/``mlp_apply``, :137-176, as the module
-``MLPLayers``), ``dropout_apply`` (:179-194) and ``fm_pairwise`` (:199-207).
+``MLPLayers``), ``dropout_apply`` (:179-194), ``fm_pairwise`` (:199-207),
+the transformer encoder (``transformer_init`` :288 as the module
+``TransformerEncoder``, ``layer_norm`` :310, ``transformer_apply`` :316-467)
+and the attention-mask helpers (:470-490). ``gru_apply`` is not ported yet.
 Randomness comes from an explicit torch.Generator on the tensor's device,
 never from the global RNG. Linear weights keep the JAX package's (in, out)
 layout, so ``x @ w + b`` is the same expression in both packages.
@@ -32,6 +36,17 @@ def xavier_normal(generator, shape, device, dtype=torch.float32):
                              dtype=dtype)
 
 
+def xavier_uniform(generator, shape, device, dtype=torch.float32):
+    fan_in, fan_out = _fans(shape)
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return (2.0 * u - 1.0) * limit
+
+
+def normal_init(generator, shape, device, std=0.01, dtype=torch.float32):
+    return std * torch.randn(shape, generator=generator, device=device, dtype=dtype)
+
+
 def embedding_init(generator, num, dim, device, dtype=torch.float32):
     table = xavier_normal(generator, (num, dim), device, dtype)
     # row 0 is [PAD]; zero it so padded lookups contribute nothing
@@ -42,6 +57,27 @@ def embedding_init(generator, num, dim, device, dtype=torch.float32):
 def embed(table, ids):
     """Gather rows; the gradient is a dense (V, D) index-add."""
     return torch.index_select(table, 0, ids)
+
+
+# ---------------------------------------------------------- mixed precision
+
+def cast_compute(compute_dtype, *tensors):
+    """Round matmul operands to the compute dtype. Parameters stay float32
+    in memory; ``None`` and float32 leave the tensors as they are."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return tensors if len(tensors) > 1 else tensors[0]
+    out = tuple(t.to(compute_dtype) for t in tensors)
+    return out if len(out) > 1 else out[0]
+
+
+def dot_c(x, w, compute_dtype=None):
+    """``x @ w`` with both operands rounded to the compute dtype and a
+    float32 result, as ``jnp.dot(..., preferred_element_type=float32)``
+    gives. ``torch.matmul`` of two bfloat16 tensors returns bfloat16, so the
+    rounded operands go back to float32 and the product runs in float32:
+    every bf16 x bf16 term is then exact and the sum is float32."""
+    x, w = cast_compute(compute_dtype, x, w)
+    return x.to(torch.float32) @ w.to(torch.float32)
 
 
 # ------------------------------------------------------------------------ MLP
@@ -128,3 +164,169 @@ def fm_pairwise(emb):
     sum_sq = torch.square(torch.sum(emb, dim=1))
     sq_sum = torch.sum(torch.square(emb), dim=1)
     return 0.5 * torch.sum(sum_sq - sq_sum, dim=-1)
+
+
+# --------------------------------------------------------------- transformer
+
+TRANSFORMER_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
+                    "ln1_g", "ln1_b", "ff1_w", "ff1_b", "ff2_w", "ff2_b",
+                    "ln2_g", "ln2_b")
+
+
+class _TransformerLayer(nn.Module):
+    """The 16 leaves of one layer, under the JAX param dict's names."""
+
+    def __init__(self, generator, hidden, inner, device):
+        super().__init__()
+
+        def xu(*shape):
+            return nn.Parameter(xavier_uniform(generator, shape, device))
+
+        def const(n, value):
+            return nn.Parameter(torch.full((n,), value, device=device))
+
+        # weights in transformer_init's draw order
+        self.wq, self.wk, self.wv, self.wo = (xu(hidden, hidden) for _ in range(4))
+        self.bq, self.bk, self.bv, self.bo = (const(hidden, 0.0) for _ in range(4))
+        self.ln1_g, self.ln1_b = const(hidden, 1.0), const(hidden, 0.0)
+        self.ln2_g, self.ln2_b = const(hidden, 1.0), const(hidden, 0.0)
+        self.ff1_w, self.ff1_b = xu(hidden, inner), const(inner, 0.0)
+        self.ff2_w, self.ff2_b = xu(inner, hidden), const(hidden, 0.0)
+
+    def leaves(self):
+        return {k: getattr(self, k) for k in TRANSFORMER_KEYS}
+
+
+class TransformerEncoder(nn.ModuleList):
+    """parity: TransformerEncoder (reference layers.py:499) as
+    ``transformer_init`` builds it: xavier-uniform weights, zero biases, unit
+    LayerNorm gains. Layer i's parameters are named ``<i>.wq`` ...
+    ``<i>.ln2_b``, the paths of the JAX package's list of layer dicts."""
+
+    def __init__(self, generator, n_layers, n_heads, hidden, inner, device):
+        super().__init__(_TransformerLayer(generator, hidden, inner, device)
+                         for _ in range(n_layers))
+        self.n_heads = n_heads
+
+    def layer_params(self):
+        return [layer.leaves() for layer in self]
+
+
+def layer_norm(x, g, b, eps=1e-12):
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + eps) * g + b
+
+
+def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
+                      attn_dropout=0.0, generator=None, compute_dtype=None,
+                      mask_spec=None, fused=False):
+    """x (B, L, D); params a list of layer dicts (``TransformerEncoder
+    .layer_params()``); attn_mask (B, 1, L, L) additive, or None with
+    ``mask_spec=(key_valid (B, L), causal)``. Post-LN residual blocks as the
+    reference TransformerLayer (layers.py:469). Dropout is applied when a
+    generator is given and a rate is positive.
+
+    ``fused`` chooses the path (the config key ``fused_attention``):
+
+    * ``"layer2"``: every layer through the whole-layer kernel
+      (ops/trm_layer.py), its operands rounded to bfloat16 when
+      ``compute_dtype`` is bfloat16 and kept float32 when it is None or
+      float32. (The JAX package's layer2 path runs bf16 whatever
+      ``compute_dtype`` says; the port honours the key.)
+    * ``"layer"``: the float32 instance (ops/fused_transformer.py); a
+      bfloat16 ``compute_dtype`` raises, as the JAX package takes this path
+      only under float32.
+    * ``False``: the plain path below, the kernels' oracle.
+    * ``True``: the attention-only kernel, which is not ported yet.
+
+    On a CUDA tensor a fused path launches its kernel or raises; nothing
+    falls back to the plain path."""
+    fn = activation(act)
+    dropping = generator is not None and (dropout > 0.0 or attn_dropout > 0.0)
+    bf16 = compute_dtype is not None and compute_dtype != torch.float32
+    if fused in ("layer2", "layer"):
+        if mask_spec is None or callable(act):
+            raise ValueError(f"fused_attention: {fused!r} needs mask_spec=(key_valid, "
+                             "causal) and a named activation")
+        if fused == "layer" and bf16:
+            raise NotImplementedError(
+                'fused_attention: "layer" is the float32 whole-layer kernel; set '
+                'compute_dtype: float32, or fused_attention: "layer2" for bfloat16 operands')
+        from ..ops.trm_layer import draw_seed, trm_layer
+        key_valid, causal = mask_spec
+        seed = None
+        if dropping and x.device.type != "cpu":
+            seed = draw_seed(generator, x.device)
+        for li, layer in enumerate(params):
+            x = trm_layer(x, layer, key_valid, n_heads=n_heads, causal=causal,
+                          act=str(act).lower(), dropout=dropout if dropping else 0.0,
+                          attn_dropout=attn_dropout if dropping else 0.0, seed=seed,
+                          generator=generator, layer=li, bf16=bf16)
+        return x
+    if fused:
+        raise NotImplementedError(
+            "fused_attention: True (the attention-only kernel, ops/fused_attention.py) is "
+            'not ported yet (ROADMAP Queue 2); use "layer2", "layer" or False')
+    if attn_mask is None:
+        key_valid, causal = mask_spec
+        attn_mask = (causal_attention_mask_from_valid(key_valid) if causal
+                     else bidirectional_attention_mask(key_valid > 0))
+    for layer in params:
+        B, L, D = x.shape
+        hd = D // n_heads
+
+        def proj(w, b):
+            return (dot_c(x, w, compute_dtype) + b).reshape(B, L, n_heads, hd)
+
+        q = proj(layer["wq"], layer["bq"])
+        k = proj(layer["wk"], layer["bk"])
+        v = proj(layer["wv"], layer["bv"])
+        q, k = cast_compute(compute_dtype, q, k)
+        scores = torch.einsum("blhd,bmhd->bhlm", q.to(torch.float32),
+                              k.to(torch.float32)) / math.sqrt(hd)
+        scores = scores + attn_mask
+        probs = torch.softmax(scores, dim=-1)
+        if dropping and attn_dropout > 0.0:
+            probs = dropout_apply(generator, probs, attn_dropout)
+        probs, v = cast_compute(compute_dtype, probs, v)
+        ctx = torch.einsum("bhlm,bmhd->blhd", probs.to(torch.float32),
+                           v.to(torch.float32)).reshape(B, L, D)
+        attn_out = dot_c(ctx, layer["wo"], compute_dtype) + layer["bo"]
+        if dropping and dropout > 0.0:
+            attn_out = dropout_apply(generator, attn_out, dropout)
+        x = layer_norm(x + attn_out, layer["ln1_g"], layer["ln1_b"])
+
+        h_in = dot_c(x, layer["ff1_w"], compute_dtype) + layer["ff1_b"]
+        if bf16:
+            # the activation runs in the compute dtype, as in the JAX package
+            h_in = h_in.to(compute_dtype)
+        h = dot_c(fn(h_in), layer["ff2_w"], compute_dtype) + layer["ff2_b"]
+        if dropping and dropout > 0.0:
+            h = dropout_apply(generator, h, dropout)
+        x = layer_norm(x + h, layer["ln2_g"], layer["ln2_b"])
+    return x
+
+
+def causal_attention_mask(seq_len_1d, L):
+    """(B, 1, L, L) additive mask: causal AND key padding (parity: SASRec
+    get_attention_mask, sasrec.py:92-106)."""
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=seq_len_1d.device))
+    key_valid = torch.arange(L, device=seq_len_1d.device)[None, :] < seq_len_1d[:, None]
+    mask = causal[None, :, :] & key_valid[:, None, :]
+    return torch.where(mask, 0.0, -1e9)[:, None, :, :]
+
+
+def causal_attention_mask_from_valid(key_valid):
+    """The same from a (B, L) validity mask."""
+    L = key_valid.shape[1]
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=key_valid.device))
+    mask = causal[None, :, :] & (key_valid[:, None, :] > 0)
+    return torch.where(mask, 0.0, -1e9)[:, None, :, :]
+
+
+def bidirectional_attention_mask(seq_valid):
+    """(B, 1, L, L) additive mask from a (B, L) bool validity mask
+    (BERT4Rec style)."""
+    mask = seq_valid[:, None, :] & seq_valid[:, :, None]
+    return torch.where(mask, 0.0, -1e9)[:, None, :, :]

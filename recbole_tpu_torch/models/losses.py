@@ -1,7 +1,7 @@
 """Loss functions.
 
-Port of recbole_tpu/models/losses.py's ``bpr_loss``, ``bce_loss`` and
-``mse_loss``. Each takes an optional per-row ``weight``; padding rows carry
+Port of recbole_tpu/models/losses.py's ``bpr_loss``, ``bce_loss``,
+``ce_loss`` and ``mse_loss``. Each takes an optional per-row ``weight``; padding rows carry
 weight 0 and the mean is taken over the weight sum.
 """
 
@@ -25,6 +25,14 @@ def bce_loss(logits, labels, weight=None):
     loss = (torch.clamp(logits, min=0) - logits * labels
             + torch.log1p(torch.exp(-torch.abs(logits))))
     return _wmean(loss, weight)
+
+
+def ce_loss(logits, targets, weight=None):
+    """Cross entropy over the item axis; targets are integer ids. Computed
+    as logsumexp(logits) - logits[target], as the JAX package does (:31-41)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    pos = torch.gather(logits, 1, targets[:, None])[:, 0]
+    return _wmean(lse - pos, weight)
 
 
 def mse_loss(preds, labels, weight=None):

@@ -106,8 +106,10 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("embed_grad")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.embed_grad_onehot.argtypes = [p, ll, i, p, p, ll, i, i, i, ll, i, p, p]
+        lib.embed_grad_onehot.argtypes = [p, ll, i, p, p, ll, i, i, i, ll, i, i, p, p, p]
         lib.embed_grad_onehot.restype = i
+        lib.embed_grad_onehot_splits.argtypes = [i] * 5
+        lib.embed_grad_onehot_splits.restype = i
         lib.embed_grad_windowed.argtypes = [p, p, p, i, ll, i, i, i, ll, ll, p, p]
         lib.embed_grad_windowed.restype = i
         _LIB = lib
@@ -166,10 +168,16 @@ def onehot_matmul_grad_cuda(ids, g, n_rows, out=None, id_base=0, col_off=None):
             and ids.dim() == 2):
         raise ValueError(f"col_off must be {fs + 1} contiguous int64 ids on g's "
                          "device, beside a (B, fs) id block")
+    # the source decides into how many slices the ids are cut: it knows its tiles
+    splits = _lib().embed_grad_onehot_splits(R, fs, n_rows, D, int(col_off is not None))
+    partials = None
+    if splits > 1:
+        partials = torch.empty((splits, n_rows, D), dtype=torch.float32, device=g.device)
     err = _lib().embed_grad_onehot(
         ids.data_ptr(), ids_stride, fs,
         None if col_off is None else col_off.data_ptr(), g.data_ptr(), g_stride,
-        int(g.dtype == torch.bfloat16), R, D, id_base, n_rows, out.data_ptr(),
+        int(g.dtype == torch.bfloat16), R, D, id_base, n_rows, splits,
+        None if partials is None else partials.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(f"onehot_grad kernel launch failed: CUDA error {err}")

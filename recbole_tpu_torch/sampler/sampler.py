@@ -127,3 +127,13 @@ def sample_negatives(generator, user_ids, history, hist_len, n_items, num_neg,
                             device=device)
         cand = pop_items[idx].long()
     return first_non_colliding(cand, user_ids, history, hist_len)
+
+
+def sample_negatives_unchecked(generator, shape, n_items, pop_items=None, device=None):
+    """Uniform or popularity draw without exclusion (RepeatableSampler
+    semantics, sampler.py:341-420: sequential models allow repeats)."""
+    if pop_items is None:
+        return torch.randint(1, n_items, shape, generator=generator, device=device)
+    idx = torch.randint(0, pop_items.shape[0], shape, generator=generator,
+                        device=pop_items.device)
+    return pop_items[idx].long()

@@ -11,20 +11,27 @@ model's device:
     whatever the number of columns (the counterpart of the JAX trainer's
     ``_upload_columns`` under scan_epochs);
   * negatives are drawn on the device inside the step (``_make_rec_augment``,
-    the pairwise branch); labeled rows (the CTR protocols: no sampling, or no
-    user/item ids at all) pass through as they are;
+    the pairwise branch; without exclusion for the sequential family, whose
+    items may repeat); labeled rows (the CTR protocols: no sampling, or no
+    user/item ids at all) pass through as they are; a loader's
+    ``device_transform`` (the sequential family's padded-sequence gather)
+    runs first;
+  * row 0 of every ``pad_zero_params`` gradient is zeroed before Adam, so a
+    [PAD] embedding row never trains;
   * the model is in train mode only inside the step, and draws its dropout
     masks from the trainer's generator;
   * Adam is the single-pass in-place sweep of ops/fused_adam.py for every
     float32 leaf (``_fused_adam_apply``);
-  * full-sort evaluation always goes through ops/masked_topk.py, and each
-    batch reduces to per-metric partial sums on the device;
+  * full-sort evaluation always goes through ops/masked_topk.py, masking
+    [PAD] and, unless the loader says ``mask_history = False`` (sequential
+    splits), the user's earlier-phase items; each batch reduces to
+    per-metric partial sums on the device;
   * value-metric evaluation (``_evaluate_individual``) uploads the eval
     table once, predicts in device-sliced batches, and computes AUC/LogLoss
     on the device.
 
-``get_trainer`` serves the general and context families. Still raising:
-other learners, gradient clipping, weight decay, the POINTWISE branch that
+``get_trainer`` serves the general, context and sequential families. Still
+raising: other learners, gradient clipping, weight decay, the POINTWISE branch that
 samples negatives, dataset negatives and the both-way sampler, the sampled
 and labeled eval steps, the non-fused ``all_item_scores`` path, bfloat16
 eval scores and the trainer subclasses (ROADMAP Queue 1).
@@ -41,7 +48,7 @@ from ..utils.logger import get_logger, get_local_time, set_color
 from ..utils.utils import early_stopping, calculate_valid_score, dict2str, ensure_dir
 from ..data.loaders import RowEvalLoader
 from ..evaluator.evaluator import topk_metric_sums, TopKCollector, ValueCollector
-from ..sampler.sampler import sample_negatives
+from ..sampler.sampler import sample_negatives, sample_negatives_unchecked
 from ..ops.fused_adam import adam_leaf
 from ..ops.masked_topk import masked_topk
 
@@ -63,9 +70,12 @@ def build_optimizer(config):
 
 def invalid_item_mask(user_id, hist, hlen, n_items):
     """(B, n_items) int8, 1 for [PAD] and each user's earlier-phase items
-    (parity: trainer.py:984-990)."""
+    (parity: trainer.py:984-990). With ``hist`` None only [PAD] is masked."""
     B = user_id.shape[0]
     invalid = torch.zeros((B, n_items), dtype=torch.int8, device=user_id.device)
+    if hist is None:
+        invalid[:, 0] = 1
+        return invalid
     uh = hist[user_id]
     hvalid = (torch.arange(uh.shape[1], device=uh.device)[None, :]
               < hlen[user_id][:, None])
@@ -110,9 +120,10 @@ class Trainer:
     # ------------------------------------------------------------- train step
 
     def _make_rec_augment(self, train_data):
-        """Device-side batch shaping (parity: trainer.py:166-289): labeled
-        rows pass through (the pure-feature protocol, and no sampling),
-        pairwise models get sampled negatives. Returns (augment, consts)."""
+        """Device-side batch shaping (parity: trainer.py:166-289): the
+        loader's device transform first; then labeled rows pass through (the
+        pure-feature protocol, and no sampling) and pairwise models get
+        sampled negatives. Returns (augment, consts)."""
         model = self.model
         cfg = self.config
         uid_f = cfg["USER_ID_FIELD"]
@@ -123,11 +134,15 @@ class Trainer:
                 "not ported yet (ROADMAP Queue 1, item 3)")
         neg_args = cfg["train_neg_sample_args"]
         k = int(neg_args.get("by") or 0) if neg_args["strategy"] == "by" else 0
+        transform = getattr(train_data, "device_transform", None)
         if uid_f is None or iid_f is None or (
                 k == 0 and model.input_type is not InputType.PAIRWISE):
             # pure-feature CTR protocol (Criteo/Avazu: USER_ID_FIELD: ~), or
             # labeled rows used as they are: nothing to sample
-            return (lambda batch, generator, consts: batch), {}
+            if transform is None:
+                return (lambda batch, generator, consts: batch), {}
+            return ((lambda batch, generator, consts: transform(batch, consts)),
+                    dict(transform.consts(self.device)))
         if model.input_type is not InputType.PAIRWISE:
             raise NotImplementedError(
                 f"{model.input_type} training with sampled negatives is not "
@@ -137,17 +152,31 @@ class Trainer:
         rounds = cfg["neg_sampling_resample_rounds"]
         neg_f = cfg["NEG_PREFIX"] + iid_f
         n_items = train_data.n_items
-        train_data.phase_history.assert_sampleable("train")
-        hist, hlen = train_data.phase_history.device_tables("train", self.device)
-        consts = {"hist": hist, "hlen": hlen}
+        # sequential models sample without used-id exclusion: items may repeat
+        # in a history (parity: RepeatableSampler, sampler.py:341-420)
+        repeatable = model.type is ModelType.SEQUENTIAL
+        consts = {}
+        if not repeatable:
+            train_data.phase_history.assert_sampleable("train")
+            hist, hlen = train_data.phase_history.device_tables("train", self.device)
+            consts = {"hist": hist, "hlen": hlen}
+        if transform is not None:
+            consts.update(transform.consts(self.device))
         if neg_args.get("distribution") == "popularity":
             consts["pop"] = torch.as_tensor(
                 train_data.phase_history.pop_items["train"], device=self.device)
 
         def augment(batch, generator, consts):
-            negs = sample_negatives(generator, batch[uid_f], consts["hist"],
-                                    consts["hlen"], n_items, k, rounds=rounds,
-                                    pop_items=consts.get("pop"))
+            if transform is not None:
+                batch = transform(batch, consts)
+            if repeatable:
+                negs = sample_negatives_unchecked(
+                    generator, (batch[uid_f].shape[0], k), n_items,
+                    pop_items=consts.get("pop"), device=self.device)
+            else:
+                negs = sample_negatives(generator, batch[uid_f], consts["hist"],
+                                        consts["hlen"], n_items, k, rounds=rounds,
+                                        pop_items=consts.get("pop"))
             if k == 1:
                 out = dict(batch)
                 out[neg_f] = negs[:, 0]
@@ -190,6 +219,7 @@ class Trainer:
         masks) from ``self.generator`` (parity: trainer.py:356-395). The
         model is in train mode for the loss only."""
         params = dict(self.model.named_parameters())
+        pad_zero = [k for k in getattr(self.model, "pad_zero_params", ()) if k in params]
 
         def step_core(batch, consts):
             batch = augment(batch, self.generator, consts)
@@ -203,6 +233,10 @@ class Trainer:
             grads = {name: torch.zeros_like(params[name]) if g is None else g
                      for name, g in zip(params, torch.autograd.grad(
                          loss, list(params.values()), allow_unused=True))}
+            # the reference's Embedding(padding_idx=0) never updates row 0:
+            # with a zero gradient the [PAD] row and its moments stay zero
+            for name in pad_zero:
+                grads[name][0] = 0.0
             self._fused_adam_apply(grads)
             return loss.detach()
 
@@ -380,9 +414,11 @@ class Trainer:
     # ------------------------------------------------------------- evaluation
 
     def _make_full_sort_eval_step(self, eval_data, metrics, max_k):
-        """Fused full-sort step (parity: trainer.py:934-1004): the model's
-        query and item table go through the masked top-k, then the hits
-        reduce to metric partial sums."""
+        """Fused full-sort step (parity: trainer.py:934-1004): the loader's
+        device transform, then the model's query and item table go through
+        the masked top-k ([PAD] masked always, the user's earlier-phase items
+        unless the loader has ``mask_history = False``), then the hits reduce
+        to metric partial sums."""
         model = self.model
         uid_f = self.config["USER_ID_FIELD"]
         if str(self.config["eval_score_dtype"]).lower() != "float32":
@@ -393,14 +429,21 @@ class Trainer:
             raise NotImplementedError(
                 "full-sort eval of models without full_sort_query (the "
                 "all_item_scores path) is not ported yet (ROADMAP Queue 1, item 5)")
-        hist, hlen = eval_data.phase_history.device_tables(eval_data.mask_phase,
-                                                           self.device)
-        consts = {"hist": hist, "hlen": hlen}
+        consts = {"hist": None, "hlen": None}
+        if getattr(eval_data, "mask_history", True):
+            consts["hist"], consts["hlen"] = eval_data.phase_history.device_tables(
+                eval_data.mask_phase, self.device)
+        transform = getattr(eval_data, "device_transform", None)
+        if transform is not None:
+            consts.update(transform.consts(self.device))
         n_items = eval_data.n_items
 
         def eval_step(consts, batch):
-            pos_items = batch["pos_items"]
-            pos_len = batch["pos_len"]
+            pos_items = batch.pop("pos_items")
+            pos_len = batch.pop("pos_len")
+            mask = batch.pop("_mask")
+            if transform is not None:
+                batch = transform(batch, consts)
             user_id = batch[uid_f]
             query, table = model.full_sort_query(batch)
             invalid = invalid_item_mask(user_id, consts["hist"], consts["hlen"],
@@ -411,7 +454,7 @@ class Trainer:
                          < pos_len[:, None])
             pos_index = ((topk_idx[:, :, None].long() == pos_items[:, None, :])
                          & pos_valid[:, None, :]).any(dim=-1).to(torch.int32)
-            return topk_metric_sums(metrics, pos_index, pos_len, batch["_mask"])
+            return topk_metric_sums(metrics, pos_index, pos_len, mask)
 
         return eval_step, consts
 
@@ -471,8 +514,9 @@ class Trainer:
 
 def get_trainer(model_type, model_name):
     """parity: reference get_trainer (utils/utils.py:78-96). The port has
-    the base Trainer, which serves the general and context families."""
-    if model_type not in (ModelType.GENERAL, ModelType.CONTEXT):
+    the base Trainer, which serves the general, context and sequential
+    families."""
+    if model_type not in (ModelType.GENERAL, ModelType.CONTEXT, ModelType.SEQUENTIAL):
         raise NotImplementedError(
             f"trainers for {model_type} models are not ported yet (ROADMAP "
             "Queue 1)")

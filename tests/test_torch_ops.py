@@ -18,6 +18,7 @@ from recbole_tpu.ops.fused_adam import adam_leaf_kernel
 from recbole_tpu.ops.masked_topk import masked_topk_pallas, masked_topk_xla
 from recbole_tpu_torch.ops import embed_grad as port_eg
 from recbole_tpu_torch.ops import fused_adam, masked_topk as port_topk
+from recbole_tpu_torch.ops import trm_layer as port_trm
 
 B1, B2, LR, EPS = 0.9, 0.999, 1e-3, 1e-8
 
@@ -498,3 +499,109 @@ def test_onehot_grad_kernel_column_ranges_on_card(cuda_device):
         assert torch.equal(full, ranged)
         ref = port_eg.onehot_matmul_grad_torch(tid[:, f0:f1], tw[:, f0:f1], rows, id_base=off)
         torch.testing.assert_close(ranged, ref, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------- the whole-layer transformer kernels
+
+def _trm_inputs(B, L, D, I, seed, device, empty_row=False):
+    rng = np.random.RandomState(seed)
+    params = {}
+    for k, shape in port_trm.param_shapes(D, I).items():
+        if len(shape) == 2:
+            v = rng.uniform(-1, 1, shape) * np.sqrt(6.0 / sum(shape))
+        else:
+            v = 0.1 * rng.randn(*shape) + (1.0 if k.endswith("_g") else 0.0)
+        params[k] = torch.from_numpy(v.astype(np.float32)).to(device)
+    lens = rng.randint(1, L + 1, B)
+    if empty_row:
+        lens[0] = 0
+    valid = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    x = torch.from_numpy((0.5 * rng.randn(B, L, D)).astype(np.float32)).to(device)
+    dy = torch.from_numpy(rng.randn(B, L, D).astype(np.float32)).to(device)
+    return x, params, torch.from_numpy(valid).to(device), dy
+
+
+def test_trm_layer_launchers_refuse_cpu_tensors_and_dispatch_stays_plain():
+    x, params, valid, dy = _trm_inputs(2, 8, 16, 32, 0, "cpu")
+    kw = dict(n_heads=2, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_trm.trm_layer_fwd_cuda(x, params, valid, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_trm.trm_layer_bwd_cuda(x, params, valid, dy, **kw)
+    before = (port_trm.trm_layer_fwd_cuda.launches, port_trm.trm_layer_bwd_cuda.launches)
+    x.requires_grad_(True)
+    (port_trm.trm_layer(x, params, valid, **kw) * dy).sum().backward()
+    assert (port_trm.trm_layer_fwd_cuda.launches,
+            port_trm.trm_layer_bwd_cuda.launches) == before
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_trm_layer_kernels_match_plain_on_card(cuda_device, bf16, causal, rate):
+    """trm_layer_fwd and trm_layer_bwd at SASRec's widths against the plain
+    version fed the masks the kernels draw: y, dx and the 16 gradients, each
+    within 2e-4 (fp32 instance) or 2e-2 (bf16 instance: one bf16 step where an
+    fp32 sum crosses a rounding boundary) of the tensor's largest value, a
+    gradient that is 0 but for rounding (bk) within that of 1% of the largest
+    gradient; one launch each; two runs bit-identical."""
+    B, L, D, H, I = 257, 50, 64, 2, 256
+    x, params, valid, dy = _trm_inputs(B, L, D, I, 3, cuda_device, empty_row=not causal)
+    seed = torch.tensor([99], dtype=torch.int64, device=cuda_device)
+    kw = dict(n_heads=H, causal=causal, act="gelu", dropout=rate, attn_dropout=rate,
+              layer=1, bf16=bf16)
+    before = (port_trm.trm_layer_fwd_cuda.launches, port_trm.trm_layer_bwd_cuda.launches)
+    y = port_trm.trm_layer_fwd_cuda(x, params, valid, seed, **kw)
+    dx, g = port_trm.trm_layer_bwd_cuda(x, params, valid, dy, seed, **kw)
+    assert (port_trm.trm_layer_fwd_cuda.launches,
+            port_trm.trm_layer_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    dx2, g2 = port_trm.trm_layer_bwd_cuda(x, params, valid, dy, seed, **kw)
+    assert torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
+    masks = (port_trm.trm_dropout_masks_cuda(seed, B, H, L, D, rate, rate, layer=1)
+             if rate else None)
+    cfg = (H, causal, "gelu", 1e-12, bf16)
+    ref_y = port_trm.trm_layer_torch_fwd(x, params, valid, masks, *cfg)
+    ref_dx, ref_g = port_trm.trm_layer_torch_bwd(x, params, valid, masks, dy, *cfg)
+    tol = 2e-2 if bf16 else 2e-4
+    floor = 1e-2 * max(float(v.abs().max()) for v in ref_g.values())
+    for name, a, b, least in [("y", y, ref_y, 0.0), ("dx", dx, ref_dx, 0.0)] + [
+            (k, g[k], ref_g[k], floor) for k in g]:
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), least, 1e-30)
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+def test_trm_layer_autograd_and_limits_on_card(cuda_device):
+    """The dispatcher on CUDA tensors goes through TrmLayer (one forward and
+    one backward launch), its dropout keyed by the seed; widths beyond the
+    kernel's limits raise and nothing falls back."""
+    B, L, D, H, I = 7, 8, 16, 2, 32
+    x, params, valid, dy = _trm_inputs(B, L, D, I, 5, cuda_device)
+    for p in params.values():
+        p.requires_grad_(True)
+    seed = torch.tensor([7], dtype=torch.int64, device=cuda_device)
+    kw = dict(n_heads=H, causal=True, dropout=0.5, attn_dropout=0.5, seed=seed, bf16=False)
+    before = (port_trm.trm_layer_fwd_cuda.launches, port_trm.trm_layer_bwd_cuda.launches)
+    y = port_trm.trm_layer(x, params, valid, **kw)
+    (y * dy).sum().backward()
+    assert (port_trm.trm_layer_fwd_cuda.launches,
+            port_trm.trm_layer_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    masks = port_trm.trm_dropout_masks_cuda(seed, B, H, L, D, 0.5, 0.5)
+    ref = port_trm.trm_layer_torch(x, {k: v.detach() for k, v in params.items()}, valid,
+                                   masks, n_heads=H, causal=True, bf16=False)
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-5)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in params.values())
+    with pytest.raises(ValueError, match="seed"):
+        port_trm.trm_layer(x, params, valid, n_heads=H, causal=True, dropout=0.5)
+    # the working set is the built library's own figure, held to the card's limit
+    smem = port_trm._lib().trm_layer_smem_bytes
+    assert smem(50, 64, 256, 1) == 198200 <= port_trm.MAX_SMEM_BYTES < smem(200, 64, 256, 1)
+    wide, wparams, wvalid, _ = _trm_inputs(2, 200, 64, 256, 6, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        port_trm.trm_layer(wide, wparams, wvalid, n_heads=2, causal=True)
+    odd, oparams, ovalid, _ = _trm_inputs(2, 8, 18, 32, 6, cuda_device)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        port_trm.trm_layer(odd, oparams, ovalid, n_heads=2, causal=True)
