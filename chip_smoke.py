@@ -5,7 +5,7 @@
 
 Phases:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds the three csrc/*.cu, one process per source, all at
+  2. build: nvcc builds the four csrc/*.cu, one process per source, all at
      once (its -Xptxas -v report is printed), and the Triton Adam kernel is
      launched once;
   3. each kernel against its plain PyTorch version, on the card, at the main
@@ -13,7 +13,8 @@ Phases:
      compare the two results bit for bit; the whole-layer transformer
      kernels in both instances (bf16-rounded and fp32 operands), forward and
      backward, with dropout off and on (the plain version is handed the
-     masks the kernels draw);
+     masks the kernels draw); the packed-bit row and column kernels on the
+     Yelp shape's packed rows and on random bytes;
   4. the main paths, each with every kernel's launch count set to 0 just
      before and read just after (each kernel of the path must be > 0):
      a. run_recbole(model="BPR") for 2 epochs on an ml-1m-shaped dataset
@@ -28,8 +29,15 @@ Phases:
         steps under torch.profiler; and one epoch of the same model on
         ml-100k with fused_attention "layer" under compute_dtype float32,
         which goes through the fp32 instance of the transformer kernels;
-  5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's and
-     SASRec's test recall@10 and DeepFM's test AUC, each held to a floor;
+     d. LightGCN at its defaults (embedding 64, 2 layers, batch 2048) on a
+        file of the Yelp shape the reference times it on (102,046 users,
+        98,408 items, 2,905,370 interactions, written from a seed) through
+        Config -> data_preparation -> get_model -> get_trainer -> fit with
+        validation -> evaluate(test): the hybrid operator and the restricted
+        step, 1 epoch, then 20 steps under torch.profiler;
+  5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's,
+     SASRec's and LightGCN's test recall@10 and DeepFM's test AUC, each held
+     to a floor;
   6. timing with CUDA events at the main paths' shapes: kernel, plain
      version, the one-call library yardstick, and the card's bound for the
      same work.
@@ -100,6 +108,19 @@ ML100K_SEQ = {"eval_setting": "TO_LS,full", "training_neg_sample_num": 0,
               "epochs": 50}
 SASREC_RECALL_FLOOR = 0.115
 
+# the Yelp shape the reference times LightGCN on (users, items, interactions;
+# asset/time_test_result/General_recommendation.md:123-140, the shape of
+# scripts/bench_scale.py)
+YELP = (102_046, 98_408, 2_905_370)
+# the two embedding tables Adam sweeps in a LightGCN step at that shape
+# ([PAD] included)
+LIGHTGCN_LEAF_SHAPES = [(YELP[0] + 1, 64), (YELP[1] + 1, 64)]
+# ml-100k LightGCN under PARITY.md's default protocol, 30 epochs (PARITY.md:45:
+# test recall@10 0.1848 for the JAX package, 0.1887 for the original
+# RecBole), with the restricted step forced on so that the bit kernels run
+ML100K_LIGHTGCN = {"epochs": 30, "use_restricted_step": True}
+LIGHTGCN_RECALL_FLOOR = 0.165
+
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
 # adam_leaf: rtol 1e-6 of each element, plus 1e-6 of the tensor's largest
@@ -111,6 +132,9 @@ ADAM_RTOL = 1e-6
 # differ by the rounding of its own terms: 1e-5 of the sum of their
 # magnitudes, plus 1e-7
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-7
+# the packed-bit products are held to the same rule: the kernels add exact
+# terms in fp32 in the order of the set bits (rows) or of r (columns), the
+# plain version through a library product
 
 
 def log(msg):
@@ -243,6 +267,44 @@ def write_ml1m_shape(path, seed=42):
         np.savetxt(fh, np.stack([uids, iids, ts], axis=1), fmt="%d", delimiter="\t")
 
 
+def yelp_draw(seed=42):
+    """Raw user and item ids of the Yelp shape, drawn as
+    scripts/bench_scale.py:46-53 draws them: uniform users, power-law items
+    1 + floor((n_items - 1) * r ** 2.2)."""
+    n_users, n_items, n_inter = YELP
+    rng = np.random.RandomState(seed)
+    uids = rng.randint(1, n_users + 1, size=n_inter)
+    iids = 1 + np.floor((n_items - 1) * rng.random_sample(n_inter) ** 2.2).astype(np.int64)
+    return uids, iids
+
+
+def write_yelp_shape(path, seed=42):
+    uids, iids = yelp_draw(seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write("user_id:token\titem_id:token\ttimestamp:float\n")
+        np.savetxt(fh, np.stack([uids, iids, np.arange(len(uids))], axis=1), fmt="%d",
+                   delimiter="\t")
+
+
+def yelp_bit_inputs(torch, seed=42):
+    """The two packed images of the Yelp-shaped draw on the card (raw ids,
+    [PAD] row 0 empty), and a train batch's rows: 2,048 users, and 4,096
+    items (2,048 positives drawn from the interactions, 2,048 uniform
+    negatives)."""
+    from recbole_tpu_torch.ops.bitgraph import _pack_side
+    uids, iids = yelp_draw(seed)
+    n_u, n_i = YELP[0] + 1, YELP[1] + 1
+    user_bits = torch.from_numpy(_pack_side(uids, iids, n_u, n_i)).cuda()
+    item_bits = torch.from_numpy(_pack_side(iids, uids, n_i, n_u)).cuda()
+    rng = np.random.RandomState(seed + 1)
+    pick = rng.randint(0, len(uids), 2048)
+    rows_u = torch.from_numpy(uids[pick].astype(np.int64)).cuda()
+    rows_i = torch.from_numpy(np.concatenate(
+        [iids[pick], rng.randint(1, n_i, 2048)]).astype(np.int64)).cuda()
+    return {"user": (user_bits, rows_u, n_i), "item": (item_bits, rows_i, n_u)}
+
+
 # ----------------------------------------------------------------- phases
 
 def phase_device(torch):
@@ -263,7 +325,7 @@ def phase_build(torch):
     from recbole_tpu_torch.ops import cuda_build
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     t0 = time.time()
-    logs = cuda_build.build(["masked_topk", "embed_grad", "trm_layer"])
+    logs = cuda_build.build(["masked_topk", "embed_grad", "trm_layer", "bit_kernels"])
     log(f"[build] nvcc {time.time() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -415,7 +477,19 @@ def embed_grad_cases(torch):
     ]
     big_ids = ids[:, :n_large].reshape(-1).contiguous()
     big_g = g[:, :n_large].reshape(-1, CRITEO_DIM).contiguous()
+    # a LightGCN step at the Yelp shape: the restricted backward's dense
+    # gradient at the batch users (R 2,048) and items (R 4,096), and the ego
+    # gathers of its L2 term (R 2,048 into the item table)
+    rng = np.random.RandomState(17)
+    lg_u = torch.from_numpy(rng.randint(1, YELP[0] + 1, 2048).astype(np.int64)).cuda()
+    lg_i = torch.from_numpy((1 + np.floor(YELP[1] * rng.random_sample(4096) ** 2.2))
+                            .astype(np.int64)).cuda()
+    lg_g = torch.from_numpy(rng.randn(4096, 64).astype(np.float32) * 1e-3).cuda()
     windowed = [
+        ("LightGCN users R=2048 into the user table", lg_u, lg_g[:2048], YELP[0] + 1, 0),
+        ("LightGCN items R=4096 into the item table", lg_i, lg_g, YELP[1] + 1, 0),
+        ("LightGCN positives R=2048 into the item table", lg_i[:2048], lg_g[2048:], YELP[1] + 1,
+         0),
         ("criteo large fields, (B, 9) block in place", ids[:, :n_large], g[:, :n_large],
          large_rows, 0),
         ("criteo large fields, contiguous", big_ids, big_g, large_rows, 0),
@@ -424,6 +498,63 @@ def embed_grad_cases(torch):
         ("R=1", big_ids[:1], big_g[:1], large_rows, 0),
     ]
     return {"onehot_matmul_grad": onehot, "windowed_grad": windowed}
+
+
+def bit_cases(torch, images):
+    """(label, bits, rows, n_cols): both Yelp sides at a train batch's R, a
+    ragged batch and R = 1, on the Yelp-shaped packed rows (about 28 set bits
+    a row) and on random bytes of the same shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for kind in ("packed rows", "random bytes"):
+        sides = {}
+        for side in ("user", "item"):
+            bits, rows, n_cols = images[side]
+            if kind == "random bytes":
+                bits = torch.randint(0, 256, tuple(bits.shape), dtype=torch.uint8, device="cuda",
+                                     generator=gen)
+            sides[side] = (bits, rows, n_cols)
+            cases.append((f"{side} side, {kind}", bits, rows, n_cols))
+        bits, rows, n_cols = sides["item"]
+        cases.append((f"item side, {kind}, ragged R=1864", bits, rows[:1864].contiguous(),
+                      n_cols))
+        bits, rows, n_cols = sides["user"]
+        cases.append((f"user side, {kind}, R=1", bits, rows[:1].contiguous(), n_cols))
+    return cases
+
+
+def check_bit_kernels(torch, images):
+    """Both packed-bit kernels against their plain versions on each case:
+    within GRAD_RTOL of the sum of the terms' magnitudes plus GRAD_ATOL, and
+    a second run compared bit for bit."""
+    from recbole_tpu_torch.ops import bit_kernels as bk
+    worst = {"bit_rows_matmul": 0.0, "bit_cols_matmul": 0.0}
+    rng = np.random.RandomState(19)
+    for label, bits, rows, n_cols in bit_cases(torch, images):
+        R = rows.numel()
+        v = torch.from_numpy(rng.randn(n_cols, 64).astype(np.float32) * 0.1).cuda().bfloat16()
+        g = torch.from_numpy(rng.randn(R, 64).astype(np.float32) * 1e-3).cuda().bfloat16()
+        for name, x in (("bit_rows_matmul", v), ("bit_cols_matmul", g)):
+            kernel, plain = getattr(bk, f"{name}_cuda"), getattr(bk, f"{name}_torch")
+            out = kernel(bits, rows, x)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(out, kernel(bits, rows, x)))
+            ref = plain(bits, rows, x)
+            scale = plain(bits, rows, x.abs())
+            diff = (out - ref).abs()
+            err = float(diff.max())
+            log(f"[check] {name} {label}: R={R} nbytes={bits.shape[1]} D=64 max|err| {err:.3e} "
+                f"(tolerance {GRAD_RTOL} * sum|terms| + {GRAD_ATOL}); set bits "
+                f"{int(bk.unpack_bits(bits[rows]).sum())}; two runs bit-identical: {same}")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} {label}: non-finite output")
+            if not bool((diff <= GRAD_RTOL * scale + GRAD_ATOL).all()):
+                raise AssertionError(f"{name} {label}: beyond tolerance, max|err| {err}")
+            if not same:
+                raise AssertionError(f"{name} {label}: two runs differ, the kernel is meant "
+                                     "to be deterministic")
+            worst[name] = max(worst[name], err)
+    return worst
 
 
 # whole-layer transformer kernels against the plain version, as the largest
@@ -612,10 +743,13 @@ def kernel_wrappers():
     from recbole_tpu_torch.ops import trm_layer as tl
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda
+    from recbole_tpu_torch.ops import bit_kernels as bk
     return {"masked_topk": masked_topk_cuda, "adam_leaf": adam_leaf_triton,
             "onehot_matmul_grad": eg.onehot_matmul_grad_cuda,
             "windowed_grad": eg.windowed_grad_cuda,
-            "trm_layer_fwd": tl.trm_layer_fwd_cuda, "trm_layer_bwd": tl.trm_layer_bwd_cuda}
+            "trm_layer_fwd": tl.trm_layer_fwd_cuda, "trm_layer_bwd": tl.trm_layer_bwd_cuda,
+            "bit_rows_matmul": bk.bit_rows_matmul_cuda,
+            "bit_cols_matmul": bk.bit_cols_matmul_cuda}
 
 
 def reset_launches():
@@ -820,6 +954,84 @@ def phase_sasrec_fp32(torch, tmp):
     return launches
 
 
+def phase_lightgcn(torch, tmp):
+    """LightGCN at its defaults on a file of the Yelp shape, RO_RS,full, cut
+    to 1 epoch: the hybrid operator and the restricted step (2 row and 2
+    column products of the packed bits a step); then 20 steady steps under
+    the profiler."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import get_trainer
+    from recbole_tpu_torch.utils.logger import init_logger
+    from recbole_tpu_torch.utils.utils import init_seed
+    t0 = time.time()
+    write_yelp_shape(os.path.join(tmp, "data", "yelp-shape", "yelp-shape.inter"))
+    log(f"[lightgcn] wrote the Yelp-shaped .inter in {time.time() - t0:.1f}s")
+    config = Config("LightGCN", "yelp-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "epochs": 1, "device": "cuda",
+        "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
+        "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False},
+        _parse_cmd_line=False)
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    t0 = time.time()
+    train, valid, test = data_preparation(config, create_dataset(config))
+    log(f"[lightgcn] dataset, RO_RS splits and loaders in {time.time() - t0:.1f}s: train "
+        f"{train.n} rows; valid {len(valid.users)} and test {len(test.users)} users, eval "
+        f"batch {valid.batch_size}")
+    t0 = time.time()
+    model = get_model("LightGCN")(config, train.dataset)
+    torch.cuda.synchronize()
+    widths = {k: config[k] for k in ("embedding_size", "n_layers", "reg_weight",
+                                     "train_batch_size", "learning_rate", "eval_setting")}
+    log(f"[lightgcn] model built in {time.time() - t0:.1f}s: {model.n_users} users, "
+        f"{model.n_items} items, widths {widths}; operator: dense {model.prop.dense}, hybrid "
+        f"{model.prop.hybrid}, hub {model.prop.hub_size} items, build seconds "
+        f"{model.prop.build_seconds}; restricted step {model.use_restricted}")
+    if not (model.use_restricted and model.prop.hybrid) or model.prop.dense:
+        raise AssertionError("LightGCN at the Yelp shape did not take the hybrid operator "
+                             "and the restricted step")
+    if (widths["embedding_size"], widths["n_layers"], widths["train_batch_size"]) != (64, 2, 2048):
+        raise AssertionError("LightGCN was not built at its defaults")
+    buffers = {n: (tuple(b.shape), str(b.dtype).replace("torch.", ""))
+               for n, b in model.named_buffers()}
+    log(f"[lightgcn] packed images build seconds {model.bitgraph.build_seconds}; buffers "
+        f"{buffers}; {sum(b.numel() * b.element_size() for b in model.buffers())} bytes")
+    trainer = get_trainer(config["MODEL_TYPE"], "LightGCN")(config, model)
+    times, release = capture_epoch_times()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    best_score, best_valid = trainer.fit(train, valid, saved=False)
+    test_result = trainer.evaluate(test, load_best_model=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches("lightgcn", ("bit_rows_matmul", "bit_cols_matmul", "windowed_grad",
+                                          "adam_leaf"))
+    release()
+    steps = len(train)
+    for name in ("bit_rows_matmul", "bit_cols_matmul"):
+        if launches[name] != 2 * steps:
+            raise AssertionError(f"{name} launched {launches[name]} times in {steps} steps, "
+                                 "not 2 a step")
+    result = {"best_valid_result": best_valid, "test_result": test_result}
+    log(f"[lightgcn] fit (1 epoch, validation) + test: {wall:.2f}s wall")
+    log(f"[lightgcn] result {json.dumps(result)}")
+    check_result(result, JAX_ML100K)
+    log(f"[lightgcn] {steps} steps; launches per step: " + ", ".join(
+        f"{k} {launches[k] / steps:.2f}" for k in ("bit_rows_matmul", "bit_cols_matmul",
+                                                   "windowed_grad", "adam_leaf")))
+    log(f"[lightgcn] epoch seconds {times['train']} (includes the upload); train examples/s: "
+        f"{train.n / times['train'][-1]:.1f}; ms/step: "
+        f"{1e3 * times['train'][-1] / steps:.3f}")
+    log(f"[lightgcn] full-sort valid pass seconds {times['eval']}")
+    log(f"[lightgcn] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    profile_steps(torch, trainer, train, "lightgcn")
+    return launches
+
+
 def profile_steps(torch, trainer, train, tag, steps=20):
     """Where a steady train step's time goes: ``steps`` more steps under
     torch.profiler. Logs the wall time, the time the card is busy, the
@@ -909,6 +1121,29 @@ def phase_quality(torch, tmp):
     if test["recall@10"] < SASREC_RECALL_FLOOR:
         raise AssertionError(f"ml-100k SASRec test recall@10 {test['recall@10']} < "
                              f"{SASREC_RECALL_FLOOR}")
+
+    from recbole_tpu_torch.ops import bit_kernels as bk
+    before = (bk.bit_rows_matmul_cuda.launches, bk.bit_cols_matmul_cuda.launches)
+    t0 = time.time()
+    result = run_recbole(model="LightGCN", dataset="ml-100k", config_dict={
+        **ML100K_LIGHTGCN, "valid_full_to_uni1000": False, "device": "cuda",
+        "checkpoint_dir": os.path.join(tmp, "saved100k"),
+        "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING",
+        "show_progress": False})
+    test = result["test_result"]
+    ran = (bk.bit_rows_matmul_cuda.launches - before[0],
+           bk.bit_cols_matmul_cuda.launches - before[1])
+    log(f"[quality] ml-100k LightGCN (30 epochs, restricted step forced, early stopping on "
+        f"mrr@10) {time.time() - t0:.1f}s; bit kernel launches {ran}; best valid "
+        f"{result['best_valid_result']}")
+    log(f"[quality]   test {json.dumps(test)}   JAX package (PARITY.md:45): recall@10 0.1848, "
+        "original RecBole 0.1887")
+    check_result(result, JAX_ML100K)
+    if min(ran) <= 0:
+        raise AssertionError("the ml-100k LightGCN run did not go through the bit kernels")
+    if test["recall@10"] < LIGHTGCN_RECALL_FLOOR:
+        raise AssertionError(f"ml-100k LightGCN test recall@10 {test['recall@10']} < "
+                             f"{LIGHTGCN_RECALL_FLOOR}")
 
 
 def time_adam(torch, leaves, iters):
@@ -1004,6 +1239,65 @@ def phase_timing(torch):
         log(f"[time] {name} R={R} n_rows={n_rows} D={CRITEO_DIM}: {t}")
     out["onehot_matmul_grad"]["sasrec"] = time_onehot_sasrec(torch)
     out.update(time_trm_layer(torch))
+    out.update(time_bit_kernels(torch))
+    return out
+
+
+def time_bit_kernels(torch):
+    """Both packed-bit kernels at the Yelp shape's two sides as a train step
+    calls them (rows 2,048 users into the user image; rows 4,096 items into
+    the item image), beside the plain version, the library's unpack + bf16
+    product with fp32 results, and the bound: the distinct picked rows'
+    packed bytes, the ids, the rows of v that a set bit touches (columns:
+    g) and the output, each moved once; one fp32 add per set bit and
+    column."""
+    from recbole_tpu_torch.ops import bit_kernels as bk
+    images = yelp_bit_inputs(torch, seed=7)
+    out = {}
+    rng = np.random.RandomState(23)
+    for side, key in (("user", "user_side"), ("item", "item_side")):
+        bits, rows, n_cols = images[side]
+        R, nbytes, D = rows.numel(), bits.shape[1], 64
+        v = torch.from_numpy(rng.randn(n_cols, D).astype(np.float32) * 0.1).cuda().bfloat16()
+        g = torch.from_numpy(rng.randn(R, D).astype(np.float32) * 1e-3).cuda().bfloat16()
+        unpacked = bk.unpack_bits(bits[rows])
+        set_bits = int(unpacked.sum())
+        touched = int(unpacked.any(dim=0).sum())
+        distinct = int(torch.unique(rows).numel())
+        del unpacked
+        v_pad = bk.pad_k(v, nbytes * 8)
+
+        def lib_rows():
+            return torch.mm(bk.unpack_bits(bits[rows]).bfloat16(), v_pad, out_dtype=torch.float32)
+
+        def lib_cols():
+            return torch.mm(bk.unpack_bits(bits[rows]).bfloat16().T, g, out_dtype=torch.float32)
+
+        work = {"bit_rows_matmul": (v, lib_rows, touched * D * 2 + R * D * 4),
+                "bit_cols_matmul": (g, lib_cols, R * D * 2 + nbytes * 8 * D * 4)}
+        for name, (x, lib, io_bytes) in work.items():
+            kernel, plain = getattr(bk, f"{name}_cuda"), getattr(bk, f"{name}_torch")
+            t = {"ms": cuda_ms(torch, lambda: kernel(bits, rows, x), 50),
+                 "plain_ms": cuda_ms(torch, lambda: plain(bits, rows, x), 10),
+                 "library_ms": cuda_ms(torch, lib, 10)}
+            t["bound_ms"], t["bound_by"] = bound(float(set_bits * D),
+                                                 distinct * nbytes + R * 8 + io_bytes)
+            log(f"[time] {name} {side} side R={R} nbytes={nbytes} D={D} ({distinct} distinct "
+                f"rows, {set_bits} set bits, {touched} columns touched): {t}")
+            if side == "user":
+                out[name] = t
+            else:
+                out[name][key] = t
+        if side == "item":
+            # where the row kernel's time goes: the positives are drawn by
+            # popularity (the top item's row holds ~15,600 set bits), the
+            # negatives uniformly
+            for half, sl in (("positives", slice(0, R // 2)), ("negatives", slice(R // 2, R))):
+                sub = rows[sl].contiguous()
+                ms = cuda_ms(torch, lambda: bk.bit_rows_matmul_cuda(bits, sub, v), 50)
+                out["bit_rows_matmul"][f"item_side_{half}_ms"] = ms
+                log(f"[time] bit_rows_matmul item side, the {R // 2} {half} alone: {ms:.4f} ms, "
+                    f"{int(bk.unpack_bits(bits[sub]).sum())} set bits")
     return out
 
 
@@ -1108,6 +1402,10 @@ KERNEL_META = {
     "fused_transformer_layer_bwd": {"route": "cuda",
                                     "source": "recbole_tpu_torch/csrc/trm_layer.cu",
                                     "replaces": "recbole_tpu/ops/fused_transformer.py:409"},
+    "bit_rows_matmul": {"route": "cuda", "source": "recbole_tpu_torch/csrc/bit_kernels.cu",
+                        "replaces": "recbole_tpu/ops/bit_kernels.py:56"},
+    "bit_cols_matmul": {"route": "cuda", "source": "recbole_tpu_torch/csrc/bit_kernels.cu",
+                        "replaces": "recbole_tpu/ops/bit_kernels.py:95"},
 }
 
 
@@ -1129,16 +1427,20 @@ def main():
                               check_topk(torch, 1944, ML1M[1] + 1, 64, 10, seed=15, pad_only=True)),
            "adam_leaf": max(check_adam(torch, [(ML1M[0] + 1, 64), (ML1M[1] + 1, 64)], seed=4),
                             check_adam(torch, DEEPFM_LEAF_SHAPES, seed=9),
-                            check_adam(torch, SASREC_LEAF_SHAPES, seed=16))}
+                            check_adam(torch, SASREC_LEAF_SHAPES, seed=16),
+                            check_adam(torch, LIGHTGCN_LEAF_SHAPES, seed=18))}
     for kname, cases in embed_grad_cases(torch).items():
         err[kname] = check_embed_grad(torch, kname, cases)
     err.update(check_trm_layer(torch))
+    err.update(check_bit_kernels(torch, yelp_bit_inputs(torch)))
+    torch.cuda.empty_cache()
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         by_path["bpr"] = phase_bpr(torch, tmp)
         by_path["deepfm"] = phase_deepfm(torch, tmp)
         by_path["sasrec"] = phase_sasrec(torch, tmp)
         by_path["sasrec_fp32"] = phase_sasrec_fp32(torch, tmp)
+        by_path["lightgcn"] = phase_lightgcn(torch, tmp)
         phase_quality(torch, tmp)
     timing = phase_timing(torch)
     kernels = [{"name": kname, **KERNEL_META[kname],

@@ -17,6 +17,10 @@ gets its own map here when it is ported.
 module; ``export_params(model)`` gives the tree back. A missing or extra
 leaf, or a shape mismatch, raises. The tests use both to run the two
 packages from the same weights.
+
+A JAX tree's ``_const`` subtree (dataset-derived arrays: a graph operator,
+packed-bit images) is skipped both ways: the port rebuilds those arrays from
+the dataset as non-persistent buffers of the module.
 """
 
 import numpy as np
@@ -58,9 +62,12 @@ def unflatten_tree(flat):
     return lists(root)
 
 
+CONST_KEY = "_const"
+
+
 def load_jax_params(model, params):
     own = dict(model.named_parameters())
-    flat = flatten_tree(params)
+    flat = flatten_tree({k: v for k, v in params.items() if k != CONST_KEY})
     if set(flat) != set(own):
         raise KeyError(f"parameter names differ: module {sorted(own)}, "
                        f"given {sorted(flat)}")

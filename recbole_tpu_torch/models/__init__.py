@@ -3,10 +3,12 @@
 Port of recbole_tpu/models/__init__.py. Models self-register with
 @register_model at import time; get_model imports the category packages
 lazily on first lookup (case-insensitive, exact-case preferred). Ported so
-far: the general family's BPR, the context family's base with DeepFM, FM
-and LR, and the sequential family's base with SASRec. Any other name raises
-``ValueError`` from ``get_model``; the other 11 context models, the other 24
-sequential models and the remaining families are ROADMAP Queue 1.
+far: the general family's BPR and LightGCN, the context family's base with
+DeepFM, FM and LR, and the sequential family's base with SASRec. The other
+graph models of the general family raise ``NotImplementedError`` naming
+ROADMAP Queue 1, item 8; any other name raises ``ValueError``; the other 11
+context models, the other 24 sequential models and the remaining families
+are ROADMAP Queue 1.
 """
 
 import importlib
@@ -15,6 +17,8 @@ import pkgutil
 _REGISTRY = {}
 _LOADED = False
 _CATEGORIES = ("general", "context", "sequential")
+# graph models of the general family that the LightGCN slice left out
+_GRAPH_NOT_PORTED = ("NGCF", "SpectralCF", "GCMC", "DGCF")
 
 
 def register_model(name):
@@ -43,6 +47,9 @@ def get_model(name):
     lowered = {k.lower(): v for k, v in _REGISTRY.items()}
     if name.lower() in lowered:
         return lowered[name.lower()]
+    if name.lower() in (n.lower() for n in _GRAPH_NOT_PORTED):
+        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP Queue 1, item 8: "
+                                  "the graph models beside LightGCN)")
     raise ValueError(f"model {name!r} not found; known: {sorted(_REGISTRY)}")
 
 

@@ -1,7 +1,7 @@
 """Loss functions.
 
 Port of recbole_tpu/models/losses.py's ``bpr_loss``, ``bce_loss``,
-``ce_loss`` and ``mse_loss``. Each takes an optional per-row ``weight``; padding rows carry
+``ce_loss``, ``mse_loss`` and ``emb_loss``. Each takes an optional per-row ``weight``; padding rows carry
 weight 0 and the mean is taken over the weight sum.
 """
 
@@ -37,3 +37,13 @@ def ce_loss(logits, targets, weight=None):
 
 def mse_loss(preds, labels, weight=None):
     return _wmean(torch.square(preds - labels), weight)
+
+
+def emb_loss(*embeddings, norm=2):
+    """Sum of each embedding's p-norm over its looked-up rows, divided by
+    the last embedding's batch size (parity: EmbLoss, loss.py:70-84; each
+    embedding contributes its own norm, not a pooled root)."""
+    total = 0.0
+    for e in embeddings:
+        total = total + torch.clamp(torch.sum(torch.abs(e) ** norm), min=1e-12) ** (1.0 / norm)
+    return total / max(embeddings[-1].shape[0], 1)

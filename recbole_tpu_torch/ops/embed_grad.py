@@ -20,8 +20,9 @@ hi + lo pair). Ids are int64, the type the trainer uploads; int32 raises.
 On top of them sit the two gathers with custom gradients:
 ``GroupedTakeRows`` (``grouped_take_rows``, :219-253) for the CTR family's
 unified table, and ``TakeRowsDenseGrad`` (``take_rows_dense_grad``,
-:256-292) for the sequential family. Their backward assembles the dense
-(V, D) gradient from the two kernels: vocabularies up to
+:256-292) for the sequential family and LightGCN. Their backward assembles
+the dense (V, D) gradient from the two kernels (``dense_row_grad`` for a
+single table, which LightGCN's restricted step also calls): vocabularies up to
 ``SMALL_VOCAB_MAX`` rows go through ``onehot_matmul_grad``, larger ones
 through ``windowed_grad``. The JAX package parks its windowed kernel for a
 TPU-only reason (VMEM lane padding) and scatters instead, and sizes
@@ -309,6 +310,14 @@ def grouped_take_rows(field_spec, table, ids):
     return GroupedTakeRows.apply(tuple(field_spec), table, ids)
 
 
+def dense_row_grad(rows, vals, n):
+    """(n, D) float32 with vals[j] summed into row rows[j]: the dense gradient
+    of a gather of n rows, one-hot up to SMALL_VOCAB_MAX rows, windowed
+    beyond."""
+    fn = onehot_matmul_grad if n <= SMALL_VOCAB_MAX else windowed_grad
+    return fn(rows.reshape(-1), vals.reshape(rows.numel(), -1).contiguous(), n)
+
+
 class TakeRowsDenseGrad(torch.autograd.Function):
     """``x[rows]`` for x (n, ...) and integer ``rows`` of any shape, whose
     backward materialises the dense gradient of x through the kernels."""
@@ -322,12 +331,7 @@ class TakeRowsDenseGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (rows,) = ctx.saved_tensors
-        n = ctx.x_shape[0]
-        d = 1
-        for s in ctx.x_shape[1:]:
-            d *= s
-        fn = onehot_matmul_grad if n <= SMALL_VOCAB_MAX else windowed_grad
-        out = fn(rows.reshape(-1), g.reshape(-1, d).contiguous(), n)
+        out = dense_row_grad(rows, g, ctx.x_shape[0])
         return None, out.reshape(ctx.x_shape), None
 
 

@@ -22,10 +22,13 @@ model's device:
     masks from the trainer's generator;
   * Adam is the single-pass in-place sweep of ops/fused_adam.py for every
     float32 leaf (``_fused_adam_apply``);
-  * full-sort evaluation always goes through ops/masked_topk.py, masking
-    [PAD] and, unless the loader says ``mask_history = False`` (sequential
-    splits), the user's earlier-phase items; each batch reduces to
-    per-metric partial sums on the device;
+  * full-sort evaluation of a model with ``full_sort_query`` goes through
+    ops/masked_topk.py, masking [PAD] and, unless the loader says
+    ``mask_history = False`` (sequential splits), the user's earlier-phase
+    items; a model with ``full_sort_predict`` only (LightGCN) has its
+    (B, n_items) float32 scores masked the same way and ranked by
+    ``torch.topk``; each batch reduces to per-metric partial sums on the
+    device;
   * value-metric evaluation (``_evaluate_individual``) uploads the eval
     table once, predicts in device-sliced batches, and computes AUC/LogLoss
     on the device.
@@ -33,8 +36,9 @@ model's device:
 ``get_trainer`` serves the general, context and sequential families. Still
 raising: other learners, gradient clipping, weight decay, the POINTWISE branch that
 samples negatives, dataset negatives and the both-way sampler, the sampled
-and labeled eval steps, the non-fused ``all_item_scores`` path, bfloat16
-eval scores and the trainer subclasses (ROADMAP Queue 1).
+and labeled eval steps, the chunked ``score_items`` eval of models without
+``full_sort_predict``, bfloat16 eval scores and the trainer subclasses
+(ROADMAP Queue 1).
 """
 
 import os
@@ -43,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from ..models.base import AbstractRecommender
 from ..utils.enums import InputType, ModelType
 from ..utils.logger import get_logger, get_local_time, set_color
 from ..utils.utils import early_stopping, calculate_valid_score, dict2str, ensure_dir
@@ -51,6 +56,10 @@ from ..evaluator.evaluator import topk_metric_sums, TopKCollector, ValueCollecto
 from ..sampler.sampler import sample_negatives, sample_negatives_unchecked
 from ..ops.fused_adam import adam_leaf
 from ..ops.masked_topk import masked_topk
+
+# the score of a masked item in the non-fused full-sort step (parity:
+# trainer.py:36)
+NEG_INF = -1e15
 
 
 def build_optimizer(config):
@@ -414,21 +423,27 @@ class Trainer:
     # ------------------------------------------------------------- evaluation
 
     def _make_full_sort_eval_step(self, eval_data, metrics, max_k):
-        """Fused full-sort step (parity: trainer.py:934-1004): the loader's
-        device transform, then the model's query and item table go through
-        the masked top-k ([PAD] masked always, the user's earlier-phase items
-        unless the loader has ``mask_history = False``), then the hits reduce
-        to metric partial sums."""
+        """Full-sort step: the loader's device transform, then [PAD] masked
+        always and the user's earlier-phase items unless the loader has
+        ``mask_history = False``, then the hits reduce to metric partial
+        sums. A model with ``full_sort_query`` takes the fused path (parity:
+        trainer.py:934-1004): its query and item table go through the masked
+        top-k. A model with ``full_sort_predict`` only takes the non-fused
+        one (parity: trainer.py:1052-1075, without the chunked
+        ``score_items`` fallback): float32 scores, NEG_INF in the [PAD]
+        column and added at the history, ``torch.topk``."""
         model = self.model
         uid_f = self.config["USER_ID_FIELD"]
         if str(self.config["eval_score_dtype"]).lower() != "float32":
             raise NotImplementedError(
                 "eval_score_dtype other than float32 is not ported yet "
                 "(ROADMAP Queue 1, item 5)")
-        if not hasattr(model, "full_sort_query"):
+        fused = hasattr(model, "full_sort_query")
+        if not fused and type(model).full_sort_predict is AbstractRecommender.full_sort_predict:
             raise NotImplementedError(
-                "full-sort eval of models without full_sort_query (the "
-                "all_item_scores path) is not ported yet (ROADMAP Queue 1, item 5)")
+                "full-sort eval of models with neither full_sort_query nor "
+                "full_sort_predict (the chunked score_items path) is not ported "
+                "yet (ROADMAP Queue 1, item 5)")
         consts = {"hist": None, "hlen": None}
         if getattr(eval_data, "mask_history", True):
             consts["hist"], consts["hlen"] = eval_data.phase_history.device_tables(
@@ -445,11 +460,17 @@ class Trainer:
             if transform is not None:
                 batch = transform(batch, consts)
             user_id = batch[uid_f]
-            query, table = model.full_sort_query(batch)
             invalid = invalid_item_mask(user_id, consts["hist"], consts["hlen"],
                                         n_items)
-            _, topk_idx = masked_topk(query.contiguous(), table.contiguous(),
-                                      invalid, max_k)
+            if fused:
+                query, table = model.full_sort_query(batch)
+                _, topk_idx = masked_topk(query.contiguous(), table.contiguous(),
+                                          invalid, max_k)
+            else:
+                scores = model.full_sort_predict(batch).to(torch.float32)
+                scores = torch.where(invalid > 0, scores + NEG_INF, scores)
+                scores[:, 0] = NEG_INF
+                _, topk_idx = torch.topk(scores, max_k, dim=1)
             pos_valid = (torch.arange(pos_items.shape[1], device=pos_items.device)[None, :]
                          < pos_len[:, None])
             pos_index = ((topk_idx[:, :, None].long() == pos_items[:, None, :])

@@ -16,6 +16,7 @@ import torch
 from recbole_tpu.ops import embed_grad as jax_eg
 from recbole_tpu.ops.fused_adam import adam_leaf_kernel
 from recbole_tpu.ops.masked_topk import masked_topk_pallas, masked_topk_xla
+from recbole_tpu_torch.ops import bit_kernels as port_bits
 from recbole_tpu_torch.ops import embed_grad as port_eg
 from recbole_tpu_torch.ops import fused_adam, masked_topk as port_topk
 from recbole_tpu_torch.ops import trm_layer as port_trm
@@ -605,3 +606,91 @@ def test_trm_layer_autograd_and_limits_on_card(cuda_device):
     odd, oparams, ovalid, _ = _trm_inputs(2, 8, 18, 32, 6, cuda_device)
     with pytest.raises(ValueError, match="multiples of 4"):
         port_trm.trm_layer(odd, oparams, ovalid, n_heads=2, causal=True)
+
+
+# ------------------------------------------------- the packed-bit row and column kernels
+
+def _bit_inputs(n_major, nbytes, R, D, seed, device, dense=True):
+    """Packed rows (random bytes, or about 28 set bits a row as at the Yelp
+    shape), picked rows with repeats, and bf16 operands for both products."""
+    rng = np.random.RandomState(seed)
+    if dense:
+        bits = rng.randint(0, 256, (n_major, nbytes)).astype(np.uint8)
+    else:
+        bits = np.zeros((n_major, nbytes), np.uint8)
+        cols = rng.randint(0, nbytes * 8 - 100, (n_major, 28))
+        np.bitwise_or.at(bits, (np.repeat(np.arange(n_major), 28), cols.ravel() // 8),
+                         (1 << (cols.ravel() % 8)).astype(np.uint8))
+    rows = rng.randint(0, n_major, R).astype(np.int64)
+    if R > 2:
+        rows[1] = rows[0]
+    v = rng.randn(nbytes * 8 - 100, D).astype(np.float32)
+    g = rng.randn(R, D).astype(np.float32)
+
+    def dev(a, dtype=None):
+        t = torch.from_numpy(a).to(device)
+        return t if dtype is None else t.to(dtype)
+
+    return dev(bits), dev(rows), dev(v, torch.bfloat16), dev(g, torch.bfloat16)
+
+
+def _bit_close(out, ref, magnitude):
+    """Within 1e-5 of the sum of the terms' magnitudes, plus 1e-7."""
+    return bool(((out - ref).abs() <= 1e-5 * magnitude + 1e-7).all())
+
+
+def test_bit_launchers_refuse_cpu_tensors_and_dispatch_stays_plain():
+    bits, rows, v, g = _bit_inputs(40, 64, 9, 16, 0, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        port_bits.bit_rows_matmul_cuda(bits, rows, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_bits.bit_cols_matmul_cuda(bits, rows, g)
+    before = (port_bits.bit_rows_matmul_cuda.launches, port_bits.bit_cols_matmul_cuda.launches)
+    out = port_bits.bit_rows_matmul(bits, rows, v)
+    cols = port_bits.bit_cols_matmul(bits, rows, g)
+    assert (port_bits.bit_rows_matmul_cuda.launches,
+            port_bits.bit_cols_matmul_cuda.launches) == before
+    dense = port_bits.unpack_bits(bits[rows]).float().numpy()
+    np.testing.assert_allclose(out.numpy(), dense[:, :v.shape[0]] @ v.float().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(cols.numpy(), dense.T @ g.float().numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [2048, 4096, 1864, 1])
+@pytest.mark.parametrize("dense", [False, True])
+def test_bit_kernels_match_plain_on_card(cuda_device, R, dense):
+    """Both kernels against their plain versions at the Yelp sides' batch
+    sizes, a ragged batch and R = 1, on random bytes and on sparse rows:
+    within 1e-5 of the sum of the terms' magnitudes plus 1e-7; one launch
+    each; two runs bit-identical."""
+    bits, rows, v, g = _bit_inputs(3000, 12800 if R != 2048 else 12544, R, 64, R, cuda_device,
+                                   dense)
+    before = (port_bits.bit_rows_matmul_cuda.launches, port_bits.bit_cols_matmul_cuda.launches)
+    out = port_bits.bit_rows_matmul_cuda(bits, rows, v)
+    cols = port_bits.bit_cols_matmul_cuda(bits, rows, g)
+    assert (port_bits.bit_rows_matmul_cuda.launches,
+            port_bits.bit_cols_matmul_cuda.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, port_bits.bit_rows_matmul_cuda(bits, rows, v))
+    assert torch.equal(cols, port_bits.bit_cols_matmul_cuda(bits, rows, g))
+    assert _bit_close(out, port_bits.bit_rows_matmul_torch(bits, rows, v),
+                      port_bits.bit_rows_matmul_torch(bits, rows, v.abs()))
+    assert _bit_close(cols, port_bits.bit_cols_matmul_torch(bits, rows, g),
+                      port_bits.bit_cols_matmul_torch(bits, rows, g.abs()))
+
+
+@pytest.mark.cuda
+def test_bit_kernels_limits_on_card(cuda_device):
+    """Shapes beyond the built library's limits raise; nothing falls back."""
+    bits, rows, v, g = _bit_inputs(50, 64, 5, 16, 1, cuda_device)
+    limits = port_bits._lib().limits
+    with pytest.raises(ValueError, match="multiple"):
+        port_bits.bit_rows_matmul_cuda(bits[:, :limits["nbytes_multiple"] - 16].contiguous(),
+                                       rows, v[:8])
+    for D in (limits["max_d"] + limits["d_multiple"], limits["d_multiple"] + 1):
+        with pytest.raises(ValueError, match="D <="):
+            port_bits.bit_cols_matmul_cuda(bits, rows, torch.zeros(
+                (5, D), dtype=torch.bfloat16, device=cuda_device))
+    with pytest.raises(TypeError, match="int64"):
+        port_bits.bit_rows_matmul_cuda(bits, rows.int(), v)
