@@ -5,7 +5,7 @@
 
 Phases:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds the four csrc/*.cu, one process per source, all at
+  2. build: nvcc builds the six csrc/*.cu, one process per source, all at
      once (its -Xptxas -v report is printed), and the Triton Adam kernel is
      launched once;
   3. each kernel against its plain PyTorch version, on the card, at the main
@@ -14,7 +14,11 @@ Phases:
      kernels in both instances (bf16-rounded and fp32 operands), forward and
      backward, with dropout off and on (the plain version is handed the
      masks the kernels draw); the packed-bit row and column kernels on the
-     Yelp shape's packed rows and on random bytes;
+     Yelp shape's packed rows and on random bytes; the GRU recurrence
+     kernels in both instances, forward and backward, at GRU4Rec's and
+     NARM's step, ragged and eval batches, with zero and nonzero h0, and a
+     two-layer stack; the attention-only kernels, causal and bidirectional,
+     dropout off and on, with a sequence that has no valid key;
   4. the main paths, each with every kernel's launch count set to 0 just
      before and read just after (each kernel of the path must be > 0):
      a. run_recbole(model="BPR") for 2 epochs on an ml-1m-shaped dataset
@@ -35,9 +39,16 @@ Phases:
         Config -> data_preparation -> get_model -> get_trainer -> fit with
         validation -> evaluate(test): the hybrid operator and the restricted
         step, 1 epoch, then 20 steps under torch.profiler;
+     e. GRU4Rec at its defaults (embedding 64, hidden 128, 1 layer, dropout
+        0.3, CE, batch 2048, bf16) on the ml-1m-shaped file under TO_LS,full,
+        2 epochs, then 20 steps under torch.profiler;
+     f. NARM at its defaults (embedding 64, hidden 128, dropouts 0.25 and
+        0.5, CE; its GRU in fp32) on the same file, 1 epoch;
+     g. SASRec at its default widths with fused_attention True (the
+        attention-only kernel) on the same file, 1 epoch;
   5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's,
-     SASRec's and LightGCN's test recall@10 and DeepFM's test AUC, each held
-     to a floor;
+     SASRec's, LightGCN's, GRU4Rec's and NARM's test recall@10 and DeepFM's
+     test AUC, each held to a floor;
   6. timing with CUDA events at the main paths' shapes: kernel, plain
      version, the one-call library yardstick, and the card's bound for the
      same work.
@@ -120,6 +131,25 @@ LIGHTGCN_LEAF_SHAPES = [(YELP[0] + 1, 64), (YELP[1] + 1, 64)]
 # RecBole), with the restricted step forced on so that the bit kernels run
 ML100K_LIGHTGCN = {"epochs": 30, "use_restricted_step": True}
 LIGHTGCN_RECALL_FLOOR = 0.165
+
+# GRU4Rec's defaults (gru4rec.py:26-28) at the train batch: batch, positions,
+# embedding and hidden width; NARM's GRU has the same widths (narm.py:25-27)
+GRU4REC = dict(B=2048, L=50, E=64, H=128)
+# ml-100k GRU4Rec and NARM under the TO_LS full-sort protocol of
+# PARITY.md:93-160 at its 25-epoch budget: the JAX package on a TPU, 3 seeds,
+# test recall@10 0.1251-0.1357 (GRU4Rec; 0.1230 in fp32 on the CPU) and
+# 0.1273-0.1357 (NARM)
+ML100K_GRU = {**ML100K_SEQ, "epochs": 25}
+GRU_RECALL_FLOOR = 0.11
+# fused_gru against its plain version, as the largest |difference| of a
+# tensor over its largest |value|. fp32 instance: the same fp32 arithmetic in
+# another order, carried through 50 steps. bf16 instance: both round at the
+# same places, but an fp32 sum that lands on the other side of a rounding
+# boundary moves a stored h_t (or dxi) by one bf16 step, 2^-8 of its value
+GRU_TOL = {False: 1e-4, True: 1e-2}
+# fused_attention against its plain version: fp32 sums and exp in another
+# order
+ATTN_TOL = 1e-4
 
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
@@ -325,7 +355,8 @@ def phase_build(torch):
     from recbole_tpu_torch.ops import cuda_build
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     t0 = time.time()
-    logs = cuda_build.build(["masked_topk", "embed_grad", "trm_layer", "bit_kernels"])
+    logs = cuda_build.build(["masked_topk", "embed_grad", "trm_layer", "bit_kernels",
+                             "fused_gru", "fused_attention"])
     log(f"[build] nvcc {time.time() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -711,6 +742,184 @@ def check_trm_layer(torch):
     return worst
 
 
+def gru_inputs(torch, B, L, H, seed, bf16, h0):
+    """xi (bf16 in the bf16 instance), h0 (zero or not), wh in gru_init's
+    xavier-uniform range, bh and a cotangent, on the card."""
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    xi = torch.from_numpy(rng.randn(B, L, 3 * H).astype(np.float32)).to(dev)
+    if bf16:
+        xi = xi.to(torch.bfloat16)
+    lim = np.sqrt(6.0 / (4 * H))
+    wh = torch.from_numpy(rng.uniform(-lim, lim, (H, 3 * H)).astype(np.float32)).to(dev)
+    bh = torch.from_numpy((0.1 * rng.randn(3 * H)).astype(np.float32)).to(dev)
+    hinit = torch.from_numpy(((0.5 if h0 else 0.0) * rng.randn(B, H)).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.randn(B, L, H).astype(np.float32)).to(dev).to(xi.dtype)
+    return xi, hinit, wh, bh, dout
+
+
+def rel_err(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+def gru_stack(torch, gru, x, cdt, plain):
+    """layers.gru_apply's stack with every recurrence through the plain
+    version, for a CUDA tensor (the dispatcher would take the kernels)."""
+    from recbole_tpu_torch.models.layers import dot_c, gru_apply
+    from recbole_tpu_torch.ops.fused_gru import fused_gru_torch
+    if not plain:
+        return gru_apply(gru, x, compute_dtype=cdt)
+    for layer in gru:
+        xi = dot_c(x, layer.wi, cdt) + layer.bi
+        if cdt is not None:
+            xi = xi.to(cdt)
+        h0 = torch.zeros((x.shape[0], layer.wh.shape[0]), device=x.device)
+        x = fused_gru_torch(xi, h0, layer.wh, layer.bh, bf16=cdt is not None)
+    return x
+
+
+def check_gru(torch):
+    """fused_gru_fwd / fused_gru_bwd against the plain version on the card:
+    out, dxi, dh0, dwh, dbh, both instances (bf16 = GRU4Rec's default, fp32 =
+    NARM's GRU and GRU4Rec under float32), at the step (2,048), the ragged
+    last train batch of the ml-1m-shaped file (1,097), a full-sort batch
+    (4,096) and its last (1,944), h0 zero and not; two runs compared bit for
+    bit; then a two-layer GRU4Rec stack at full width through
+    layers.gru_apply against the plain version, forward and gradients."""
+    from recbole_tpu_torch.models.layers import GRU
+    from recbole_tpu_torch.ops import fused_gru as fg
+    L, E, H = GRU4REC["L"], GRU4REC["E"], GRU4REC["H"]
+    worst = {"fused_gru_fwd": 0.0, "fused_gru_bwd": 0.0}
+    log(f"[check] fused_gru shared memory a block: forward {fg._lib().fused_gru_smem_bytes(H, 0)}"
+        f", backward {fg._lib().fused_gru_smem_bytes(H, 1)} bytes at H={H}")
+    n = 0
+    for bf16 in (True, False):
+        for label, B in (("step", GRU4REC["B"]), ("last train batch", 1097),
+                         ("eval batch", 4096), ("last eval batch", 1944)):
+            for h0 in (False, True):
+                n += 1
+                xi, hinit, wh, bh, dout = gru_inputs(torch, B, L, H, 200 + n, bf16, h0)
+
+                def run():
+                    out = fg.fused_gru_fwd_cuda(xi, hinit, wh, bh)
+                    grads = fg.fused_gru_bwd_cuda(xi, hinit, wh, bh, out, dout)
+                    torch.cuda.synchronize()
+                    return (out, *grads)
+
+                got, again = run(), run()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                ref = (fg.fused_gru_torch_fwd(xi, hinit, wh, bh, bf16),
+                       *fg.fused_gru_torch_bwd(xi, hinit, wh, bh, got[0], dout, bf16))
+                names = ("out", "dxi", "dh0", "dwh", "dbh")
+                errs = {k: rel_err(a, b) for k, a, b in zip(names, got, ref)}
+                tol = GRU_TOL[bf16]
+                log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} ({label}) B={B} L={L} H={H} "
+                    f"h0={'nonzero' if h0 else 'zero'}: " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in errs.items())
+                    + f" (tolerance {tol} of the tensor's largest value); two runs "
+                    f"bit-identical: {same}")
+                if not all(bool(torch.isfinite(t.float()).all()) for t in got):
+                    raise AssertionError(f"fused_gru {label}: non-finite output")
+                if max(errs.values()) > tol:
+                    raise AssertionError(f"fused_gru {label}: beyond tolerance {tol}: {errs}")
+                if not same:
+                    raise AssertionError(f"fused_gru {label}: two runs differ, the kernels are "
+                                         "meant to be deterministic")
+                worst["fused_gru_fwd"] = max(worst["fused_gru_fwd"],
+                                             float((got[0].float() - ref[0].float()).abs().max()))
+                worst["fused_gru_bwd"] = max([worst["fused_gru_bwd"], *(
+                    float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], ref[1:]))])
+    for cdt in (torch.bfloat16, None):
+        gru = GRU(torch.Generator(device="cuda").manual_seed(5), E, H, 2, "cuda")
+        rng = np.random.RandomState(31)
+        x0 = torch.from_numpy(rng.randn(GRU4REC["B"], L, E).astype(np.float32)).cuda()
+        dy = torch.from_numpy(rng.randn(GRU4REC["B"], L, H).astype(np.float32)).cuda()
+        res = {}
+        for plain in (False, True):
+            x = x0.clone().requires_grad_(True)
+            for p in gru.parameters():
+                p.grad = None
+            out = gru_stack(torch, gru, x, cdt, plain)
+            (out.float() * dy.to(out.dtype).float()).sum().backward()
+            torch.cuda.synchronize()
+            res[plain] = {"out": out.detach(), "dx": x.grad,
+                          **{n: p.grad.clone() for n, p in gru.named_parameters()}}
+        errs = {k: rel_err(res[False][k], res[True][k]) for k in res[True]}
+        tol = GRU_TOL[cdt is not None]
+        log(f"[check] gru_apply two layers {'bf16' if cdt else 'fp32'} B={GRU4REC['B']} L={L} "
+            f"{E}->{H}->{H}: worst {max(errs, key=errs.get)} {max(errs.values()):.3e} "
+            f"(tolerance {tol})")
+        if max(errs.values()) > tol:
+            raise AssertionError(f"gru_apply two layers: beyond tolerance {tol}: {errs}")
+    return worst
+
+
+def attention_inputs(torch, B, L, H, hd, seed, empty_row=True):
+    """q, k, v, a cotangent (B, L, H, hd) and key validity from random
+    lengths; sequence 0 has no valid key when ``empty_row``."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, L, H, hd).astype(np.float32)).cuda()
+                   for _ in range(4))
+    lens = rng.randint(1, L + 1, B)
+    if empty_row:
+        lens[0] = 0
+    valid = torch.from_numpy((np.arange(L)[None, :] < lens[:, None]).astype(np.int32)).cuda()
+    return q, k, v, valid, do
+
+
+def check_attention(torch):
+    """fused_attention_fwd / _bwd against the plain version fed the masks the
+    kernels draw (autograd of the plain forward for the gradients: so the
+    backward kernel's regenerated masks are the forward's), causal and
+    bidirectional, dropout 0 and 0.5, with a sequence that has no valid key,
+    at SASRec's step, its ragged last train batch and an eval batch; the
+    keep rates; two runs compared bit for bit."""
+    from recbole_tpu_torch.ops import fused_attention as fa
+    L, H = SASREC["L"], SASREC["H"]
+    hd = SASREC["D"] // H
+    worst = {"fused_attention_fwd": 0.0, "fused_attention_bwd": 0.0}
+    cases = [("SASRec step", SASREC["B"], causal, rate)
+             for causal in (True, False) for rate in (0.0, 0.5)]
+    cases += [("last train batch", 1097, True, 0.5), ("eval batch", 4096, True, 0.0)]
+    for n, (label, B, causal, rate) in enumerate(cases):
+        q, k, v, valid, do = attention_inputs(torch, B, L, H, hd, 300 + n)
+        seed = torch.tensor([0x7654321 + 31 * n], dtype=torch.int64, device="cuda")
+        kw = dict(causal=causal, rate=rate, layer=n % 2)
+
+        def run():
+            out = (fa.fused_attention_fwd_cuda(q, k, v, valid, seed, **kw),
+                   *fa.fused_attention_bwd_cuda(q, k, v, valid, do, seed, **kw))
+            torch.cuda.synchronize()
+            return out
+
+        got, again = run(), run()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        masks, kept = None, ""
+        if rate > 0.0:
+            masks = fa.fused_attention_dropout_masks_cuda(seed, B, H, L, rate, layer=n % 2)
+            kept = f" kept {check_keep_rate(masks, rate, f'attention {label} mask'):.4f}"
+        tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        ref = fa.fused_attention_torch(tq, tk, tv, valid, causal, rate, masks=masks)
+        (ref * do).sum().backward()
+        ref = (ref.detach(), tq.grad, tk.grad, tv.grad)
+        errs = {name: rel_err(a, b) for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
+        log(f"[check] fused_attention ({label}) B={B} L={L} H={H} hd={hd} causal={causal} "
+            f"dropout={rate} empty_row=True: " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tolerance {ATTN_TOL} of the tensor's largest value){kept}; two runs "
+            f"bit-identical: {same}")
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            raise AssertionError(f"fused_attention {label}: non-finite output")
+        if max(errs.values()) > ATTN_TOL:
+            raise AssertionError(f"fused_attention {label}: beyond tolerance: {errs}")
+        if not same:
+            raise AssertionError(f"fused_attention {label}: two runs differ")
+        worst["fused_attention_fwd"] = max(worst["fused_attention_fwd"],
+                                           float((got[0] - ref[0]).abs().max()))
+        worst["fused_attention_bwd"] = max([worst["fused_attention_bwd"], *(
+            float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))])
+    return worst
+
+
 def capture_epoch_times():
     """Collect the trainer's own epoch and evaluation timings from its log
     records (a logger filter survives init_logger's handler reset)."""
@@ -744,12 +953,17 @@ def kernel_wrappers():
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda
     from recbole_tpu_torch.ops import bit_kernels as bk
+    from recbole_tpu_torch.ops import fused_attention as fa
+    from recbole_tpu_torch.ops import fused_gru as fg
     return {"masked_topk": masked_topk_cuda, "adam_leaf": adam_leaf_triton,
             "onehot_matmul_grad": eg.onehot_matmul_grad_cuda,
             "windowed_grad": eg.windowed_grad_cuda,
             "trm_layer_fwd": tl.trm_layer_fwd_cuda, "trm_layer_bwd": tl.trm_layer_bwd_cuda,
             "bit_rows_matmul": bk.bit_rows_matmul_cuda,
-            "bit_cols_matmul": bk.bit_cols_matmul_cuda}
+            "bit_cols_matmul": bk.bit_cols_matmul_cuda,
+            "fused_gru_fwd": fg.fused_gru_fwd_cuda, "fused_gru_bwd": fg.fused_gru_bwd_cuda,
+            "fused_attention_fwd": fa.fused_attention_fwd_cuda,
+            "fused_attention_bwd": fa.fused_attention_bwd_cuda}
 
 
 def reset_launches():
@@ -762,12 +976,17 @@ def reset_launches():
 def read_launches(path, must_launch):
     """The wrappers' counts; the transformer wrappers count both instances,
     told apart here: trm_layer_* is the bf16 instance's share,
-    fused_transformer_layer_* the fp32 instance's."""
+    fused_transformer_layer_* the fp32 instance's. fused_gru_* count both of
+    theirs (one TPU kernel), and fused_gru_*_fp32 is the fp32 share."""
     launches = {}
     for name, fn in kernel_wrappers().items():
-        launches[name] = fn.launches - getattr(fn, "launches_fp32", 0)
-        if hasattr(fn, "launches_fp32"):
+        if name.startswith("trm_layer"):
+            launches[name] = fn.launches - fn.launches_fp32
             launches[name.replace("trm_layer", "fused_transformer_layer")] = fn.launches_fp32
+        else:
+            launches[name] = fn.launches
+            if hasattr(fn, "launches_fp32"):
+                launches[f"{name}_fp32"] = fn.launches_fp32
     log(f"[{path}] launches {launches}")
     never = [name for name in must_launch if launches[name] <= 0]
     if never:
@@ -1032,6 +1251,116 @@ def phase_lightgcn(torch, tmp):
     return launches
 
 
+def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, must_launch,
+              must_not):
+    """One sequential model on the ml-1m-shaped file (written by phase_bpr)
+    under TO_LS,full through Config -> data_preparation -> get_model ->
+    get_trainer -> fit with validation -> evaluate(test), with every
+    kernel's launch count set to 0 just before and read just after; then 20
+    steady steps under the profiler. Returns (launches, model, config)."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import get_trainer
+    from recbole_tpu_torch.utils.logger import init_logger
+    from recbole_tpu_torch.utils.utils import init_seed
+    config = Config(model_name, "ml-1m-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "epochs": epochs, "device": "cuda",
+        "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
+        "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False,
+        **config_extra}, _parse_cmd_line=False)
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    t0 = time.time()
+    train, valid, test = data_preparation(config, create_dataset(config))
+    log(f"[{tag}] dataset, TO_LS splits and loaders in {time.time() - t0:.1f}s: train "
+        f"{train.n} valid {valid.n} test {test.n} examples, eval batch {valid.batch_size}")
+    model = get_model(model_name)(config, train.dataset)
+    widths = {k: config[k] for k in widths_keys}
+    log(f"[{tag}] widths {widths}; compute dtype {model.compute_dtype} (cdt {model.cdt}); "
+        f"{sum(p.numel() for p in model.parameters())} parameters in "
+        f"{len(list(model.parameters()))} leaves")
+    trainer = get_trainer(config["MODEL_TYPE"], model_name)(config, model)
+    times, release = capture_epoch_times()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    best_score, best_valid = trainer.fit(train, valid, saved=False)
+    test_result = trainer.evaluate(test, load_best_model=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches(tag, must_launch)
+    release()
+    ran = {k: launches[k] for k in must_not if launches[k]}
+    if ran:
+        raise AssertionError(f"kernels off the {tag} path were launched: {ran}")
+    result = {"best_valid_result": best_valid, "test_result": test_result}
+    log(f"[{tag}] fit ({epochs} epochs, validation each) + test: {wall:.2f}s wall")
+    log(f"[{tag}] result {json.dumps(result)}")
+    check_result(result, JAX_ML100K)
+    steps = epochs * len(train)
+    log(f"[{tag}] {steps} steps; launches per step: " + ", ".join(
+        f"{k} {launches[k] / steps:.2f}" for k in must_launch) + "; forward kernels count "
+        "the eval batches too")
+    log(f"[{tag}] epoch seconds {times['train']} (epoch 0 includes the upload); "
+        f"train examples/s (last epoch): {train.n / times['train'][-1]:.1f}; "
+        f"ms/step (last epoch): {1e3 * times['train'][-1] / len(train):.3f}")
+    log(f"[{tag}] full-sort valid pass seconds {times['eval']}")
+    log(f"[{tag}] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    profile_steps(torch, trainer, train, tag)
+    return launches, model, widths
+
+
+def phase_gru4rec(torch, tmp):
+    """GRU4Rec at its defaults, 2 epochs: the bf16 instance of the GRU
+    kernels, the one-hot gradient, Adam and the masked top-k."""
+    launches, model, widths = seq_phase(
+        torch, tmp, "gru4rec", "GRU4Rec", {}, 2,
+        ("embedding_size", "hidden_size", "num_layers", "dropout_prob", "loss_type",
+         "MAX_ITEM_LIST_LENGTH", "train_batch_size"),
+        ("fused_gru_fwd", "fused_gru_bwd", "onehot_matmul_grad", "adam_leaf", "masked_topk"),
+        ("fused_gru_fwd_fp32", "fused_gru_bwd_fp32", "trm_layer_fwd", "windowed_grad"))
+    if tuple(widths.values()) != (64, 128, 1, 0.3, "CE", 50, 2048) \
+            or model.cdt != torch.bfloat16:
+        raise AssertionError(f"GRU4Rec was not built at its defaults: {widths}, {model.cdt}")
+    return launches
+
+
+def phase_narm(torch, tmp):
+    """NARM at its defaults, 1 epoch (cut): the fp32 instance of the GRU
+    kernels; its full-sort eval is the non-fused route (no masked top-k)."""
+    launches, model, widths = seq_phase(
+        torch, tmp, "narm", "NARM", {}, 1,
+        ("embedding_size", "hidden_size", "n_layers", "dropout_probs", "loss_type",
+         "MAX_ITEM_LIST_LENGTH", "train_batch_size"),
+        ("fused_gru_fwd_fp32", "fused_gru_bwd_fp32", "onehot_matmul_grad", "adam_leaf"),
+        ("masked_topk", "trm_layer_fwd", "windowed_grad"))
+    if (widths["embedding_size"], widths["hidden_size"], widths["n_layers"],
+            list(widths["dropout_probs"]), widths["train_batch_size"]) != (64, 128, 1,
+                                                                         [0.25, 0.5], 2048):
+        raise AssertionError(f"NARM was not built at its defaults: {widths}")
+    if launches["fused_gru_fwd"] != launches["fused_gru_fwd_fp32"]:
+        raise AssertionError("NARM's GRU ran the bf16 instance")
+    return launches
+
+
+def phase_sasrec_attention(torch, tmp):
+    """SASRec at its default widths with fused_attention True, 1 epoch: the
+    attention-only kernels; the whole-layer kernels stay off."""
+    launches, model, widths = seq_phase(
+        torch, tmp, "sasrec_attention", "SASRec", {"fused_attention": True}, 1,
+        ("n_layers", "n_heads", "hidden_size", "inner_size", "MAX_ITEM_LIST_LENGTH",
+         "attn_dropout_prob", "fused_attention", "train_batch_size"),
+        ("fused_attention_fwd", "fused_attention_bwd", "onehot_matmul_grad", "adam_leaf",
+         "masked_topk"),
+        ("trm_layer_fwd", "trm_layer_bwd", "fused_transformer_layer_fwd",
+         "fused_transformer_layer_bwd", "windowed_grad"))
+    if tuple(widths.values()) != (2, 2, 64, 256, 50, 0.5, True, 2048):
+        raise AssertionError(f"SASRec was not built at its default widths: {widths}")
+    return launches
+
+
 def profile_steps(torch, trainer, train, tag, steps=20):
     """Where a steady train step's time goes: ``steps`` more steps under
     torch.profiler. Logs the wall time, the time the card is busy, the
@@ -1145,6 +1474,30 @@ def phase_quality(torch, tmp):
         raise AssertionError(f"ml-100k LightGCN test recall@10 {test['recall@10']} < "
                              f"{LIGHTGCN_RECALL_FLOOR}")
 
+    from recbole_tpu_torch.ops import fused_gru as fg
+    for model, ref in (("GRU4Rec", "0.1251-0.1357 (0.1230 in fp32 on the CPU)"),
+                       ("NARM", "0.1273-0.1357")):
+        before = fg.fused_gru_bwd_cuda.launches
+        t0 = time.time()
+        result = run_recbole(model=model, dataset="ml-100k", config_dict={
+            **ML100K_GRU, "valid_full_to_uni1000": False, "device": "cuda",
+            "checkpoint_dir": os.path.join(tmp, "saved100k"),
+            "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING",
+            "show_progress": False})
+        test = result["test_result"]
+        ran = fg.fused_gru_bwd_cuda.launches - before
+        log(f"[quality] ml-100k {model} (TO_LS full-sort, 25 epochs, early stopping on mrr@10) "
+            f"{time.time() - t0:.1f}s; fused_gru_bwd launches {ran}; best valid "
+            f"{result['best_valid_result']}")
+        log(f"[quality]   test {json.dumps(test)}   JAX package on a TPU, 3 seeds "
+            f"(PARITY.md:93-160): recall@10 {ref}")
+        check_result(result, JAX_ML100K)
+        if ran <= 0:
+            raise AssertionError(f"the ml-100k {model} run did not go through the GRU kernels")
+        if test["recall@10"] < GRU_RECALL_FLOOR:
+            raise AssertionError(f"ml-100k {model} test recall@10 {test['recall@10']} < "
+                                 f"{GRU_RECALL_FLOOR}")
+
 
 def time_adam(torch, leaves, iters):
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton, adam_leaf_torch
@@ -1240,6 +1593,8 @@ def phase_timing(torch):
     out["onehot_matmul_grad"]["sasrec"] = time_onehot_sasrec(torch)
     out.update(time_trm_layer(torch))
     out.update(time_bit_kernels(torch))
+    out.update(time_gru(torch))
+    out.update(time_attention(torch))
     return out
 
 
@@ -1381,6 +1736,132 @@ def time_trm_layer(torch):
     return out
 
 
+def time_gru(torch):
+    """Both GRU kernels, both instances, at GRU4Rec's step (B 2,048, L 50,
+    H 128), beside the plain version, the bound and torch.nn.GRU (cuDNN;
+    batch_first, weight_ih = wi^T, weight_hh = wh^T, the same biases; it
+    also computes the (B L, 64) x (64, 384) input projection that the
+    kernels take in as xi): forward, and forward + backward beside the
+    backward kernel. The bound counts the recurrent products (2 B L H 3H
+    forward; the backward's recompute, dhh wh^T and h^T dhh, three times
+    that) at the fp32 rate (fp32 instance) or the bf16 tensor-core rate
+    (bf16 instance), and xi, out (dout, dxi) moved once in the instance's
+    type."""
+    from recbole_tpu_torch.ops import fused_gru as fg
+    B, L, E, H = (GRU4REC[k] for k in ("B", "L", "E", "H"))
+    out = {}
+    for bf16 in (True, False):
+        xi, hinit, wh, bh, dout = gru_inputs(torch, B, L, H, 41, bf16, False)
+        y = fg.fused_gru_fwd_cuda(xi, hinit, wh, bh)
+        dt = torch.bfloat16 if bf16 else torch.float32
+        rng = np.random.RandomState(42)
+        wi = torch.from_numpy(rng.uniform(-0.1, 0.1, (E, 3 * H)).astype(np.float32)).cuda()
+        lib = torch.nn.GRU(E, H, batch_first=True, device="cuda")
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(wi.T)
+            lib.weight_hh_l0.copy_(wh.T)
+            lib.bias_ih_l0.zero_()
+            lib.bias_hh_l0.copy_(bh)
+        lib = lib.to(dt)
+        x = torch.from_numpy(rng.randn(B, L, E).astype(np.float32)).cuda().to(dt)
+        xg = x.clone().requires_grad_(True)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return lib(x)[0]
+
+        def lib_fwd_bwd():
+            for prm in lib.parameters():
+                prm.grad = None
+            xg.grad = None
+            lib(xg)[0].backward(dout)
+
+        try:
+            library = {"fwd": cuda_ms(torch, lib_fwd, 20),
+                       "bwd": cuda_ms(torch, lib_fwd_bwd, 20)}
+        except RuntimeError as exc:     # the yardstick only: a library without this dtype
+            log(f"[time] nn.GRU in {dt} did not run: {exc}")
+            library = {"fwd": None, "bwd": None}
+        calls = {"fwd": (lambda: fg.fused_gru_fwd_cuda(xi, hinit, wh, bh),
+                         lambda: fg.fused_gru_torch_fwd(xi, hinit, wh, bh, bf16)),
+                 "bwd": (lambda: fg.fused_gru_bwd_cuda(xi, hinit, wh, bh, y, dout),
+                         lambda: fg.fused_gru_torch_bwd(xi, hinit, wh, bh, y, dout, bf16))}
+        elt = 2 if bf16 else 4
+        for way, (kernel, plain) in calls.items():
+            flops = 2.0 * B * L * H * 3 * H * (3 if way == "bwd" else 1)
+            nbytes = B * L * (3 * H + H) * elt * (2 if way == "bwd" else 1) + \
+                4 * (B * H * (2 if way == "bwd" else 1) + H * 3 * H + 3 * H)
+            t = {"ms": cuda_ms(torch, kernel, 20), "plain_ms": cuda_ms(torch, plain, 5),
+                 "library_ms": library[way]}
+            t["bound_ms"], t["bound_by"] = bound(flops, nbytes,
+                                                 PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+            key = f"fused_gru_{way}"
+            if bf16:
+                out[key] = t
+            else:
+                out[key]["fp32"] = t
+            log(f"[time] {key} {'bf16' if bf16 else 'fp32'} B={B} L={L} H={H} "
+                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; library nn.GRU {E}->{H} "
+                f"with its input projection): {t}")
+    return out
+
+
+def time_attention(torch):
+    """Both attention kernels at SASRec's step (B 2,048, L 50, H 2, hd 32),
+    causal, dropout 0.5, beside the plain version (forward, and forward +
+    autograd backward beside the backward kernel), the bound and
+    F.scaled_dot_product_attention with a boolean mask in fp32 on inputs
+    already in its (B, H, L, hd) layout (the transposes not counted), no
+    dropout: forward, and forward + backward. The bound: q, k, v, the key
+    validity (dO) in and o (dq, dk, dv) out once; the products over the
+    L (L + 1) / 2 causal pairs (two forward, five backward)."""
+    from torch.nn import functional as F
+    from recbole_tpu_torch.ops import fused_attention as fa
+    B, L, H = SASREC["B"], SASREC["L"], SASREC["H"]
+    hd = SASREC["D"] // H
+    q, k, v, valid, do = attention_inputs(torch, B, L, H, hd, 51, empty_row=False)
+    seed = torch.tensor([51], dtype=torch.int64, device="cuda")
+    masks = fa.fused_attention_dropout_masks_cuda(seed, B, H, L, 0.5)
+    kw = dict(causal=True, rate=0.5)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    allowed = (valid[:, None, None, :] > 0) & torch.tril(
+        torch.ones(L, L, dtype=torch.bool, device="cuda"))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
+    pq, pk, pv = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+
+    def lib_bwd():
+        for t in (qg, kg, vg):
+            t.grad = None
+        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=allowed).backward(dot)
+
+    def plain_bwd():
+        for t in (pq, pk, pv):
+            t.grad = None
+        fa.fused_attention_torch(pq, pk, pv, valid, True, 0.5, masks=masks).backward(do)
+
+    calls = {"fwd": (lambda: fa.fused_attention_fwd_cuda(q, k, v, valid, seed, **kw),
+                     lambda: fa.fused_attention_torch(q, k, v, valid, True, 0.5, masks=masks),
+                     lib_fwd),
+             "bwd": (lambda: fa.fused_attention_bwd_cuda(q, k, v, valid, do, seed, **kw),
+                     plain_bwd, lib_bwd)}
+    pairs = L * (L + 1) // 2
+    slab = B * L * H * hd * 4
+    out = {}
+    for way, (kernel, plain, lib) in calls.items():
+        flops = 2.0 * B * H * pairs * hd * (5 if way == "bwd" else 2)
+        nbytes = slab * (7 if way == "bwd" else 4) + B * L * 4
+        t = {"ms": cuda_ms(torch, kernel, 50), "plain_ms": cuda_ms(torch, plain, 20),
+             "library_ms": cuda_ms(torch, lib, 50)}
+        t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+        out[f"fused_attention_{way}"] = t
+        log(f"[time] fused_attention_{way} B={B} L={L} H={H} hd={hd} causal, dropout 0.5 "
+            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): {t}")
+    return out
+
+
 KERNEL_META = {
     "masked_topk": {"route": "cuda", "source": "recbole_tpu_torch/csrc/masked_topk.cu",
                     "replaces": "recbole_tpu/ops/masked_topk.py:94"},
@@ -1406,6 +1887,19 @@ KERNEL_META = {
                         "replaces": "recbole_tpu/ops/bit_kernels.py:56"},
     "bit_cols_matmul": {"route": "cuda", "source": "recbole_tpu_torch/csrc/bit_kernels.cu",
                         "replaces": "recbole_tpu/ops/bit_kernels.py:95"},
+    # the GRU recurrence, both instances together (bf16: gru_apply's rounding
+    # points; fp32: fused_gru's math); the timing's "fp32" entry is the fp32
+    # instance's
+    "fused_gru_fwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/fused_gru.cu",
+                      "replaces": "recbole_tpu/ops/fused_gru.py:192"},
+    "fused_gru_bwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/fused_gru.cu",
+                      "replaces": "recbole_tpu/ops/fused_gru.py:192"},
+    "fused_attention_fwd": {"route": "cuda",
+                            "source": "recbole_tpu_torch/csrc/fused_attention.cu",
+                            "replaces": "recbole_tpu/ops/fused_attention.py:204"},
+    "fused_attention_bwd": {"route": "cuda",
+                            "source": "recbole_tpu_torch/csrc/fused_attention.cu",
+                            "replaces": "recbole_tpu/ops/fused_attention.py:204"},
 }
 
 
@@ -1433,6 +1927,8 @@ def main():
         err[kname] = check_embed_grad(torch, kname, cases)
     err.update(check_trm_layer(torch))
     err.update(check_bit_kernels(torch, yelp_bit_inputs(torch)))
+    err.update(check_gru(torch))
+    err.update(check_attention(torch))
     torch.cuda.empty_cache()
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1441,6 +1937,9 @@ def main():
         by_path["sasrec"] = phase_sasrec(torch, tmp)
         by_path["sasrec_fp32"] = phase_sasrec_fp32(torch, tmp)
         by_path["lightgcn"] = phase_lightgcn(torch, tmp)
+        by_path["gru4rec"] = phase_gru4rec(torch, tmp)
+        by_path["narm"] = phase_narm(torch, tmp)
+        by_path["sasrec_attention"] = phase_sasrec_attention(torch, tmp)
         phase_quality(torch, tmp)
     timing = phase_timing(torch)
     kernels = [{"name": kname, **KERNEL_META[kname],

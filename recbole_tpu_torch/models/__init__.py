@@ -4,11 +4,11 @@ Port of recbole_tpu/models/__init__.py. Models self-register with
 @register_model at import time; get_model imports the category packages
 lazily on first lookup (case-insensitive, exact-case preferred). Ported so
 far: the general family's BPR and LightGCN, the context family's base with
-DeepFM, FM and LR, and the sequential family's base with SASRec. The other
-graph models of the general family raise ``NotImplementedError`` naming
-ROADMAP Queue 1, item 8; any other name raises ``ValueError``; the other 11
-context models, the other 24 sequential models and the remaining families
-are ROADMAP Queue 1.
+DeepFM, FM and LR, and the sequential family's base with SASRec, GRU4Rec
+and NARM. The other graph models of the general family raise
+``NotImplementedError`` naming ROADMAP Queue 1, item 8; any other name
+raises ``ValueError``; the other 11 context models, the other 22 sequential
+models and the remaining families are ROADMAP Queue 1.
 """
 
 import importlib

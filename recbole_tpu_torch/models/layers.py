@@ -5,9 +5,10 @@ Port of recbole_tpu/models/layers.py's ``xavier_normal``, ``xavier_uniform``,
 ``cast_compute``/``dot_c`` (:84-101), ``activation`` (:106-116), ``bn_apply``
 (:119-134), the MLP (``mlp_init``/``mlp_apply``, :137-176, as the module
 ``MLPLayers``), ``dropout_apply`` (:179-194), ``fm_pairwise`` (:199-207),
+the GRU (``gru_init`` :212 as the module ``GRU``, ``gru_apply`` :228-283),
 the transformer encoder (``transformer_init`` :288 as the module
 ``TransformerEncoder``, ``layer_norm`` :310, ``transformer_apply`` :316-467)
-and the attention-mask helpers (:470-490). ``gru_apply`` is not ported yet.
+and the attention-mask helpers (:470-490).
 Randomness comes from an explicit torch.Generator on the tensor's device,
 never from the global RNG. Linear weights keep the JAX package's (in, out)
 layout, so ``x @ w + b`` is the same expression in both packages.
@@ -166,6 +167,56 @@ def fm_pairwise(emb):
     return 0.5 * torch.sum(sum_sq - sq_sum, dim=-1)
 
 
+# ------------------------------------------------------------------------ GRU
+
+class _GRULayer(nn.Module):
+    """The 4 leaves of one GRU layer, under the JAX param dict's names."""
+
+    def __init__(self, generator, in_dim, hidden, device):
+        super().__init__()
+        # gru_init's draw order: wi, then wh
+        self.wi = nn.Parameter(xavier_uniform(generator, (in_dim, 3 * hidden), device))
+        self.wh = nn.Parameter(xavier_uniform(generator, (hidden, 3 * hidden), device))
+        self.bi = nn.Parameter(torch.zeros(3 * hidden, device=device))
+        self.bh = nn.Parameter(torch.zeros(3 * hidden, device=device))
+
+
+class GRU(nn.ModuleList):
+    """parity: ``gru_init`` (JAX layers.py:212-225), the reference's nn.GRU
+    with gates ordered r, z, n: xavier-uniform weights and zero biases,
+    (in, out) layout. Layer i's parameters are named ``<i>.wi``, ``<i>.wh``,
+    ``<i>.bi``, ``<i>.bh``, the paths of the JAX package's list of layer
+    dicts."""
+
+    def __init__(self, generator, input_size, hidden_size, n_layers, device):
+        super().__init__(_GRULayer(generator, input_size if i == 0 else hidden_size,
+                                   hidden_size, device) for i in range(n_layers))
+
+
+def gru_apply(gru, x, h0=None, compute_dtype=None):
+    """x (B, L, D) -> the last layer's outputs (B, L, H), in the compute
+    dtype (float32 when it is None). Per layer the input projection
+    ``xi = x @ wi + bi`` is one plain product, as the JAX package leaves it
+    to XLA, and the recurrence goes through ``ops/fused_gru.py``: under a
+    bfloat16 compute dtype ``xi`` is stored in bfloat16 and the bf16
+    instance rounds as ``gru_apply``'s scan does (JAX :265-278); otherwise
+    the fp32 instance. The JAX package's ``fused=`` argument, which no
+    caller passes, is gone: the device picks the path (the plain version on
+    the CPU, the hand-written kernels on CUDA, nothing falling back)."""
+    from ..ops.fused_gru import fused_gru
+    bf16 = compute_dtype is not None and compute_dtype != torch.float32
+    B = x.shape[0]
+    for layer in gru:
+        H = layer.wh.shape[0]
+        h_init = (torch.zeros((B, H), dtype=torch.float32, device=x.device) if h0 is None
+                  else h0.to(torch.float32))
+        xi = dot_c(x, layer.wi, compute_dtype) + layer.bi
+        if bf16:
+            xi = xi.to(compute_dtype)
+        x = fused_gru(xi, h_init, layer.wh, layer.bh)
+    return x
+
+
 # --------------------------------------------------------------- transformer
 
 TRANSFORMER_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
@@ -237,8 +288,14 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
     * ``"layer"``: the float32 instance (ops/fused_transformer.py); a
       bfloat16 ``compute_dtype`` raises, as the JAX package takes this path
       only under float32.
+    * ``True``: the plain path below with its attention (mask, softmax,
+      attention dropout, ``@ v``) through the attention-only kernel
+      (ops/fused_attention.py, JAX :390-423): q, k, v are float32
+      ``dot_c(x, w) + b`` reshaped to (B, L, H, hd), the kernel's context
+      goes through ``wo``, the hidden dropout, add & LayerNorm and the FFN
+      with ``compute_dtype`` honoured. Each layer's dropout stream is the
+      Philox layer counter under one seed drawn per call.
     * ``False``: the plain path below, the kernels' oracle.
-    * ``True``: the attention-only kernel, which is not ported yet.
 
     On a CUDA tensor a fused path launches its kernel or raises; nothing
     falls back to the plain path."""
@@ -264,15 +321,24 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
                           attn_dropout=attn_dropout if dropping else 0.0, seed=seed,
                           generator=generator, layer=li, bf16=bf16)
         return x
-    if fused:
-        raise NotImplementedError(
-            "fused_attention: True (the attention-only kernel, ops/fused_attention.py) is "
-            'not ported yet (ROADMAP Queue 2); use "layer2", "layer" or False')
-    if attn_mask is None:
+    if fused is True:
+        if mask_spec is None:
+            raise ValueError("fused_attention: True needs mask_spec=(key_valid, causal)")
+        from ..ops.fused_attention import fused_attention
+        from ..ops.trm_layer import draw_seed
+        key_valid, causal = mask_spec
+        attn_rate = attn_dropout if generator is not None else 0.0
+        seed = None
+        if attn_rate > 0.0 and x.device.type != "cpu":
+            seed = draw_seed(generator, x.device)
+    elif fused:
+        raise ValueError(f"fused_attention: {fused!r} is not a path; the port has "
+                         '"layer2", "layer", True and False')
+    elif attn_mask is None:
         key_valid, causal = mask_spec
         attn_mask = (causal_attention_mask_from_valid(key_valid) if causal
                      else bidirectional_attention_mask(key_valid > 0))
-    for layer in params:
+    for li, layer in enumerate(params):
         B, L, D = x.shape
         hd = D // n_heads
 
@@ -282,16 +348,20 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
         q = proj(layer["wq"], layer["bq"])
         k = proj(layer["wk"], layer["bk"])
         v = proj(layer["wv"], layer["bv"])
-        q, k = cast_compute(compute_dtype, q, k)
-        scores = torch.einsum("blhd,bmhd->bhlm", q.to(torch.float32),
-                              k.to(torch.float32)) / math.sqrt(hd)
-        scores = scores + attn_mask
-        probs = torch.softmax(scores, dim=-1)
-        if dropping and attn_dropout > 0.0:
-            probs = dropout_apply(generator, probs, attn_dropout)
-        probs, v = cast_compute(compute_dtype, probs, v)
-        ctx = torch.einsum("bhlm,bmhd->blhd", probs.to(torch.float32),
-                           v.to(torch.float32)).reshape(B, L, D)
+        if fused is True:
+            ctx = fused_attention(q, k, v, key_valid, causal=causal, rate=attn_rate, seed=seed,
+                                  generator=generator, layer=li).reshape(B, L, D)
+        else:
+            q, k = cast_compute(compute_dtype, q, k)
+            scores = torch.einsum("blhd,bmhd->bhlm", q.to(torch.float32),
+                                  k.to(torch.float32)) / math.sqrt(hd)
+            scores = scores + attn_mask
+            probs = torch.softmax(scores, dim=-1)
+            if dropping and attn_dropout > 0.0:
+                probs = dropout_apply(generator, probs, attn_dropout)
+            probs, v = cast_compute(compute_dtype, probs, v)
+            ctx = torch.einsum("bhlm,bmhd->blhd", probs.to(torch.float32),
+                               v.to(torch.float32)).reshape(B, L, D)
         attn_out = dot_c(ctx, layer["wo"], compute_dtype) + layer["bo"]
         if dropping and dropout > 0.0:
             attn_out = dropout_apply(generator, attn_out, dropout)

@@ -22,11 +22,13 @@ model's device:
     masks from the trainer's generator;
   * Adam is the single-pass in-place sweep of ops/fused_adam.py for every
     float32 leaf (``_fused_adam_apply``);
-  * full-sort evaluation of a model with ``full_sort_query`` goes through
+  * full-sort evaluation of a model that defines ``full_sort_query`` in
+    its own class, or inherits the sequential base's whole dot-product stack
+    (the JAX trainer's rule), goes through
     ops/masked_topk.py, masking [PAD] and, unless the loader says
     ``mask_history = False`` (sequential splits), the user's earlier-phase
-    items; a model with ``full_sort_predict`` only (LightGCN) has its
-    (B, n_items) float32 scores masked the same way and ranked by
+    items; a model with its own ``full_sort_predict`` only (LightGCN, NARM)
+    has its (B, n_items) float32 scores masked the same way and ranked by
     ``torch.topk``; each batch reduces to per-metric partial sums on the
     device;
   * value-metric evaluation (``_evaluate_individual``) uploads the eval
@@ -47,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from ..models.base import AbstractRecommender
+from ..models.base import AbstractRecommender, SequentialRecommender
 from ..utils.enums import InputType, ModelType
 from ..utils.logger import get_logger, get_local_time, set_color
 from ..utils.utils import early_stopping, calculate_valid_score, dict2str, ensure_dir
@@ -93,6 +95,17 @@ def invalid_item_mask(user_id, hist, hlen, n_items):
     invalid.scatter_(1, uh, hvalid.to(torch.int8))
     invalid[:, 0] = 1
     return invalid
+
+
+def fused_full_sort(cls):
+    """Whether full-sort evaluation of a model class takes the fused masked
+    top-k: it defines ``full_sort_query`` in its own class, or it inherits
+    the sequential base's ``full_sort_predict`` and ``full_sort_query``
+    unchanged (parity: the ``opted_in or base_stack`` rule of the JAX
+    trainer, trainer.py:938-951). A model that overrides
+    ``full_sort_predict`` alone (NARM, LightGCN) takes the non-fused step."""
+    base_stack = cls.full_sort_predict is SequentialRecommender.full_sort_predict
+    return hasattr(cls, "full_sort_query") and ("full_sort_query" in cls.__dict__ or base_stack)
 
 
 class Trainer:
@@ -426,9 +439,12 @@ class Trainer:
         """Full-sort step: the loader's device transform, then [PAD] masked
         always and the user's earlier-phase items unless the loader has
         ``mask_history = False``, then the hits reduce to metric partial
-        sums. A model with ``full_sort_query`` takes the fused path (parity:
-        trainer.py:934-1004): its query and item table go through the masked
-        top-k. A model with ``full_sort_predict`` only takes the non-fused
+        sums. A model with ``full_sort_query`` in its own class, or with the
+        sequential base's ``full_sort_predict`` and ``full_sort_query``
+        unchanged, takes the fused path (parity: trainer.py:934-1004, the
+        ``opted_in or base_stack`` rule :938-951): its query and item table
+        go through the masked top-k. A model with ``full_sort_predict`` only
+        takes the non-fused
         one (parity: trainer.py:1052-1075, without the chunked
         ``score_items`` fallback): float32 scores, NEG_INF in the [PAD]
         column and added at the history, ``torch.topk``."""
@@ -438,7 +454,7 @@ class Trainer:
             raise NotImplementedError(
                 "eval_score_dtype other than float32 is not ported yet "
                 "(ROADMAP Queue 1, item 5)")
-        fused = hasattr(model, "full_sort_query")
+        fused = fused_full_sort(type(model))
         if not fused and type(model).full_sort_predict is AbstractRecommender.full_sort_predict:
             raise NotImplementedError(
                 "full-sort eval of models with neither full_sort_query nor "

@@ -19,6 +19,8 @@ from recbole_tpu.ops.masked_topk import masked_topk_pallas, masked_topk_xla
 from recbole_tpu_torch.ops import bit_kernels as port_bits
 from recbole_tpu_torch.ops import embed_grad as port_eg
 from recbole_tpu_torch.ops import fused_adam, masked_topk as port_topk
+from recbole_tpu_torch.ops import fused_attention as port_attn
+from recbole_tpu_torch.ops import fused_gru as port_gru
 from recbole_tpu_torch.ops import trm_layer as port_trm
 
 B1, B2, LR, EPS = 0.9, 0.999, 1e-3, 1e-8
@@ -694,3 +696,171 @@ def test_bit_kernels_limits_on_card(cuda_device):
                 (5, D), dtype=torch.bfloat16, device=cuda_device))
     with pytest.raises(TypeError, match="int64"):
         port_bits.bit_rows_matmul_cuda(bits, rows.int(), v)
+
+
+# ------------------------------------------------------ the GRU recurrence kernels
+
+def _gru_inputs(B, L, H, seed, device, bf16, h0=True):
+    rng = np.random.RandomState(seed)
+    xi = torch.from_numpy(rng.randn(B, L, 3 * H).astype(np.float32)).to(device)
+    if bf16:
+        xi = xi.to(torch.bfloat16)
+    lim = np.sqrt(6.0 / (4 * H))
+    wh = torch.from_numpy(rng.uniform(-lim, lim, (H, 3 * H)).astype(np.float32)).to(device)
+    bh = torch.from_numpy((0.1 * rng.randn(3 * H)).astype(np.float32)).to(device)
+    hinit = torch.from_numpy(((0.5 if h0 else 0.0) * rng.randn(B, H)).astype(np.float32))
+    dout = torch.from_numpy(rng.randn(B, L, H).astype(np.float32)).to(device).to(xi.dtype)
+    return xi, hinit.to(device), wh, bh, dout
+
+
+def _rel(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("B,L,H", [(2048, 50, 128), (1001, 50, 128), (7, 13, 24)])
+def test_fused_gru_kernels_match_plain_on_card(cuda_device, bf16, B, L, H):
+    """fused_gru_fwd and fused_gru_bwd against the plain version on the same
+    inputs (nonzero h0): out, dxi, dh0, dwh, dbh each within 1e-4 (fp32
+    instance: the same fp32 arithmetic in another order) or 1e-2 (bf16
+    instance: a sum that lands on the other side of a rounding boundary
+    moves a stored h_t or dxi by one bf16 step) of the tensor's largest
+    value; one launch each; two runs bit-identical."""
+    xi, h0, wh, bh, dout = _gru_inputs(B, L, H, 2 + bf16, cuda_device, bf16)
+    before = (port_gru.fused_gru_fwd_cuda.launches, port_gru.fused_gru_bwd_cuda.launches)
+    out = port_gru.fused_gru_fwd_cuda(xi, h0, wh, bh)
+    grads = port_gru.fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout)
+    assert (port_gru.fused_gru_fwd_cuda.launches,
+            port_gru.fused_gru_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, port_gru.fused_gru_fwd_cuda(xi, h0, wh, bh))
+    again = port_gru.fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    ref_out = port_gru.fused_gru_torch_fwd(xi, h0, wh, bh, bf16)
+    # the backward of both from the kernel's own forward output
+    ref = port_gru.fused_gru_torch_bwd(xi, h0, wh, bh, out, dout, bf16)
+    assert out.dtype == xi.dtype and grads[0].dtype == xi.dtype
+    assert grads[3].shape == (3 * H,)
+    tol = 1e-2 if bf16 else 1e-4
+    for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), (out, *grads), (ref_out, *ref)):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_fused_gru_autograd_and_limits_on_card(cuda_device):
+    """The dispatcher on CUDA tensors goes through FusedGru (one forward and
+    one backward launch); hidden sizes beyond the kernel's limits raise and
+    nothing falls back."""
+    xi, h0, wh, bh, dout = _gru_inputs(5, 6, 16, 9, cuda_device, False)
+    xi.requires_grad_(True)
+    wh.requires_grad_(True)
+    before = (port_gru.fused_gru_fwd_cuda.launches, port_gru.fused_gru_bwd_cuda.launches)
+    out = port_gru.fused_gru(xi, h0, wh, bh)
+    (out * dout).sum().backward()
+    assert (port_gru.fused_gru_fwd_cuda.launches,
+            port_gru.fused_gru_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, port_gru.fused_gru_torch(xi.detach(), h0, wh.detach(), bh),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.isfinite(xi.grad).all() and torch.isfinite(wh.grad).all()
+    assert port_gru._lib().fused_gru_max_hidden() == 128
+    assert port_gru._lib().fused_gru_smem_bytes(128, 1) <= port_gru.MAX_SMEM_BYTES
+    for H in (132, 18):
+        args = _gru_inputs(2, 3, H, 1, cuda_device, False)[:4]
+        with pytest.raises(ValueError, match="multiple of 4"):
+            port_gru.fused_gru(*args)
+
+
+# ------------------------------------------------- the attention-only kernels
+
+def _attn_inputs(B, L, H, hd, seed, device, empty_row=True):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, L, H, hd).astype(np.float32)).to(device)
+                   for _ in range(4))
+    lens = rng.randint(1, L + 1, B)
+    if empty_row:
+        lens[0] = 0
+    valid = torch.from_numpy((np.arange(L)[None, :] < lens[:, None]).astype(np.int32))
+    return q, k, v, valid.to(device), do
+
+
+def test_attention_launchers_refuse_cpu_tensors_and_dispatch_stays_plain():
+    q, k, v, valid, do = _attn_inputs(3, 5, 2, 4, 0, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        port_attn.fused_attention_fwd_cuda(q, k, v, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_attn.fused_attention_bwd_cuda(q, k, v, valid, do)
+    before = (port_attn.fused_attention_fwd_cuda.launches,
+              port_attn.fused_attention_bwd_cuda.launches)
+    q.requires_grad_(True)
+    out = port_attn.fused_attention(q, k, v, valid, causal=False)
+    (out * do).sum().backward()
+    assert (port_attn.fused_attention_fwd_cuda.launches,
+            port_attn.fused_attention_bwd_cuda.launches) == before
+    assert torch.equal(out, port_attn.fused_attention_torch(q, k, v, valid, False))
+    assert torch.isfinite(q.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_fused_attention_kernels_match_plain_on_card(cuda_device, causal, rate):
+    """fused_attention_fwd and _bwd at SASRec's head shape (L 50, H 2, hd
+    32), a ragged batch with a sequence that has no valid key, against the
+    plain version fed the masks the kernels draw: o, dq, dk, dv within 1e-4
+    of the tensor's largest value (fp32 sums and exp in another order); one
+    launch each; two runs bit-identical."""
+    B, L, H, hd = 257, 50, 2, 32
+    q, k, v, valid, do = _attn_inputs(B, L, H, hd, 4, cuda_device)
+    seed = torch.tensor([1234], dtype=torch.int64, device=cuda_device)
+    kw = dict(causal=causal, rate=rate, layer=1)
+    before = (port_attn.fused_attention_fwd_cuda.launches,
+              port_attn.fused_attention_bwd_cuda.launches)
+    o = port_attn.fused_attention_fwd_cuda(q, k, v, valid, seed, **kw)
+    grads = port_attn.fused_attention_bwd_cuda(q, k, v, valid, do, seed, **kw)
+    assert (port_attn.fused_attention_fwd_cuda.launches,
+            port_attn.fused_attention_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(o, port_attn.fused_attention_fwd_cuda(q, k, v, valid, seed, **kw))
+    again = port_attn.fused_attention_bwd_cuda(q, k, v, valid, do, seed, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    masks = (port_attn.fused_attention_dropout_masks_cuda(seed, B, H, L, rate, layer=1)
+             if rate else None)
+    tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = port_attn.fused_attention_torch(tq, tk, tv, valid, causal, rate, masks=masks)
+    (ref * do).sum().backward()
+    for name, a, b in zip(("o", "dq", "dk", "dv"), (o, *grads), (ref, tq.grad, tk.grad, tv.grad)):
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_fused_attention_autograd_masks_and_limits_on_card(cuda_device):
+    """The dispatcher on CUDA tensors goes through FusedAttention, its
+    dropout keyed by the seed; the keep masks are those of the whole-layer
+    kernels' attention sites for the same seed and layer, keep about half at
+    rate 0.5, and differ between layers; widths beyond the shared memory
+    raise and nothing falls back."""
+    from recbole_tpu_torch.ops import trm_layer as port_trm
+    B, L, H, hd = 64, 50, 2, 32
+    q, k, v, valid, do = _attn_inputs(B, L, H, hd, 5, cuda_device)
+    seed = torch.tensor([77], dtype=torch.int64, device=cuda_device)
+    q.requires_grad_(True)
+    before = port_attn.fused_attention_bwd_cuda.launches
+    out = port_attn.fused_attention(q, k, v, valid, causal=True, rate=0.5, seed=seed, layer=3)
+    (out * do).sum().backward()
+    assert port_attn.fused_attention_bwd_cuda.launches == before + 1
+    masks = port_attn.fused_attention_dropout_masks_cuda(seed, B, H, L, 0.5, layer=3)
+    ref = port_attn.fused_attention_torch(q.detach(), k, v, valid, True, 0.5, masks=masks)
+    assert _rel(out.detach(), ref) <= 1e-4
+    trm = port_trm.trm_dropout_masks_cuda(seed, B, H, L, 8, 0.5, 0.5, layer=3)["attn"]
+    assert torch.equal(masks, trm)
+    assert abs(float((masks > 0).float().mean()) - 0.5) < 0.01
+    other = port_attn.fused_attention_dropout_masks_cuda(seed, B, H, L, 0.5, layer=4)
+    assert not torch.equal(masks, other)
+    with pytest.raises(ValueError, match="seed"):
+        port_attn.fused_attention(q, k, v, valid, rate=0.5)
+    wide = _attn_inputs(2, 200, 2, 32, 6, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        port_attn.fused_attention(*wide[:4])

@@ -16,6 +16,7 @@ from recbole_tpu.data.utils import (create_dataset as jax_create_dataset,
                                     data_preparation as jax_data_preparation)
 from recbole_tpu.models import get_model as jax_get_model
 from recbole_tpu.models import layers as jax_layers
+from recbole_tpu.ops.fused_attention import attention_xla, fused_attention as jax_attention
 from recbole_tpu.ops.fused_transformer import fused_transformer_layer as jax_layer_fp32
 from recbole_tpu.ops.trm_layer import fused_transformer_layer2 as jax_layer_bf16
 from recbole_tpu.trainer.trainer import Trainer as JaxTrainer
@@ -25,6 +26,7 @@ from recbole_tpu_torch.config.configurator import Config
 from recbole_tpu_torch.convert import export_params, flatten_tree, load_jax_params
 from recbole_tpu_torch.data.utils import create_dataset, data_preparation
 from recbole_tpu_torch.models import get_model, layers
+from recbole_tpu_torch.ops import fused_attention as fa
 from recbole_tpu_torch.ops import trm_layer as tl
 from recbole_tpu_torch.ops.fused_transformer import fused_transformer_layer_torch
 from recbole_tpu_torch.trainer.trainer import Trainer, get_trainer, invalid_item_mask
@@ -197,8 +199,6 @@ def test_transformer_apply_unported_and_invalid_paths_raise():
     tp = {k: torch.as_tensor(v) for k, v in params.items()}
     args = ([tp], torch.as_tensor(x), None, H)
     spec = (torch.as_tensor(valid), True)
-    with pytest.raises(NotImplementedError, match="attention-only"):
-        layers.transformer_apply(*args, mask_spec=spec, fused=True)
     with pytest.raises(NotImplementedError, match="float32 whole-layer"):
         layers.transformer_apply(*args, mask_spec=spec, fused="layer",
                                  compute_dtype=torch.bfloat16)
@@ -206,6 +206,98 @@ def test_transformer_apply_unported_and_invalid_paths_raise():
         layers.transformer_apply(*args, fused="layer2")
     with pytest.raises(ValueError, match="activation"):
         tl.trm_layer(torch.as_tensor(x), tp, spec[0], n_heads=H, causal=True, act="leakyrelu")
+
+
+# ------------------------------------------- (b'): the attention-only kernel
+
+def _attn_inputs(seed, Ba=8, La=9, Ha=2, hd=8):
+    """q, k, v, a cotangent (B, L, H, hd) and ragged key validity with one
+    sequence that has no valid key (row 2)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(Ba, La, Ha, hd).astype(np.float32) for _ in range(4))
+    lens = rng.randint(1, La + 1, Ba)
+    lens[2] = 0
+    valid = (np.arange(La)[None, :] < lens[:, None]).astype(np.int32)
+    return q, k, v, do, valid
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_attention_matches_pallas_interpret_and_xla(causal):
+    """fused_attention_torch (rate 0) against fused_attention(interpret=True)
+    and attention_xla: the output and dq, dk, dv at 1e-5, the JAX test's
+    bound. The sequence with no valid key comes out uniform in all three;
+    its dq and dk are held against attention_xla only: the Pallas backward
+    adds -1e9 and passes a cotangent to masked scores there, where the mask
+    is a select in attention_xla and in the port."""
+    q, k, v, do, valid = _attn_inputs(20 + causal)
+    jv = jnp.asarray(valid)
+    fns = {"interpret": lambda q, k, v: jax_attention(q, k, v, jv, jnp.zeros((1,), jnp.int32),
+                                                      causal=causal, interpret=True),
+           "xla": lambda q, k, v: attention_xla(q, k, v, jv, causal=causal)}
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = fa.fused_attention_torch(tq, tk, tv, torch.as_tensor(valid), causal)
+    (out * torch.as_tensor(do)).sum().backward()
+    empty = np.arange(q.shape[0]) == 2
+    uniform = v[2].mean(axis=0)
+    np.testing.assert_allclose(out.detach().numpy()[2], np.broadcast_to(uniform, out.shape[1:]),
+                               rtol=1e-5, atol=1e-5)
+    for name, fn in fns.items():
+        y, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(y), rtol=1e-5, atol=1e-5)
+        for what, t, g in zip("qkv", (tq, tk, tv), vjp(jnp.asarray(do))):
+            keep = ~empty if name == "interpret" and what != "v" else slice(None)
+            np.testing.assert_allclose(t.grad.numpy()[keep], np.asarray(g)[keep], rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{name} d{what}")
+
+
+def test_plain_attention_dropout_from_masks_and_generator():
+    """Keep masks scale the probabilities (an all-ones mask is no dropout; a
+    dropped weight contributes nothing); without masks the dispatcher draws
+    them from the generator it is given on a CPU tensor, the same state
+    giving the same result, and raises without one."""
+    q, k, v, _, valid = _attn_inputs(22)
+    args = tuple(torch.as_tensor(a) for a in (q, k, v, valid))
+    Ba, La, Ha, _ = q.shape
+    base = fa.fused_attention_torch(*args, True)
+    assert torch.equal(fa.fused_attention_torch(*args, True, 0.5,
+                                                masks=torch.ones(Ba, Ha, La, La)), base)
+    drop = torch.ones(Ba, Ha, La, La)
+    drop[:, :, :, 0] = 0.0
+    got = fa.fused_attention_torch(*args, True, 0.5, masks=drop)
+    # query 0 sees key 0 only: dropping it leaves a zero context (but in
+    # sequence 2, which has no valid key and attends to all keys uniformly)
+    assert float(got[torch.arange(Ba) != 2, 0].abs().max()) == 0.0
+    assert float(got[2, 0].abs().max()) > 0.0
+    gen = lambda s: torch.Generator().manual_seed(s)
+    a = fa.fused_attention(*args, causal=True, rate=0.5, generator=gen(3))
+    b = fa.fused_attention(*args, causal=True, rate=0.5, generator=gen(3))
+    c = fa.fused_attention(*args, causal=True, rate=0.5, generator=gen(4))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    masks = tl.plain_dropout_masks(gen(3), Ba, Ha, La, q.shape[-1], 0.5, 0.0, "cpu")["attn"]
+    assert torch.equal(a, fa.fused_attention_torch(*args, True, 0.5, masks=masks))
+    assert set(masks.unique().tolist()) == {0.0, 2.0}
+    with pytest.raises(ValueError, match="generator"):
+        fa.fused_attention(*args, causal=True, rate=0.5)
+
+
+def test_transformer_apply_attention_only_path_is_the_plain_path_on_cpu():
+    """fused True: q, k, v from the projections through the attention-only
+    dispatcher, the rest of the layer as on the plain path; with fp32
+    operands and no dropout it equals the plain path, and a bf16 compute
+    dtype still runs the attention in fp32."""
+    x, dy, valid, params = _layer_inputs(23)
+    tp = {k: torch.as_tensor(v) for k, v in params.items()}
+    spec = (torch.as_tensor(valid), True)
+    got = layers.transformer_apply([tp, tp], torch.as_tensor(x), None, H, mask_spec=spec,
+                                   fused=True)
+    ref = layers.transformer_apply([tp, tp], torch.as_tensor(x), None, H, mask_spec=spec,
+                                   fused=False)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    bf = layers.transformer_apply([tp], torch.as_tensor(x), None, H, mask_spec=spec,
+                                  fused=True, compute_dtype=torch.bfloat16)
+    assert bf.dtype == torch.float32 and torch.isfinite(bf).all()
+    with pytest.raises(ValueError, match="mask_spec"):
+        layers.transformer_apply([tp], torch.as_tensor(x), None, H, fused=True)
 
 
 # ------------------------------------------------------------- (c): dropout
@@ -364,8 +456,7 @@ def test_unported_sequential_paths_raise(synth_dataset_dir, tmp_path):
     with pytest.raises(ValueError, match="leave-one-out"):
         data_preparation(pc, create_dataset(pc))
     with pytest.raises(ValueError, match="not found"):
-        get_model("GRU4Rec")
-    assert not hasattr(layers, "gru_apply")
+        get_model("GRU4RecF")
 
 
 # --------------------------------------------------- (e): SASRec loss and grads
@@ -437,6 +528,32 @@ def test_sasrec_loss_and_gradients_match_jax(synth_dataset_dir, tmp_path, loss_t
                np.asarray(jmodel.full_sort_predict(params, jbatch)), tol, "full_sort_predict")
         _close(pmodel2.predict(tbatch).numpy(),
                np.asarray(jmodel.predict(params, jbatch)), tol, "predict")
+
+
+@pytest.mark.parametrize("loss_type", ["CE", "BPR"])
+def test_sasrec_attention_only_loss_and_gradients_match_jax(synth_dataset_dir, tmp_path,
+                                                            loss_type):
+    """(e) SASRec with fused_attention True under compute_dtype float32, in
+    both packages (the JAX model takes its XLA attention on the CPU, the
+    same fp32 function as its kernel): loss and every leaf's gradient at
+    rtol 2e-4 of the leaf's largest value, dropout off."""
+    extra = {"loss_type": loss_type, "training_neg_sample_num": 1 if loss_type == "BPR" else 0,
+             "hidden_dropout_prob": 0.0, "attn_dropout_prob": 0.0}
+    _, _, _, ploaders, jmodel, params, pmodel = _sasrec_pair(
+        synth_dataset_dir, tmp_path, fused_attention=True, compute_dtype="float32", **extra)
+    assert pmodel.config["fused_attention"] is True and pmodel.cdt is None
+    batch = _train_batch(ploaders[0], np.arange(96), pmodel.n_items)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, jgrads = jax.value_and_grad(lambda p: jmodel.calculate_loss(p, jbatch))(params)
+    loss = pmodel.calculate_loss({k: torch.as_tensor(v).long() for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-4)
+    ref = flatten_tree(jax.tree.map(np.asarray, jgrads))
+    gscale = max(float(np.abs(v).max()) for v in ref.values())
+    for name, p in pmodel.named_parameters():
+        denom = max(float(np.abs(ref[name]).max()), 1e-2 * gscale)
+        err = float(np.abs(p.grad.numpy() - ref[name]).max()) / denom
+        assert err <= 2e-4, (name, err)
 
 
 def test_sasrec_init_and_compute_dtype_rule(synth_dataset_dir, tmp_path):
@@ -561,7 +678,8 @@ def test_sequential_augment_samples_repeatable_negatives(synth_dataset_dir, tmp_
 @pytest.mark.parametrize("extra", [
     {}, {"loss_type": "BPR", "training_neg_sample_num": 1},
     {"fused_attention": "layer", "compute_dtype": "float32"},
-    {"fused_attention": False}], ids=["CE-layer2-bf16", "BPR", "layer-fp32", "plain-bf16"])
+    {"fused_attention": False}, {"fused_attention": True}],
+    ids=["CE-layer2-bf16", "BPR", "layer-fp32", "plain-bf16", "attention-only-bf16"])
 def test_sasrec_end_to_end_on_cpu(synth_dataset_dir, tmp_path, extra):
     """(g) run_recbole(model="SASRec", device="cpu") on the synthetic
     dataset, dropout on (the defaults)."""
