@@ -5,7 +5,7 @@
 
 Phases:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds the six csrc/*.cu, one process per source, all at
+  2. build: nvcc builds the seven csrc/*.cu, one process per source, all at
      once (its -Xptxas -v report is printed), and the Triton Adam kernel is
      launched once;
   3. each kernel against its plain PyTorch version, on the card, at the main
@@ -17,8 +17,12 @@ Phases:
      Yelp shape's packed rows and on random bytes; the GRU recurrence
      kernels in both instances, forward and backward, at GRU4Rec's and
      NARM's step, ragged and eval batches, with zero and nonzero h0, and a
-     two-layer stack; the attention-only kernels, causal and bidirectional,
-     dropout off and on, with a sequence that has no valid key;
+     two-layer stack, and at H 10 (zero-padded) and H 256 (the instance
+     with wh in device memory); the attention-only kernels, causal and
+     bidirectional, dropout off and on, with a sequence that has no valid
+     key, at L 50 and L 200 (key tiles); the rel_apply kernels in both
+     instances, forward and backward, at RippleNet's step and at edge
+     shapes;
   4. the main paths, each with every kernel's launch count set to 0 just
      before and read just after (each kernel of the path must be > 0):
      a. run_recbole(model="BPR") for 2 epochs on an ml-1m-shaped dataset
@@ -46,9 +50,18 @@ Phases:
         0.5, CE; its GRU in fp32) on the same file, 1 epoch;
      g. SASRec at its default widths with fused_attention True (the
         attention-only kernel) on the same file, 1 epoch;
+     h. a few steps and a valid pass at widths the kernels took only after
+        their limits were lifted: GRU4Rec at hidden 10 and 256, SASRec at
+        hidden 128 and at 200 positions under the default fused_attention
+        "layer2" (routed around the whole-layer kernel) and True;
+     i. RippleNet at its defaults (embedding 64, 2 hops, 16 memories,
+        batch 2048) under KGTrainer on the ml-1m-shaped file with a KG of
+        the reference's ml-1m KG shape (79,388 entities, 385,923 triples, 51
+        relations, written from a seed), 1 epoch, then 20 steps under
+        torch.profiler;
   5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's,
-     SASRec's, LightGCN's, GRU4Rec's and NARM's test recall@10 and DeepFM's
-     test AUC, each held to a floor;
+     SASRec's, LightGCN's, GRU4Rec's, NARM's and RippleNet's test recall@10
+     and DeepFM's test AUC, each held to a floor;
   6. timing with CUDA events at the main paths' shapes: kernel, plain
      version, the one-call library yardstick, and the card's bound for the
      same work.
@@ -150,6 +163,30 @@ GRU_TOL = {False: 1e-4, True: 1e-2}
 # fused_attention against its plain version: fp32 sums and exp in another
 # order
 ATTN_TOL = 1e-4
+# rel_apply against its plain version, as the largest |difference| of a
+# tensor over its largest |value|: fp32 instance, fp32 sums in another order
+# (rtol 2e-4, the bar of the port's fp32 tests); bf16 instance, the bound
+# the JAX kernel is held to against the fp32 loop
+# (tests/test_round5_fixes.py:163-195)
+REL_TOL = {False: 2e-4, True: 2e-2}
+# RippleNet's defaults (ripplenet.py:63-64) at the train batch: batch, hops,
+# memories, embedding; a step sees the batch and one negative each, so the
+# relation apply runs on B x 2 x n_hop x n_memory rows
+RIPPLENET = dict(B=2048, hops=2, M=16, D=64)
+# the reference's ml-1m KG shape (entities, triples, relations;
+# Knowledge-based_recommendation.md:5-9, the recipe of
+# scripts/bench_models.py:106-121)
+ML1M_KG = (79_388, 385_923, 51)
+# ml-100k RippleNet under the general full-sort protocol (RO_RS, valid full
+# sort), 40 epochs with early stopping on mrr@10: the JAX package on the
+# CPU, 3 seeds (python run.py --model=RippleNet --dataset=ml-100k
+# --epochs=40 --seed=<s>), test recall@10 0.1877, 0.1756 and 0.1953 for
+# seeds 2020-2022 (ndcg@10 0.2181, 0.2189, 0.2283); the floor lies below.
+# At 20 epochs the seed decides whether the valid curve has made its jump
+# (epochs 12-16), and the spread is too wide to hold a floor
+ML100K_RIPPLE = {"epochs": 40}
+RIPPLE_JAX_SPREAD = "0.1756-0.1953 (seeds 2020-2022: 0.1877, 0.1756, 0.1953)"
+RIPPLE_RECALL_FLOOR = 0.155
 
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
@@ -356,7 +393,7 @@ def phase_build(torch):
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     t0 = time.time()
     logs = cuda_build.build(["masked_topk", "embed_grad", "trm_layer", "bit_kernels",
-                             "fused_gru", "fused_attention"])
+                             "fused_gru", "fused_attention", "rel_apply"])
     log(f"[build] nvcc {time.time() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -851,6 +888,46 @@ def check_gru(torch):
             f"(tolerance {tol})")
         if max(errs.values()) > tol:
             raise AssertionError(f"gru_apply two layers: beyond tolerance {tol}: {errs}")
+    # hidden sizes beyond the shared-memory instance: H 256 (wh in device
+    # memory) and H 10 (zero-padded to 12 by the dispatcher), through
+    # fused_gru and autograd at the step's batch
+    lib = fg._lib()
+    for H2 in (256, 10):
+        log(f"[check] fused_gru H={H2}: runs at H={fg.padded_hidden(H2)}, "
+            f"{'wh in device memory' if H2 > lib.fused_gru_max_shared_hidden() else 'wh in shared memory'}, "
+            f"{lib.fused_gru_smem_bytes(fg.padded_hidden(H2), 1)} bytes of shared memory a block "
+            "(backward)")
+        for bf16 in (True, False):
+            xi, hinit, wh, bh, dout = gru_inputs(torch, GRU4REC["B"], L, H2, 260 + H2 + bf16,
+                                                 bf16, True)
+
+            def run(fn):
+                args = [t.clone().requires_grad_(True) for t in (xi, hinit, wh, bh)]
+                out = fn(*args)
+                (out.float() * dout.float()).sum().backward()
+                torch.cuda.synchronize()
+                return [out.detach()] + [a.grad for a in args]
+
+            before = (fg.fused_gru_fwd_cuda.launches, fg.fused_gru_bwd_cuda.launches)
+            got = run(fg.fused_gru)
+            if (fg.fused_gru_fwd_cuda.launches - before[0],
+                    fg.fused_gru_bwd_cuda.launches - before[1]) != (1, 1):
+                raise AssertionError(f"fused_gru H={H2} did not launch the kernels once each way")
+            same = all(torch.equal(a, b) for a, b in zip(got, run(fg.fused_gru)))
+            ref = run(lambda *a: fg.fused_gru_torch(*a, bf16=bf16))
+            errs = {k: rel_err(a, b) for k, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"),
+                                                        got, ref)}
+            tol = GRU_TOL[bf16]
+            log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} B={GRU4REC['B']} L={L} H={H2}: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (tolerance {tol}); two runs bit-identical: {same}")
+            if not all(bool(torch.isfinite(t.float()).all()) for t in got) \
+                    or max(errs.values()) > tol or not same:
+                raise AssertionError(f"fused_gru H={H2}: {errs}, bit-identical {same}")
+            worst["fused_gru_fwd"] = max(worst["fused_gru_fwd"],
+                                         float((got[0].float() - ref[0].float()).abs().max()))
+            worst["fused_gru_bwd"] = max([worst["fused_gru_bwd"], *(
+                float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], ref[1:]))])
     return worst
 
 
@@ -878,17 +955,20 @@ def check_attention(torch):
     L, H = SASREC["L"], SASREC["H"]
     hd = SASREC["D"] // H
     worst = {"fused_attention_fwd": 0.0, "fused_attention_bwd": 0.0}
-    cases = [("SASRec step", SASREC["B"], causal, rate)
+    cases = [("SASRec step", SASREC["B"], L, causal, rate)
              for causal in (True, False) for rate in (0.0, 0.5)]
-    cases += [("last train batch", 1097, True, 0.5), ("eval batch", 4096, True, 0.0)]
-    for n, (label, B, causal, rate) in enumerate(cases):
+    cases += [("last train batch", 1097, L, True, 0.5), ("eval batch", 4096, L, True, 0.0)]
+    # 200 positions: seven key tiles, the online softmax across them
+    cases += [("L 200 step", SASREC["B"], 200, causal, 0.5) for causal in (True, False)]
+    for n, (label, B, L, causal, rate) in enumerate(cases):
         q, k, v, valid, do = attention_inputs(torch, B, L, H, hd, 300 + n)
         seed = torch.tensor([0x7654321 + 31 * n], dtype=torch.int64, device="cuda")
         kw = dict(causal=causal, rate=rate, layer=n % 2)
 
         def run():
-            out = (fa.fused_attention_fwd_cuda(q, k, v, valid, seed, **kw),
-                   *fa.fused_attention_bwd_cuda(q, k, v, valid, do, seed, **kw))
+            o, stats = fa.fused_attention_fwd_cuda(q, k, v, valid, seed, with_stats=True, **kw)
+            out = (o, *fa.fused_attention_bwd_cuda(q, k, v, valid, do, seed, o=o, stats=stats,
+                                                   **kw))
             torch.cuda.synchronize()
             return out
 
@@ -917,6 +997,82 @@ def check_attention(torch):
                                            float((got[0] - ref[0]).abs().max()))
         worst["fused_attention_bwd"] = max([worst["fused_attention_bwd"], *(
             float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))])
+    return worst
+
+
+def rel_inputs(torch, N, D, NR, seed, skew=None, empty=None, outside=0):
+    """v, rel (int32), R, dy on the card: relations uniform over [0, NR),
+    ``skew`` of the rows moved to relation 0, relation ``empty`` left with no
+    rows, ``outside`` rows given the id NR."""
+    rng = np.random.RandomState(seed)
+    rel = rng.randint(0, NR, N)
+    if skew:
+        rel[rng.random_sample(N) < skew] = 0
+    if empty is not None:
+        rel[rel == empty] = (empty + 1) % NR
+    if outside:
+        rel[rng.choice(N, outside, replace=False)] = NR
+    v = rng.randn(N, D).astype(np.float32)
+    R = (rng.randn(NR, D, D) * np.sqrt(2.0 / (NR + D * D))).astype(np.float32)
+    dy = rng.randn(N, D).astype(np.float32)
+    return (torch.from_numpy(v).cuda(), torch.from_numpy(rel.astype(np.int32)).cuda(),
+            torch.from_numpy(R).cuda(), torch.from_numpy(dy).cuda())
+
+
+def rel_cases():
+    """(label, N, D, NR, extra): RippleNet's step at the ml-1m KG shape
+    (4,096 rows x 2 hops x 16 memories, 53 relation ids), the same rows of
+    one eval chunk's users, and the edges."""
+    step = 2 * RIPPLENET["B"] * RIPPLENET["hops"] * RIPPLENET["M"]
+    NR = ML1M_KG[2] + 2
+    return [("step", step, RIPPLENET["D"], NR, {}),
+            ("N not a multiple of the tile", 10_001, 64, NR, {"empty": 9}),
+            ("one relation holds 90%", 65_536, 64, NR, {"skew": 0.9}),
+            ("NR 1", 4_097, 64, 1, {}),
+            ("NR 200, ids outside [0, NR)", 50_000, 64, 200, {"outside": 17}),
+            ("D 128", 20_000, 128, 24, {})]
+
+
+def check_rel_apply(torch):
+    """rel_apply_fwd / rel_apply_bwd against the plain version on the card:
+    y, dv and dR, both instances, at RippleNet's step and the edge shapes;
+    two runs compared bit for bit."""
+    from recbole_tpu_torch.ops import rel_apply as ra
+    worst = {"rel_apply_fwd": 0.0, "rel_apply_bwd": 0.0}
+    for n, (label, N, D, NR, extra) in enumerate(rel_cases()):
+        v, rel, R, dy = rel_inputs(torch, N, D, NR, 400 + n, **extra)
+        for bf16 in (False, True):
+            def run():
+                y = ra.rel_apply_fwd_cuda(v, rel, R, bf16=bf16)
+                dv, dR = ra.rel_apply_bwd_cuda(v, rel, R, dy, bf16=bf16)
+                torch.cuda.synchronize()
+                return y, dv, dR
+
+            got, again = run(), run()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ref = (ra.rel_apply_torch(v, rel, R, bf16), *ra.rel_apply_torch_bwd(v, rel, R, dy, bf16))
+            errs = {k: rel_err(a, b) for k, a, b in zip(("y", "dv", "dR"), got, ref)}
+            tol = REL_TOL[bf16]
+            log(f"[check] rel_apply {'bf16' if bf16 else 'fp32'} ({label}) N={N} D={D} NR={NR}: "
+                + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                + f" (tolerance {tol} of the tensor's largest value); two runs bit-identical: "
+                f"{same}")
+            if not all(bool(torch.isfinite(t).all()) for t in got):
+                raise AssertionError(f"rel_apply {label}: non-finite output")
+            if max(errs.values()) > tol:
+                raise AssertionError(f"rel_apply {label}: beyond tolerance {tol}: {errs}")
+            if not same:
+                raise AssertionError(f"rel_apply {label}: two runs differ")
+            if "empty" in extra and float(got[2][extra["empty"]].abs().max()) != 0.0:
+                raise AssertionError("rel_apply: a relation with no rows got a gradient")
+            if "outside" in extra:
+                bad = rel >= NR
+                if float(got[0][bad].abs().max()) or float(got[1][bad].abs().max()):
+                    raise AssertionError("rel_apply: a row outside [0, NR) is not 0")
+            worst["rel_apply_fwd"] = max(worst["rel_apply_fwd"],
+                                         float((got[0] - ref[0]).abs().max()))
+            worst["rel_apply_bwd"] = max([worst["rel_apply_bwd"], *(
+                float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))])
     return worst
 
 
@@ -955,6 +1111,7 @@ def kernel_wrappers():
     from recbole_tpu_torch.ops import bit_kernels as bk
     from recbole_tpu_torch.ops import fused_attention as fa
     from recbole_tpu_torch.ops import fused_gru as fg
+    from recbole_tpu_torch.ops import rel_apply as ra
     return {"masked_topk": masked_topk_cuda, "adam_leaf": adam_leaf_triton,
             "onehot_matmul_grad": eg.onehot_matmul_grad_cuda,
             "windowed_grad": eg.windowed_grad_cuda,
@@ -963,21 +1120,24 @@ def kernel_wrappers():
             "bit_cols_matmul": bk.bit_cols_matmul_cuda,
             "fused_gru_fwd": fg.fused_gru_fwd_cuda, "fused_gru_bwd": fg.fused_gru_bwd_cuda,
             "fused_attention_fwd": fa.fused_attention_fwd_cuda,
-            "fused_attention_bwd": fa.fused_attention_bwd_cuda}
+            "fused_attention_bwd": fa.fused_attention_bwd_cuda,
+            "rel_apply_fwd": ra.rel_apply_fwd_cuda, "rel_apply_bwd": ra.rel_apply_bwd_cuda}
 
 
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_fp32"):
-            fn.launches_fp32 = 0
+        for share in ("launches_fp32", "launches_bf16"):
+            if hasattr(fn, share):
+                setattr(fn, share, 0)
 
 
 def read_launches(path, must_launch):
     """The wrappers' counts; the transformer wrappers count both instances,
     told apart here: trm_layer_* is the bf16 instance's share,
     fused_transformer_layer_* the fp32 instance's. fused_gru_* count both of
-    theirs (one TPU kernel), and fused_gru_*_fp32 is the fp32 share."""
+    theirs (one TPU kernel), and fused_gru_*_fp32 is the fp32 share;
+    rel_apply_* count both of theirs, rel_apply_*_bf16 the bf16 share."""
     launches = {}
     for name, fn in kernel_wrappers().items():
         if name.startswith("trm_layer"):
@@ -987,6 +1147,8 @@ def read_launches(path, must_launch):
             launches[name] = fn.launches
             if hasattr(fn, "launches_fp32"):
                 launches[f"{name}_fp32"] = fn.launches_fp32
+            if hasattr(fn, "launches_bf16"):
+                launches[f"{name}_bf16"] = fn.launches_bf16
     log(f"[{path}] launches {launches}")
     never = [name for name in must_launch if launches[name] <= 0]
     if never:
@@ -1361,6 +1523,195 @@ def phase_sasrec_attention(torch, tmp):
     return launches
 
 
+def seq_loaders(torch, tmp, model_name, extra):
+    """Config and TO_LS loaders of the ml-1m-shaped file for a sequential
+    model (written by phase_bpr)."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.utils.logger import init_logger
+    from recbole_tpu_torch.utils.utils import init_seed
+    config = Config(model_name, "ml-1m-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "epochs": 1, "device": "cuda",
+        "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
+        "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False,
+        **extra}, _parse_cmd_line=False)
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    t0 = time.time()
+    train, valid, _ = data_preparation(config, create_dataset(config))
+    log(f"[wide] ml-1m-shape TO_LS loaders at {config['MAX_ITEM_LIST_LENGTH']} positions in "
+        f"{time.time() - t0:.1f}s")
+    return train, valid
+
+
+def short_run(torch, tmp, tag, model_name, extra, loaders, steps, must_launch, must_not):
+    """``steps`` train steps and a full-sort valid pass of a sequential
+    model through get_model -> get_trainer -> the trainer's step and
+    evaluate, on the given loaders, with the launch counts set to 0 just
+    before and read just after."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import get_trainer
+    train, valid = loaders
+    config = Config(model_name, "ml-1m-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "device": "cuda",
+        "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False,
+        **extra}, _parse_cmd_line=False)
+    reset_launches()
+    t0 = time.time()
+    model = get_model(model_name)(config, train.dataset)
+    trainer = get_trainer(config["MODEL_TYPE"], model_name)(config, model)
+    trainer.prepare(train)
+    mode = trainer._build_mode(train)
+    B = train.batch_size
+    losses = [mode["step"](trainer._take_batch(mode["tables"], torch.arange(
+        i * B, (i + 1) * B, device="cuda")), mode["consts"]) for i in range(steps)]
+    result = trainer.evaluate(valid, load_best_model=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches(tag, must_launch)
+    ran = {k: launches[k] for k in must_not if launches[k]}
+    if ran:
+        raise AssertionError(f"kernels off the {tag} path were launched: {ran}")
+    losses = [float(x) for x in losses]
+    log(f"[{tag}] {model_name} {extra}: {steps} steps at batch {B}, losses "
+        f"{[round(x, 4) for x in losses]}, valid {json.dumps(result)}; {wall:.1f}s with the "
+        "valid pass")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    check_result({"best_valid_result": result, "test_result": result}, JAX_ML100K)
+    return launches
+
+
+def phase_wide(torch, tmp):
+    """Widths the kernels took only after their limits were lifted, a few
+    steps each on the ml-1m-shaped file: GRU4Rec at hidden 10 (padded) and
+    256 (wh in device memory), SASRec at hidden 128 (50 positions) and at
+    200 positions, each under the default fused_attention "layer2", which
+    routes around the whole-layer kernel, and under True."""
+    off_gru = ("trm_layer_fwd", "fused_attention_fwd", "rel_apply_fwd")
+    routed = ("trm_layer_fwd", "trm_layer_bwd", "fused_transformer_layer_fwd",
+              "fused_transformer_layer_bwd", "fused_gru_fwd")
+    out = {}
+    loaders = seq_loaders(torch, tmp, "GRU4Rec", {})
+    for hidden in (10, 256):
+        out[f"gru4rec_h{hidden}"] = short_run(
+            torch, tmp, f"gru4rec_h{hidden}", "GRU4Rec", {"hidden_size": hidden}, loaders, 5,
+            ("fused_gru_fwd", "fused_gru_bwd"), off_gru)
+    for fused in ("layer2", True):
+        out[f"sasrec_d128_{fused}"] = short_run(
+            torch, tmp, f"sasrec_d128_{fused}", "SASRec",
+            {"hidden_size": 128, "fused_attention": fused}, loaders, 5,
+            ("fused_attention_fwd", "fused_attention_bwd"), routed)
+    loaders = seq_loaders(torch, tmp, "SASRec", {"MAX_ITEM_LIST_LENGTH": 200})
+    for fused in ("layer2", True):
+        out[f"sasrec_l200_{fused}"] = short_run(
+            torch, tmp, f"sasrec_l200_{fused}", "SASRec",
+            {"MAX_ITEM_LIST_LENGTH": 200, "fused_attention": fused}, loaders, 5,
+            ("fused_attention_fwd", "fused_attention_bwd"), routed)
+    return out
+
+
+def write_ml1m_kg(directory, name, seed=43):
+    """.kg and .link atomic files of the reference's ml-1m KG shape, by the
+    recipe of scripts/bench_models.py:106-121: heads, tails and relations
+    drawn uniformly (79,388 entities, 385,923 triples, 51 relations), each
+    item linked to a distinct random entity."""
+    n_ent, n_trip, n_rel = ML1M_KG
+    rng = np.random.RandomState(seed)
+    heads = rng.randint(0, n_ent, n_trip)
+    tails = rng.randint(0, n_ent, n_trip)
+    rels = rng.randint(0, n_rel, n_trip)
+    with open(os.path.join(directory, f"{name}.kg"), "w") as fh:
+        fh.write("head_id:token\trelation_id:token\ttail_id:token\n")
+        np.savetxt(fh, np.stack([heads, rels, tails], axis=1), fmt="e%d\tr%d\te%d")
+    ent = rng.choice(n_ent, ML1M[1], replace=False)
+    with open(os.path.join(directory, f"{name}.link"), "w") as fh:
+        fh.write("item_id:token\tentity_id:token\n")
+        fh.writelines(f"{i + 1}\te{ent[i]}\n" for i in range(ML1M[1]))
+
+
+def phase_ripplenet(torch, tmp):
+    """RippleNet at its defaults under KGTrainer (rskg every epoch) on the
+    ml-1m-shaped file with a KG of the reference's ml-1m KG shape, RO_RS,
+    valid full sort, cut to 1 epoch, through Config -> data_preparation ->
+    get_model -> get_trainer -> fit with validation -> evaluate(test); then
+    20 steady steps under the profiler."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import KGTrainer, get_trainer
+    from recbole_tpu_torch.utils.logger import init_logger
+    from recbole_tpu_torch.utils.utils import init_seed
+    t0 = time.time()
+    write_ml1m_kg(os.path.join(tmp, "data", "ml-1m-shape"), "ml-1m-shape")
+    log(f"[ripplenet] wrote the ml-1m KG-shaped .kg and .link in {time.time() - t0:.1f}s")
+    config = Config("RippleNet", "ml-1m-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "epochs": 1, "device": "cuda",
+        "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
+        "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False},
+        _parse_cmd_line=False)
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    t0 = time.time()
+    train, valid, test = data_preparation(config, create_dataset(config))
+    t_data = time.time() - t0
+    full = train.full_dataset
+    log(f"[ripplenet] dataset, KG remap, RO_RS splits and loaders in {t_data:.1f}s: "
+        f"{full.user_num - 1} users, {full.item_num - 1} items, {full.entity_num} entities, "
+        f"{full.relation_num} relation ids, {full.kg_num} triples; train {train.n} valid "
+        f"{valid.n_eval_users} test {test.n_eval_users} users, eval batch {valid.batch_size}")
+    t0 = time.time()
+    model = get_model("RippleNet")(config, train.dataset)
+    torch.cuda.synchronize()
+    t_model = time.time() - t0
+    widths = {k: config[k] for k in ("embedding_size", "n_hop", "n_memory", "kg_weight",
+                                     "reg_weight", "train_batch_size")}
+    log(f"[ripplenet] model built (build_ripple_sets included) in {t_model:.1f}s; set-up "
+        f"{t_data + t_model:.1f}s; widths {widths}; compute dtype {model.compute_dtype}; "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    if tuple(widths.values()) != (64, 2, 16, 0.01, 1e-7, 2048) or model.bf16:
+        raise AssertionError(f"RippleNet was not built at its defaults: {widths}")
+    trainer = get_trainer(config["MODEL_TYPE"], "RippleNet")(config, model)
+    if not isinstance(trainer, KGTrainer) or trainer.default_train_mode != "rskg":
+        raise AssertionError("RippleNet does not train under KGTrainer's rskg mode")
+    times, release = capture_epoch_times()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    best_score, best_valid = trainer.fit(train, valid, saved=False)
+    test_result = trainer.evaluate(test, load_best_model=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches("ripplenet", ("rel_apply_fwd", "rel_apply_bwd", "adam_leaf"))
+    release()
+    off = ("masked_topk", "rel_apply_fwd_bf16", "rel_apply_bwd_bf16", "onehot_matmul_grad",
+           "windowed_grad", "trm_layer_fwd", "fused_gru_fwd", "fused_attention_fwd")
+    ran = {k: launches[k] for k in off if launches[k]}
+    if ran:
+        raise AssertionError(f"kernels off the ripplenet path were launched: {ran}")
+    result = {"best_valid_result": best_valid, "test_result": test_result}
+    log(f"[ripplenet] fit (1 epoch, validation) + test: {wall:.2f}s wall")
+    log(f"[ripplenet] result {json.dumps(result)}")
+    check_result(result, JAX_ML100K)
+    steps = len(train)
+    chunks = -(-full.item_num // 2048)
+    log(f"[ripplenet] {steps} steps; launches per step: rel_apply_bwd "
+        f"{launches['rel_apply_bwd'] / steps:.2f}, adam_leaf {launches['adam_leaf'] / steps:.2f};"
+        f" rel_apply_fwd {launches['rel_apply_fwd']} = 1 a step + {chunks} an eval batch "
+        "(one per item chunk)")
+    log(f"[ripplenet] epoch seconds {times['train']} (includes the upload); train examples/s: "
+        f"{train.n / times['train'][-1]:.1f}; ms/step: "
+        f"{1e3 * times['train'][-1] / steps:.3f}")
+    log(f"[ripplenet] full-sort valid pass seconds {times['eval']}")
+    log(f"[ripplenet] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    profile_steps(torch, trainer, train, "ripplenet")
+    return launches
+
+
 def profile_steps(torch, trainer, train, tag, steps=20):
     """Where a steady train step's time goes: ``steps`` more steps under
     torch.profiler. Logs the wall time, the time the card is busy, the
@@ -1498,6 +1849,27 @@ def phase_quality(torch, tmp):
             raise AssertionError(f"ml-100k {model} test recall@10 {test['recall@10']} < "
                                  f"{GRU_RECALL_FLOOR}")
 
+    from recbole_tpu_torch.ops import rel_apply as ra
+    before = ra.rel_apply_bwd_cuda.launches
+    t0 = time.time()
+    result = run_recbole(model="RippleNet", dataset="ml-100k", config_dict={
+        **ML100K_RIPPLE, "valid_full_to_uni1000": False, "device": "cuda",
+        "checkpoint_dir": os.path.join(tmp, "saved100k"),
+        "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING", "show_progress": False})
+    test = result["test_result"]
+    ran = ra.rel_apply_bwd_cuda.launches - before
+    log(f"[quality] ml-100k RippleNet (RO_RS full-sort, 40 epochs, early stopping on mrr@10) "
+        f"{time.time() - t0:.1f}s; rel_apply_bwd launches {ran}; best valid "
+        f"{result['best_valid_result']}")
+    log(f"[quality]   test {json.dumps(test)}   JAX package on the CPU, 3 seeds, same "
+        f"protocol: recall@10 {RIPPLE_JAX_SPREAD}")
+    check_result(result, JAX_ML100K)
+    if ran <= 0:
+        raise AssertionError("the ml-100k RippleNet run did not go through the rel_apply kernels")
+    if test["recall@10"] < RIPPLE_RECALL_FLOOR:
+        raise AssertionError(f"ml-100k RippleNet test recall@10 {test['recall@10']} < "
+                             f"{RIPPLE_RECALL_FLOOR}")
+
 
 def time_adam(torch, leaves, iters):
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton, adam_leaf_torch
@@ -1595,6 +1967,7 @@ def phase_timing(torch):
     out.update(time_bit_kernels(torch))
     out.update(time_gru(torch))
     out.update(time_attention(torch))
+    out.update(time_rel_apply(torch))
     return out
 
 
@@ -1748,9 +2121,11 @@ def time_gru(torch):
     (bf16 instance), and xi, out (dout, dxi) moved once in the instance's
     type."""
     from recbole_tpu_torch.ops import fused_gru as fg
-    B, L, E, H = (GRU4REC[k] for k in ("B", "L", "E", "H"))
+    B, L, E = (GRU4REC[k] for k in ("B", "L", "E"))
     out = {}
-    for bf16 in (True, False):
+    # GRU4Rec's hidden 128 in both instances (wh in shared memory), then
+    # hidden 256 in the bf16 instance (wh in device memory), the "h256" entry
+    for H, bf16 in ((GRU4REC["H"], True), (GRU4REC["H"], False), (256, True)):
         xi, hinit, wh, bh, dout = gru_inputs(torch, B, L, H, 41, bf16, False)
         y = fg.fused_gru_fwd_cuda(xi, hinit, wh, bh)
         dt = torch.bfloat16 if bf16 else torch.float32
@@ -1796,7 +2171,9 @@ def time_gru(torch):
             t["bound_ms"], t["bound_by"] = bound(flops, nbytes,
                                                  PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
             key = f"fused_gru_{way}"
-            if bf16:
+            if H != GRU4REC["H"]:
+                out[key][f"h{H}"] = t
+            elif bf16:
                 out[key] = t
             else:
                 out[key]["fp32"] = t
@@ -1815,9 +2192,22 @@ def time_attention(torch):
     dropout: forward, and forward + backward. The bound: q, k, v, the key
     validity (dO) in and o (dq, dk, dv) out once; the products over the
     L (L + 1) / 2 causal pairs (two forward, five backward)."""
+    out = {}
+    for L in (SASREC["L"], 200):
+        for way, t in time_attention_at(torch, L).items():
+            key = f"fused_attention_{way}"
+            if L == SASREC["L"]:
+                out[key] = t
+            else:
+                out[key][f"L{L}"] = t
+    return out
+
+
+def time_attention_at(torch, L):
+    """time_attention at L positions: {"fwd": {...}, "bwd": {...}}."""
     from torch.nn import functional as F
     from recbole_tpu_torch.ops import fused_attention as fa
-    B, L, H = SASREC["B"], SASREC["L"], SASREC["H"]
+    B, H = SASREC["B"], SASREC["H"]
     hd = SASREC["D"] // H
     q, k, v, valid, do = attention_inputs(torch, B, L, H, hd, 51, empty_row=False)
     seed = torch.tensor([51], dtype=torch.int64, device="cuda")
@@ -1842,10 +2232,12 @@ def time_attention(torch):
             t.grad = None
         fa.fused_attention_torch(pq, pk, pv, valid, True, 0.5, masks=masks).backward(do)
 
+    o, stats = fa.fused_attention_fwd_cuda(q, k, v, valid, seed, with_stats=True, **kw)
     calls = {"fwd": (lambda: fa.fused_attention_fwd_cuda(q, k, v, valid, seed, **kw),
                      lambda: fa.fused_attention_torch(q, k, v, valid, True, 0.5, masks=masks),
                      lib_fwd),
-             "bwd": (lambda: fa.fused_attention_bwd_cuda(q, k, v, valid, do, seed, **kw),
+             "bwd": (lambda: fa.fused_attention_bwd_cuda(q, k, v, valid, do, seed, o=o,
+                                                         stats=stats, **kw),
                      plain_bwd, lib_bwd)}
     pairs = L * (L + 1) // 2
     slab = B * L * H * hd * 4
@@ -1856,9 +2248,67 @@ def time_attention(torch):
         t = {"ms": cuda_ms(torch, kernel, 50), "plain_ms": cuda_ms(torch, plain, 20),
              "library_ms": cuda_ms(torch, lib, 50)}
         t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
-        out[f"fused_attention_{way}"] = t
+        out[way] = t
         log(f"[time] fused_attention_{way} B={B} L={L} H={H} hd={hd} causal, dropout 0.5 "
             f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): {t}")
+    return out
+
+
+def time_rel_apply(torch):
+    """Both rel_apply kernels, both instances, at RippleNet's step (N 131,072
+    rows, D 64, 53 relation ids, uniform), beside the plain version (one
+    product per relation), the bound, and the library yardstick: R gathered
+    by rel, then torch.bmm (forward; forward + autograd backward beside the
+    backward kernel). The masked per-relation loop that RippleNet's XLA path
+    runs (53 passes over all rows) is logged beside it. The bound: v, rel, R
+    and y (backward: v, rel, R, dy, dv, dR) moved once, 2 N D^2 operations
+    forward and 4 N D^2 backward at the fp32 rate (fp32 instance) or the
+    bf16 tensor-core rate (bf16 instance)."""
+    from recbole_tpu_torch.ops import rel_apply as ra
+    N = 2 * RIPPLENET["B"] * RIPPLENET["hops"] * RIPPLENET["M"]
+    D, NR = RIPPLENET["D"], ML1M_KG[2] + 2
+    v, rel, R, dy = rel_inputs(torch, N, D, NR, 61)
+    rel64 = rel.long()
+    vg, Rg = v.clone().requires_grad_(True), R.clone().requires_grad_(True)
+
+    def lib_fwd():
+        return torch.bmm(R[rel64], v[:, :, None])[:, :, 0]
+
+    def lib_bwd():
+        vg.grad = Rg.grad = None
+        torch.bmm(Rg[rel64], vg[:, :, None])[:, :, 0].backward(dy)
+
+    def masked_loop():
+        out = torch.zeros_like(v)
+        for r in range(NR):
+            out += ((rel64 == r).to(v.dtype)[:, None] * v) @ R[r].T
+        return out
+
+    out = {}
+    loop_ms = cuda_ms(torch, masked_loop, 10)
+    for bf16 in (False, True):
+        calls = {"fwd": (lambda: ra.rel_apply_fwd_cuda(v, rel, R, bf16=bf16),
+                         lambda: ra.rel_apply_torch(v, rel, R, bf16), lib_fwd),
+                 "bwd": (lambda: ra.rel_apply_bwd_cuda(v, rel, R, dy, bf16=bf16),
+                         lambda: ra.rel_apply_torch_bwd(v, rel, R, dy, bf16), lib_bwd)}
+        for way, (kernel, plain, lib) in calls.items():
+            flops = 2.0 * N * D * D * (2 if way == "bwd" else 1)
+            nbytes = 4 * (N * D * (3 if way == "bwd" else 2) + N
+                          + NR * D * D * (2 if way == "bwd" else 1))
+            t = {"ms": cuda_ms(torch, kernel, 50), "plain_ms": cuda_ms(torch, plain, 10),
+                 "library_ms": cuda_ms(torch, lib, 20)}
+            t["bound_ms"], t["bound_by"] = bound(flops, nbytes,
+                                                 PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+            key = f"rel_apply_{way}"
+            if bf16:
+                out[key]["bf16"] = t
+            else:
+                out[key] = t
+            log(f"[time] {key} {'bf16' if bf16 else 'fp32'} N={N} D={D} NR={NR} "
+                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; library: R[rel] gathered, "
+                f"then torch.bmm): {t}")
+    log(f"[time] rel_apply forward as RippleNet's XLA path computes it (53 masked passes over "
+        f"all rows, fp32): {loop_ms:.4f} ms")
     return out
 
 
@@ -1900,6 +2350,13 @@ KERNEL_META = {
     "fused_attention_bwd": {"route": "cuda",
                             "source": "recbole_tpu_torch/csrc/fused_attention.cu",
                             "replaces": "recbole_tpu/ops/fused_attention.py:204"},
+    # the relation apply, both instances together (fp32: RippleNet's
+    # default; bf16: the TPU kernel's rounding points); the timing's "bf16"
+    # entry is the bf16 instance's
+    "rel_apply_fwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/rel_apply.cu",
+                      "replaces": "recbole_tpu/ops/rel_apply.py:113"},
+    "rel_apply_bwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/rel_apply.cu",
+                      "replaces": "recbole_tpu/ops/rel_apply.py:113"},
 }
 
 
@@ -1929,6 +2386,7 @@ def main():
     err.update(check_bit_kernels(torch, yelp_bit_inputs(torch)))
     err.update(check_gru(torch))
     err.update(check_attention(torch))
+    err.update(check_rel_apply(torch))
     torch.cuda.empty_cache()
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1940,6 +2398,8 @@ def main():
         by_path["gru4rec"] = phase_gru4rec(torch, tmp)
         by_path["narm"] = phase_narm(torch, tmp)
         by_path["sasrec_attention"] = phase_sasrec_attention(torch, tmp)
+        by_path.update(phase_wide(torch, tmp))
+        by_path["ripplenet"] = phase_ripplenet(torch, tmp)
         phase_quality(torch, tmp)
     timing = phase_timing(torch)
     kernels = [{"name": kname, **KERNEL_META[kname],

@@ -1,19 +1,20 @@
 """Dataset/dataloader assembly.
 
-Port of recbole_tpu/data/utils.py (:44-178) for the general, context and
-sequential model families: ``create_dataset`` and ``data_preparation``, including the
-pure-feature CTR case (``USER_ID_FIELD: ~``), the value-metric
-``RowEvalLoader`` and the fork's validation override. When the protocol is
-full-sort and no benchmark split files are given, ``valid_full_to_uni1000``
-downgrades VALIDATION to uniform-1000 sampled ranking (reference
-data/utils.py:84-88); that reaches the sampled loader, which is not ported
-yet and raises, as do the knowledge, social and KG-sequential datasets and
-``eval_use_dataset_negatives``.
+Port of recbole_tpu/data/utils.py (:44-178) for the general, context,
+sequential and knowledge model families: ``create_dataset`` and
+``data_preparation``, including the pure-feature CTR case (``USER_ID_FIELD:
+~``), the value-metric ``RowEvalLoader``, the knowledge family's KG columns
+on the train loader and the fork's validation override. When the protocol
+is full-sort and no benchmark split files are given,
+``valid_full_to_uni1000`` downgrades VALIDATION to uniform-1000 sampled
+ranking (reference data/utils.py:84-88); that reaches the sampled loader,
+which is not ported yet and raises, as do the social and KG-sequential
+datasets and ``eval_use_dataset_negatives``.
 """
 
 import numpy as np
 
-from .dataset import Dataset
+from .dataset import Dataset, build_history_matrix
 from .loaders import (TrainLoader, FullSortEvalLoader, SampledEvalLoader,
                       RowEvalLoader, SequentialTrainLoader, SequentialEvalLoader,
                       SequentialSampledEvalLoader)
@@ -25,8 +26,8 @@ from ..utils.logger import get_logger
 
 def create_dataset(config):
     """The Dataset subclass for the model's family (parity:
-    data/utils.py:44-60). The knowledge, social and KG-sequential datasets
-    are not ported yet."""
+    data/utils.py:44-60). The social and KG-sequential datasets are not
+    ported yet."""
     model_type = config["MODEL_TYPE"]
     if config["model"] in ("GRU4RecKG", "KSR"):
         raise NotImplementedError(
@@ -34,6 +35,9 @@ def create_dataset(config):
     if model_type is ModelType.SEQUENTIAL:
         from .seq_dataset import SequentialDataset
         return SequentialDataset(config)
+    if model_type is ModelType.KNOWLEDGE:
+        from .kg_dataset import KnowledgeBasedDataset
+        return KnowledgeBasedDataset(config)
     if model_type not in (ModelType.GENERAL, ModelType.CONTEXT):
         raise NotImplementedError(
             f"{model_type} datasets are not ported yet (ROADMAP Queue 1)")
@@ -73,6 +77,19 @@ def data_preparation(config, dataset):
     else:
         train_loader = TrainLoader(config, train_ds)
     _attach(train_loader, dataset, train_ds, phase_history, "train", "train")
+
+    if getattr(dataset, "kg_feat", None) is not None:
+        # the KG stream of the knowledge family's train modes: the triples'
+        # columns and each head's known tails, which negative tails exclude
+        # (parity: data/utils.py:100-113)
+        h, r, t = dataset.kg_arrays()
+        train_loader.kg_columns = {
+            config["HEAD_ENTITY_ID_FIELD"]: h,
+            config["RELATION_ID_FIELD"]: r,
+            config["TAIL_ENTITY_ID_FIELD"]: t,
+        }
+        train_loader.kg_head_history = build_history_matrix(h, t, dataset.entity_num)
+        train_loader.n_entities = dataset.entity_num
 
     neg = es.neg_sample_args
     valid_neg = dict(neg)

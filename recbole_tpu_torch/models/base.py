@@ -1,7 +1,8 @@
 """Model base classes as torch ``nn.Module``s.
 
 Port of recbole_tpu/models/base.py's ``AbstractRecommender``,
-``GeneralRecommender`` and ``SequentialRecommender``. The contract keeps its names (calculate_loss /
+``GeneralRecommender``, ``SequentialRecommender`` and
+``KnowledgeRecommender``. The contract keeps its names (calculate_loss /
 predict / full_sort_predict / full_sort_query), but a model now owns its
 parameters, created on ``config["device"]`` from a torch.Generator seeded
 with ``config["seed"]``. The JAX package's ``ConstRef``/``bind_consts``
@@ -66,6 +67,19 @@ class AbstractRecommender(nn.Module):
     def full_sort_predict(self, batch):
         """(B, n_items) scores of every item for each row's user."""
         raise NotImplementedError
+
+    def score_items(self, batch, items):
+        """(B, C) scores of candidate ``items`` (B, C) for each row (parity:
+        base.py:183-206, without the pair blocks of models not ported yet):
+        the batch repeated C times with the candidates as its item column,
+        through ``predict``. Models with one query vector dotted with the
+        item table, or with per-user state shared by all candidates
+        (RippleNet), override it."""
+        B, C = items.shape
+        flat = {k: (v if v.dim() == 0 else v.repeat_interleave(C, dim=0))
+                for k, v in batch.items()}
+        flat[self.config["ITEM_ID_FIELD"]] = items.reshape(-1)
+        return self.predict(flat).reshape(B, C)
 
     def __str__(self):
         return self.__class__.__name__
@@ -156,3 +170,28 @@ class SequentialRecommender(AbstractRecommender):
     def full_sort_query(self, batch):
         """(query (B, D), item table (N, D)) for the fused masked top-k."""
         return self.forward(batch), self._item_table()
+
+
+class KnowledgeRecommender(AbstractRecommender):
+    """parity: KnowledgeRecommender (base.py:341-358): the rec fields, the KG
+    fields, and the entity and relation vocabularies of a
+    KnowledgeBasedDataset. float32 by default, as the rest of the port off
+    the sequential family."""
+
+    type = ModelType.KNOWLEDGE
+
+    def __init__(self, config, dataset):
+        super().__init__(config, dataset)
+        self.USER_ID = config["USER_ID_FIELD"]
+        self.ITEM_ID = config["ITEM_ID_FIELD"]
+        self.NEG_ITEM_ID = config["NEG_PREFIX"] + self.ITEM_ID
+        self.LABEL = config["LABEL_FIELD"]
+        self.ENTITY_ID = config["ENTITY_ID_FIELD"]
+        self.RELATION_ID = config["RELATION_ID_FIELD"]
+        self.HEAD_ENTITY_ID = config["HEAD_ENTITY_ID_FIELD"]
+        self.TAIL_ENTITY_ID = config["TAIL_ENTITY_ID_FIELD"]
+        self.NEG_TAIL_ENTITY_ID = config["NEG_PREFIX"] + self.TAIL_ENTITY_ID
+        self.n_users = dataset.user_num
+        self.n_items = dataset.item_num
+        self.n_entities = dataset.entity_num
+        self.n_relations = dataset.relation_num

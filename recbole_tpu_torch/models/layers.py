@@ -288,6 +288,12 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
     * ``"layer"``: the float32 instance (ops/fused_transformer.py); a
       bfloat16 ``compute_dtype`` raises, as the JAX package takes this path
       only under float32.
+
+      For both, a shape whose whole layer does not fit one block
+      (``trm_layer.layer_route`` from L, D and the inner size, decided
+      before any launch) takes the ``True`` path below instead, at the same
+      compute dtype, as the JAX package takes XLA when its kernel's support
+      check fails (JAX :335-345).
     * ``True``: the plain path below with its attention (mask, softmax,
       attention dropout, ``@ v``) through the attention-only kernel
       (ops/fused_attention.py, JAX :390-423): q, k, v are float32
@@ -310,7 +316,11 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
             raise NotImplementedError(
                 'fused_attention: "layer" is the float32 whole-layer kernel; set '
                 'compute_dtype: float32, or fused_attention: "layer2" for bfloat16 operands')
-        from ..ops.trm_layer import draw_seed, trm_layer
+        from ..ops.trm_layer import draw_seed, layer_route, trm_layer
+        B, L, D = x.shape
+        if params and layer_route(L, D, params[0]["ff1_w"].shape[1]) == "attention":
+            fused = True
+    if fused in ("layer2", "layer"):
         key_valid, causal = mask_spec
         seed = None
         if dropping and x.device.type != "cpu":

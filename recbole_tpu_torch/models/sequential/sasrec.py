@@ -15,7 +15,9 @@ from ..base import SequentialRecommender
 from ..layers import (TransformerEncoder, transformer_apply, layer_norm, dropout_apply,
                       normal_init, dot_c)
 from ..losses import bpr_loss, ce_loss
+from ...ops.trm_layer import MAX_SMEM_BYTES, layer_route, smem_floats
 from ...utils.enums import InputType
+from ...utils.logger import get_logger
 from .. import register_model
 
 
@@ -54,6 +56,24 @@ class SASRec(SequentialRecommender):
                                           self.hidden_size, self.inner_size, self.device)
         self.ln_g = nn.Parameter(torch.ones(self.hidden_size, device=self.device))
         self.ln_b = nn.Parameter(torch.zeros(self.hidden_size, device=self.device))
+        self._log_layer_route(config["fused_attention"])
+
+    def _log_layer_route(self, fused):
+        """Say once which path the whole-layer setting takes at this shape
+        (transformer_apply decides it the same way on every call)."""
+        if fused not in ("layer2", "layer"):
+            return
+        L, D, I = self.max_seq_length, self.hidden_size, self.inner_size
+        need = 4 * smem_floats(L, D, I, True)
+        if layer_route(L, D, I) == "layer":
+            get_logger().info("fused_attention %r at L=%d, D=%d, inner=%d: the whole-layer "
+                              "kernel (%d bytes of shared memory a block)", fused, L, D, I, need)
+        else:
+            get_logger().info("fused_attention %r at L=%d, D=%d, inner=%d: the whole layer "
+                              "needs %d bytes of shared memory a block, more than %d; the "
+                              "layers take the attention kernel inside plain projections and "
+                              "FFN (the fused_attention: True path)", fused, L, D, I, need,
+                              MAX_SMEM_BYTES)
 
     def forward(self, batch, generator=None):
         """(B, D) output at each sequence's last position. Dropout runs in

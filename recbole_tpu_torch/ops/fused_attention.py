@@ -30,9 +30,12 @@ Three things live here:
 
 A masked score has no gradient (the mask is a select, as in
 ``attention_xla``); the JAX kernel adds -1e9 instead, and its backward
-differs from this one in a row with no valid key only. Limits: the working
-set of one (sequence, head) in shared memory (``fused_attention_smem_bytes``
-of the built library), else it raises.
+differs from this one in a row with no valid key only. The kernels tile
+queries and keys (32 each) and stream the key tiles with an online softmax,
+so any L runs; the forward also returns each query row's max score and
+softmax sum, which the backward reads. Limit: head width at most
+``fused_attention_max_head_width`` of the built library (128), else it
+raises.
 """
 
 import ctypes
@@ -83,13 +86,14 @@ def _lib():
         lib = cuda_build.load("fused_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         shape = [i, i, i, i, i, f, f, i]                 # B L H hd causal scale rate layer
-        lib.fused_attention_fwd.argtypes = [p, p, p, p, p, *shape, p, p]
-        lib.fused_attention_bwd.argtypes = [p, p, p, p, p, *shape, p, p, p, p, p]
+        lib.fused_attention_fwd.argtypes = [p, p, p, p, p, *shape, p, p, p]
+        lib.fused_attention_bwd.argtypes = [p, p, p, p, p, *shape, p, p, p, p, p, p, p]
         lib.fused_attention_dropout_masks.argtypes = [p, i, i, i, f, i, p, p]
-        lib.fused_attention_smem_bytes.argtypes = [i, i, i]
+        lib.fused_attention_smem_bytes.argtypes = [i, i]
         lib.fused_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_attention_max_head_width.argtypes = []
         for fn in (lib.fused_attention_fwd, lib.fused_attention_bwd,
-                   lib.fused_attention_dropout_masks):
+                   lib.fused_attention_dropout_masks, lib.fused_attention_max_head_width):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -115,12 +119,15 @@ def _check(name, q, k, v, key_valid, seed, rate, backward):
     if rate > 0.0 and (seed is None or seed.dtype != torch.int64 or seed.numel() != 1
                        or seed.device != q.device):
         raise ValueError(f"{name} with dropout takes its seed as one int64 on q's device")
-    need = _lib().fused_attention_smem_bytes(L, hd, int(backward))
+    most = _lib().fused_attention_max_head_width()
+    if hd > most:
+        raise ValueError(f"{name}: head width {hd} is wider than the {most} the kernels take "
+                         "(a tile of its rows in shared memory); raise n_heads, or set "
+                         "fused_attention to another path")
+    need = _lib().fused_attention_smem_bytes(hd, int(backward))
     if need > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: L={L}, head width {hd} needs {need} bytes of shared memory "
-                         f"a block ({'backward' if backward else 'forward'}), more than the "
-                         f"{MAX_SMEM_BYTES} a Hopper block may use; shorten "
-                         "MAX_ITEM_LIST_LENGTH or set fused_attention to another path")
+        raise ValueError(f"{name}: head width {hd} needs {need} bytes of shared memory a "
+                         f"block, more than the {MAX_SMEM_BYTES} a Hopper block may use")
     return B, L, H, hd
 
 
@@ -132,39 +139,49 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fused_attention_fwd_cuda(q, k, v, key_valid, seed=None, *, causal=True, rate=0.0, layer=0):
-    """Launch ``fused_attention_fwd_kernel``: o (B, L, H, hd). Counts its
-    launches in ``fused_attention_fwd_cuda.launches``."""
+def fused_attention_fwd_cuda(q, k, v, key_valid, seed=None, *, causal=True, rate=0.0, layer=0,
+                             with_stats=False):
+    """Launch ``fused_attention_fwd_kernel``: o (B, L, H, hd), and with
+    ``with_stats`` also (o, stats), stats (B, H, L, 2) the query rows' max
+    score and softmax sum that the backward reads. Counts its launches in
+    ``fused_attention_fwd_cuda.launches``."""
     B, L, H, hd = _check("fused_attention_fwd_cuda", q, k, v, key_valid, seed, rate, False)
     o = torch.empty_like(q)
+    stats = torch.empty((B, H, L, 2), dtype=torch.float32, device=q.device)
     err = _lib().fused_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         _ptr(seed) if rate > 0.0 else None, *_args(B, L, H, hd, causal, rate, layer),
-        o.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        o.data_ptr(), stats.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_attention_fwd kernel launch failed: CUDA error {err}")
     fused_attention_fwd_cuda.launches += 1
-    return o
+    return (o, stats) if with_stats else o
 
 
 fused_attention_fwd_cuda.launches = 0
 
 
-def fused_attention_bwd_cuda(q, k, v, key_valid, dout, seed=None, *, causal=True, rate=0.0,
-                             layer=0):
-    """Launch ``fused_attention_bwd_kernel``: (dq, dk, dv). Counts its
-    launches in ``fused_attention_bwd_cuda.launches``."""
+def fused_attention_bwd_cuda(q, k, v, key_valid, dout, seed=None, *, o=None, stats=None,
+                             causal=True, rate=0.0, layer=0):
+    """Launch the backward's ``fused_attention_bwd_dq_kernel`` and
+    ``fused_attention_bwd_dkdv_kernel`` on the forward's ``o`` and ``stats``
+    (``fused_attention_fwd_cuda(..., with_stats=True)``): (dq, dk, dv).
+    Counts its launches in ``fused_attention_bwd_cuda.launches``."""
     B, L, H, hd = _check("fused_attention_bwd_cuda", q, k, v, key_valid, seed, rate, True)
-    if tuple(dout.shape) != (B, L, H, hd) or dout.dtype != torch.float32 \
-            or dout.device != q.device:
-        raise ValueError("dout must be float32 (B, L, H, hd) on q's device")
-    dout = dout.contiguous()
+    if o is None or stats is None:
+        raise ValueError("fused_attention_bwd_cuda reads the forward's o and stats "
+                         "(fused_attention_fwd_cuda(..., with_stats=True))")
+    for what, t, shape in (("dout", dout, (B, L, H, hd)), ("o", o, (B, L, H, hd)),
+                           ("stats", stats, (B, H, L, 2))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{what} must be float32 {shape} on q's device")
+    dout, o, stats = dout.contiguous(), o.contiguous(), stats.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     err = _lib().fused_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         _ptr(seed) if rate > 0.0 else None, *_args(B, L, H, hd, causal, rate, layer),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        o.data_ptr(), stats.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_attention_bwd kernel launch failed: CUDA error {err}")
     fused_attention_bwd_cuda.launches += 1
@@ -189,20 +206,25 @@ def fused_attention_dropout_masks_cuda(seed, B, H, L, rate, layer=0):
 
 
 class FusedAttention(torch.autograd.Function):
-    """Attention on CUDA tensors: forward and backward are one kernel each."""
+    """Attention on CUDA tensors: the forward kernel, and the backward's two
+    kernels on its saved output and row statistics."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, seed, kw):
         ctx.kw = kw
         ctx.has_seed = seed is not None
-        ctx.save_for_backward(q, k, v, key_valid, *((seed,) if seed is not None else ()))
-        return fused_attention_fwd_cuda(q, k, v, key_valid, seed, **dict(kw))
+        o, stats = fused_attention_fwd_cuda(q, k, v, key_valid, seed, with_stats=True,
+                                            **dict(kw))
+        ctx.save_for_backward(q, k, v, key_valid, o, stats,
+                              *((seed,) if seed is not None else ()))
+        return o
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, key_valid, *rest = ctx.saved_tensors
+        q, k, v, key_valid, o, stats, *rest = ctx.saved_tensors
         seed = rest[0] if ctx.has_seed else None
-        dq, dk, dv = fused_attention_bwd_cuda(q, k, v, key_valid, dout, seed, **dict(ctx.kw))
+        dq, dk, dv = fused_attention_bwd_cuda(q, k, v, key_valid, dout, seed, o=o, stats=stats,
+                                              **dict(ctx.kw))
         return dq, dk, dv, None, None, None
 
 

@@ -36,13 +36,21 @@ kernels in ``csrc/fused_gru.cu`` (``fused_gru_fwd_cuda``,
 ``fused_gru_bwd_cuda``, each with a launch count) and their autograd
 Function ``FusedGru``; and the dispatcher ``fused_gru``: the plain version
 for CPU tensors, the kernels for CUDA tensors, nothing falling back. It
-takes any B; the hidden size must be a multiple of 4 within the built
-library's limit (``fused_gru_max_hidden``), else it raises.
+takes any B and any hidden size up to the built library's limit
+(``fused_gru_max_hidden``, 700: the backward's 16 rows of h, dh and dhh in
+one block's shared memory), else it raises. The kernels take H a multiple
+of 4; the dispatcher zero-pads any other H up to one (``pad_hidden``),
+which is exact: a padded unit sees zero xi, bh, wh and h0, so r = z = 1/2,
+n = tanh(0) = 0 and its h stays exactly 0 at every step, and the zero rows
+of wh that it would feed the real units add exact zeros. Up to H = 128 wh
+lives in shared memory; above it the library's global-memory instance
+reads wh from device memory (L2), chosen from H before launch.
 """
 
 import ctypes
 
 import torch
+from torch.nn import functional as F
 
 from . import cuda_build
 
@@ -140,15 +148,19 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("fused_gru")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_gru_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p]
-        lib.fused_gru_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]
+        lib.fused_gru_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
+        lib.fused_gru_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
         lib.fused_gru_bwd_blocks.argtypes = [i, i, i]
         lib.fused_gru_dwh_chunks.argtypes = [i, i, i]
         lib.fused_gru_smem_bytes.argtypes = [i, i]
+        lib.fused_gru_scratch_floats.argtypes = [i]
         lib.fused_gru_max_hidden.argtypes = []
+        lib.fused_gru_max_shared_hidden.argtypes = []
         lib.fused_gru_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_gru_scratch_floats.restype = ctypes.c_longlong
         for fn in (lib.fused_gru_fwd, lib.fused_gru_bwd, lib.fused_gru_bwd_blocks,
-                   lib.fused_gru_dwh_chunks, lib.fused_gru_max_hidden):
+                   lib.fused_gru_dwh_chunks, lib.fused_gru_max_hidden,
+                   lib.fused_gru_max_shared_hidden):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -175,8 +187,9 @@ def _check(name, xi, h0, wh, bh, bf16, backward):
     lib = _lib()
     most = lib.fused_gru_max_hidden()
     if H % 4 or H > most:
-        raise ValueError(f"{name}: hidden size {H} must be a multiple of 4 and at most "
-                         f"{most} (the recurrent weights live in one block's shared memory)")
+        raise ValueError(f"{name}: hidden size {H} must be a multiple of 4 (the dispatcher "
+                         f"fused_gru pads any other) and at most {most} (the backward keeps 16 "
+                         "rows of h, dh and dhh in one block's shared memory)")
     need = lib.fused_gru_smem_bytes(H, int(backward))
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: hidden size {H} needs {need} bytes of shared memory a "
@@ -188,6 +201,17 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _scratch(H, device):
+    """Room for the global-memory instance's rounded wh and its transpose;
+    None when H keeps wh in shared memory."""
+    n = _lib().fused_gru_scratch_floats(H)
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def fused_gru_fwd_cuda(xi, h0, wh, bh):
     """Launch ``fused_gru_fwd_kernel``: out (B, L, H) in xi's dtype, which
     chooses the instance (bfloat16: bf16). Counts its launches in
@@ -196,8 +220,9 @@ def fused_gru_fwd_cuda(xi, h0, wh, bh):
     bf16 = xi.dtype == torch.bfloat16
     B, L, H = _check("fused_gru_fwd_cuda", xi, h0, wh, bh, bf16, False)
     out = torch.empty((B, L, H), dtype=xi.dtype, device=xi.device)
+    scratch = _scratch(H, xi.device)
     err = _lib().fused_gru_fwd(xi.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-                               B, L, H, int(bf16), out.data_ptr(), _stream(xi))
+                               B, L, H, int(bf16), _ptr(scratch), out.data_ptr(), _stream(xi))
     if err:
         raise RuntimeError(f"fused_gru_fwd kernel launch failed: CUDA error {err}")
     fused_gru_fwd_cuda.launches += 1
@@ -231,10 +256,11 @@ def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
     dwh_part = torch.empty((dw_chunks, H * 3 * H), dtype=torch.float32, device=dev)
     dwh = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
     dbh = torch.empty((3 * H,), dtype=torch.float32, device=dev)
+    scratch = _scratch(H, dev)
     err = lib.fused_gru_bwd(xi.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
                             out.data_ptr(), dout.data_ptr(), B, L, H, int(bf16),
-                            dxi.data_ptr(), dh0.data_ptr(), dhh.data_ptr(), dbh_part.data_ptr(),
-                            dwh_part.data_ptr(), dwh.data_ptr(), dbh.data_ptr(), _stream(xi))
+                            _ptr(scratch), dxi.data_ptr(), dh0.data_ptr(), dhh.data_ptr(),
+                            dbh_part.data_ptr(), dwh_part.data_ptr(), dwh.data_ptr(), dbh.data_ptr(), _stream(xi))
     if err:
         raise RuntimeError(f"fused_gru_bwd kernel launch failed: CUDA error {err}")
     fused_gru_bwd_cuda.launches += 1
@@ -263,14 +289,39 @@ class FusedGru(torch.autograd.Function):
 
 # ---------------------------------------------------------------- dispatcher
 
+def padded_hidden(H):
+    """The hidden size the kernels run for H: the next multiple of 4."""
+    return -(-H // 4) * 4
+
+
+def pad_hidden(xi, h0, wh, bh, Hp):
+    """Zero-pad a layer of hidden size H to Hp >= H units: each gate block
+    of xi and bh, h0, and both axes of wh (per gate block on the columns).
+    Differentiable: the gradients of the padded tensors slice back."""
+    H = wh.shape[0]
+    p = Hp - H
+    if not p:
+        return xi, h0, wh, bh
+    B, L = xi.shape[:2]
+    xi = F.pad(xi.reshape(B, L, 3, H), (0, p)).reshape(B, L, 3 * Hp)
+    wh = F.pad(wh.reshape(H, 3, H), (0, p, 0, 0, 0, p)).reshape(Hp, 3 * Hp)
+    bh = F.pad(bh.reshape(3, H), (0, p)).reshape(3 * Hp)
+    return xi, F.pad(h0, (0, p)), wh, bh
+
+
 def fused_gru(xi, h0, wh, bh):
     """xi (B, L, 3H) input projections, bfloat16 for the bf16 instance or
     float32 for the fp32 one; h0 (B, H), wh (H, 3H), bh (3H,) float32.
     Returns every hidden state (B, L, H) in xi's dtype: the plain version
-    for a CPU tensor, the kernels for a CUDA tensor."""
+    for a CPU tensor, the kernels for a CUDA tensor (H zero-padded to a
+    multiple of 4 around them, the outputs sliced back)."""
     if xi.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_gru takes bfloat16 or float32 xi, got {xi.dtype}")
     h0 = h0.to(torch.float32)
     if xi.device.type == "cpu":
         return fused_gru_torch(xi, h0, wh, bh, bf16=xi.dtype == torch.bfloat16)
-    return FusedGru.apply(xi.contiguous(), h0.contiguous(), wh.contiguous(), bh.contiguous())
+    H = wh.shape[0]
+    Hp = padded_hidden(H)
+    xi, h0, wh, bh = pad_hidden(xi, h0, wh, bh, Hp)
+    out = FusedGru.apply(xi.contiguous(), h0.contiguous(), wh.contiguous(), bh.contiguous())
+    return out if Hp == H else out[..., :H]

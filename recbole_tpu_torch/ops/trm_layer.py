@@ -40,7 +40,13 @@ Limits (checked here, a clear error beyond them): D, D / n_heads and the
 inner size multiples of 4, and a working set (``trm_layer_smem_bytes`` of
 the built library: ``smem_floats`` in csrc/trm_layer.cu) within the 227 KB of
 shared memory a block may use (L 50, D 64, I 256 takes 198,200 bytes in the
-backward).
+backward). ``smem_floats`` below is a copy of that formula, so that a
+caller can choose the path from the shape before any launch
+(``layer_route``): at L >= 58 with D 64 and I 256, or at D 128 with L 50,
+the whole layer does not fit a block, and ``models/layers.transformer_apply``
+builds the layer as ``fused_attention: True`` does (plain projections and
+FFN around the key-tiled attention kernel), as the JAX package takes XLA
+where its kernel's support check fails.
 """
 
 import ctypes
@@ -56,6 +62,29 @@ PARAM_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
 ACTS = ("gelu", "relu", "swish", "tanh", "sigmoid")
 NEG = -1e9
 MAX_SMEM_BYTES = 232448  # opt-in shared memory of a Hopper block
+
+
+# csrc/trm_layer.cu's FFN chunk and row padding (kChunk, kPad)
+_CHUNK, _PAD = 128, 4
+
+
+def smem_floats(L, D, I, backward):
+    """Shared-memory floats of one whole-layer block: a copy of
+    ``smem_floats`` in csrc/trm_layer.cu (a ``cuda`` test holds it against
+    the built library's ``trm_layer_smem_bytes``)."""
+    IC = min(I, _CHUNK)
+    LS = (L + 3) // 4 * 4 + _PAD
+    ld, lc, ls = L * (D + _PAD), L * (IC + _PAD), L * LS
+    if backward:
+        return 9 * ld + 2 * lc + 2 * ls + 3 * L
+    return 7 * ld + lc + ls + 3 * L
+
+
+def layer_route(L, D, I):
+    """The path a fused layer of this shape takes: ``"layer"``, the
+    whole-layer kernel, when its backward's working set fits a block, else
+    ``"attention"``, the layer built around the attention kernel."""
+    return "layer" if 4 * smem_floats(L, D, I, True) <= MAX_SMEM_BYTES else "attention"
 
 
 def param_shapes(D, I):

@@ -10,12 +10,20 @@ model's device:
     shuffled batches are gathered on the device, one gather per matrix
     whatever the number of columns (the counterpart of the JAX trainer's
     ``_upload_columns`` under scan_epochs);
-  * negatives are drawn on the device inside the step (``_make_rec_augment``,
-    the pairwise branch; without exclusion for the sequential family, whose
-    items may repeat); labeled rows (the CTR protocols: no sampling, or no
-    user/item ids at all) pass through as they are; a loader's
-    ``device_transform`` (the sequential family's padded-sequence gather)
-    runs first;
+  * negatives are drawn on the device inside the step (``_make_rec_augment``:
+    pairwise models get a negative column, pointwise ones their rows
+    followed by k negative rows labelled 0; without exclusion for the
+    sequential family, whose items may repeat); labeled rows (the CTR
+    protocols: no sampling, or no user/item ids at all) pass through as they
+    are; a loader's ``device_transform`` (the sequential family's
+    padded-sequence gather) runs first;
+  * a model may return its loss as a tuple of parts: the step sums them for
+    the gradient and the epoch reports each part (parity: trainer.py:367);
+  * train modes (``_build_mode``, parity: trainer.py:447-500): ``rs`` (rec
+    batches, ``calculate_loss``), ``kg`` (KG triples with a negative tail
+    each, ``calculate_kg_loss``), ``rskg`` (rec batches with random KG rows
+    added, ``calculate_loss``) and ``rs_only_loss`` (``calculate_rs_loss``);
+    ``KGTrainer`` picks one per epoch;
   * row 0 of every ``pad_zero_params`` gradient is zeroed before Adam, so a
     [PAD] embedding row never trains;
   * the model is in train mode only inside the step, and draws its dropout
@@ -29,18 +37,20 @@ model's device:
     ``mask_history = False`` (sequential splits), the user's earlier-phase
     items; a model with its own ``full_sort_predict`` only (LightGCN, NARM)
     has its (B, n_items) float32 scores masked the same way and ranked by
-    ``torch.topk``; each batch reduces to per-metric partial sums on the
-    device;
+    ``torch.topk``; a model with neither (RippleNet) is scored by its
+    ``score_items`` over chunks of the item axis (2,048 items, or what
+    ``eval_pair_bytes`` allows in 512 MB) and then ranked the same way;
+    each batch reduces to per-metric partial sums on the device;
   * value-metric evaluation (``_evaluate_individual``) uploads the eval
     table once, predicts in device-sliced batches, and computes AUC/LogLoss
     on the device.
 
-``get_trainer`` serves the general, context and sequential families. Still
-raising: other learners, gradient clipping, weight decay, the POINTWISE branch that
-samples negatives, dataset negatives and the both-way sampler, the sampled
-and labeled eval steps, the chunked ``score_items`` eval of models without
-``full_sort_predict``, bfloat16 eval scores and the trainer subclasses
-(ROADMAP Queue 1).
+``get_trainer`` serves the general, context and sequential families with
+``Trainer`` and the knowledge family with ``KGTrainer``. Still raising:
+other learners, gradient clipping, weight decay, dataset negatives and the
+both-way sampler, the sampled and labeled eval steps, bfloat16 eval scores
+and the other trainer subclasses (KGAT's, MKR's and the rest: ROADMAP
+Queue 1).
 """
 
 import os
@@ -108,6 +118,28 @@ def fused_full_sort(cls):
     return hasattr(cls, "full_sort_query") and ("full_sort_query" in cls.__dict__ or base_stack)
 
 
+def pointwise_rows(batch, negs, iid_f, label_f):
+    """A pointwise batch with sampled negatives (parity: trainer.py:
+    271-287): the B original rows, labelled from the data (or by
+    ``_weight``, or 1), then k blocks of B rows, block j holding every row's
+    j-th negative item and label 0; every other column repeated."""
+    B, k = negs.shape
+    out = {}
+    for f, v in batch.items():
+        if f == iid_f:
+            out[f] = torch.cat([v, negs.T.reshape(-1)])
+        elif f == label_f:
+            out[f] = torch.cat([v, torch.zeros(B * k, dtype=v.dtype, device=v.device)])
+        else:
+            out[f] = torch.cat([v] * (k + 1))
+    if label_f not in batch:
+        w = batch.get("_weight")
+        pos = (torch.ones(B, dtype=torch.float32, device=negs.device) if w is None
+               else w.to(torch.float32))
+        out[label_f] = torch.cat([pos, torch.zeros(B * k, device=negs.device)])
+    return out
+
+
 class Trainer:
     ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -132,7 +164,7 @@ class Trainer:
         self.cur_step = 0
         self.opt_state = None
         self.train_loss_dict = {}
-        self._mode = None
+        self._modes = {}
         self._eval_step_cache = {}
         # shuffling and negatives draw from their own stream, apart from the
         # model's init stream (seeded with ``seed``)
@@ -141,11 +173,53 @@ class Trainer:
 
     # ------------------------------------------------------------- train step
 
+    # the train mode of every epoch (KGTrainer picks per epoch)
+    default_train_mode = "rs"
+
+    def _make_kg_augment(self, train_data, include_rec):
+        """KG-stream batch shaping (parity: trainer.py:127-165): one negative
+        tail per triple, drawn on the device and excluding the head's known
+        tails (KGSampler, sampler.py:268-338). With ``include_rec`` random KG
+        rows are ADDED onto a rec batch, one per row (the rskg mode: the
+        reference zips a restarted shuffled KG stream, knowledge_dataloader.py:
+        183-190; random rows give the same distribution over an epoch).
+        Returns (augment, consts)."""
+        cfg = self.config
+        uid_f = cfg["USER_ID_FIELD"]
+        head_f = cfg["HEAD_ENTITY_ID_FIELD"]
+        neg_tail_f = cfg["NEG_PREFIX"] + cfg["TAIL_ENTITY_ID_FIELD"]
+        rounds = cfg["neg_sampling_resample_rounds"]
+        hist, hlen = train_data.kg_head_history
+        consts = {
+            "kg_cols": {f: torch.as_tensor(np.asarray(v, np.int64), device=self.device)
+                        for f, v in train_data.kg_columns.items()},
+            "kg_head_hist": torch.as_tensor(hist, device=self.device).long(),
+            "kg_head_hlen": torch.as_tensor(hlen, device=self.device).long(),
+        }
+        n_entities = train_data.n_entities
+        n_kg = len(train_data.kg_columns[head_f])
+
+        def kg_augment(batch, generator, consts):
+            out = dict(batch)
+            if include_rec:
+                B = batch[uid_f].shape[0]
+                idx = torch.randint(0, n_kg, (B,), generator=generator, device=self.device)
+                for f, col in consts["kg_cols"].items():
+                    out[f] = col[idx]
+            negs = sample_negatives(generator, out[head_f], consts["kg_head_hist"],
+                                    consts["kg_head_hlen"], n_entities, 1, rounds=rounds)
+            out[neg_tail_f] = negs[:, 0]
+            return out
+
+        return kg_augment, consts
+
     def _make_rec_augment(self, train_data):
         """Device-side batch shaping (parity: trainer.py:166-289): the
         loader's device transform first; then labeled rows pass through (the
-        pure-feature protocol, and no sampling) and pairwise models get
-        sampled negatives. Returns (augment, consts)."""
+        pure-feature protocol, and no sampling); pairwise models get a
+        sampled negative column; pointwise ones their rows (labelled from the
+        data, or by ``_weight``, or 1) followed by k rows of sampled
+        negatives labelled 0. Returns (augment, consts)."""
         model = self.model
         cfg = self.config
         uid_f = cfg["USER_ID_FIELD"]
@@ -165,7 +239,8 @@ class Trainer:
                 return (lambda batch, generator, consts: batch), {}
             return ((lambda batch, generator, consts: transform(batch, consts)),
                     dict(transform.consts(self.device)))
-        if model.input_type is not InputType.PAIRWISE:
+        pointwise = model.input_type is InputType.POINTWISE
+        if not pointwise and model.input_type is not InputType.PAIRWISE:
             raise NotImplementedError(
                 f"{model.input_type} training with sampled negatives is not "
                 "ported yet (ROADMAP Queue 1, item 3)")
@@ -173,6 +248,7 @@ class Trainer:
             raise ValueError("pairwise training needs training_neg_sample_num >= 1")
         rounds = cfg["neg_sampling_resample_rounds"]
         neg_f = cfg["NEG_PREFIX"] + iid_f
+        label_f = cfg["LABEL_FIELD"]
         n_items = train_data.n_items
         # sequential models sample without used-id exclusion: items may repeat
         # in a history (parity: RepeatableSampler, sampler.py:341-420)
@@ -199,6 +275,8 @@ class Trainer:
                 negs = sample_negatives(generator, batch[uid_f], consts["hist"],
                                         consts["hlen"], n_items, k, rounds=rounds,
                                         pop_items=consts.get("pop"))
+            if pointwise:
+                return pointwise_rows(batch, negs, iid_f, label_f)
             if k == 1:
                 out = dict(batch)
                 out[neg_f] = negs[:, 0]
@@ -236,10 +314,11 @@ class Trainer:
                       b1=b1, b2=b2, lr=lr, eps=eps)
 
     def _make_step_core(self, augment, loss_method):
-        """step_core(batch, consts) -> detached loss: augment, loss, gradients
-        and the fused Adam update, drawing randomness (negatives, dropout
-        masks) from ``self.generator`` (parity: trainer.py:356-395). The
-        model is in train mode for the loss only."""
+        """step_core(batch, consts) -> detached loss (a vector of its parts
+        when the loss method returns a tuple): augment, loss, gradients and
+        the fused Adam update, drawing randomness (negatives, dropout masks)
+        from ``self.generator`` (parity: trainer.py:356-395). The model is in
+        train mode for the loss only."""
         params = dict(self.model.named_parameters())
         pad_zero = [k for k in getattr(self.model, "pad_zero_params", ()) if k in params]
 
@@ -247,9 +326,11 @@ class Trainer:
             batch = augment(batch, self.generator, consts)
             self.model.train()
             try:
-                loss = loss_method(batch, generator=self.generator)
+                out = loss_method(batch, generator=self.generator)
             finally:
                 self.model.eval()
+            # a tuple of loss parts: their sum is the loss, each is reported
+            loss = sum(out) if isinstance(out, tuple) else out
             # a leaf the loss does not reach (LR never reads the embedding
             # of a float field) gets a zero gradient, as jax.grad gives it
             grads = {name: torch.zeros_like(params[name]) if g is None else g
@@ -260,6 +341,8 @@ class Trainer:
             for name in pad_zero:
                 grads[name][0] = 0.0
             self._fused_adam_apply(grads)
+            if isinstance(out, tuple):
+                return torch.stack([part.detach() for part in out])
             return loss.detach()
 
         return step_core
@@ -289,38 +372,75 @@ class Trainer:
                 batch[f] = rows[:, j]
         return batch
 
-    def _build_mode(self, train_data):
-        if self._mode is None:
+    def _build_mode(self, train_data, mode=None):
+        """The step, device constants, uploaded table and loader of one train
+        mode (parity: trainer.py:447-500, KGDataLoaderState):
+          rs           rec batches, ``calculate_loss``;
+          kg           KG-triple batches with a negative tail each,
+                       ``calculate_kg_loss``;
+          rskg         rec batches with KG rows added, ``calculate_loss``;
+          rs_only_loss rec batches, ``calculate_rs_loss``.
+        Built once per mode and kept."""
+        mode = mode or self.default_train_mode
+        if mode in self._modes:
+            return self._modes[mode]
+        model = self.model
+        loader = train_data
+        if mode == "rs":
             augment, consts = self._make_rec_augment(train_data)
-            self._mode = {"step": self._make_step_core(augment, self.model.calculate_loss),
-                          "consts": consts,
-                          "tables": self._upload_table(train_data.columns())}
-        return self._mode
+            loss_method = model.calculate_loss
+        elif mode == "kg":
+            from ..data.loaders import ArrayTrainLoader
+            loader = ArrayTrainLoader(self.config, train_data.kg_columns)
+            augment, consts = self._make_kg_augment(train_data, include_rec=False)
+            loss_method = model.calculate_kg_loss
+        elif mode == "rskg":
+            rec_aug, rec_consts = self._make_rec_augment(train_data)
+            kg_aug, kg_consts = self._make_kg_augment(train_data, include_rec=True)
+            consts = {**rec_consts, **kg_consts}
 
-    def _train_epoch(self, train_data, epoch_idx):
+            def augment(batch, generator, consts):
+                return kg_aug(rec_aug(batch, generator, consts), generator, consts)
+            loss_method = model.calculate_loss
+        elif mode == "rs_only_loss":
+            augment, consts = self._make_rec_augment(train_data)
+            loss_method = model.calculate_rs_loss
+        else:
+            raise ValueError(f"unknown train mode {mode!r}")
+        bundle = {"step": self._make_step_core(augment, loss_method), "consts": consts,
+                  "tables": self._upload_table(loader.columns()), "loader": loader}
+        self._modes[mode] = bundle
+        return bundle
+
+    def _train_epoch(self, train_data, epoch_idx, mode=None):
         """One epoch of shuffled batches sliced on the device. The loss stays
         on the device until the epoch ends; the NaN check (parity: reference
-        trainer.py:234-236) runs once per epoch on the total."""
-        mode = self._build_mode(train_data)
-        n, B = train_data.n, train_data.batch_size
-        if train_data.shuffle:
+        trainer.py:234-236) runs once per epoch on the total. Returns the
+        total, or a tuple of the parts' totals."""
+        bundle = self._build_mode(train_data, mode)
+        loader = bundle["loader"]
+        n, B = loader.n, loader.batch_size
+        if loader.shuffle:
             order = torch.randperm(n, generator=self.generator, device=self.device)
         else:
             order = torch.arange(n, device=self.device)
-        total = torch.zeros((), device=self.device)
+        total = None
         for start in range(0, n, B):
             idx = order[start:start + B]
-            total += mode["step"](self._take_batch(mode["tables"], idx), mode["consts"])
-        total = float(total)
-        if np.isnan(total):
+            parts = bundle["step"](self._take_batch(bundle["tables"], idx), bundle["consts"])
+            total = parts if total is None else total + parts
+        if total is None:
+            return 0.0
+        total = np.atleast_1d(total.cpu().numpy()).astype(np.float64)
+        if np.isnan(total).any():
             raise ValueError(f"Training loss is nan at epoch {epoch_idx}")
-        return total
+        return tuple(total.tolist()) if len(total) > 1 else float(total[0])
 
     def prepare(self, train_data):
-        """Initialize the optimizer state and build the train step."""
+        """Initialize the optimizer state and build the default train mode."""
         if self.opt_state is None:
             self.opt_state = self._fused_adam_init()
-        self._mode = None
+        self._modes = {}
         self._build_mode(train_data)
 
     # -------------------------------------------------------------------- fit
@@ -338,11 +458,14 @@ class Trainer:
         for epoch_idx in range(self.start_epoch, self.epochs):
             t0 = time.time()
             train_loss = self._train_epoch(train_data, epoch_idx)
-            self.train_loss_dict[epoch_idx] = train_loss
+            self.train_loss_dict[epoch_idx] = (
+                sum(train_loss) if isinstance(train_loss, tuple) else train_loss)
             t1 = time.time()
             if verbose:
-                self.logger.info("epoch %d training [time: %.2fs, train loss: %.4f]",
-                                 epoch_idx, t1 - t0, train_loss)
+                loss_str = (", ".join(f"{part:.4f}" for part in train_loss)
+                            if isinstance(train_loss, tuple) else f"{train_loss:.4f}")
+                self.logger.info("epoch %d training [time: %.2fs, train loss: %s]",
+                                 epoch_idx, t1 - t0, loss_str)
 
             if valid_data is None or (epoch_idx + 1) % self.eval_step != 0:
                 if saved and valid_data is None:
@@ -445,9 +568,10 @@ class Trainer:
         ``opted_in or base_stack`` rule :938-951): its query and item table
         go through the masked top-k. A model with ``full_sort_predict`` only
         takes the non-fused
-        one (parity: trainer.py:1052-1075, without the chunked
-        ``score_items`` fallback): float32 scores, NEG_INF in the [PAD]
-        column and added at the history, ``torch.topk``."""
+        one (parity: trainer.py:1052-1075): float32 scores from
+        ``full_sort_predict`` or, for a model with neither, from chunks of
+        ``score_items``; NEG_INF in the [PAD] column and added at the
+        history, ``torch.topk``."""
         model = self.model
         uid_f = self.config["USER_ID_FIELD"]
         if str(self.config["eval_score_dtype"]).lower() != "float32":
@@ -455,11 +579,8 @@ class Trainer:
                 "eval_score_dtype other than float32 is not ported yet "
                 "(ROADMAP Queue 1, item 5)")
         fused = fused_full_sort(type(model))
-        if not fused and type(model).full_sort_predict is AbstractRecommender.full_sort_predict:
-            raise NotImplementedError(
-                "full-sort eval of models with neither full_sort_query nor "
-                "full_sort_predict (the chunked score_items path) is not ported "
-                "yet (ROADMAP Queue 1, item 5)")
+        has_full_sort = (type(model).full_sort_predict
+                         is not AbstractRecommender.full_sort_predict)
         consts = {"hist": None, "hlen": None}
         if getattr(eval_data, "mask_history", True):
             consts["hist"], consts["hlen"] = eval_data.phase_history.device_tables(
@@ -468,6 +589,27 @@ class Trainer:
         if transform is not None:
             consts.update(transform.consts(self.device))
         n_items = eval_data.n_items
+
+        def all_item_scores(batch):
+            """(B, n_items) scores: full_sort_predict, or the model's
+            score_items over chunks of the item axis (parity: trainer.py:
+            1006-1045, the reference's _spilt_predict): a chunk of 2,048
+            items, or as many as keep B x chunk x ``eval_pair_bytes`` within
+            512 MB (a multiple of 128, at least 128); the last chunk wraps
+            around to item 0 and its extra columns are cut."""
+            if has_full_sort:
+                return model.full_sort_predict(batch)
+            B = batch[uid_f].shape[0]
+            pair_bytes = int(getattr(model, "eval_pair_bytes", 0) or 0)
+            if pair_bytes:
+                chunk = min(n_items, max(128, (512 << 20) // (B * pair_bytes) // 128 * 128))
+            else:
+                chunk = min(2048, n_items)
+            n_chunks = -(-n_items // chunk)
+            items = (torch.arange(n_chunks * chunk, device=self.device) % n_items).reshape(
+                n_chunks, chunk)
+            scores = [model.score_items(batch, c[None, :].expand(B, chunk)) for c in items]
+            return torch.cat(scores, dim=1)[:, :n_items]
 
         def eval_step(consts, batch):
             pos_items = batch.pop("pos_items")
@@ -483,7 +625,7 @@ class Trainer:
                 _, topk_idx = masked_topk(query.contiguous(), table.contiguous(),
                                           invalid, max_k)
             else:
-                scores = model.full_sort_predict(batch).to(torch.float32)
+                scores = all_item_scores(batch).to(torch.float32)
                 scores = torch.where(invalid > 0, scores + NEG_INF, scores)
                 scores[:, 0] = NEG_INF
                 _, topk_idx = torch.topk(scores, max_k, dim=1)
@@ -549,10 +691,50 @@ class Trainer:
         return collector.evaluate()
 
 
+class KGTrainer(Trainer):
+    """The knowledge family's loop policy (parity: trainer.py:1354-1388,
+    reference KGTrainer, trainer.py:455-481): with ``train_rec_step`` or
+    ``train_kg_step`` unset every epoch is rskg (rec batches with KG rows
+    added); otherwise epochs run in blocks of ``train_rec_step`` rs epochs
+    then ``train_kg_step`` kg epochs."""
+
+    def __init__(self, config, model):
+        super().__init__(config, model)
+        self.train_rec_step = config["train_rec_step"]
+        self.train_kg_step = config["train_kg_step"]
+
+    @property
+    def default_train_mode(self):
+        if self.train_rec_step is None or self.train_kg_step is None:
+            return "rskg"
+        return "rs"
+
+    def epoch_mode(self, epoch_idx):
+        """The train mode of epoch ``epoch_idx``."""
+        if self.train_rec_step is None or self.train_kg_step is None:
+            return "rskg"
+        if epoch_idx % (self.train_rec_step + self.train_kg_step) < self.train_rec_step:
+            return "rs"
+        return "kg"
+
+    def _train_epoch(self, train_data, epoch_idx, mode=None):
+        return super()._train_epoch(train_data, epoch_idx, self.epoch_mode(epoch_idx))
+
+
+# knowledge models whose own trainers are not ported yet
+_KG_TRAINERS_NOT_PORTED = ("KGAT", "MKR")
+
+
 def get_trainer(model_type, model_name):
-    """parity: reference get_trainer (utils/utils.py:78-96). The port has
-    the base Trainer, which serves the general, context and sequential
-    families."""
+    """parity: reference get_trainer (utils/utils.py:78-96), the JAX
+    package's trainer.py:1675-1690. The port has the base Trainer, which
+    serves the general, context and sequential families, and KGTrainer, the
+    knowledge family's default."""
+    if model_name in _KG_TRAINERS_NOT_PORTED:
+        raise NotImplementedError(
+            f"{model_name}'s trainer is not ported yet (ROADMAP Queue 1, item 9)")
+    if model_type is ModelType.KNOWLEDGE:
+        return KGTrainer
     if model_type not in (ModelType.GENERAL, ModelType.CONTEXT, ModelType.SEQUENTIAL):
         raise NotImplementedError(
             f"trainers for {model_type} models are not ported yet (ROADMAP "

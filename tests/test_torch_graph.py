@@ -510,7 +510,11 @@ def test_unported_graph_models_and_eval_fallback_raise(synth_dataset_dir, tmp_pa
         with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
             get_model(name)
     *_, ptrainer, pmodel, _, pvalid, _ = _pipelines(_cfg(synth_dataset_dir, tmp_path))
+    # a model without full_sort_predict is scored by score_items over chunks
+    # of the items, by default through predict: the same metrics
+    ref = ptrainer.evaluate(pvalid, load_best_model=False)
     from recbole_tpu_torch.models.base import AbstractRecommender
     monkeypatch.setattr(type(pmodel), "full_sort_predict", AbstractRecommender.full_sort_predict)
-    with pytest.raises(NotImplementedError, match="score_items"):
-        ptrainer.evaluate(pvalid, load_best_model=False)
+    ptrainer._eval_step_cache.clear()
+    got = ptrainer.evaluate(pvalid, load_best_model=False)
+    assert set(got) == set(ref) and all(abs(got[k] - ref[k]) <= 1e-6 for k in ref)

@@ -431,3 +431,65 @@ def test_init_and_compute_dtype_rule(synth_dataset_dir, tmp_path):
     assert narm.cdt == torch.bfloat16
     assert layers.gru_apply(narm.gru, narm.embed_seq(seq)).dtype == torch.float32
     assert torch.count_nonzero(narm.item_embedding[0]) == 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("hidden", [10, 30])
+def test_padding_to_a_multiple_of_four_leaves_the_result(bf16, hidden):
+    """The dispatcher's zero-padding of H up to a multiple of 4 (what the
+    kernels run on the card), applied to the plain version: the padded
+    units' outputs are exactly 0 at every step and their rows of the
+    gradients slice away; the real units' outputs and the gradients equal
+    the unpadded run's within 2e-6 of each tensor's largest value (the
+    padding adds exact zeros, but the CPU library's product blocks a
+    10-long and a 12-long sum differently; the kernels add k in order, so
+    there the zeros come last)."""
+    rng = np.random.RandomState(hidden + bf16)
+    Hh = hidden
+    xi = torch.tensor(rng.randn(B, L, 3 * Hh).astype(np.float32))
+    if bf16:
+        xi = xi.to(torch.bfloat16)
+    h0 = torch.tensor((0.5 * rng.randn(B, Hh)).astype(np.float32))
+    wh = torch.tensor((0.3 * rng.randn(Hh, 3 * Hh)).astype(np.float32))
+    bh = torch.tensor((0.1 * rng.randn(3 * Hh)).astype(np.float32))
+    dy = torch.tensor(rng.randn(B, L, Hh).astype(np.float32))
+    Hp = fg.padded_hidden(Hh)
+    assert Hp % 4 == 0 and Hh < Hp < Hh + 4
+
+    def grads(pad):
+        args = [t.clone().requires_grad_(True) for t in (xi, h0, wh, bh)]
+        padded = fg.pad_hidden(*args, Hp) if pad else args
+        full = fg.fused_gru_torch(*padded, bf16=bf16)
+        out = full[..., :Hh]
+        (out.float() * dy).sum().backward()
+        return full.detach(), [out.detach()] + [a.grad for a in args]
+
+    full, got = grads(True)
+    _, ref = grads(False)
+    assert float(full[..., Hh:].float().abs().max()) == 0.0
+    for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _close(a.float().numpy(), b.float().numpy(), 2e-6, name)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_gru4rec_odd_hidden_size_matches_jax(synth_dataset_dir, tmp_path, cdt):
+    """GRU4Rec at hidden_size 10 (not a multiple of 4: the kernels' path
+    pads it on the card): the loss and every leaf's gradient against JAX at
+    the file's tolerances (rtol 2e-4 in fp32, BF16_TOL with a 5% floor in
+    bf16), from the same weights and batch."""
+    _, _, _, ploaders, jmodel, params, pmodel = _pair(
+        "GRU4Rec", synth_dataset_dir, tmp_path, hidden_size=10, compute_dtype=cdt)
+    assert pmodel.gru[0].wh.shape == (10, 30)
+    batch = _train_batch(ploaders[0], np.arange(64), pmodel.n_items)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, jgrads = jax.value_and_grad(lambda p: jmodel.calculate_loss(p, jbatch))(params)
+    loss = pmodel.calculate_loss({k: torch.as_tensor(v).long() for k, v in batch.items()})
+    loss.backward()
+    tol, floor = (BF16_TOL, 5e-2) if cdt == "bfloat16" else (2e-4, 1e-2)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=tol)
+    ref = flatten_tree(jax.tree.map(np.asarray, jgrads))
+    gscale = max(float(np.abs(v).max()) for v in ref.values())
+    for name, p in pmodel.named_parameters():
+        denom = max(float(np.abs(ref[name]).max()), floor * gscale)
+        assert float(np.abs(p.grad.numpy() - ref[name]).max()) / denom <= tol, name

@@ -715,3 +715,96 @@ def test_sasrec_resume_matches_straight_run(synth_dataset_dir, tmp_path):
         assert torch.equal(p, dict(rmodel.named_parameters())[name]), name
         assert torch.equal(straight.opt_state["nu"][name], resumed.opt_state["nu"][name])
     assert straight.train_loss_dict == resumed.train_loss_dict
+
+
+@pytest.mark.parametrize("shape", [(200, 64, 256), (50, 128, 256)], ids=["L200", "D128"])
+@pytest.mark.parametrize("cdt", [None, "bfloat16"])
+def test_layer2_routes_shapes_beyond_one_block_to_the_attention_path(shape, cdt):
+    """L 200 at D 64 and D 128 at L 50 (inner 256) do not fit the whole-layer
+    kernel's block (the Python copy of its shared-memory formula says so
+    before any launch): fused_attention "layer2" (and "layer" in fp32)
+    builds the layer as fused_attention True does, at the same compute
+    dtype. Two layers, output and gradients against the JAX package's
+    transformer_apply with fused "layer2" (which takes XLA off a TPU) at
+    rtol 2e-4 (fp32) or BF16_XLA_TOL (bf16)."""
+    Lr, Dr, Ir = shape
+    Br, Hr = 2, 2
+    assert tl.layer_route(Lr, Dr, Ir) == "attention"
+    assert 4 * tl.smem_floats(Lr, Dr, Ir, True) > tl.MAX_SMEM_BYTES
+    rng = np.random.RandomState(Lr + Dr)
+    layers_p = jax.tree.map(np.asarray, jax_layers.transformer_init(
+        jax.random.key(Lr), 2, Hr, Dr, Ir))
+    for p in layers_p:
+        for k, v in p.items():
+            if v.ndim == 1:
+                p[k] = (v + 0.1 * rng.randn(*v.shape)).astype(np.float32)
+    x = (0.5 * rng.randn(Br, Lr, Dr)).astype(np.float32)
+    dy = rng.randn(Br, Lr, Dr).astype(np.float32)
+    valid = (np.arange(Lr)[None, :] < np.array([Lr, Lr // 3])[:, None]).astype(np.int32)
+    jcdt = None if cdt is None else jnp.bfloat16
+    tcdt = None if cdt is None else torch.bfloat16
+
+    def jfn(p, x):
+        return jax_layers.transformer_apply(p, x, None, Hr, act="gelu", compute_dtype=jcdt,
+                                            mask_spec=(jnp.asarray(valid), True),
+                                            fused="layer2")
+
+    y = jfn(layers_p, jnp.asarray(x))
+    gp, gx = jax.grad(lambda p, x: jnp.sum(jfn(p, x) * dy), argnums=(0, 1))(layers_p,
+                                                                          jnp.asarray(x))
+    paths = ("layer2", True) + (("layer",) if cdt is None else ())
+    outs = {}
+    for fused in paths:
+        tp = [{k: torch.tensor(v, requires_grad=True) for k, v in p.items()} for p in layers_p]
+        tx = torch.tensor(x, requires_grad=True)
+        out = layers.transformer_apply(tp, tx, None, Hr, act="gelu", compute_dtype=tcdt,
+                                       mask_spec=(torch.as_tensor(valid), True), fused=fused)
+        (out * torch.as_tensor(dy)).sum().backward()
+        outs[fused] = (out.detach(), tx.grad, [{k: v.grad for k, v in p.items()} for p in tp])
+    for fused in paths:
+        assert torch.equal(outs[fused][0], outs[True][0]), fused
+        assert torch.equal(outs[fused][1], outs[True][1]), fused
+    tol = 2e-4 if cdt is None else BF16_XLA_TOL
+    out, gxt, gpt = outs["layer2"]
+    _close(out.numpy(), np.asarray(y), tol, "y")
+    _close(gxt.numpy(), np.asarray(gx), tol, "dx")
+    gscale = max(float(np.abs(np.asarray(v)).max()) for p in gp for v in p.values())
+    floor = 1e-3 if cdt is None else BF16_XLA_FLOOR
+    for li, (got, ref) in enumerate(zip(gpt, gp)):
+        for k in tl.PARAM_KEYS:
+            r = np.asarray(ref[k])
+            err = float(np.abs(got[k].numpy() - r).max()) / max(float(np.abs(r).max()),
+                                                                floor * gscale)
+            assert err <= tol, (li, k, err)
+
+
+def test_sasrec_logs_its_layer_route(synth_dataset_dir, tmp_path):
+    """SASRec says once, at build, which path the whole-layer setting takes
+    at its shape: the kernel at L 8, the attention path at L 128 (where the
+    whole layer at D 16, inner 32 needs more than a block's shared memory).
+    The port's logger does not propagate (init_logger), so the test listens
+    on it directly."""
+    import logging
+    assert tl.layer_route(128, D, I) == "attention" and tl.layer_route(8, D, I) == "layer"
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            said.append(record.getMessage())
+
+    logger = logging.getLogger("recbole_tpu_torch")
+    grab, level = Grab(), logger.level
+    for max_len, path in ((8, "whole-layer kernel"), (128, "attention kernel")):
+        cfg = _seq_cfg(tmp_path, synth_dataset_dir, MAX_ITEM_LIST_LENGTH=max_len)
+        pc = Config("SASRec", "synth", config_dict=cfg, _parse_cmd_line=False)
+        init_seed(pc["seed"])
+        train = data_preparation(pc, create_dataset(pc))[0]
+        said = []
+        logger.addHandler(grab)
+        logger.setLevel(logging.INFO)
+        try:
+            get_model("SASRec")(pc, train.dataset)
+        finally:
+            logger.removeHandler(grab)
+            logger.setLevel(level)
+        said = [m for m in said if "fused_attention" in m]
+        assert len(said) == 1 and path in said[0] and f"L={max_len}" in said[0], said

@@ -286,10 +286,21 @@ def test_ctr_end_to_end_on_cpu(model, synth_dataset_dir, tmp_path):
 
 
 def test_pointwise_training_with_sampled_negatives_still_raises(synth_dataset_dir, tmp_path):
+    """Pointwise training with sampled negatives is ported: each row, then
+    its negative labelled 0, drawn outside the user's train items; every
+    other column repeated."""
     trainer, _, train, _, _ = _port_pipeline(
         _cfg(synth_dataset_dir, tmp_path, training_neg_sample_num=1, **CTR), "DeepFM")
-    with pytest.raises(NotImplementedError, match="sampled negatives"):
-        trainer._make_rec_augment(train)
+    augment, consts = trainer._make_rec_augment(train)
+    cols = train.columns()
+    batch = {f: torch.as_tensor(v[:50]) for f, v in cols.items()}
+    out = augment(batch, trainer.generator, consts)
+    assert set(out) == set(batch)
+    assert torch.equal(out["label"][:50], batch["label"]) and not out["label"][50:].any()
+    assert torch.equal(out["user_id"], batch["user_id"].repeat(2))
+    hist, hlen = consts["hist"], consts["hlen"]
+    for u, i in zip(out["user_id"][50:].tolist(), out["item_id"][50:].tolist()):
+        assert i not in hist[u, :hlen[u]].tolist()
 
 
 def test_deepfm_without_device_cpu_raises_where_there_is_no_card(synth_dataset_dir, tmp_path):
