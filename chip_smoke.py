@@ -229,6 +229,60 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def kernel_name(key):
+    """A profiler key without its return type, namespace and arguments."""
+    key = key.removeprefix("void ").split("(anonymous namespace)::")[-1]
+    return key.split("(")[0].split("<")[0]
+
+
+def kernels_per_call(torch, fn, calls=20):
+    """{kernel: [launches, device ms] per call of ``fn``} by torch.profiler:
+    the kernels one wrapper call launches on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            name = kernel_name(e.key)
+            n, ms = out.get(name, (0.0, 0.0))
+            out[name] = [n + e.count / calls, ms + us / calls / 1e3]
+    return out
+
+
+def graph_ms(torch, fn, calls=20, replays=20):
+    """Milliseconds per call of ``fn`` with ``calls`` calls captured in one
+    CUDA graph, over ``replays`` replays after a warm-up: the device's time,
+    without the host's launch rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 # ----------------------------------------------------------------- inputs
 
 def topk_inputs(torch, B, N, D, seed):
@@ -483,25 +537,28 @@ def _grad_agrees(torch, out, ref, ids, g, n_rows, id_base, what):
 
 def check_embed_grad(torch, name, cases):
     """One of the two embedding-gradient kernels against its plain version
-    on each (label, ids, g, n_rows, id_base) case, and a second run of the
-    kernel on the same input compared bit for bit."""
+    on each (label, ids, g, n_rows, id_base[, same_as]) case, and a second
+    run of the kernel on the same input compared bit for bit; with
+    ``same_as`` = (ids, g), the kernel on that contiguous copy gives the same
+    bits too."""
     from recbole_tpu_torch.ops import embed_grad as eg
     kernel = getattr(eg, f"{name}_cuda")
     plain = getattr(eg, f"{name}_torch")
     worst = 0.0
-    for label, ids, g, n_rows, id_base, *hint in cases:
-        kw = {"id_base": id_base, **(hint[0] if hint else {})}
-        out = kernel(ids, g, n_rows, **kw)
+    for label, ids, g, n_rows, id_base, *same_as in cases:
+        out = kernel(ids, g, n_rows, id_base=id_base)
         torch.cuda.synchronize()
-        again = kernel(ids, g, n_rows, **kw)
+        again = kernel(ids, g, n_rows, id_base=id_base)
         ref = plain(ids, g, n_rows, id_base=id_base)
         err = _grad_agrees(torch, out, ref, ids, g, n_rows, id_base, f"{name} {label}")
         same = bool(torch.equal(out, again))
+        if same_as:
+            same = same and bool(torch.equal(out, kernel(*same_as[0], n_rows, id_base=id_base)))
         log(f"[check] {name} {label}: R={ids.numel()} n_rows={n_rows} "
             f"D={g.shape[-1]} max|err| {err:.3e} (tolerance {GRAD_RTOL} * sum|g| + "
-            f"{GRAD_ATOL}); two runs bit-identical: {same}")
+            f"{GRAD_ATOL}); {'three' if same_as else 'two'} runs bit-identical: {same}")
         if not same:
-            raise AssertionError(f"{name} {label}: two runs differ, the kernel "
+            raise AssertionError(f"{name} {label}: runs differ, the kernel "
                                  "is meant to be deterministic")
         worst = max(worst, err)
     return worst
@@ -521,24 +578,29 @@ def embed_grad_cases(torch):
     ml_ids, ml_g = grad_inputs(torch, CRITEO_BATCH, ml, CRITEO_DIM, seed=6)
     flat_ids = ids[:, n_large:].reshape(-1).contiguous()
     flat_g = g[:, n_large:].reshape(-1, CRITEO_DIM).contiguous()
-    col_off = torch.tensor([o for o, _ in spec[n_large:]] + [spec[-1][0] + spec[-1][1]],
-                           device="cuda")
-    ml_off = torch.tensor([o for o, _ in ml] + [ml[-1][0] + ml[-1][1]], device="cuda")
+    # the last Criteo field: 62 rows at cubic skew, its first rows the hot ones
+    f62 = len(spec) - 1
+    seq_ids, seq_g = seq_grad_inputs(torch, seed=14)
+    seq_pad = torch.where(torch.rand(seq_ids.shape, generator=torch.Generator(
+        device="cuda").manual_seed(15), device="cuda") < 0.6, 0, seq_ids)
     onehot = [
         ("criteo small fields, (B, 17) block in place", ids[:, n_large:], g[:, n_large:],
          small_rows, small_off),
-        ("criteo small fields, block in place with column ranges", ids[:, n_large:],
-         g[:, n_large:], small_rows, small_off, {"col_off": col_off}),
-        ("ml-100k fields with column ranges", ml_ids, ml_g, sum(v for _, v in ml), 0,
-         {"col_off": ml_off}),
+        ("criteo small fields, block in place, same bits as its contiguous copy",
+         ids[:, n_large:], g[:, n_large:], small_rows, small_off, (flat_ids, flat_g)),
+        ("ml-100k fields, same bits as their contiguous copy", ml_ids, ml_g,
+         sum(v for _, v in ml), 0, (ml_ids.reshape(-1), ml_g.reshape(-1, CRITEO_DIM))),
         ("criteo small fields, contiguous", flat_ids, flat_g, small_rows, small_off),
         ("ml-100k fields", ml_ids, ml_g, sum(v for _, v in ml), 0),
+        ("criteo 62-row field, cubic skew", ids[:, f62:], g[:, f62:], spec[f62][1],
+         spec[f62][0]),
         ("D=1", flat_ids, flat_g[:, :1].contiguous(), small_rows, small_off),
         ("R=1", flat_ids[:1], flat_g[:1], small_rows, small_off),
         ("every id equal", torch.full_like(flat_ids, small_off + 7), flat_g, small_rows,
          small_off),
         ("bf16 cotangent", flat_ids, flat_g.to(torch.bfloat16), small_rows, small_off),
-        ("SASRec step, ids cut into slices", *seq_grad_inputs(torch, seed=12), ML1M[1] + 1, 0),
+        ("SASRec step", *seq_grad_inputs(torch, seed=12), ML1M[1] + 1, 0),
+        ("SASRec step, [PAD] tile in many pieces (60% [PAD])", seq_pad, seq_g, ML1M[1] + 1, 0),
         ("SASRec step, every id [PAD]", torch.zeros(SASREC["B"] * SASREC["L"], dtype=torch.int64,
                                                      device="cuda"),
          seq_grad_inputs(torch, seed=13)[1], ML1M[1] + 1, 0),
@@ -1940,10 +2002,6 @@ def phase_timing(torch):
         bids, bg = ids[:, cols], g[:, cols]
         n_rows = sum(v for _, v in spec[cols])
         kernel, plain = getattr(eg, f"{name}_cuda"), getattr(eg, f"{name}_torch")
-        # as GroupedTakeRows.backward calls them: the one-hot kernel is told
-        # the fields' column ranges
-        hint = {"col_off": torch.tensor([o for o, _ in spec[cols]] + [sum(spec[-1])],
-                                        device="cuda")} if name == "onehot_matmul_grad" else {}
         dest = torch.empty((n_rows, CRITEO_DIM), device="cuda")
         local = (bids.reshape(-1) - off).contiguous()
         flat = bg.reshape(-1, CRITEO_DIM).contiguous()
@@ -1952,14 +2010,20 @@ def phase_timing(torch):
             return dest.zero_().index_add_(0, local, flat)
 
         iters = 200 if n_rows < 100_000 else 50
-        t = {"ms": cuda_ms(torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off,
-                                                 **hint), iters),
+        t = {"ms": cuda_ms(torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off), iters),
              "plain_ms": cuda_ms(torch, lambda: plain(bids, bg, n_rows, out=dest, id_base=off),
                                  iters),
              "library_ms": cuda_ms(torch, library, iters)}
         R = bids.numel()
         t["bound_ms"], t["bound_by"] = bound(
             float(R * CRITEO_DIM), R * 8 + R * CRITEO_DIM * 4 + n_rows * CRITEO_DIM * 4)
+        if name == "onehot_matmul_grad":
+            # its four launches in one graph, and the library call's
+            t["graph_ms"] = graph_ms(torch, lambda: kernel(bids, bg, n_rows, out=dest,
+                                                           id_base=off))
+            t["library_graph_ms"] = graph_ms(torch, library)
+        t["stage_launches"] = kernels_per_call(
+            torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off))
         out[name] = t
         log(f"[time] {name} R={R} n_rows={n_rows} D={CRITEO_DIM}: {t}")
     out["onehot_matmul_grad"]["sasrec"] = time_onehot_sasrec(torch)
@@ -2040,6 +2104,10 @@ def time_onehot_sasrec(torch):
          "plain_ms": cuda_ms(torch, lambda: eg.onehot_matmul_grad_torch(ids, g, V, out=dest), 50),
          "library_ms": cuda_ms(torch, lambda: dest.zero_().index_add_(0, ids, g), 50)}
     t["bound_ms"], t["bound_by"] = bound(float(R * D), R * 8 + R * D * 4 + V * D * 4)
+    t["graph_ms"] = graph_ms(torch, lambda: eg.onehot_matmul_grad_cuda(ids, g, V, out=dest))
+    t["library_graph_ms"] = graph_ms(torch, lambda: dest.zero_().index_add_(0, ids, g))
+    t["stage_launches"] = kernels_per_call(
+        torch, lambda: eg.onehot_matmul_grad_cuda(ids, g, V, out=dest))
     log(f"[time] onehot_matmul_grad at the SASRec step's shape R={R} n_rows={V} D={D}: {t}")
     return t
 

@@ -7,15 +7,20 @@ version for CPU tensors, the kernel for CUDA tensors, no fallback between
 them):
 
 * ``onehot_matmul_grad`` replaces ``onehot_matmul_grad`` (:78): unsorted
-  ids, a vocabulary tile per block in shared memory;
+  ids, bucketed by tile of 32 output rows on the device (count, one-block
+  scan, stable scatter), then a block per piece sums it with all its
+  threads; a piece is up to 4 small tiles together, or at most 1,024
+  entries of one tile (256 when D < 32), and a tile cut into several pieces
+  adds their partials in piece order;
 * ``windowed_grad`` replaces ``windowed_grad`` (:170): the ids are sorted
   with ``torch.sort`` outside the kernel, as the JAX function sorts them in
   XLA (:181-187), and the table is swept in row windows, each row written
   once.
 
-Both kernels are deterministic (no float atomics; a row's cotangents are
-added in the order of r, exact fp32 terms where the TPU kernel adds a bf16
-hi + lo pair). Ids are int64, the type the trainer uploads; int32 raises.
+Both kernels are deterministic: no float atomics, and each output element
+is a sum in an order fixed by the ids and the shapes alone (exact fp32
+terms where the TPU kernel adds a bf16 hi + lo pair); neither syncs with
+the host. Ids are int64, the type the trainer uploads; int32 raises.
 
 On top of them sit the two gathers with custom gradients:
 ``GroupedTakeRows`` (``grouped_take_rows``, :219-253) for the CTR family's
@@ -34,10 +39,9 @@ block of a wider id matrix (inner stride 1), and ``g`` is (R, D) or the
 matching (B, fs, D) block of a contiguous (B, F, D) cotangent; the kernels
 read both in place, so ``GroupedTakeRows`` copies no cotangent. ``out``
 may be a row range of the (V, D) gradient and ``id_base`` the first global
-id of that range. With a column block, ``col_off`` (fs + 1 ascending global
-ids on the device) promises that column f holds only ids in
-[col_off[f], col_off[f + 1]); a block of the one-hot kernel then scans only
-the columns that meet its rows.
+id of that range. The one-hot launcher takes at most
+``ONEHOT_MAX_ROWS`` rows (the library's ``embed_grad_onehot_max_rows``);
+``field_runs`` keeps a run of small fields within it.
 """
 
 import ctypes
@@ -48,6 +52,8 @@ import torch
 from . import cuda_build
 
 SMALL_VOCAB_MAX = 16384
+# rows of one one-hot launch at most: the library's embed_grad_onehot_max_rows
+ONEHOT_MAX_ROWS = 65536
 _MAX_R = 1 << 30
 
 
@@ -67,13 +73,16 @@ def _out(out, n_rows, D, device):
     return out
 
 
-def onehot_matmul_grad_torch(ids, g, n_rows, out=None, id_base=0, col_off=None):
-    """Plain version: ``index_add_`` into zeros, the exact fp32 sum
-    (``col_off`` is a hint it has no use for)."""
+def onehot_matmul_grad_torch(ids, g, n_rows, out=None, id_base=0):
+    """Plain version: ``index_add_`` into zeros, the exact fp32 sum. Ids
+    outside [id_base, id_base + n_rows) match no row, as in the one-hot
+    product (they add a zero to row 0)."""
     ids, g = _flat(ids, g)
     out = _out(out, n_rows, g.shape[1], g.device)
     out.zero_()
-    out.index_add_(0, ids - id_base, g)
+    local = ids - id_base
+    keep = (local >= 0) & (local < n_rows)
+    out.index_add_(0, torch.where(keep, local, 0), torch.where(keep[:, None], g, 0.0))
     return out
 
 
@@ -107,10 +116,12 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("embed_grad")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.embed_grad_onehot.argtypes = [p, ll, i, p, p, ll, i, i, i, ll, i, i, p, p, p]
+        lib.embed_grad_onehot.argtypes = [p, ll, i, p, ll, i, i, i, ll, i, p, p, p]
         lib.embed_grad_onehot.restype = i
-        lib.embed_grad_onehot_splits.argtypes = [i] * 5
-        lib.embed_grad_onehot_splits.restype = i
+        lib.embed_grad_onehot_scratch_bytes.argtypes = [i, i, i]
+        lib.embed_grad_onehot_scratch_bytes.restype = ll
+        lib.embed_grad_onehot_max_rows.argtypes = []
+        lib.embed_grad_onehot_max_rows.restype = i
         lib.embed_grad_windowed.argtypes = [p, p, p, i, ll, i, i, i, ll, ll, p, p]
         lib.embed_grad_windowed.restype = i
         _LIB = lib
@@ -154,34 +165,25 @@ def _check_out(name, out, n_rows, D, g):
     return out
 
 
-def onehot_matmul_grad_cuda(ids, g, n_rows, out=None, id_base=0, col_off=None):
-    """Launch ``onehot_grad_kernel``; same contract as
-    ``onehot_matmul_grad_torch``. Counts its launches in
+def onehot_matmul_grad_cuda(ids, g, n_rows, out=None, id_base=0):
+    """Launch the one-hot path (four kernels on the current stream); same
+    contract as ``onehot_matmul_grad_torch``. Counts its calls in
     ``onehot_matmul_grad_cuda.launches``."""
     name = "onehot_matmul_grad_cuda"
     R, D, fs, ids_stride, g_stride = _layout(name, ids, g)
-    if D > 4096 or n_rows >= 1 << 31:
-        raise ValueError(f"{name} takes D <= 4096 and n_rows < 2^31")
+    lib = _lib()
+    if D > 4096 or n_rows > lib.embed_grad_onehot_max_rows():
+        raise ValueError(f"{name} takes D <= 4096 and n_rows <= "
+                         f"{lib.embed_grad_onehot_max_rows()}")
     out = _check_out(name, out, n_rows, D, g)
-    if col_off is not None and not (
-            col_off.is_cuda and col_off.device == g.device and col_off.dtype == torch.int64
-            and col_off.is_contiguous() and tuple(col_off.shape) == (fs + 1,)
-            and ids.dim() == 2):
-        raise ValueError(f"col_off must be {fs + 1} contiguous int64 ids on g's "
-                         "device, beside a (B, fs) id block")
-    # the source decides into how many slices the ids are cut: it knows its tiles
-    splits = _lib().embed_grad_onehot_splits(R, fs, n_rows, D, int(col_off is not None))
-    partials = None
-    if splits > 1:
-        partials = torch.empty((splits, n_rows, D), dtype=torch.float32, device=g.device)
-    err = _lib().embed_grad_onehot(
-        ids.data_ptr(), ids_stride, fs,
-        None if col_off is None else col_off.data_ptr(), g.data_ptr(), g_stride,
-        int(g.dtype == torch.bfloat16), R, D, id_base, n_rows, splits,
-        None if partials is None else partials.data_ptr(), out.data_ptr(),
+    scratch = torch.empty(lib.embed_grad_onehot_scratch_bytes(R, D, n_rows), dtype=torch.uint8,
+                          device=g.device)
+    err = lib.embed_grad_onehot(
+        ids.data_ptr(), ids_stride, fs, g.data_ptr(), g_stride, int(g.dtype == torch.bfloat16),
+        R, D, id_base, n_rows, scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(g.device).cuda_stream)
     if err:
-        raise RuntimeError(f"onehot_grad kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"onehot_grad kernels' launch failed: CUDA error {err}")
     onehot_matmul_grad_cuda.launches += 1
     return out
 
@@ -216,13 +218,13 @@ windowed_grad_cuda.launches = 0
 
 # --------------------------------------------------------------- dispatchers
 
-def onehot_matmul_grad(ids, g, n_rows, out=None, id_base=0, col_off=None):
+def onehot_matmul_grad(ids, g, n_rows, out=None, id_base=0):
     """ids int64, g float32 or bfloat16 -> (n_rows, D) float32 with
     duplicate ids summed. The plain version for CPU tensors, the kernel
     otherwise."""
     if g.device.type == "cpu":
         return onehot_matmul_grad_torch(ids, g, n_rows, out, id_base)
-    return onehot_matmul_grad_cuda(ids, g, n_rows, out, id_base, col_off)
+    return onehot_matmul_grad_cuda(ids, g, n_rows, out, id_base)
 
 
 def windowed_grad(ids, g, n_rows, out=None, id_base=0):
@@ -239,13 +241,15 @@ def windowed_grad(ids, g, n_rows, out=None, id_base=0):
 def field_runs(field_spec):
     """Group adjacent fields of one class (small or large vocabulary) whose
     row ranges touch into runs: [(first field, end field, offset, rows,
-    small)]. One kernel launch serves a run."""
+    small)], a run of small fields at most ONEHOT_MAX_ROWS rows. One kernel
+    call serves a run."""
     runs = []
     for f, (off, vocab) in enumerate(field_spec):
         small = vocab <= SMALL_VOCAB_MAX
         if runs:
             f0, f1, off0, rows, was_small = runs[-1]
-            if was_small == small and f1 == f and off0 + rows == off:
+            if was_small == small and f1 == f and off0 + rows == off \
+                    and not (small and rows + vocab > ONEHOT_MAX_ROWS):
                 runs[-1] = (f0, f + 1, off0, rows + vocab, small)
                 continue
         runs.append((f, f + 1, off, vocab, small))
@@ -259,20 +263,6 @@ def _covers(field_spec, V):
     covered = sorted((off, off + vocab) for off, vocab in field_spec)
     return covered[0][0] == 0 and covered[-1][1] == V and all(
         a[1] == b[0] for a, b in zip(covered, covered[1:]))
-
-
-_COL_OFF = {}
-
-
-def _col_off(field_spec, f0, f1, device):
-    """The column ranges of fields f0..f1 as a device tensor, made once per
-    (spec, run, device): the backward runs every step."""
-    key = (field_spec, f0, f1, device)
-    if key not in _COL_OFF:
-        offs = [off for off, _ in field_spec[f0:f1]]
-        offs.append(field_spec[f1 - 1][0] + field_spec[f1 - 1][1])
-        _COL_OFF[key] = torch.tensor(offs, dtype=torch.int64, device=device)
-    return _COL_OFF[key]
 
 
 class GroupedTakeRows(torch.autograd.Function):
@@ -299,8 +289,7 @@ class GroupedTakeRows(torch.autograd.Function):
         for f0, f1, off, rows, small in field_runs(ctx.field_spec):
             dest = acc[off:off + rows]
             if small:
-                onehot_matmul_grad(ids[:, f0:f1], g[:, f0:f1], rows, out=dest, id_base=off,
-                                   col_off=_col_off(ctx.field_spec, f0, f1, g.device))
+                onehot_matmul_grad(ids[:, f0:f1], g[:, f0:f1], rows, out=dest, id_base=off)
             else:
                 windowed_grad(ids[:, f0:f1], g[:, f0:f1], rows, out=dest, id_base=off)
         return None, acc, None

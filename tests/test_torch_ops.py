@@ -276,6 +276,48 @@ def test_field_runs_group_adjacent_fields_of_one_class():
         (4, 5, 50150, 17000, False), (5, 6, 67150, 7, True)]
 
 
+def test_field_runs_cut_small_runs_at_the_one_hot_limit():
+    """Adjacent small fields are merged only up to ONEHOT_MAX_ROWS rows, the
+    most one one-hot call takes; a field that would pass it starts a run."""
+    V = port_eg.SMALL_VOCAB_MAX
+    n = port_eg.ONEHOT_MAX_ROWS // V
+    spec = tuple((k * V, V) for k in range(n + 2))
+    assert port_eg.field_runs(spec) == [(0, n, 0, n * V, True),
+                                        (n, n + 2, n * V, 2 * V, True)]
+
+
+def _hot_row_case(seed, B=512):
+    """A CTR batch whose first field has 62 rows drawn with cubic skew (its
+    first row takes about a quarter of the ids) beside a 7-row field whose
+    every id is one row, and a (B, 2, 11) cotangent."""
+    rng = np.random.RandomState(seed)
+    spec = ((0, 62), (62, 7))
+    ids = np.stack([1 + np.floor(60 * rng.random_sample(B) ** 3.0).astype(np.int64),
+                    np.full(B, 62 + 3, np.int64)], axis=1)
+    w = rng.randn(B, 2, 11).astype(np.float32)
+    return spec, ids, w
+
+
+def test_onehot_grad_hot_rows_match_jax_xla():
+    """At the hot-row skew: the plain version and GroupedTakeRows' CPU
+    backward against the JAX package's onehot_matmul_grad_xla (fp32, rtol
+    2e-4 of each row's magnitude)."""
+    spec, ids, w = _hot_row_case(31)
+    V, D = 69, 11
+    flat_ids, flat_w = ids.reshape(-1), w.reshape(-1, D)
+    ref = np.asarray(jax_eg.onehot_matmul_grad_xla(jnp.asarray(flat_ids, jnp.int32),
+                                                   jnp.asarray(flat_w), V))
+    tol = 2e-4 * _abs_sums(flat_ids, flat_w, V) + 1e-6
+    plain = port_eg.onehot_matmul_grad_torch(torch.from_numpy(flat_ids),
+                                             torch.from_numpy(flat_w), V)
+    assert (np.abs(plain.numpy() - ref) <= tol).all()
+    t = torch.zeros(V, D, requires_grad=True)
+    (port_eg.grouped_take_rows(spec, t, torch.from_numpy(ids))
+     * torch.from_numpy(w)).sum().backward()
+    assert (np.abs(t.grad.numpy() - ref) <= tol).all()
+    assert abs(t.grad[1]).sum() > 0 and abs(t.grad[65]).sum() > 0
+
+
 # one field above SMALL_VOCAB_MAX rows between small ones
 _FIELD_VOCABS = (40, 7, 17000, 300)
 
@@ -419,25 +461,79 @@ def _grad_close(out, ref, ids, g, V):
     return bool((np.abs(out.cpu().numpy() - ref.cpu().numpy()) <= bound).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("R,V,D", [(34816, 35692, 11), (2048 * 8, 2700, 11), (5000, 900, 1),
-                                   (1, 17, 11), (0, 9, 4), (3000, 700, 64)])
-def test_onehot_grad_kernel_matches_plain_on_card(cuda_device, R, V, D):
-    ids, g = _grad_inputs(R, V, D, seed=R + D)
-    tid, tg = torch.from_numpy(ids).to(cuda_device), torch.from_numpy(g).to(cuda_device)
+def _onehot_agrees_on_card(tid, tg, V, ids, g, id_base=0):
+    """One call of the one-hot path against the plain version, within the
+    file's bound, and a second call bit for bit."""
     before = port_eg.onehot_matmul_grad_cuda.launches
-    out = port_eg.onehot_matmul_grad(tid, tg, V)
+    out = port_eg.onehot_matmul_grad(tid, tg, V, id_base=id_base)
     assert port_eg.onehot_matmul_grad_cuda.launches == before + 1
     torch.cuda.synchronize()
-    assert _grad_close(out, port_eg.onehot_matmul_grad_torch(tid, tg, V), ids, g, V)
-    assert torch.equal(out, port_eg.onehot_matmul_grad(tid, tg, V))   # deterministic
-    same = torch.zeros_like(tid)
-    out = port_eg.onehot_matmul_grad(same, tg, V)
-    assert _grad_close(out, port_eg.onehot_matmul_grad_torch(same, tg, V),
-                       np.zeros_like(ids), g, V)
-    bf = tg.to(torch.bfloat16)
-    assert _grad_close(port_eg.onehot_matmul_grad(tid, bf, V),
-                       port_eg.onehot_matmul_grad_torch(tid, bf, V), ids, g, V)
+    ref = port_eg.onehot_matmul_grad_torch(tid, tg, V, id_base=id_base)
+    keep = (ids >= id_base) & (ids < id_base + V)
+    assert _grad_close(out, ref, ids[keep] - id_base,
+                       tg.float().cpu().numpy().reshape(-1, g.shape[-1])[keep], V)
+    assert torch.equal(out, port_eg.onehot_matmul_grad(tid, tg, V, id_base=id_base))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V,D", [(34816, 35692, 11), (2048 * 8, 2700, 11), (5000, 900, 1),
+                                   (1, 17, 11), (0, 9, 4), (3000, 700, 64),
+                                   (102400, 3707, 64)])
+def test_onehot_grad_kernel_matches_plain_on_card(cuda_device, R, V, D):
+    """Cubic skew, every id on one row, a bf16 cotangent: R = 0 and 1, D 1,
+    11 and 64, the Criteo small fields' and the sequential step's shapes."""
+    ids, g = _grad_inputs(R, V, D, seed=R + D)
+    tid, tg = torch.from_numpy(ids).to(cuda_device), torch.from_numpy(g).to(cuda_device)
+    _onehot_agrees_on_card(tid, tg, V, ids, g)
+    _onehot_agrees_on_card(torch.zeros_like(tid), tg, V, np.zeros_like(ids), g)
+    _onehot_agrees_on_card(tid, tg.to(torch.bfloat16), V, ids, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["62-row field", "one row, many pieces", "one row, D=1",
+                                  "ids outside the range", "[PAD] tile"])
+def test_onehot_grad_kernel_hot_rows_on_card(cuda_device, case):
+    """The hot rows the bucketing splits: a 62-row field at cubic skew; R
+    far above a piece's 1,024 entries on one row (D 11 and 1); ids below and
+    above [id_base, id_base + V); the sequential step's [PAD] row at 40%."""
+    rng = np.random.RandomState(len(case))
+    D = 1 if case.endswith("D=1") else 11
+    id_base = 0
+    if case == "62-row field":
+        R, V = 2048, 62
+        ids = 1 + np.floor(60 * rng.random_sample(R) ** 3.0).astype(np.int64)
+    elif case.startswith("one row"):
+        R, V = 50000, 700
+        ids = np.full(R, 5, np.int64)
+    elif case == "ids outside the range":
+        R, V, id_base = 20000, 300, 1000
+        ids = id_base - 50 + rng.randint(0, V + 100, R).astype(np.int64)
+    else:
+        R, V, D = 102400, 3707, 64
+        ids = 1 + np.floor((V - 1) * rng.random_sample(R) ** 2.2).astype(np.int64)
+        ids[rng.random_sample(R) < 0.4] = 0
+    g = rng.randn(R, D).astype(np.float32) * 1e-2
+    tid, tg = torch.from_numpy(ids).to(cuda_device), torch.from_numpy(g).to(cuda_device)
+    out = _onehot_agrees_on_card(tid, tg, V, ids, g, id_base)
+    hit = np.zeros(V, bool)
+    hit[ids[(ids >= id_base) & (ids < id_base + V)] - id_base] = True
+    assert not torch.count_nonzero(out[torch.from_numpy(~hit).to(cuda_device)])
+
+
+@pytest.mark.cuda
+def test_onehot_grad_kernel_row_limit_on_card(cuda_device):
+    """The library's row limit is the one field_runs keeps to; past it the
+    launcher raises and launches nothing."""
+    assert port_eg._lib().embed_grad_onehot_max_rows() == port_eg.ONEHOT_MAX_ROWS
+    tid = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    tg = torch.ones(4, 3, device=cuda_device)
+    before = port_eg.onehot_matmul_grad_cuda.launches
+    with pytest.raises(ValueError, match="n_rows"):
+        port_eg.onehot_matmul_grad_cuda(tid, tg, port_eg.ONEHOT_MAX_ROWS + 1)
+    assert port_eg.onehot_matmul_grad_cuda.launches == before
+    out = port_eg.onehot_matmul_grad_cuda(tid, tg, port_eg.ONEHOT_MAX_ROWS)
+    assert out[0].tolist() == [4.0, 4.0, 4.0] and torch.count_nonzero(out) == 3
 
 
 @pytest.mark.cuda
@@ -489,23 +585,24 @@ def test_grouped_take_rows_kernels_match_plain_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_onehot_grad_kernel_column_ranges_on_card(cuda_device):
-    """Told each column's id range, a block scans only the columns that meet
-    its rows: the same bits as the full scan, whatever the block's offset."""
+    """A (B, fs) column block read in place gives the same bits as its
+    contiguous (R,) / (R, D) copy, whatever the block's columns and offset,
+    and agrees with the plain version."""
     spec, V, ids, table, w = _field_case(4, 11)
     tid = torch.from_numpy(ids).to(cuda_device)
     tw = torch.from_numpy(w).to(cuda_device)
     for f0, f1 in ((0, 2), (3, 4), (0, 4)):
         off, rows = spec[f0][0], sum(v for _, v in spec[f0:f1])
-        col_off = torch.tensor([o for o, _ in spec[f0:f1]] + [off + rows], device=cuda_device)
-        full = port_eg.onehot_matmul_grad(tid[:, f0:f1], tw[:, f0:f1], rows, id_base=off)
-        ranged = port_eg.onehot_matmul_grad(tid[:, f0:f1], tw[:, f0:f1], rows, id_base=off,
-                                            col_off=col_off)
-        assert torch.equal(full, ranged)
+        block = port_eg.onehot_matmul_grad(tid[:, f0:f1], tw[:, f0:f1], rows, id_base=off)
+        flat = port_eg.onehot_matmul_grad(tid[:, f0:f1].reshape(-1).contiguous(),
+                                          tw[:, f0:f1].reshape(-1, w.shape[-1]).contiguous(),
+                                          rows, id_base=off)
+        assert torch.equal(block, flat)
         ref = port_eg.onehot_matmul_grad_torch(tid[:, f0:f1], tw[:, f0:f1], rows, id_base=off)
         # on the card the plain version is index_add_, whose atomics add in
         # an order that changes from run to run: the magnitude-relative
         # bound of the other one-hot tests
-        assert _grad_close(ranged, ref, ids[:, f0:f1].reshape(-1) - off,
+        assert _grad_close(block, ref, ids[:, f0:f1].reshape(-1) - off,
                            w[:, f0:f1].reshape(-1, w.shape[-1]), rows)
 
 
