@@ -64,7 +64,9 @@ Phases:
      and DeepFM's test AUC, each held to a floor;
   6. timing with CUDA events at the main paths' shapes: kernel, plain
      version, the one-call library yardstick, and the card's bound for the
-     same work.
+     same work; the embedding gradients also in a CUDA graph, with the
+     kernels a call launches (the windowed path at DeepFM-Criteo's large
+     fields and at a LightGCN step's two tables).
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
@@ -257,6 +259,18 @@ def kernels_per_call(torch, fn, calls=20):
     return out
 
 
+def host_ms(torch, fn, calls=100):
+    """Host milliseconds per call of ``fn`` (the enqueue, no wait for the
+    card): what a host-bound step pays for it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
 def graph_ms(torch, fn, calls=20, replays=20):
     """Milliseconds per call of ``fn`` with ``calls`` calls captured in one
     CUDA graph, over ``replays`` replays after a warm-up: the device's time,
@@ -327,6 +341,19 @@ def grad_inputs(torch, B, spec, D, seed):
     g = rng.randn(B, len(spec), D).astype(np.float32) * 1e-2
     dev = torch.device("cuda")
     return torch.from_numpy(ids).to(dev), torch.from_numpy(g).to(dev)
+
+
+def lightgcn_grad_inputs(torch, seed=17):
+    """A LightGCN step's dense gradients at the Yelp shape: the restricted
+    backward's batch users (R 2,048, uniform) into the user table and its
+    items (R 4,096, power-law) into the item table, with a (4,096, 64)
+    cotangent (the users take its first 2,048 rows)."""
+    rng = np.random.RandomState(seed)
+    users = torch.from_numpy(rng.randint(1, YELP[0] + 1, 2048).astype(np.int64)).cuda()
+    items = torch.from_numpy((1 + np.floor(YELP[1] * rng.random_sample(4096) ** 2.2))
+                             .astype(np.int64)).cuda()
+    g = torch.from_numpy(rng.randn(4096, 64).astype(np.float32) * 1e-3).cuda()
+    return users, items, g
 
 
 def seq_grad_inputs(torch, seed):
@@ -525,9 +552,12 @@ def check_adam(torch, shapes, seed):
 
 
 def _grad_agrees(torch, out, ref, ids, g, n_rows, id_base, what):
-    """max|out - ref|, held to GRAD_RTOL * sum|g| + GRAD_ATOL elementwise."""
+    """max|out - ref|, held to GRAD_RTOL * sum|g| + GRAD_ATOL elementwise
+    (the sum over the ids in [id_base, id_base + n_rows))."""
+    local = ids.reshape(-1) - id_base
+    keep = (local >= 0) & (local < n_rows)
     scale = torch.zeros_like(ref).index_add_(
-        0, ids.reshape(-1) - id_base, g.reshape(-1, g.shape[-1]).abs().float())
+        0, local[keep], g.reshape(-1, g.shape[-1])[keep].abs().float())
     diff = (out - ref).abs()
     if not bool((diff <= GRAD_RTOL * scale + GRAD_ATOL).all()):
         raise AssertionError(f"{what}: max|err| {float(diff.max())} beyond "
@@ -540,13 +570,24 @@ def check_embed_grad(torch, name, cases):
     on each (label, ids, g, n_rows, id_base[, same_as]) case, and a second
     run of the kernel on the same input compared bit for bit; with
     ``same_as`` = (ids, g), the kernel on that contiguous copy gives the same
-    bits too."""
+    bits too; with ``same_as`` = "row range", the kernel writes rows
+    [id_base, id_base + n_rows) of a larger table filled with -1, whose
+    other rows must stay -1."""
     from recbole_tpu_torch.ops import embed_grad as eg
     kernel = getattr(eg, f"{name}_cuda")
     plain = getattr(eg, f"{name}_torch")
     worst = 0.0
     for label, ids, g, n_rows, id_base, *same_as in cases:
-        out = kernel(ids, g, n_rows, id_base=id_base)
+        into = same_as == ["row range"]
+        if into:
+            table = torch.full((id_base + n_rows + 4096, g.shape[-1]), -1.0, device="cuda")
+            out = kernel(ids, g, n_rows, out=table[id_base:id_base + n_rows], id_base=id_base)
+            outside = torch.cat([table[:id_base], table[id_base + n_rows:]])
+            if not bool((outside == -1).all()):
+                raise AssertionError(f"{name} {label}: rows outside the range were written")
+            same_as = []
+        else:
+            out = kernel(ids, g, n_rows, id_base=id_base)
         torch.cuda.synchronize()
         again = kernel(ids, g, n_rows, id_base=id_base)
         ref = plain(ids, g, n_rows, id_base=id_base)
@@ -562,6 +603,23 @@ def check_embed_grad(torch, name, cases):
                                  "is meant to be deterministic")
         worst = max(worst, err)
     return worst
+
+
+def hot_window_ids(rng, R, V):
+    """R ids of V rows (windows of 64 rows at V 98,409): a quarter of them
+    in window 3, half of those on row 200, then windows 10-16 holding 5, 17,
+    20, 32, 33, 60 and 100 ids, on both sides of a warp's 32 and of the
+    windowed piece size (54 entries at D 300, 16 at D 1024, 4 at D 4096),
+    the rest skewed over rows from 2,048 on."""
+    ids = 2048 + np.floor((V - 2048) * rng.random_sample(R) ** 2.2).astype(np.int64)
+    hot = R // 4
+    ids[:hot] = 192 + rng.randint(0, 64, hot)
+    ids[:hot // 2] = 200
+    at = hot
+    for w, n in zip(range(10, 17), (5, 17, 20, 32, 33, 60, 100)):
+        ids[at:at + n] = 64 * w + rng.randint(0, 64, n)
+        at += n
+    return rng.permutation(ids)
 
 
 def embed_grad_cases(torch):
@@ -610,11 +668,20 @@ def embed_grad_cases(torch):
     # a LightGCN step at the Yelp shape: the restricted backward's dense
     # gradient at the batch users (R 2,048) and items (R 4,096), and the ego
     # gathers of its L2 term (R 2,048 into the item table)
-    rng = np.random.RandomState(17)
-    lg_u = torch.from_numpy(rng.randint(1, YELP[0] + 1, 2048).astype(np.int64)).cuda()
-    lg_i = torch.from_numpy((1 + np.floor(YELP[1] * rng.random_sample(4096) ** 2.2))
-                            .astype(np.int64)).cuda()
-    lg_g = torch.from_numpy(rng.randn(4096, 64).astype(np.float32) * 1e-3).cuda()
+    lg_u, lg_i, lg_g = lightgcn_grad_inputs(torch)
+    rng = np.random.RandomState(19)
+    R = big_ids.numel()
+    # 1,000,000 rows are windows of 512 rows: every id in the third window
+    one_window = torch.from_numpy(1024 + np.floor(512 * rng.random_sample(R) ** 2.0)
+                                  .astype(np.int64)).cuda()
+    # ids below and past rows [1,000,000, 1,530,000)
+    outside = torch.from_numpy(1_000_000 - 1000 + rng.randint(0, 532_000, R)
+                               .astype(np.int64)).cuda()
+    # a table that ends inside a window (100,003 rows; windows of 64)
+    ragged = torch.from_numpy(100_002 - np.floor(100_003 * rng.random_sample(R) ** 3.0)
+                              .astype(np.int64)).cuda()
+    ten_m = torch.from_numpy(np.floor(10_000_000 * rng.random_sample(R) ** 3.0)
+                             .astype(np.int64)).cuda()
     windowed = [
         ("LightGCN users R=2048 into the user table", lg_u, lg_g[:2048], YELP[0] + 1, 0),
         ("LightGCN items R=4096 into the item table", lg_i, lg_g, YELP[1] + 1, 0),
@@ -622,11 +689,28 @@ def embed_grad_cases(torch):
          0),
         ("criteo large fields, (B, 9) block in place", ids[:, :n_large], g[:, :n_large],
          large_rows, 0),
+        ("criteo large fields, block in place, same bits as its contiguous copy",
+         ids[:, :n_large], g[:, :n_large], large_rows, 0, (big_ids, big_g)),
         ("criteo large fields, contiguous", big_ids, big_g, large_rows, 0),
         ("every id equal", torch.full_like(big_ids, 1_234_567), big_g, large_rows, 0),
+        ("one window cut into many pieces", one_window, big_g, 1_000_000, 0),
+        ("ids outside the range, into a row range of a larger table", outside, big_g, 530_000,
+         1_000_000, "row range"),
         ("D=1", big_ids, big_g[:, :1].contiguous(), large_rows, 0),
+        ("R=0", big_ids[:0], big_g[:0], large_rows, 0),
         ("R=1", big_ids[:1], big_g[:1], large_rows, 0),
+        ("bf16 cotangent", big_ids, big_g.to(torch.bfloat16), large_rows, 0),
+        ("n_rows not a multiple of the window", ragged, big_g, 100_003, 0),
+        ("10,000,000 rows", ten_m, big_g, 10_000_000, 0),
     ]
+    # rows wider than a block's 256 threads: several column slabs, and
+    # pieces of fewer than 32 entries past D 512
+    for D, R in ((300, 4096), (1024, 2048), (4096, 1024)):
+        windowed.append((
+            f"D={D}, a hot window and windows of 5-100 ids",
+            torch.from_numpy(hot_window_ids(rng, R, YELP[1] + 1)).cuda(),
+            torch.from_numpy((rng.randn(R, D) * 1e-2).astype(np.float32)).cuda(),
+            YELP[1] + 1, 0))
     return {"onehot_matmul_grad": onehot, "windowed_grad": windowed}
 
 
@@ -1933,21 +2017,29 @@ def phase_quality(torch, tmp):
                              f"{RIPPLE_RECALL_FLOOR}")
 
 
-def time_adam(torch, leaves, iters):
+def time_adam(torch, leaves, iters, graph=False):
+    """One Adam step over ``leaves`` by CUDA events; with ``graph``, also
+    in one CUDA graph (``graph_ms``, and the library's with a capturable
+    optimizer), where the host's launch rate drops out."""
     from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton, adam_leaf_torch
 
     def step(fn):
         for p, m, v, g in leaves:
             fn(p, m, v, g, 10.0, 1000.0, b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
 
-    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
-    for prm, (_, _, _, g) in zip(params, leaves):
-        prm.grad = g.clone()
-    opt = torch.optim.Adam(params, lr=1e-3, fused=True)
+    def library(**kw):
+        params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
+        for prm, (_, _, _, g) in zip(params, leaves):
+            prm.grad = g.clone()
+        return torch.optim.Adam(params, lr=1e-3, fused=True, **kw)
+
     n = sum(p.numel() for p, _, _, _ in leaves)
     t = {"ms": cuda_ms(torch, lambda: step(adam_leaf_triton), iters),
          "plain_ms": cuda_ms(torch, lambda: step(adam_leaf_torch), iters),
-         "library_ms": cuda_ms(torch, opt.step, iters)}
+         "library_ms": cuda_ms(torch, library().step, iters)}
+    if graph:
+        t["graph_ms"] = graph_ms(torch, lambda: step(adam_leaf_triton))
+        t["library_graph_ms"] = graph_ms(torch, library(capturable=True).step)
     t["bound_ms"], t["bound_by"] = bound(14.0 * n, 28 * n)
     return n, t
 
@@ -1984,49 +2076,43 @@ def phase_timing(torch):
     leaves = [[torch.randn(shape, device="cuda") * 0.1, torch.zeros(shape, device="cuda"),
                torch.zeros(shape, device="cuda"), torch.randn(shape, device="cuda") * 1e-3]
               for shape in shapes]
-    n, t = time_adam(torch, leaves, 20)
+    n, t = time_adam(torch, leaves, 20, graph=True)
     out["adam_leaf"]["deepfm_criteo"] = t
     log(f"[time] adam_leaf one step over the DeepFM-Criteo leaves ({n} elements, "
         f"{len(shapes)} launches): {t}")
     del leaves
 
     # one step's backward at the Criteo shape: the 17 small fields through
-    # the one-hot kernel, the 9 large ones through the windowed kernel, each
-    # reading its column block in place. index_add_ into zeros is the library
-    # call for both.
+    # the one-hot kernel, reading its column block in place (the 9 large
+    # ones: time_windowed). index_add_ into zeros is the library call.
     spec = criteo_field_spec()
     n_large = sum(v > 16384 for _, v in spec)
     ids, g = grad_inputs(torch, CRITEO_BATCH, spec, CRITEO_DIM, seed=8)
-    for name, cols, off in (("onehot_matmul_grad", slice(n_large, None), spec[n_large][0]),
-                            ("windowed_grad", slice(0, n_large), 0)):
-        bids, bg = ids[:, cols], g[:, cols]
-        n_rows = sum(v for _, v in spec[cols])
-        kernel, plain = getattr(eg, f"{name}_cuda"), getattr(eg, f"{name}_torch")
-        dest = torch.empty((n_rows, CRITEO_DIM), device="cuda")
-        local = (bids.reshape(-1) - off).contiguous()
-        flat = bg.reshape(-1, CRITEO_DIM).contiguous()
+    bids, bg, off = ids[:, n_large:], g[:, n_large:], spec[n_large][0]
+    n_rows = sum(v for _, v in spec[n_large:])
+    kernel, plain = eg.onehot_matmul_grad_cuda, eg.onehot_matmul_grad_torch
+    dest = torch.empty((n_rows, CRITEO_DIM), device="cuda")
+    local = (bids.reshape(-1) - off).contiguous()
+    flat = bg.reshape(-1, CRITEO_DIM).contiguous()
 
-        def library():
-            return dest.zero_().index_add_(0, local, flat)
+    def library():
+        return dest.zero_().index_add_(0, local, flat)
 
-        iters = 200 if n_rows < 100_000 else 50
-        t = {"ms": cuda_ms(torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off), iters),
-             "plain_ms": cuda_ms(torch, lambda: plain(bids, bg, n_rows, out=dest, id_base=off),
-                                 iters),
-             "library_ms": cuda_ms(torch, library, iters)}
-        R = bids.numel()
-        t["bound_ms"], t["bound_by"] = bound(
-            float(R * CRITEO_DIM), R * 8 + R * CRITEO_DIM * 4 + n_rows * CRITEO_DIM * 4)
-        if name == "onehot_matmul_grad":
-            # its four launches in one graph, and the library call's
-            t["graph_ms"] = graph_ms(torch, lambda: kernel(bids, bg, n_rows, out=dest,
-                                                           id_base=off))
-            t["library_graph_ms"] = graph_ms(torch, library)
-        t["stage_launches"] = kernels_per_call(
-            torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off))
-        out[name] = t
-        log(f"[time] {name} R={R} n_rows={n_rows} D={CRITEO_DIM}: {t}")
+    t = {"ms": cuda_ms(torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off), 200),
+         "plain_ms": cuda_ms(torch, lambda: plain(bids, bg, n_rows, out=dest, id_base=off), 200),
+         "library_ms": cuda_ms(torch, library, 200)}
+    R = bids.numel()
+    t["bound_ms"], t["bound_by"] = bound(
+        float(R * CRITEO_DIM), R * 8 + R * CRITEO_DIM * 4 + n_rows * CRITEO_DIM * 4)
+    # its four launches in one graph, and the library call's
+    t["graph_ms"] = graph_ms(torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off))
+    t["library_graph_ms"] = graph_ms(torch, library)
+    t["stage_launches"] = kernels_per_call(
+        torch, lambda: kernel(bids, bg, n_rows, out=dest, id_base=off))
+    out["onehot_matmul_grad"] = t
+    log(f"[time] onehot_matmul_grad R={R} n_rows={n_rows} D={CRITEO_DIM}: {t}")
     out["onehot_matmul_grad"]["sasrec"] = time_onehot_sasrec(torch)
+    out["windowed_grad"] = time_windowed(torch, eg)
     out.update(time_trm_layer(torch))
     out.update(time_bit_kernels(torch))
     out.update(time_gru(torch))
@@ -2091,6 +2177,50 @@ def time_bit_kernels(torch):
                 log(f"[time] bit_rows_matmul item side, the {R // 2} {half} alone: {ms:.4f} ms, "
                     f"{int(bk.unpack_bits(bits[sub]).sum())} set bits")
     return out
+
+
+def time_windowed(torch, eg, plain=True):
+    """``eg.windowed_grad_cuda`` (``eg`` an embed_grad module) at the main
+    paths' shapes: DeepFM-Criteo's 9 large fields (R 18,432 into 2,530,000
+    rows, D 11, its (B, 9) column block read in place), and a LightGCN
+    step's users (R 2,048 into 102,047 rows) and items (R 4,096 into 98,409
+    rows) at D 64. Each: CUDA events over back-to-back calls (``ms``), the
+    same calls in one CUDA graph (``graph_ms``), ``index_add_`` into zeros
+    both ways, the plain version, the host's enqueue time a call, the bound,
+    and the kernels a call launches with their device ms (profiler). The
+    Criteo entry, with ``lightgcn_users`` and ``lightgcn_items`` in it."""
+    spec = criteo_field_spec()
+    n_large = sum(v > 16384 for _, v in spec)
+    ids, g = grad_inputs(torch, CRITEO_BATCH, spec, CRITEO_DIM, seed=8)
+    users, items, lg = lightgcn_grad_inputs(torch)
+    out = {}
+    for label, bids, bg, n_rows in (("criteo", ids[:, :n_large], g[:, :n_large],
+                                     spec[n_large][0]),
+                                    ("lightgcn_users", users, lg[:2048], YELP[0] + 1),
+                                    ("lightgcn_items", items, lg, YELP[1] + 1)):
+        R, D = bids.numel(), bg.shape[-1]
+        dest = torch.empty((n_rows, D), device="cuda")
+        local = bids.reshape(-1).contiguous()
+        flat = bg.reshape(-1, D).contiguous()
+
+        def kernel():
+            return eg.windowed_grad_cuda(bids, bg, n_rows, out=dest)
+
+        def library():
+            return dest.zero_().index_add_(0, local, flat)
+
+        iters = 50 if label == "criteo" else 200
+        t = {"ms": cuda_ms(torch, kernel, iters), "library_ms": cuda_ms(torch, library, iters),
+             "graph_ms": graph_ms(torch, kernel), "library_graph_ms": graph_ms(torch, library),
+             "host_ms": host_ms(torch, kernel)}
+        if plain:
+            t["plain_ms"] = cuda_ms(
+                torch, lambda: eg.windowed_grad_torch(bids, bg, n_rows, out=dest), iters)
+        t["bound_ms"], t["bound_by"] = bound(float(R * D), R * 8 + R * D * 4 + n_rows * D * 4)
+        t["stage_launches"] = kernels_per_call(torch, kernel)
+        log(f"[time] windowed_grad {label} R={R} n_rows={n_rows} D={D}: {t}")
+        out[label] = t
+    return {**out.pop("criteo"), **out}
 
 
 def time_onehot_sasrec(torch):

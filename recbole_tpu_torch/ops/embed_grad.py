@@ -12,15 +12,21 @@ them):
   threads; a piece is up to 4 small tiles together, or at most 1,024
   entries of one tile (256 when D < 32), and a tile cut into several pieces
   adds their partials in piece order;
-* ``windowed_grad`` replaces ``windowed_grad`` (:170): the ids are sorted
-  with ``torch.sort`` outside the kernel, as the JAX function sorts them in
-  XLA (:181-187), and the table is swept in row windows, each row written
-  once.
+* ``windowed_grad`` replaces ``windowed_grad`` (:170), which sorts the ids
+  in XLA (:181-187) and sweeps the table in row windows: here unsorted ids
+  are bucketed by window of rows on the device (count, one-block scan,
+  stable scatter: the stable sort by window, no ``torch.sort``), the
+  table's zero fill runs under that bucketing (programmatic dependent
+  launch), then a window of at most 32 ids is summed by a warp and a larger
+  one in pieces of at most 256 ids (128 when D < 32) by a block, each
+  writing only the touched rows; a window cut into several pieces adds
+  their partials in piece order.
 
 Both kernels are deterministic: no float atomics, and each output element
 is a sum in an order fixed by the ids and the shapes alone (exact fp32
 terms where the TPU kernel adds a bf16 hi + lo pair); neither syncs with
-the host. Ids are int64, the type the trainer uploads; int32 raises.
+the host. Ids are int64, the type the trainer uploads; int32 raises. Ids
+outside [id_base, id_base + n_rows) are dropped by both.
 
 On top of them sit the two gathers with custom gradients:
 ``GroupedTakeRows`` (``grouped_take_rows``, :219-253) for the CTR family's
@@ -87,21 +93,25 @@ def onehot_matmul_grad_torch(ids, g, n_rows, out=None, id_base=0):
 
 
 def windowed_grad_torch(ids, g, n_rows, out=None, id_base=0):
-    """Plain version: stable sort, then a segment sum over each run of
-    equal ids (a cumulative sum differenced at the run ends)."""
+    """Plain version: the ids in [id_base, id_base + n_rows) (the others
+    are dropped), a stable sort, then a segment sum over each run of equal
+    ids (a cumulative sum differenced at the run ends)."""
     ids, g = _flat(ids, g)
     out = _out(out, n_rows, g.shape[1], g.device)
     out.zero_()
-    if ids.numel() == 0:
+    local = ids - id_base
+    keep = (local >= 0) & (local < n_rows)
+    local, g = local[keep], g[keep]
+    if local.numel() == 0:
         return out
-    sids, order = torch.sort(ids, stable=True)
+    sids, order = torch.sort(local, stable=True)
     csum = torch.cumsum(g[order].to(torch.float64), dim=0)
     last = torch.ones_like(sids, dtype=torch.bool)
     last[:-1] = sids[1:] != sids[:-1]
     ends = csum[last]
     seg = ends.clone()
     seg[1:] -= ends[:-1]
-    out[sids[last] - id_base] = seg.to(torch.float32)
+    out[sids[last]] = seg.to(torch.float32)
     return out
 
 
@@ -122,8 +132,10 @@ def _lib():
         lib.embed_grad_onehot_scratch_bytes.restype = ll
         lib.embed_grad_onehot_max_rows.argtypes = []
         lib.embed_grad_onehot_max_rows.restype = i
-        lib.embed_grad_windowed.argtypes = [p, p, p, i, ll, i, i, i, ll, ll, p, p]
+        lib.embed_grad_windowed.argtypes = [p, ll, i, p, ll, i, i, i, ll, ll, p, p, p]
         lib.embed_grad_windowed.restype = i
+        lib.embed_grad_windowed_scratch_bytes.argtypes = [i, i, ll]
+        lib.embed_grad_windowed_scratch_bytes.restype = ll
         _LIB = lib
     return _LIB
 
@@ -192,23 +204,25 @@ onehot_matmul_grad_cuda.launches = 0
 
 
 def windowed_grad_cuda(ids, g, n_rows, out=None, id_base=0):
-    """Sort the ids on the device, then launch ``windowed_grad_kernel``;
-    same contract as ``windowed_grad_torch``. Counts its launches in
+    """Launch the windowed path (three or four kernels on the current
+    stream); same contract as ``windowed_grad_torch``. Counts its calls in
     ``windowed_grad_cuda.launches``."""
     name = "windowed_grad_cuda"
-    R, D, fs, _, g_stride = _layout(name, ids, g)
+    R, D, fs, ids_stride, g_stride = _layout(name, ids, g)
     if D > 4096:
         raise ValueError(f"{name} takes D <= 4096")
     out = _check_out(name, out, n_rows, D, g)
-    # the permutation indexes the flattened (B * fs) block, which is how the
-    # kernel addresses g
-    sids, order = torch.sort(ids.reshape(-1), stable=True)
-    err = _lib().embed_grad_windowed(
-        sids.data_ptr(), order.data_ptr(), g.data_ptr(), fs, g_stride,
-        int(g.dtype == torch.bfloat16), R, D, id_base, n_rows, out.data_ptr(),
+    lib = _lib()
+    nbytes = lib.embed_grad_windowed_scratch_bytes(R, D, n_rows)
+    if nbytes < 0:
+        raise ValueError(f"{name} takes n_rows <= 2^41")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=g.device)
+    err = lib.embed_grad_windowed(
+        ids.data_ptr(), ids_stride, fs, g.data_ptr(), g_stride, int(g.dtype == torch.bfloat16),
+        R, D, id_base, n_rows, scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(g.device).cuda_stream)
     if err:
-        raise RuntimeError(f"windowed_grad kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"windowed_grad kernels' launch failed: CUDA error {err}")
     windowed_grad_cuda.launches += 1
     return out
 

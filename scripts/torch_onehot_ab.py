@@ -38,21 +38,8 @@ import sys
 import tempfile
 
 
-def host_ms(torch, fn, calls=100):
-    """Host milliseconds per call of ``fn`` (the enqueue, no wait for the
-    card): what a host-bound step pays for it."""
-    import time
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e3
-
-
 def time_call(torch, tools, label, kernel, library, iters):
-    t = {"host_ms": host_ms(torch, kernel), "ms": tools.cuda_ms(torch, kernel, iters),
+    t = {"host_ms": tools.host_ms(torch, kernel), "ms": tools.cuda_ms(torch, kernel, iters),
          "library_ms": tools.cuda_ms(torch, library, iters),
          "graph_ms": tools.graph_ms(torch, kernel),
          "library_graph_ms": tools.graph_ms(torch, library),

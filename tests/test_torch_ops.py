@@ -240,10 +240,95 @@ def test_windowed_grad_plain_matches_jax_and_numpy():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_pl), rtol=1e-6, atol=1e-6)
 
 
+def _windowed_refs(ids, g, n_rows, id_base=0):
+    """numpy's add.at over the ids in [id_base, id_base + n_rows), and the
+    JAX package's windowed_grad (the Pallas kernel in interpret mode) on the
+    local ids, which drops the others itself."""
+    from jax.experimental.pallas import tpu as pltpu
+    local = ids - id_base
+    keep = (local >= 0) & (local < n_rows)
+    ref_np = np.zeros((n_rows, g.shape[1]), np.float32)
+    np.add.at(ref_np, local[keep], g[keep])
+    with pltpu.force_tpu_interpret_mode():
+        ref_pl = jax_eg.windowed_grad(jnp.asarray(local, jnp.int32), jnp.asarray(g), n_rows)
+    return ref_np, np.asarray(ref_pl)
+
+
+@pytest.mark.parametrize("case", ["below and past the table", "around a nonzero id_base"])
+def test_windowed_grad_plain_drops_ids_outside_the_range(case):
+    """Ids outside [id_base, id_base + n_rows) add to no row, as in the JAX
+    package's windowed_grad and in the kernel: [-1, 2, 7] into 5 rows is
+    row 2 alone, and with id_base 20 the ids 19 and 25 are dropped."""
+    if case == "below and past the table":
+        ids, id_base = np.array([-1, 2, 7], np.int64), 0
+    else:
+        ids, id_base = np.array([19, 22, 25, 24, 20, 19, 26], np.int64), 20
+    g = np.arange(1, 2 * len(ids) + 1, dtype=np.float32).reshape(-1, 2)
+    out = port_eg.windowed_grad(torch.from_numpy(ids), torch.from_numpy(g), 5, id_base=id_base)
+    ref_np, ref_pl = _windowed_refs(ids, g, 5, id_base)
+    np.testing.assert_array_equal(out.numpy(), ref_np)
+    np.testing.assert_array_equal(out.numpy(), ref_pl)
+    hit = np.unique(ids[(ids >= id_base) & (ids < id_base + 5)] - id_base)
+    assert sorted(np.nonzero(out.numpy().any(axis=1))[0].tolist()) == hit.tolist()
+
+
+def _skewed_case(R, V, D, seed):
+    """Cubic skew toward the first rows, and one row (V // 3) that holds a
+    quarter of R."""
+    rng = np.random.RandomState(seed)
+    ids = np.floor(V * rng.random_sample(R) ** 3.0).astype(np.int64)
+    ids[rng.permutation(R)[:R // 4]] = V // 3
+    g = rng.randn(R, D).astype(np.float32)
+    return ids, g
+
+
+def _exact_sums(ids, g, V):
+    out = np.zeros((V, g.shape[1]), np.float64)
+    np.add.at(out, ids, g.astype(np.float64))
+    return out
+
+
+def test_windowed_grad_plain_skewed_matches_jax_and_numpy():
+    """The hot-row skew the kernel splits into pieces: against the exact
+    (float64) sums at rtol 1e-6 (plus 1e-6 absolute), as the unskewed test;
+    against the Pallas kernel in interpret mode, which adds the 500 terms of
+    the hot row one by one in fp32 and so is off the exact sum by a few
+    1e-6 of it, within 1e-6 of the sum of the terms' magnitudes."""
+    R, V, D = 2000, 700, 11
+    ids, g = _skewed_case(R, V, D, seed=21)
+    out = port_eg.windowed_grad(torch.from_numpy(ids), torch.from_numpy(g), V)
+    _, ref_pl = _windowed_refs(ids, g, V)
+    np.testing.assert_allclose(out.numpy(), _exact_sums(ids, g, V), rtol=1e-6, atol=1e-6)
+    assert (np.abs(out.numpy() - ref_pl) <= 1e-6 * _abs_sums(ids, g, V) + 1e-6).all()
+
+
+def test_grouped_take_rows_large_field_skewed_matches_jax_grad():
+    """GroupedTakeRows' CPU backward on one large-vocabulary field (the
+    windowed path) at the hot-row skew: against the exact sums at rtol 1e-6
+    (plus 1e-6 absolute), and against jax.grad through the JAX package's
+    grouped_take_rows (its scatter adds the fp32 terms one by one) within
+    1e-6 of the sum of their magnitudes, as above."""
+    B, V, D = 1600, port_eg.SMALL_VOCAB_MAX + 3000, 11
+    ids, g = _skewed_case(B, V, D, seed=22)
+    spec = ((0, V),)
+    table = np.random.RandomState(23).randn(V, D).astype(np.float32)
+    w = g[:, None, :]
+    jgrad = jax.grad(lambda t: jnp.sum(jax_eg.grouped_take_rows(
+        spec, t, jnp.asarray(ids[:, None], jnp.int32)) * jnp.asarray(w)))(jnp.asarray(table))
+    t = torch.from_numpy(table).requires_grad_()
+    (port_eg.grouped_take_rows(spec, t, torch.from_numpy(ids[:, None]))
+     * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), _exact_sums(ids, g, V), rtol=1e-6, atol=1e-6)
+    assert (np.abs(t.grad.numpy() - np.asarray(jgrad)) <= 1e-6 * _abs_sums(ids, g, V)
+            + 1e-6).all()
+    assert abs(t.grad[V // 3]).sum() > 0
+
+
 @pytest.mark.parametrize("fn", [port_eg.onehot_matmul_grad_torch, port_eg.windowed_grad_torch])
 def test_embed_grad_plain_edge_cases(fn):
     """No rows at all, one row, every id equal, a (B, fs) column block with
-    an id base, and writing into a row range of a larger table."""
+    an id base, writing into a row range of a larger table, and ids below
+    and past the range, which add to no row."""
     assert torch.count_nonzero(fn(torch.zeros(0, dtype=torch.int64),
                                   torch.zeros((0, 3)), 5)) == 0
     one = fn(torch.tensor([2]), torch.tensor([[1.0, 2.0]]), 4)
@@ -257,6 +342,10 @@ def test_embed_grad_plain_edge_cases(fn):
     fn(ids[:, 2:3], gg[:, 2:3], 5, out=table[20:25], id_base=20)
     assert table[20].tolist() == [10.0, 11.0] and table[21].tolist() == [4.0, 5.0]
     assert table[22].tolist() == [16.0, 17.0] and table[23].tolist() == [0.0, 0.0]
+    assert (table[:20] == -1).all() and (table[25:] == -1).all()
+    fn(torch.tensor([[19, 21], [25, 24], [-3, 20]]), gg[:, :2], 5, out=table[20:25], id_base=20)
+    assert table[21].tolist() == [2.0, 3.0] and table[24].tolist() == [8.0, 9.0]
+    assert table[20].tolist() == [14.0, 15.0] and torch.count_nonzero(table[20:25]) == 6
     assert (table[:20] == -1).all() and (table[25:] == -1).all()
 
 
@@ -552,6 +641,120 @@ def test_windowed_grad_kernel_matches_plain_on_card(cuda_device, R, V, D):
     assert _grad_close(port_eg.windowed_grad(same, tg, V),
                        port_eg.windowed_grad_torch(same, tg, V),
                        np.full_like(ids, V - 1), g, V)
+
+
+def _windowed_agrees_on_card(tid, tg, V, id_base=0, out=None):
+    """One call of the windowed path against the plain version, within the
+    file's bound over the ids in range, and a second call bit for bit."""
+    ids = tid.reshape(-1).cpu().numpy()
+    g = tg.float().reshape(ids.size, tg.shape[-1]).cpu().numpy()
+    before = port_eg.windowed_grad_cuda.launches
+    got = port_eg.windowed_grad(tid, tg, V, out=out, id_base=id_base)
+    assert port_eg.windowed_grad_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    ref = port_eg.windowed_grad_torch(tid, tg, V, id_base=id_base)
+    keep = (ids >= id_base) & (ids < id_base + V)
+    assert _grad_close(got, ref, ids[keep] - id_base, g[keep], V)
+    assert torch.equal(got, port_eg.windowed_grad(tid, tg, V, id_base=id_base))
+    return got
+
+
+def _hot_window_ids(rng, R, V):
+    """R ids of V rows (windows of 64 rows at V 98,409): a quarter of them
+    in window 3, half of those on row 200, then windows 10-16 holding 5, 17,
+    20, 32, 33, 60 and 100 ids, on both sides of a warp's 32 and of the
+    piece size (54 entries at D 300, 16 at D 1024, 4 at D 4096), the rest
+    skewed over rows from 2,048 on."""
+    ids = 2048 + np.floor((V - 2048) * rng.random_sample(R) ** 2.2).astype(np.int64)
+    hot = R // 4
+    ids[:hot] = 192 + rng.randint(0, 64, hot)
+    ids[:hot // 2] = 200
+    at = hot
+    for w, n in zip(range(10, 17), (5, 17, 20, 32, 33, 60, 100)):
+        ids[at:at + n] = 64 * w + rng.randint(0, 64, n)
+        at += n
+    return rng.permutation(ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["every id equal", "one window, many pieces",
+                                  "ids outside the range, into a row range", "R=0", "R=1",
+                                  "D=1", "D=64", "bf16 cotangent", "n_rows not a window multiple",
+                                  "10M rows", "column block in place", "D=300, a hot window",
+                                  "D=1024, a hot window", "D=4096, a hot window"])
+def test_windowed_grad_kernel_cases_on_card(cuda_device, case):
+    """The cases the bucketing by window has to get right, each against the
+    plain version and rerun bit for bit: a hot row and a hot window (cut
+    into many pieces whose partials are added in piece order), ids dropped
+    below and past a nonzero id_base while writing a row range of a larger
+    table, R = 0 and 1, D 1, 11 and 64, a bf16 cotangent, a table that ends
+    inside a window, 10,000,000 rows at D 11 (windows of 8,192 rows), a
+    (B, fs) column block that gives the bits of its contiguous copy, and
+    rows wider than a block's 256 threads (D 300, 1024, 4096: several column
+    slabs, pieces of fewer than 32 entries) with a hot window and windows
+    on both sides of a warp's and a piece's size."""
+    rng = np.random.RandomState(len(case))
+    R, V, D, id_base = 18432, 2530000, 11, 0
+    ids = np.floor(V * rng.random_sample(R) ** 3.0).astype(np.int64)
+    if case == "every id equal":
+        ids[:] = 1234567
+    elif case == "one window, many pieces":
+        # 1,000,000 rows are windows of 512 rows: 18,432 ids in window 2
+        V = 1_000_000
+        ids = 1024 + np.floor(512 * rng.random_sample(R) ** 2.0).astype(np.int64)
+    elif case.startswith("ids outside"):
+        R, V, id_base = 20000, 70000, 50000
+        ids = id_base - 1000 + rng.randint(0, V + 2000, R).astype(np.int64)
+    elif case.startswith("R="):
+        R = int(case[2:])
+        ids = ids[:R]
+    elif case.endswith("a hot window"):
+        D = int(case[2:case.index(",")])
+        R, V = {300: 4096, 1024: 2048, 4096: 1024}[D], 98409
+        ids = _hot_window_ids(rng, R, V)
+    elif case.startswith("D="):
+        R, V, D = 4096, 98409, int(case[2:])
+        ids = np.floor(V * rng.random_sample(R) ** 2.2).astype(np.int64)
+    elif case == "n_rows not a window multiple":
+        V = 100_003
+        ids = V - 1 - np.floor(V * rng.random_sample(R) ** 3.0).astype(np.int64)
+    elif case == "10M rows":
+        V = 10_000_000
+        ids = np.floor(V * rng.random_sample(R) ** 3.0).astype(np.int64)
+    g = (rng.randn(R, D) * 1e-2).astype(np.float32)
+    tid, tg = torch.from_numpy(ids).to(cuda_device), torch.from_numpy(g).to(cuda_device)
+    if case == "bf16 cotangent":
+        tg = tg.to(torch.bfloat16)
+    if case.startswith("ids outside"):
+        table = torch.full((id_base + V + 30000, D), -1.0, device=cuda_device)
+        out = _windowed_agrees_on_card(tid, tg, V, id_base, out=table[id_base:id_base + V])
+        assert bool((table[:id_base] == -1).all()) and bool((table[id_base + V:] == -1).all())
+        hit = np.zeros(V, bool)
+        hit[ids[(ids >= id_base) & (ids < id_base + V)] - id_base] = True
+        assert not torch.count_nonzero(out[torch.from_numpy(~hit).to(cuda_device)])
+    elif case == "column block in place":
+        block_ids, block_g = tid.reshape(-1, 9)[:, 2:7], tg.reshape(-1, 9, D)[:, 2:7]
+        got = _windowed_agrees_on_card(block_ids, block_g, V)
+        flat = port_eg.windowed_grad(block_ids.reshape(-1).contiguous(),
+                                     block_g.reshape(-1, D).contiguous(), V)
+        assert torch.equal(got, flat)
+    else:
+        _windowed_agrees_on_card(tid, tg, V)
+
+
+@pytest.mark.cuda
+def test_windowed_grad_kernel_shared_memory_sizes_in_turn_on_card(cuda_device):
+    """Shapes whose scan and piece kernels take more than 48 KB of shared
+    memory, a larger size, then a smaller one, then the larger again (the
+    launcher keeps each kernel's limit at the most it has been asked for):
+    each call agrees with the plain version and reruns bit for bit."""
+    rng = np.random.RandomState(23)
+    for R, V, D in ((18432, 2530000, 11), (20000, 70000, 11), (18432, 2530000, 11),
+                    (4096, 98409, 64), (4096, 98409, 300), (4096, 98409, 64)):
+        ids = np.floor(V * rng.random_sample(R) ** 2.2).astype(np.int64)
+        g = (rng.randn(R, D) * 1e-2).astype(np.float32)
+        _windowed_agrees_on_card(torch.from_numpy(ids).to(cuda_device),
+                                 torch.from_numpy(g).to(cuda_device), V)
 
 
 @pytest.mark.cuda
