@@ -17,8 +17,9 @@ Phases:
      Yelp shape's packed rows and on random bytes; the GRU recurrence
      kernels in both instances, forward and backward, at GRU4Rec's and
      NARM's step, ragged and eval batches, with zero and nonzero h0, and a
-     two-layer stack, and at H 10 (zero-padded) and H 256 (the instance
-     with wh in device memory); the attention-only kernels, causal and
+     two-layer stack, and at H 132, 256 and the cluster limit (the bf16
+     instance's cluster kernels, the fp32 instance's wh in device memory),
+     the limit + 4 and H 10 (zero-padded); the attention-only kernels, causal and
      bidirectional, dropout off and on, with a sequence that has no valid
      key, at L 50 and L 200 (key tiles); the rel_apply kernels in both
      instances, forward and backward, at RippleNet's step and at edge
@@ -51,7 +52,8 @@ Phases:
      g. SASRec at its default widths with fused_attention True (the
         attention-only kernel) on the same file, 1 epoch;
      h. a few steps and a valid pass at widths the kernels took only after
-        their limits were lifted: GRU4Rec at hidden 10 and 256, SASRec at
+        their limits were lifted: GRU4Rec at hidden 10 and 256 (the bf16
+        instance's cluster kernels, which must launch), SASRec at
         hidden 128 and at 200 positions under the default fused_attention
         "layer2" (routed around the whole-layer kernel) and True;
      i. RippleNet at its defaults (embedding 64, 2 hops, 16 memories,
@@ -968,13 +970,16 @@ def check_gru(torch):
     last train batch of the ml-1m-shaped file (1,097), a full-sort batch
     (4,096) and its last (1,944), h0 zero and not; two runs compared bit for
     bit; then a two-layer GRU4Rec stack at full width through
-    layers.gru_apply against the plain version, forward and gradients."""
+    layers.gru_apply against the plain version, forward and gradients; then
+    through fused_gru and autograd at H 132, 256 and the cluster limit (the
+    bf16 instance's cluster kernels), the limit + 4 and H 10 (padded)."""
     from recbole_tpu_torch.models.layers import GRU
     from recbole_tpu_torch.ops import fused_gru as fg
     L, E, H = GRU4REC["L"], GRU4REC["E"], GRU4REC["H"]
     worst = {"fused_gru_fwd": 0.0, "fused_gru_bwd": 0.0}
-    log(f"[check] fused_gru shared memory a block: forward {fg._lib().fused_gru_smem_bytes(H, 0)}"
-        f", backward {fg._lib().fused_gru_smem_bytes(H, 1)} bytes at H={H}")
+    log(f"[check] fused_gru shared memory a block: forward "
+        f"{fg._lib().fused_gru_smem_bytes(H, 0, 1)}, backward "
+        f"{fg._lib().fused_gru_smem_bytes(H, 1, 1)} bytes at H={H} (bf16)")
     n = 0
     for bf16 in (True, False):
         for label, B in (("step", GRU4REC["B"]), ("last train batch", 1097),
@@ -1034,16 +1039,25 @@ def check_gru(torch):
             f"(tolerance {tol})")
         if max(errs.values()) > tol:
             raise AssertionError(f"gru_apply two layers: beyond tolerance {tol}: {errs}")
-    # hidden sizes beyond the shared-memory instance: H 256 (wh in device
-    # memory) and H 10 (zero-padded to 12 by the dispatcher), through
-    # fused_gru and autograd at the step's batch
+    # hidden sizes beyond the shared-memory route, through fused_gru and
+    # autograd at the step's batch: H 132, 256 and the cluster limit (the
+    # bf16 instance's cluster kernels; the fp32 instance reads wh from device
+    # memory), the limit + 4 (device memory in both), and H 10 (zero-padded
+    # to 12 by the dispatcher)
     lib = fg._lib()
-    for H2 in (256, 10):
-        log(f"[check] fused_gru H={H2}: runs at H={fg.padded_hidden(H2)}, "
-            f"{'wh in device memory' if H2 > lib.fused_gru_max_shared_hidden() else 'wh in shared memory'}, "
-            f"{lib.fused_gru_smem_bytes(fg.padded_hidden(H2), 1)} bytes of shared memory a block "
-            "(backward)")
+    limit = lib.fused_gru_max_cluster_hidden()
+    for H2 in (132, 256, limit, limit + 4, 10):
+        Hp = fg.padded_hidden(H2)
         for bf16 in (True, False):
+            route = ("shared memory", "cluster", "device memory")[lib.fused_gru_route(Hp, bf16)]
+            plan = ""
+            if route == "cluster":
+                plan = "; plan forward {}, backward {}".format(
+                    fg.fused_gru_cluster_plan(GRU4REC["B"], Hp, False),
+                    fg.fused_gru_cluster_plan(GRU4REC["B"], Hp, True))
+            log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} H={H2}: runs at H={Hp}, wh in "
+                f"{route}, {lib.fused_gru_smem_bytes(Hp, 1, bf16)} bytes of shared memory a "
+                f"block at most (backward){plan}")
             xi, hinit, wh, bh, dout = gru_inputs(torch, GRU4REC["B"], L, H2, 260 + H2 + bf16,
                                                  bf16, True)
 
@@ -1054,11 +1068,17 @@ def check_gru(torch):
                 torch.cuda.synchronize()
                 return [out.detach()] + [a.grad for a in args]
 
-            before = (fg.fused_gru_fwd_cuda.launches, fg.fused_gru_bwd_cuda.launches)
+            before = (fg.fused_gru_fwd_cuda.launches, fg.fused_gru_bwd_cuda.launches,
+                      fg.fused_gru_fwd_cuda.launches_cluster,
+                      fg.fused_gru_bwd_cuda.launches_cluster)
             got = run(fg.fused_gru)
+            cl = int(route == "cluster")
             if (fg.fused_gru_fwd_cuda.launches - before[0],
-                    fg.fused_gru_bwd_cuda.launches - before[1]) != (1, 1):
-                raise AssertionError(f"fused_gru H={H2} did not launch the kernels once each way")
+                    fg.fused_gru_bwd_cuda.launches - before[1],
+                    fg.fused_gru_fwd_cuda.launches_cluster - before[2],
+                    fg.fused_gru_bwd_cuda.launches_cluster - before[3]) != (1, 1, cl, cl):
+                raise AssertionError(f"fused_gru H={H2} did not launch the {route} kernels once "
+                                     "each way")
             same = all(torch.equal(a, b) for a, b in zip(got, run(fg.fused_gru)))
             ref = run(lambda *a: fg.fused_gru_torch(*a, bf16=bf16))
             errs = {k: rel_err(a, b) for k, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"),
@@ -1273,7 +1293,7 @@ def kernel_wrappers():
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        for share in ("launches_fp32", "launches_bf16"):
+        for share in ("launches_fp32", "launches_bf16", "launches_cluster"):
             if hasattr(fn, share):
                 setattr(fn, share, 0)
 
@@ -1282,8 +1302,9 @@ def read_launches(path, must_launch):
     """The wrappers' counts; the transformer wrappers count both instances,
     told apart here: trm_layer_* is the bf16 instance's share,
     fused_transformer_layer_* the fp32 instance's. fused_gru_* count both of
-    theirs (one TPU kernel), and fused_gru_*_fp32 is the fp32 share;
-    rel_apply_* count both of theirs, rel_apply_*_bf16 the bf16 share."""
+    theirs (one TPU kernel), fused_gru_*_fp32 is the fp32 share and
+    fused_gru_*_cluster the cluster route's; rel_apply_* count both of
+    theirs, rel_apply_*_bf16 the bf16 share."""
     launches = {}
     for name, fn in kernel_wrappers().items():
         if name.startswith("trm_layer"):
@@ -1295,6 +1316,8 @@ def read_launches(path, must_launch):
                 launches[f"{name}_fp32"] = fn.launches_fp32
             if hasattr(fn, "launches_bf16"):
                 launches[f"{name}_bf16"] = fn.launches_bf16
+            if hasattr(fn, "launches_cluster"):
+                launches[f"{name}_cluster"] = fn.launches_cluster
     log(f"[{path}] launches {launches}")
     never = [name for name in must_launch if launches[name] <= 0]
     if never:
@@ -1600,7 +1623,7 @@ def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, mu
     wall = time.time() - t0
     launches = read_launches(tag, must_launch)
     release()
-    ran = {k: launches[k] for k in must_not if launches[k]}
+    ran = {k: launches[k] for k in must_not if launches.get(k)}
     if ran:
         raise AssertionError(f"kernels off the {tag} path were launched: {ran}")
     result = {"best_valid_result": best_valid, "test_result": test_result}
@@ -1628,7 +1651,8 @@ def phase_gru4rec(torch, tmp):
         ("embedding_size", "hidden_size", "num_layers", "dropout_prob", "loss_type",
          "MAX_ITEM_LIST_LENGTH", "train_batch_size"),
         ("fused_gru_fwd", "fused_gru_bwd", "onehot_matmul_grad", "adam_leaf", "masked_topk"),
-        ("fused_gru_fwd_fp32", "fused_gru_bwd_fp32", "trm_layer_fwd", "windowed_grad"))
+        ("fused_gru_fwd_fp32", "fused_gru_bwd_fp32", "fused_gru_fwd_cluster", "trm_layer_fwd",
+         "windowed_grad"))
     if tuple(widths.values()) != (64, 128, 1, 0.3, "CE", 50, 2048) \
             or model.cdt != torch.bfloat16:
         raise AssertionError(f"GRU4Rec was not built at its defaults: {widths}, {model.cdt}")
@@ -1718,7 +1742,7 @@ def short_run(torch, tmp, tag, model_name, extra, loaders, steps, must_launch, m
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches(tag, must_launch)
-    ran = {k: launches[k] for k in must_not if launches[k]}
+    ran = {k: launches[k] for k in must_not if launches.get(k)}
     if ran:
         raise AssertionError(f"kernels off the {tag} path were launched: {ran}")
     losses = [float(x) for x in losses]
@@ -1734,7 +1758,8 @@ def short_run(torch, tmp, tag, model_name, extra, loaders, steps, must_launch, m
 def phase_wide(torch, tmp):
     """Widths the kernels took only after their limits were lifted, a few
     steps each on the ml-1m-shaped file: GRU4Rec at hidden 10 (padded) and
-    256 (wh in device memory), SASRec at hidden 128 (50 positions) and at
+    256 (the bf16 instance's cluster kernels: wh split over a thread-block
+    cluster), SASRec at hidden 128 (50 positions) and at
     200 positions, each under the default fused_attention "layer2", which
     routes around the whole-layer kernel, and under True."""
     off_gru = ("trm_layer_fwd", "fused_attention_fwd", "rel_apply_fwd")
@@ -1743,9 +1768,12 @@ def phase_wide(torch, tmp):
     out = {}
     loaders = seq_loaders(torch, tmp, "GRU4Rec", {})
     for hidden in (10, 256):
+        wide = hidden > 128
         out[f"gru4rec_h{hidden}"] = short_run(
             torch, tmp, f"gru4rec_h{hidden}", "GRU4Rec", {"hidden_size": hidden}, loaders, 5,
-            ("fused_gru_fwd", "fused_gru_bwd"), off_gru)
+            ("fused_gru_fwd", "fused_gru_bwd")
+            + (("fused_gru_fwd_cluster", "fused_gru_bwd_cluster") if wide else ()),
+            off_gru + (() if wide else ("fused_gru_fwd_cluster",)))
     for fused in ("layer2", True):
         out[f"sasrec_d128_{fused}"] = short_run(
             torch, tmp, f"sasrec_d128_{fused}", "SASRec",
@@ -2317,12 +2345,18 @@ def time_gru(torch):
     forward; the backward's recompute, dhh wh^T and h^T dhh, three times
     that) at the fp32 rate (fp32 instance) or the bf16 tensor-core rate
     (bf16 instance), and xi, out (dout, dxi) moved once in the instance's
-    type."""
+    type. The bf16 entries also give the time in a CUDA graph, the
+    kernels a call launches (torch.profiler) and, for the backward, the
+    dwh product alone (``dwh_ms``, CUDA events); the "h256" entry also the
+    cluster geometry (cluster size, rows a block, clusters and the clusters
+    the card holds) and the per-step floor: the forward's L - 1 steps of
+    the h exchange and the cluster barrier alone, and with the recurrent
+    product."""
     from recbole_tpu_torch.ops import fused_gru as fg
     B, L, E = (GRU4REC[k] for k in ("B", "L", "E"))
     out = {}
     # GRU4Rec's hidden 128 in both instances (wh in shared memory), then
-    # hidden 256 in the bf16 instance (wh in device memory), the "h256" entry
+    # hidden 256 in the bf16 instance (the cluster kernels), the "h256" entry
     for H, bf16 in ((GRU4REC["H"], True), (GRU4REC["H"], False), (256, True)):
         xi, hinit, wh, bh, dout = gru_inputs(torch, B, L, H, 41, bf16, False)
         y = fg.fused_gru_fwd_cuda(xi, hinit, wh, bh)
@@ -2368,6 +2402,21 @@ def time_gru(torch):
                  "library_ms": library[way]}
             t["bound_ms"], t["bound_by"] = bound(flops, nbytes,
                                                  PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+            if bf16:
+                t["graph_ms"] = graph_ms(torch, kernel, calls=5, replays=10)
+                t["kernels"] = kernels_per_call(torch, kernel)
+                if way == "bwd":
+                    # the backward's last product alone, by events (the profiler
+                    # can drop launches late in a long process)
+                    dhh = torch.randn(B, L, 3 * H, device="cuda")
+                    t["dwh_ms"] = cuda_ms(torch, lambda: fg.fused_gru_dwh_cuda(y, hinit, dhh),
+                                          20)
+            if bf16 and fg.cluster_route(H, True):
+                t["plan"] = fg.fused_gru_cluster_plan(B, H, way == "bwd")
+                if way == "fwd":
+                    for name, product in (("floor_ms", False), ("floor_product_ms", True)):
+                        t[name] = cuda_ms(torch, lambda: fg.fused_gru_cluster_floor_cuda(
+                            B, L, H, "cuda", product), 20)
             key = f"fused_gru_{way}"
             if H != GRU4REC["H"]:
                 out[key][f"h{H}"] = t

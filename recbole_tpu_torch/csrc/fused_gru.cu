@@ -33,8 +33,8 @@
 // What bounds it on the H100 (GRU4Rec's step: B = 2048, L = 50, H = 128):
 // the recurrent products are 10.07 GFLOP forward and 30.2 GFLOP backward, the
 // bytes 105 MB forward and 210 MB backward in the bf16 instance; as fp32 FMAs
-// (this first version does not use the tensor cores) the fp32 rate bounds
-// them at 0.150 and 0.451 ms. The recurrence is serial in t, so a step's
+// (the shared-memory route does not use the tensor cores) the fp32 rate
+// bounds them at 0.150 and 0.451 ms. The recurrence is serial in t, so a step's
 // latency matters as much: each block owns kRows = 16 sequences for the whole
 // loop (128 blocks at B = 2048 on 132 SMs), keeps wh (rounded in the bf16
 // instance) in shared memory, padded so that both the column reads of the
@@ -50,31 +50,45 @@
 // reduce_partials_kernel sums the partials in chunk (block) order. No float
 // atomics: two runs give the same bits.
 //
-// Two instances of the recurrent kernels by where wh lives, chosen from H
-// before launch (launch_fwd, launch_bwd): up to kMaxH = 128 (two threads a
-// hidden unit, 256 threads; fp32 wh and the step's rows take 231,424 bytes
-// of shared memory at H = 128 in the backward) wh sits in shared memory as
-// above. Beyond it, the *_global kernels keep wh in device memory, where at
-// GRU widths it stays resident in the 50 MB L2 (786,432 bytes of fp32 wh at
-// H = 256): gru_prep_wh_kernel writes wh rounded as the product reads it,
-// and its transpose for the backward's dhh wh^T, into scratch once a call;
-// each step a thread owns hidden units j, j + 256, ... for all 16 rows of the
-// block, reads its columns of wh in k-tiles of 4 rows (neighbouring threads
-// on neighbouring columns) against the block's h rows in shared memory, and
+// Three routes for the recurrent kernels, chosen from H and the instance
+// before launch (route_of): up to kMaxH = 128 (two threads a hidden unit,
+// 256 threads; fp32 wh and the step's rows take 231,424 bytes of shared
+// memory at H = 128 in the backward) wh sits in one block's shared memory as
+// above. Above it, the bf16 instance splits wh over a thread-block cluster
+// (fused_gru_{fwd,bwd}_cluster_kernel, up to cluster_max_hidden() = 384; the
+// design is at the cluster kernels below): 4 blocks up to H = 256, 8 above,
+// each holding its units' gate columns of wh in bf16, the recurrent
+// products on the tensor cores (mma.sync m16n8k16), h exchanged through
+// distributed shared memory. The fp32 instance above 128, and the bf16 one
+// above the cluster limit, take the *_global kernels, which keep wh in
+// device memory, where at GRU widths it stays resident in the 50 MB L2:
+// gru_prep_wh_kernel writes wh rounded as the product reads it, and its
+// transpose for the backward's dhh wh^T, into scratch once a call; each step
+// a thread owns hidden units j, j + 256, ... for all 16 rows of the block,
+// reads its columns of wh in k-tiles of 4 rows (neighbouring threads on
+// neighbouring columns) against the block's h rows in shared memory, and
 // keeps the fp32 carry h (dh) in shared memory beside them. Determinism is
-// the same: dwh by gru_dwh_kernel's chunk partials, dbh by per-block partials,
-// both summed in order. Shared memory is then 16 rows of h, dh and dhh
-// ((5 x 16 + 3) H floats in the backward), so H <= fused_gru_max_hidden()
-// (700). H must be a multiple of 4 (the wrapper zero-pads any other H, which
-// is exact: recbole_tpu_torch/ops/fused_gru.py). Any B and L.
+// the same on every route: dwh by chunk partials (gru_dwh_tc_kernel on the
+// tensor cores in the bf16 instance, dhh entering as two bf16 terms;
+// gru_dwh_kernel in fp32 in the fp32 instance), dbh by per-block (per-
+// cluster) partials, both summed in order. The global route's shared memory
+// is 16 rows of h, dh and dhh ((5 x 16 + 3) H floats in the backward), so
+// H <= fused_gru_max_hidden() (700). H must be a multiple of 4 (the wrapper
+// zero-pads any other H, which is exact: recbole_tpu_torch/ops/fused_gru.py).
+// Any B and L.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface, loaded by recbole_tpu_torch/ops/cuda_build.py.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -114,6 +128,13 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
 }
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// The cluster kernels' gates, from the hardware exp2 and reciprocal: within
+// about 1e-6 of sigm and tanhf (absolute), far inside the bf16 instance's
+// rounding, at a fraction of the instructions (the gate math of 20-60
+// (row, unit) pairs a thread is on every step's critical path).
+__device__ __forceinline__ float sigm_fast(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
+__device__ __forceinline__ float tanh_fast(float x) { return 2.0f * sigm_fast(2.0f * x) - 1.0f; }
 
 // wh (H, 3H) into shared memory, rounded in the bf16 instance
 template <bool BF>
@@ -603,24 +624,851 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials, int n
   out[p] = s;
 }
 
+// ------------------------------------- tensor-core pieces (bf16 instance)
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(const void* p, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+// c += a b: one m16n8k16 tile, bf16 operands, fp32 sums
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// v = hi + lo with hi = bf16(v), lo = bf16(v - hi): v to about 2^-16 of itself
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack2(a, b);
+  const float2 h = unpack2(hi);
+  lo = pack2(a - h.x, b - h.y);
+}
+
+// Element (row, col) of a row-major bf16 tile whose row holds S elements (S a
+// multiple of 64): the 16-byte chunks of a row are XOR-swizzled by row % 8,
+// so the eight rows an ldmatrix reads fall in eight distinct bank groups.
+__device__ __forceinline__ int swz(int row, int col, int S) {
+  return row * S + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------- wh in a thread-block cluster (bf16, 128 < H)
+//
+// A cluster of CS blocks owns R = 16 MT sequences for the whole loop. Block c
+// owns the Up hidden units [c Up, (c + 1) Up) (Up = ceil(H / CS) rounded up to
+// 16; units past H are dead: zero wh, bh, xi and h0, so their h and dh stay
+// exactly 0) and keeps the three gate columns of those units of wh, for all
+// Kp = CS Up rows k, rounded to bf16, as whs[3 Up][Ks] (row n = g Up + u holds
+// wh[k][g H + c Up + u] over k; Ks = Kp rounded up to 64, chunks swizzled).
+// Warp w owns the units c Up + 8w + [0, 8): its three m16n8 accumulator tiles
+// per 16 rows are the r, z and n columns of the same units, so a thread holds
+// r, z and n of its (row, unit) pairs and the gate math and the fp32 carry
+// stay in registers. The recurrent product h wh_slice (M R, N 3 Up, K Kp)
+// runs on mma.sync m16n8k16, fed by ldmatrix from the block's copy of all R
+// rows of h (bf16). Each step a block sends its new h slice into the next of
+// two h buffers of every block of the cluster (distributed shared memory, 16
+// bytes a store), then one cluster barrier (arrive.release / wait.acquire).
+//
+// The backward's recompute is the same product on h_{t-1}, read from the
+// forward's output (h0 at t = 0) by cp.async a step ahead, into a region that
+// it shares with the dhh tiles below (so that 80 rows fit at H 256).
+// Its dhh wh^T is split by the block's own gate columns: the block's fp32 dhh
+// goes through shared memory as two bf16 terms, hi = bf16(dhh) and lo =
+// bf16(dhh - hi), and P_c = (hi + lo) wh_slice^T (M R, N Kp, K 3 Up; B by
+// ldmatrix.trans from the same whs) is the block's partial for every unit.
+// Warp w computes the tiles of units j Up + 8w + [0, 8) for every block j: the
+// tile of its own block stays in registers, the others go into block j's
+// receive buffer (slot c), and after a cluster barrier block j adds the CS
+// partials in rank order, rounds the sum to bf16 once and forms
+// dh = dh z + round(sum). A second, split barrier (arrive after the receive
+// buffer is read, wait just before the next step's sends) keeps a fast block
+// from writing into a buffer that is still being read.
+//
+// What bounds it at H 256 (B 2,048, L 50): the recurrent products are 40.3
+// GFLOP forward and 121 backward, 0.041 and 0.122 ms at the bf16 tensor-core
+// rate, and the bytes (xi and out; xi, out, dout, dxi and the fp32 dhh) take
+// longer. But the loop is 50 serial steps, so a step's latency rules: one
+// SM's product (R x 3 Up x Kp, fed from shared memory, whose bandwidth the
+// ldmatrix reads of h bound before the tensor cores do), the exchange and
+// the cluster barrier. Hence the rows a block (16 MT) are the fewest that
+// fit the grid in one wave of resident clusters, wh never leaves shared
+// memory, and the next step's xi (and dout, h_{t-1}) are in flight during
+// the product.
+
+constexpr int kClusterMaxUp = 64;  // units of a block: one warp per 8 of them
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// a block's units for H split over cs blocks, a multiple of 16
+__host__ __device__ inline int cluster_up(int H, int cs) { return round_up((H + cs - 1) / cs, 16); }
+__host__ __device__ inline int cluster_ks(int H, int cs) { return round_up(cs * cluster_up(H, cs), 64); }
+// the row stride of the backward's dhh tiles: 3 Up elements, padded to an odd
+// number of 16-byte chunks (conflict-free ldmatrix without a swizzle)
+__host__ __device__ inline int cluster_s3(int up) { return 8 * ((3 * up / 8) | 1); }
+
+// the backward's shared region (bf16 elements): h_{t-1}, or dhh's two terms
+__host__ __device__ inline size_t cluster_union(int R, int ks, int s3) {
+  const size_t h = (size_t)R * ks, d = (size_t)2 * R * s3;
+  return h > d ? h : d;
+}
+
+inline size_t cluster_smem(int H, int cs, int mt, bool backward) {
+  const int up = cluster_up(H, cs), ks = cluster_ks(H, cs), R = 16 * mt;
+  const size_t w = (size_t)2 * 3 * up * ks;
+  if (!backward) return w + (size_t)2 * 2 * R * ks;
+  return w + 2 * cluster_union(R, ks, cluster_s3(up)) + (size_t)4 * (cs - 1) * R * up;
+}
+
+// The loads of a block's start run four items a thread at once (a round trip
+// to L2 or device memory each), so that many are in flight.
+constexpr int kStage = 4;
+
+// whs <- the block's gate columns of wh, rounded to bf16, zero past H. An
+// item is rows k, k + 1 of four units of one gate (two float4 loads, four
+// bf16 pairs; H is a multiple of 4, so the four are all live or all dead).
+__device__ void load_wh_slice(bf16* whs, const float* __restrict__ wh, int H, int c, int up,
+                              int ks) {
+  const int u4 = up / 4, per_k = 3 * u4, items = (ks / 2) * per_k;
+  for (int i0 = threadIdx.x; i0 < items; i0 += kStage * blockDim.x) {
+    float4 a[kStage], b[kStage];
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = i0 + s * blockDim.x, k = 2 * (i / per_k), rest = i - (k / 2) * per_k;
+      const int g = rest / u4, u = c * up + 4 * (rest - g * u4);
+      a[s] = b[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < items && u < H && k < H) {
+        const float* src = wh + (size_t)k * 3 * H + g * H + u;
+        a[s] = *reinterpret_cast<const float4*>(src);
+        b[s] = *reinterpret_cast<const float4*>(src + 3 * H);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = i0 + s * blockDim.x, k = 2 * (i / per_k), rest = i - (k / 2) * per_k;
+      const int g = rest / u4, n = g * up + 4 * (rest - g * u4);
+      if (i >= items) continue;
+      *reinterpret_cast<uint32_t*>(whs + swz(n, k, ks)) = pack2(a[s].x, b[s].x);
+      *reinterpret_cast<uint32_t*>(whs + swz(n + 1, k, ks)) = pack2(a[s].y, b[s].y);
+      *reinterpret_cast<uint32_t*>(whs + swz(n + 2, k, ks)) = pack2(a[s].z, b[s].z);
+      *reinterpret_cast<uint32_t*>(whs + swz(n + 3, k, ks)) = pack2(a[s].w, b[s].w);
+    }
+  }
+}
+
+// hs[R][ks] <- round(h0) of the block's rows b0 .. b0 + R - 1, zero past B
+// and past H (kp columns; four a float4 load)
+__device__ void load_h0_rows(bf16* hs, const float* __restrict__ h0, int b0, int B, int H, int R,
+                             int kp, int ks) {
+  const int k4 = kp / 4, items = R * k4;
+  for (int i0 = threadIdx.x; i0 < items; i0 += kStage * blockDim.x) {
+    float4 v[kStage];
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = i0 + s * blockDim.x, r = i / k4, k = 4 * (i - r * k4), b = b0 + r;
+      v[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < items && b < B && k < H)
+        v[s] = *reinterpret_cast<const float4*>(h0 + (size_t)b * H + k);
+    }
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = i0 + s * blockDim.x, r = i / k4, k = 4 * (i - r * k4);
+      if (i < items)
+        *reinterpret_cast<uint2*>(hs + swz(r, k, ks)) =
+            make_uint2(pack2(v[s].x, v[s].y), pack2(v[s].z, v[s].w));
+    }
+  }
+}
+
+// acc[mt][g] += the rows of hs (R of them) times the warp's three gate tiles
+template <int MT>
+__device__ __forceinline__ void cluster_product(const bf16* hs, const bf16* whs, int kp, int ks,
+                                                int up, int warp, int lane,
+                                                float acc[MT][3][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int g = 0; g < 3; ++g) acc[mt][g][0] = acc[mt][g][1] = acc[mt][g][2] = acc[mt][g][3] = 0.0f;
+  const int arow = lane & 15, acol = (lane >> 4) * 8;
+  const int brow = warp * 8 + (lane & 7), bcol = ((lane >> 3) & 1) * 8;
+  const int bg = lane >> 4;  // gate 0 or 1 in the x4 load
+  for (int k0 = 0; k0 < kp; k0 += 16) {
+    uint32_t b[3][2];
+    ldsm_x4(whs + swz(bg * up + brow, k0 + bcol, ks), b[0][0], b[0][1], b[1][0], b[1][1]);
+    ldsm_x2(whs + swz(2 * up + brow, k0 + bcol, ks), b[2][0], b[2][1]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t a[4];
+      ldsm_x4(hs + swz(mt * 16 + arow, k0 + acol, ks), a[0], a[1], a[2], a[3]);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) mma16816(acc[mt][g], a, b[g][0], b[g][1]);
+    }
+  }
+}
+
+// The four lanes of a quad hold units 2q, 2q + 1 of rows r (v0) and r + 8
+// (v1); afterwards lanes q = 0, 2 hold row r's eight units and q = 1, 3 row
+// r + 8's, as one 16-byte vector.
+__device__ __forceinline__ uint4 quad_gather(uint32_t v0, uint32_t v1, int lane) {
+  const int base = lane & ~3;
+  uint32_t a[4], b[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[i] = __shfl_sync(0xffffffffu, v0, base + i);
+    b[i] = __shfl_sync(0xffffffffu, v1, base + i);
+  }
+  return (lane & 1) ? make_uint4(b[0], b[1], b[2], b[3]) : make_uint4(a[0], a[1], a[2], a[3]);
+}
+
+// eight bf16 units u0 .. u0 + 7 of row p of a (rows, H) bf16 tensor, the
+// live ones only (H a multiple of 4, so 0, 4 or 8 of them)
+__device__ __forceinline__ void store_units8(bf16* p, int u0, int H, uint4 v) {
+  if (u0 >= H) return;
+  if ((H & 7) == 0) {
+    *reinterpret_cast<uint4*>(p + u0) = v;
+    return;
+  }
+  *reinterpret_cast<uint2*>(p + u0) = make_uint2(v.x, v.y);
+  if (u0 + 4 < H) *reinterpret_cast<uint2*>(p + u0 + 4) = make_uint2(v.z, v.w);
+}
+
+template <int CS, int MT>
+__global__ void __launch_bounds__(4 * kClusterMaxUp)
+fused_gru_fwd_cluster_kernel(const bf16* __restrict__ xi, const float* __restrict__ h0,
+                             const float* __restrict__ wh, const float* __restrict__ bh, int B,
+                             int L, int H, bf16* __restrict__ out) {
+  constexpr int R = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const int up = cluster_up(H, CS), kp = CS * up, ks = cluster_ks(H, CS);
+  bf16* whs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* hb = whs + (size_t)3 * up * ks;  // [2][R][ks]: h as the product reads it
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int b0 = (blockIdx.x / CS) * R;
+  const int u0 = c * up + warp * 8, uu = u0 + 2 * q;  // the thread's units uu, uu + 1
+  const bool alive = uu < H;
+  const size_t C3 = 3 * (size_t)H;
+
+  load_wh_slice(whs, wh, H, c, up, ks);
+  load_h0_rows(hb, h0, b0, B, H, R, kp, ks);
+  // the fp32 carry of the thread's (row, unit) pairs, in accumulator order:
+  // [mt][0] (row gr, uu), [1] (gr, uu + 1), [2] (gr + 8, uu), [3] (gr + 8, uu + 1)
+  float h[MT][4], bias[3][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int b = b0 + mt * 16 + gr + 8 * (e >> 1);
+      h[mt][e] = (alive && b < B) ? h0[(size_t)b * H + uu + (e & 1)] : 0.0f;
+    }
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bias[g][j] = alive ? bh[g * H + uu + j] : 0.0f;
+  uint32_t x[MT][2][3];  // xi of the step, bf16 pairs: [mt][row half][gate]
+  auto load_xi = [&](int t) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = b0 + mt * 16 + gr + 8 * i;
+        const bool ok = alive && b < B;
+        const size_t base = ((size_t)b * L + t) * C3 + uu;
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          x[mt][i][g] = ok ? __ldg(reinterpret_cast<const unsigned int*>(xi + base + g * H)) : 0u;
+      }
+  };
+  load_xi(0);
+  __syncthreads();
+  cluster.sync();  // every block runs and holds wh and h0 before anyone sends
+
+  int cur = 0;
+  for (int t = 0; t < L; ++t) {
+    float acc[MT][3][4];
+    cluster_product<MT>(hb + (size_t)cur * R * ks, whs, kp, ks, up, warp, lane, acc);
+    uint32_t hv[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, j = e & 1;
+        const float2 xr = unpack2(x[mt][i][0]), xz = unpack2(x[mt][i][1]),
+                     xn = unpack2(x[mt][i][2]);
+        const float rr = sigm_fast((j ? xr.y : xr.x) + (acc[mt][0][e] + bias[0][j]));
+        const float z = sigm_fast((j ? xz.y : xz.x) + (acc[mt][1][e] + bias[1][j]));
+        const float n = tanh_fast((j ? xn.y : xn.x) + rr * (acc[mt][2][e] + bias[2][j]));
+        h[mt][e] = (1.0f - z) * n + z * h[mt][e];
+      }
+      hv[mt][0] = pack2(h[mt][0], h[mt][1]);
+      hv[mt][1] = pack2(h[mt][2], h[mt][3]);
+    }
+    bf16* nxt = hb + (size_t)(cur ^ 1) * R * ks;
+    uint4 v[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      v[mt] = quad_gather(hv[mt][0], hv[mt][1], lane);
+      if (t + 1 < L) {
+        // lanes q = 0, 1 send to the first half of the cluster, q = 2, 3 to the rest
+        const int r = mt * 16 + gr + 8 * (q & 1);
+#pragma unroll
+        for (int jj = 0; jj < CS / 2; ++jj) {
+          const int j = (q >> 1) * (CS / 2) + jj;
+          bf16* dst = j == c ? nxt : cluster.map_shared_rank(nxt, j);
+          *reinterpret_cast<uint4*>(dst + swz(r, u0, ks)) = v[mt];
+        }
+      }
+    }
+    // The out stores and the next step's xi loads go after the arrive: its
+    // release would otherwise wait for them to reach device memory.
+    if (t + 1 < L) cluster_arrive();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int b = b0 + mt * 16 + gr + 8 * (q & 1);
+      if (q < 2 && b < B) store_units8(out + ((size_t)b * L + t) * H, u0, H, v[mt]);
+    }
+    if (t + 1 < L) {
+      load_xi(t + 1);
+      cluster_wait();
+    }
+    cur ^= 1;
+  }
+}
+
+// The backward on the same cluster and the same wh slice: dxi (bf16), dhh
+// (fp32, for dwh), dh0 and the cluster's dbh partial (row blockIdx.x / CS).
+template <int CS, int MT>
+__global__ void __launch_bounds__(4 * kClusterMaxUp)
+fused_gru_bwd_cluster_kernel(const bf16* __restrict__ xi, const float* __restrict__ h0,
+                             const float* __restrict__ wh, const float* __restrict__ bh,
+                             const bf16* __restrict__ out, const bf16* __restrict__ dout, int B,
+                             int L, int H, bf16* __restrict__ dxi, float* __restrict__ dh0,
+                             float* __restrict__ dhh, float* __restrict__ dbh_part) {
+  constexpr int R = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const int up = cluster_up(H, CS), kp = CS * up, ks = cluster_ks(H, CS), s3 = cluster_s3(up);
+  bf16* whs = reinterpret_cast<bf16*>(smem_raw);
+  // one region holds h_{t-1} as the product reads it ([R][ks]) until the
+  // recompute is done, then dhh's hi and lo terms ([2][R][s3]) until the
+  // dhh wh^T product is done, then the next step's h_{t-1}
+  bf16* hb = whs + (size_t)3 * up * ks;
+  bf16* dsc = hb;
+  float* recv = reinterpret_cast<float*>(hb + cluster_union(R, ks, s3));  // [CS - 1][R][up]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int b0 = (blockIdx.x / CS) * R;
+  const int u0 = c * up + warp * 8, uu = u0 + 2 * q, ul = warp * 8 + 2 * q;
+  const bool alive = uu < H;
+  const size_t C3 = 3 * (size_t)H;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  // h_{t-1} rows go in 16-byte pieces when a row of out is 16-byte aligned
+  const int piece = H % 8 ? 4 : 8, kn = kp / piece;
+
+  // hb <- h_{tp} (the forward's output at tp; round(h0) when tp < 0), zero in
+  // the rows past B and the units past H
+  auto fetch_h = [&](int tp) {
+    if (tp < 0) {
+      load_h0_rows(hb, h0, b0, B, H, R, kp, ks);
+      return;
+    }
+    for (int i = tid; i < R * kn; i += nth) {
+      const int r = i / kn, k = piece * (i - r * kn), b = b0 + r;
+      bf16* dst = hb + swz(r, k, ks);
+      const bf16* src = out + ((size_t)b * L + tp) * H + k;
+      if (piece == 8) {
+        if (b >= B || k >= H)
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        else
+          cp_async16(dst, src);
+      } else if (b >= B || k >= H) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+      } else {
+        cp_async8(dst, src);
+      }
+    }
+  };
+  uint32_t x[MT][2][3], dy[MT][2];
+  auto load_step = [&](int t) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = b0 + mt * 16 + gr + 8 * i;
+        const bool ok = alive && b < B;
+        const size_t row = (size_t)b * L + t;
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          x[mt][i][g] = ok ? __ldg(reinterpret_cast<const unsigned int*>(xi + row * C3 + g * H + uu))
+                           : 0u;
+        dy[mt][i] = ok ? __ldg(reinterpret_cast<const unsigned int*>(dout + row * H + uu)) : 0u;
+      }
+  };
+
+  load_wh_slice(whs, wh, H, c, up, ks);
+  fetch_h(L - 2);
+  load_step(L - 1);
+  float dh[MT][4], bias[3][2], dbs[3][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dh[mt][e] = 0.0f;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      bias[g][j] = alive ? bh[g * H + uu + j] : 0.0f;
+      dbs[g][j] = 0.0f;
+    }
+  cluster.sync();  // every block runs before anyone sends
+  cluster_arrive();  // the first step's receive buffers are free
+
+  for (int t = L - 1; t >= 0; --t) {
+    cp_async_wait_all();
+    __syncthreads();  // hb holds h_{t-1}
+    float acc[MT][3][4];
+    cluster_product<MT>(hb, whs, kp, ks, up, warp, lane, acc);
+    uint32_t hpv[MT][2];  // h_{t-1} of the thread's (row, unit) pairs, t > 0
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        hpv[mt][i] = *reinterpret_cast<const uint32_t*>(hb + swz(mt * 16 + gr + 8 * i, uu, ks));
+    __syncthreads();  // nobody reads hb any more this step: the region holds dsc now
+    // gates, dhh, dxi; acc[mt][1] keeps z for the dh update
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = mt * 16 + gr + 8 * i, b = b0 + r;
+        const bool ok = alive && b < B;
+        float2 hp = make_float2(0.0f, 0.0f);
+        if (t > 0)
+          hp = unpack2(hpv[mt][i]);
+        else if (ok)
+          hp = *reinterpret_cast<const float2*>(h0 + (size_t)b * H + uu);
+        const float2 xr = unpack2(x[mt][i][0]), xz = unpack2(x[mt][i][1]),
+                     xn = unpack2(x[mt][i][2]), dyv = unpack2(dy[mt][i]);
+        float d[3][2], dn[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j;
+          const float hr = acc[mt][0][e] + bias[0][j], hz = acc[mt][1][e] + bias[1][j],
+                      hn = acc[mt][2][e] + bias[2][j];
+          const float rr = sigm_fast((j ? xr.y : xr.x) + hr);
+          const float z = sigm_fast((j ? xz.y : xz.x) + hz);
+          const float n = tanh_fast((j ? xn.y : xn.x) + rr * hn);
+          dh[mt][e] += j ? dyv.y : dyv.x;
+          const float dpre_n = dh[mt][e] * (1.0f - z) * (1.0f - n * n);
+          d[0][j] = dpre_n * hn * rr * (1.0f - rr);
+          d[1][j] = dh[mt][e] * ((j ? hp.y : hp.x) - n) * z * (1.0f - z);
+          d[2][j] = dpre_n * rr;
+          dn[j] = dpre_n;
+          acc[mt][1][e] = z;
+        }
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          uint32_t hi, lo;
+          split2(d[g][0], d[g][1], hi, lo);
+          const int col = g * up + ul;
+          *reinterpret_cast<uint32_t*>(dsc + (size_t)r * s3 + col) = hi;
+          *reinterpret_cast<uint32_t*>(dsc + (size_t)(R + r) * s3 + col) = lo;
+        }
+        if (ok) {
+          const size_t row = (size_t)b * L + t;
+          bf16* dx = dxi + row * C3 + uu;
+          *reinterpret_cast<uint32_t*>(dx) = pack2(d[0][0], d[0][1]);
+          *reinterpret_cast<uint32_t*>(dx + H) = pack2(d[1][0], d[1][1]);
+          *reinterpret_cast<uint32_t*>(dx + 2 * H) = pack2(dn[0], dn[1]);
+          float* dd = dhh + row * C3 + uu;
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            *reinterpret_cast<float2*>(dd + g * H) = make_float2(d[g][0], d[g][1]);
+            dbs[g][0] += d[g][0];
+            dbs[g][1] += d[g][1];
+          }
+        }
+      }
+    __syncthreads();  // dsc is complete
+    // P = (hi + lo) wh_slice^T for the warp's units in every block j
+    float p[CS][MT][4];
+#pragma unroll
+    for (int j = 0; j < CS; ++j)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) p[j][mt][0] = p[j][mt][1] = p[j][mt][2] = p[j][mt][3] = 0.0f;
+    for (int s = 0; s < 3 * up; s += 16) {
+      uint32_t bw[CS][2];
+#pragma unroll
+      for (int j = 0; j < CS; j += 2) {
+        const int k0 = (j + (lane >> 4)) * up + warp * 8;
+        ldsm_x4_t(whs + swz(s + (lane & 15), k0, ks), bw[j][0], bw[j][1], bw[j + 1][0],
+                  bw[j + 1][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t ah[4], al[4];
+        const size_t arow = (size_t)(mt * 16 + (lane & 15)) * s3 + s + (lane >> 4) * 8;
+        ldsm_x4(dsc + arow, ah[0], ah[1], ah[2], ah[3]);
+        ldsm_x4(dsc + (size_t)R * s3 + arow, al[0], al[1], al[2], al[3]);
+#pragma unroll
+        for (int j = 0; j < CS; ++j) {
+          mma16816(p[j][mt], ah, bw[j][0], bw[j][1]);
+          mma16816(p[j][mt], al, bw[j][0], bw[j][1]);
+        }
+      }
+    }
+    __syncthreads();  // nobody reads dsc any more: the region takes the next h_{t-1}
+    // the next step's xi and dout, in flight while the partials go out (done
+    // long before the arrive's release below)
+    if (t > 0) load_step(t - 1);
+    cluster_wait();  // every block has read its receive buffer of the step before
+    // each partial tile as 16-byte stores: lanes q and q ^ 1 swap halves, so
+    // that an even q holds units ul .. ul + 3 of row gr and an odd q those of
+    // row gr + 8 (from ul - 2)
+    const bool odd = q & 1;
+#pragma unroll
+    for (int j = 0; j < CS; ++j) {
+      if (j == c) continue;
+      float* dst = cluster.map_shared_rank(recv, j) + (size_t)(c < j ? c : c - 1) * R * up;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* v = p[j][mt];
+        const float r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[2], 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : v[3], 1);
+        const int row = mt * 16 + gr + (odd ? 8 : 0), col = odd ? ul - 2 : ul;
+        *reinterpret_cast<float4*>(dst + row * up + col) =
+            odd ? make_float4(r0, r1, v[2], v[3]) : make_float4(v[0], v[1], r0, r1);
+      }
+    }
+    cluster_arrive();
+    // the next h_{t-1} goes after the arrive
+    if (t > 0) fetch_h(t - 2);
+    cluster_wait();  // the partials for this block's units have landed
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float2 sum = make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int j = 0; j < CS; ++j) {
+          float2 v;
+          if (j == c)
+            v = make_float2(p[j][mt][2 * i], p[j][mt][2 * i + 1]);
+          else
+            v = *reinterpret_cast<const float2*>(recv + (size_t)(j < c ? j : j - 1) * R * up +
+                                                 (mt * 16 + gr + 8 * i) * up + ul);
+          sum.x += v.x;
+          sum.y += v.y;
+        }
+        const int e = 2 * i;
+        dh[mt][e] = dh[mt][e] * acc[mt][1][e] + rnd<true>(sum.x);
+        dh[mt][e + 1] = dh[mt][e + 1] * acc[mt][1][e + 1] + rnd<true>(sum.y);
+      }
+    // this block's receive buffer may be written again (its reads are
+    // done: their values are in dh), and nothing needs releasing
+    cluster_arrive_relaxed();
+  }
+  cluster_wait();  // no block sends into this one any more
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = b0 + mt * 16 + gr + 8 * i;
+      if (alive && b < B)
+        *reinterpret_cast<float2*>(dh0 + (size_t)b * H + uu) =
+            make_float2(dh[mt][2 * i], dh[mt][2 * i + 1]);
+    }
+  // the cluster's dbh over its rows: the eight lanes of a unit pair, in a fixed tree
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = dbs[g][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (gr == 0 && alive) dbh_part[(size_t)(blockIdx.x / CS) * C3 + g * H + uu + j] = v;
+    }
+}
+
+// The per-step floor of the cluster forward: each step only sends the
+// block's h slice into every block of the cluster (the same stores as the
+// forward) and waits at the cluster barrier, with no gate math, no loads or
+// stores of device memory and (PRODUCT false) no product; PRODUCT adds the
+// forward's recurrent product on whatever the buffers hold. Writes one
+// value a thread to sink so that nothing is dropped.
+template <int CS, int MT, bool PRODUCT>
+__global__ void __launch_bounds__(4 * kClusterMaxUp)
+gru_cluster_floor_kernel(int L, int H, float* __restrict__ sink) {
+  constexpr int R = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const int up = cluster_up(H, CS), ks = cluster_ks(H, CS);
+  const bf16* whs = reinterpret_cast<const bf16*>(smem_raw);
+  bf16* hb = reinterpret_cast<bf16*>(smem_raw) + (size_t)3 * up * ks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int u0 = c * up + warp * 8;
+  cluster.sync();
+  int cur = 0;
+  uint32_t v0 = lane, v1 = ~lane;
+  for (int t = 0; t + 1 < L; ++t) {
+    if (PRODUCT) {
+      float acc[MT][3][4];
+      cluster_product<MT>(hb + (size_t)cur * R * ks, whs, CS * up, ks, up, warp, lane, acc);
+      v1 += __float_as_uint(acc[MT - 1][2][3]);
+    }
+    bf16* nxt = hb + (size_t)(cur ^ 1) * R * ks;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint4 v = quad_gather(v0 + mt, v1 + t, lane);
+      const int r = mt * 16 + gr + 8 * (q & 1);
+#pragma unroll
+      for (int jj = 0; jj < CS / 2; ++jj) {
+        const int j = (q >> 1) * (CS / 2) + jj;
+        *reinterpret_cast<uint4*>(cluster.map_shared_rank(nxt, j) + swz(r, u0, ks)) = v;
+      }
+    }
+    cluster_arrive();
+    cluster_wait();
+    cur ^= 1;
+    v0 += *reinterpret_cast<const uint32_t*>(hb + (size_t)cur * R * ks + swz(gr, u0 + 2 * q, ks));
+  }
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = (float)v0;
+}
+
+// partial[chunk] = sum over the chunk's rows n = (b, t) of h_{t-1}[b]^T dhh[n]
+// on the tensor cores (bf16 instance): h_{t-1} is exact in bf16, dhh enters
+// as hi + lo (two passes), sums in fp32. A block owns a 64 KW x 128 tile of
+// dwh (k, c), KW x 4 warps of 64 x 32 outputs, and walks the chunk's rows 32
+// at a time, loading the next rows into registers while it multiplies the
+// ones in shared memory. KW = 4 above H 128 (one block an SM), so that dhh,
+// the larger operand, is read once per column tile up to H 256; else 2 (two
+// blocks an SM).
+constexpr int kDT = 128, kDN = 32;  // columns of a tile, rows a pass
+
+inline int dwh_tc_kw(int H) { return H > kDT ? 4 : 2; }
+
+template <int KW>
+__global__ void __launch_bounds__(128 * KW, 4 / KW)
+gru_dwh_tc_kernel(const bf16* __restrict__ out, const float* __restrict__ h0,
+                  const float* __restrict__ dhh, int B, int L, int H, int chunk_rows,
+                  float* __restrict__ partials) {
+  constexpr int BM = 64 * KW, NT = 128 * KW, DS = kDN * kDT / 4 / NT;
+  __shared__ __align__(16) bf16 As[kDN * BM];       // [n][k]: h_{t-1}
+  __shared__ __align__(16) bf16 Bs[2][kDN * kDT];   // [hi, lo][n][c]: dhh
+  const int C = 3 * H, N = B * L;
+  const int c0 = blockIdx.x * kDT, k0 = blockIdx.y * BM;
+  const int n_begin = blockIdx.z * chunk_rows, n_end = min(N, n_begin + chunk_rows);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // the warp's k and c offsets
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+  // each thread stages 4 groups of 4 h values and DS groups of 4 dhh values
+  uint2 hreg[4];
+  float4 dreg[DS];
+  auto fetch = [&](int n0) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int i = threadIdx.x + s * NT, rr = i / (BM / 4), k = k0 + 4 * (i % (BM / 4));
+      const int n = n0 + rr;
+      hreg[s] = make_uint2(0u, 0u);
+      if (n < n_end && k < H) {
+        const int b = n / L, t = n - b * L;
+        if (t == 0) {
+          const float4 v = *reinterpret_cast<const float4*>(h0 + (size_t)b * H + k);
+          hreg[s] = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+        } else {
+          hreg[s] = *reinterpret_cast<const uint2*>(out + ((size_t)n - 1) * H + k);
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < DS; ++s) {
+      const int i = threadIdx.x + s * NT, n = n0 + i / (kDT / 4), cl = c0 + 4 * (i % (kDT / 4));
+      dreg[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (n < n_end && cl < C) dreg[s] = *reinterpret_cast<const float4*>(dhh + (size_t)n * C + cl);
+    }
+  };
+  auto stage = [&]() {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int i = threadIdx.x + s * NT;
+      *reinterpret_cast<uint2*>(As + swz(i / (BM / 4), 4 * (i % (BM / 4)), BM)) = hreg[s];
+    }
+#pragma unroll
+    for (int s = 0; s < DS; ++s) {
+      const int i = threadIdx.x + s * NT;
+      const int o = swz(i / (kDT / 4), 4 * (i % (kDT / 4)), kDT);
+      uint32_t h01, l01, h23, l23;
+      split2(dreg[s].x, dreg[s].y, h01, l01);
+      split2(dreg[s].z, dreg[s].w, h23, l23);
+      *reinterpret_cast<uint2*>(Bs[0] + o) = make_uint2(h01, h23);
+      *reinterpret_cast<uint2*>(Bs[1] + o) = make_uint2(l01, l23);
+    }
+  };
+  if (n_begin < n_end) fetch(n_begin);
+  for (int n0 = n_begin; n0 < n_end; n0 += kDN) {
+    stage();
+    __syncthreads();
+    if (n0 + kDN < n_end) fetch(n0 + kDN);
+#pragma unroll
+    for (int ks = 0; ks < kDN; ks += 16) {
+      // A = h^T (k x n) from As[n][k], B = dhh (n x c) from Bs[n][c], both by .trans
+      uint32_t bh[4][2], bl[4][2];
+      const int mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+      for (int nt = 0; nt < 4; nt += 2) {
+        const int o = swz(ks + (mi & 1) * 8 + r8, wn + nt * 8 + (mi >> 1) * 8, kDT);
+        ldsm_x4_t(Bs[0] + o, bh[nt][0], bh[nt][1], bh[nt + 1][0], bh[nt + 1][1]);
+        ldsm_x4_t(Bs[1] + o, bl[nt][0], bl[nt][1], bl[nt + 1][0], bl[nt + 1][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4];
+        ldsm_x4_t(As + swz(ks + (mi >> 1) * 8 + r8, wm + mt * 16 + (mi & 1) * 8, BM), a[0],
+                  a[1], a[2], a[3]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma16816(acc[mt][nt], a, bh[nt][0], bh[nt][1]);
+          mma16816(acc[mt][nt], a, bl[nt][0], bl[nt][1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* part = partials + (size_t)blockIdx.z * H * C;
+  const int gr = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int k = k0 + wm + mt * 16 + gr + 8 * i, cl = c0 + wn + nt * 8 + 2 * q;
+        if (k < H && cl < C)
+          *reinterpret_cast<float2*>(part + (size_t)k * C + cl) =
+              make_float2(acc[mt][nt][2 * i], acc[mt][nt][2 * i + 1]);
+      }
+}
+
 // ------------------------------------------------------------------- launch
 
-// whether H takes the global-memory instance (chosen from H, before launch)
-inline bool global_wh(int H) { return H > kMaxH; }
+// The route of a call, chosen from H and the instance before launch: wh in
+// one block's shared memory (H <= kMaxH), wh split over a thread-block
+// cluster (bf16 instance, kMaxH < H <= cluster_max_hidden()), or wh in device
+// memory (the *_global kernels: fp32 above kMaxH, bf16 above the cluster limit).
+enum Route { kRouteShared = 0, kRouteCluster = 1, kRouteGlobal = 2 };
 
 // shared-memory floats of the global-memory instance
 inline size_t smem_floats_global(int H, bool backward) {
   return backward ? (size_t)(5 * kRows + 3) * H : (size_t)3 * kRows * H;
 }
 
-inline size_t smem_bytes(int H, bool backward) {
-  return sizeof(float) * (global_wh(H) ? smem_floats_global(H, backward)
-                                       : smem_floats(H, backward));
-}
-
 // the largest H whose backward fits a block's shared memory (a multiple of 4)
 inline int max_hidden() {
   return (int)(kSmemOptin / (sizeof(float) * (5 * kRows + 3))) / 4 * 4;
+}
+
+// Cluster sizes, smallest first: 2 would hold H <= 2 kClusterMaxUp = 128,
+// which the shared route takes. Rows a block: 16 MT, MT <= cluster_max_mt.
+constexpr int kClusterSizes[2] = {4, 8};
+inline int cluster_max_mt(int cs) { return cs == 4 ? 5 : 2; }
+
+// the smallest cluster size whose layout fits H (the backward at 16 rows), else 0
+inline int cluster_size(int H) {
+  for (int cs : kClusterSizes)
+    if (cluster_up(H, cs) <= kClusterMaxUp && cluster_smem(H, cs, 1, true) <= kSmemOptin)
+      return cs;
+  return 0;
+}
+
+inline int cluster_max_hidden() {
+  static const int most = [] {
+    int m = 0;
+    for (int H = kMaxH + 4; H <= max_hidden(); H += 4)
+      if (cluster_size(H)) m = H;
+    return m;
+  }();
+  return most;
+}
+
+inline Route route_of(int H, bool bf16) {
+  if (H <= kMaxH) return kRouteShared;
+  return bf16 && H <= cluster_max_hidden() ? kRouteCluster : kRouteGlobal;
+}
+
+// the most bytes a block of the route takes (the cluster route: its most rows)
+inline size_t smem_bytes(int H, bool backward, bool bf16) {
+  switch (route_of(H, bf16)) {
+    case kRouteShared: return sizeof(float) * smem_floats(H, backward);
+    case kRouteGlobal: return sizeof(float) * smem_floats_global(H, backward);
+    default: break;
+  }
+  const int cs = cluster_size(H);
+  size_t most = 0;
+  for (int mt = 1; mt <= cluster_max_mt(cs); ++mt)
+    if (cluster_smem(H, cs, mt, backward) <= kSmemOptin) most = cluster_smem(H, cs, mt, backward);
+  return most;
 }
 
 int valid_shape(int B, int L, int H) {
@@ -640,15 +1488,22 @@ int allow_smem(K kernel, size_t bytes) {
 
 int blocks_of(int B) { return (B + kRows - 1) / kRows; }
 
-int dwh_chunks(int B, int L, int H) {
-  const int tiles = ((3 * H + kTC - 1) / kTC) * ((H + kTK - 1) / kTK);
+// dwh's chunks of the B L rows: about kDwhBlocks blocks of gru_dwh_kernel
+// (fp32), or a wave of gru_dwh_tc_kernel (bf16: 4 / KW blocks an SM)
+constexpr int kDwhTcWave = 132;
+
+int dwh_chunks(int B, int L, int H, bool bf16) {
+  const int bm = 64 * dwh_tc_kw(H);
+  const int tiles = bf16 ? ((3 * H + kDT - 1) / kDT) * ((H + bm - 1) / bm)
+                         : ((3 * H + kTC - 1) / kTC) * ((H + kTK - 1) / kTK);
   const int most = (B * L + kTN - 1) / kTN;
-  const int want = (kDwhBlocks + tiles - 1) / tiles;
+  const int blocks = bf16 ? kDwhTcWave * 4 / dwh_tc_kw(H) : kDwhBlocks;
+  const int want = (blocks + tiles - 1) / tiles;
   return want < most ? want : most;
 }
 
-int chunk_rows(int B, int L, int H) {
-  const int n = dwh_chunks(B, L, H), N = B * L;
+int chunk_rows(int B, int L, int H, bool bf16) {
+  const int n = dwh_chunks(B, L, H, bf16), N = B * L;
   const int rows = (N + n - 1) / n;
   return (rows + kTN - 1) / kTN * kTN;
 }
@@ -663,11 +1518,159 @@ int prep_wh(const float* wh, int H, float* scratch, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ----------------------------------------------------- cluster launches
+
+typedef void (*FwdClusterK)(const bf16*, const float*, const float*, const float*, int, int, int,
+                            bf16*);
+typedef void (*BwdClusterK)(const bf16*, const float*, const float*, const float*, const bf16*,
+                            const bf16*, int, int, int, bf16*, float*, float*, float*);
+typedef void (*FloorK)(int, int, float*);
+
+template <template <int, int> class Pick>
+typename Pick<4, 1>::type pick_kernel(int cs, int mt) {
+  if (cs == 4) switch (mt) {
+      case 1: return Pick<4, 1>::get();
+      case 2: return Pick<4, 2>::get();
+      case 3: return Pick<4, 3>::get();
+      case 4: return Pick<4, 4>::get();
+      case 5: return Pick<4, 5>::get();
+    }
+  if (cs == 8) switch (mt) {
+      case 1: return Pick<8, 1>::get();
+      case 2: return Pick<8, 2>::get();
+    }
+  return nullptr;
+}
+template <int CS, int MT>
+struct PickFwd {
+  typedef FwdClusterK type;
+  static type get() { return fused_gru_fwd_cluster_kernel<CS, MT>; }
+};
+template <int CS, int MT>
+struct PickBwd {
+  typedef BwdClusterK type;
+  static type get() { return fused_gru_bwd_cluster_kernel<CS, MT>; }
+};
+template <int CS, int MT>
+struct PickFloor {
+  typedef FloorK type;
+  static type get() { return gru_cluster_floor_kernel<CS, MT, false>; }
+};
+template <int CS, int MT>
+struct PickFloorProduct {
+  typedef FloorK type;
+  static type get() { return gru_cluster_floor_kernel<CS, MT, true>; }
+};
+
+cudaLaunchConfig_t cluster_config(int cs, int clusters, int threads, size_t smem,
+                                  cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * cs);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of a kernel the current device holds at once, its
+// shared-memory limit raised first. It depends on the device, the kernel and
+// the bytes alone, so each is asked once and kept; the limit only rises.
+struct ClusterFit {
+  int dev;
+  const void* kernel;
+  size_t smem;
+  int err, resident;
+};
+
+ClusterFit cluster_fit(const void* kernel, int cs, int threads, size_t smem) {
+  static std::mutex mu;
+  static std::vector<ClusterFit> seen;
+  ClusterFit f = {0, kernel, smem, 0, 0};
+  f.err = (int)cudaGetDevice(&f.dev);
+  if (f.err) return f;
+  std::lock_guard<std::mutex> hold(mu);
+  size_t most = 48 * 1024;
+  for (const ClusterFit& o : seen)
+    if (o.dev == f.dev && o.kernel == kernel) {
+      if (o.smem == smem) return o;
+      most = std::max(most, o.smem);
+    }
+  if (smem > most)
+    f.err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem);
+  if (!f.err) {
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(cs, 1, threads, smem, 0, &attr);
+    f.err = (int)cudaOccupancyMaxActiveClusters(&f.resident, kernel, &cfg);
+  }
+  if (!f.err) seen.push_back(f);
+  return f;
+}
+
+// The cluster geometry of a call: cluster size cs (from H), rows a block
+// 16 mt and the clusters of the grid. mt is the smallest whose grid is one
+// wave of resident clusters, else the largest that fits (the fewest waves).
+struct ClusterPlan {
+  int err, cs, mt, clusters, resident, threads;
+  size_t smem;
+};
+
+ClusterPlan cluster_plan(int B, int H, bool backward) {
+  ClusterPlan p = {0, cluster_size(H), 0, 0, 0, 0, 0};
+  if (!p.cs) {
+    p.err = (int)cudaErrorInvalidValue;
+    return p;
+  }
+  p.threads = 4 * cluster_up(H, p.cs);
+  for (int mt = 1; mt <= cluster_max_mt(p.cs); ++mt) {
+    const size_t smem = cluster_smem(H, p.cs, mt, backward);
+    if (smem > kSmemOptin) break;
+    const void* k = backward ? (const void*)pick_kernel<PickBwd>(p.cs, mt)
+                             : (const void*)pick_kernel<PickFwd>(p.cs, mt);
+    const ClusterFit f = cluster_fit(k, p.cs, p.threads, smem);
+    if (f.err) {
+      p.err = f.err;
+      return p;
+    }
+    if (f.resident < 1) continue;
+    p.mt = mt;
+    p.clusters = (B + 16 * mt - 1) / (16 * mt);
+    p.resident = f.resident;
+    p.smem = smem;
+    if (p.clusters <= f.resident) break;
+  }
+  if (!p.mt) p.err = (int)cudaErrorInvalidConfiguration;  // no cluster can be resident
+  return p;
+}
+
+template <typename K, typename... Args>
+int launch_cluster(K kernel, const ClusterPlan& p, cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(p.cs, p.clusters, p.threads, p.smem, s, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err ? (int)err : (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- call launches
+
 template <bool BF, typename XT>
 int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh, int B, int L,
                int H, float* scratch, void* out, cudaStream_t s) {
-  const size_t smem = smem_bytes(H, false);
-  if (global_wh(H)) {
+  const Route route = route_of(H, BF);
+  const size_t smem = smem_bytes(H, false, BF);
+  if (route == kRouteCluster) {
+    const ClusterPlan p = cluster_plan(B, H, false);
+    if (p.err) return p.err;
+    return launch_cluster(pick_kernel<PickFwd>(p.cs, p.mt), p, s, static_cast<const bf16*>(xi),
+                          h0, wh, bh, B, L, H, static_cast<bf16*>(out));
+  }
+  if (route == kRouteGlobal) {
     int err = allow_smem(fused_gru_fwd_global_kernel<BF, XT>, smem);
     if (!err) err = prep_wh<BF>(wh, H, scratch, s);
     if (err) return err;
@@ -682,76 +1685,153 @@ int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh
   return (int)cudaGetLastError();
 }
 
+// the rows of the recurrent backward's dbh partials: its blocks, or its clusters
+int bwd_partials(int B, int H, bool bf16, int* err) {
+  *err = 0;
+  if (route_of(H, bf16) != kRouteCluster) return blocks_of(B);
+  const ClusterPlan p = cluster_plan(B, H, true);
+  *err = p.err;
+  return p.clusters;
+}
+
+// dwh = sum over the B L rows of h_{t-1}^T dhh: chunk partials, summed in order
+template <bool BF, typename XT>
+int launch_dwh(const void* out, const float* h0, const float* dhh, int B, int L, int H,
+               float* dwh_part, float* dwh, cudaStream_t s) {
+  const int chunks = dwh_chunks(B, L, H, BF), C = 3 * H, rows = chunk_rows(B, L, H, BF);
+  if constexpr (BF) {
+    const int kw = dwh_tc_kw(H);
+    const dim3 grid((C + kDT - 1) / kDT, (H + 64 * kw - 1) / (64 * kw), chunks);
+    if (kw == 4)
+      gru_dwh_tc_kernel<4><<<grid, 512, 0, s>>>(static_cast<const bf16*>(out), h0, dhh, B, L, H,
+                                                rows, dwh_part);
+    else
+      gru_dwh_tc_kernel<2><<<grid, 256, 0, s>>>(static_cast<const bf16*>(out), h0, dhh, B, L, H,
+                                                rows, dwh_part);
+  } else {
+    const dim3 grid((C + kTC - 1) / kTC, (H + kTK - 1) / kTK, chunks);
+    gru_dwh_kernel<BF, XT><<<grid, kThreads, 0, s>>>(static_cast<const XT*>(out), h0, dhh, B, L,
+                                                     H, rows, dwh_part);
+  }
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  reduce_partials_kernel<<<(H * C + 255) / 256, 256, 0, s>>>(dwh_part, chunks, H * C, dwh);
+  return (int)cudaGetLastError();
+}
+
 template <bool BF, typename XT>
 int launch_bwd(const void* xi, const float* h0, const float* wh, const float* bh,
                const void* out, const void* dout, int B, int L, int H, float* scratch,
                void* dxi, float* dh0, float* dhh, float* dbh_part, float* dwh_part, float* dwh,
                float* dbh, cudaStream_t s) {
-  const size_t smem = smem_bytes(H, true);
-  const int blocks = blocks_of(B);
+  const Route route = route_of(H, BF);
+  const size_t smem = smem_bytes(H, true, BF);
+  int parts = blocks_of(B);
   int err;
-  if (global_wh(H)) {
+  if (route == kRouteCluster) {
+    const ClusterPlan p = cluster_plan(B, H, true);
+    if (p.err) return p.err;
+    parts = p.clusters;
+    err = launch_cluster(pick_kernel<PickBwd>(p.cs, p.mt), p, s, static_cast<const bf16*>(xi),
+                         h0, wh, bh, static_cast<const bf16*>(out),
+                         static_cast<const bf16*>(dout), B, L, H, static_cast<bf16*>(dxi), dh0,
+                         dhh, dbh_part);
+  } else if (route == kRouteGlobal) {
     err = allow_smem(fused_gru_bwd_global_kernel<BF, XT>, smem);
     if (!err) err = prep_wh<BF>(wh, H, scratch, s);
     if (err) return err;
-    fused_gru_bwd_global_kernel<BF, XT><<<blocks, kThreads, smem, s>>>(
+    fused_gru_bwd_global_kernel<BF, XT><<<parts, kThreads, smem, s>>>(
         static_cast<const XT*>(xi), h0, scratch, scratch + (size_t)H * 3 * H, bh,
         static_cast<const XT*>(out), static_cast<const XT*>(dout), B, L, H,
         static_cast<XT*>(dxi), dh0, dhh, dbh_part);
+    err = (int)cudaGetLastError();
   } else {
     err = allow_smem(fused_gru_bwd_kernel<BF, XT>, smem);
     if (err) return err;
-    fused_gru_bwd_kernel<BF, XT><<<blocks, kThreads, smem, s>>>(
+    fused_gru_bwd_kernel<BF, XT><<<parts, kThreads, smem, s>>>(
         static_cast<const XT*>(xi), h0, wh, bh, static_cast<const XT*>(out),
         static_cast<const XT*>(dout), B, L, H, static_cast<XT*>(dxi), dh0, dhh, dbh_part);
+    err = (int)cudaGetLastError();
   }
-  err = (int)cudaGetLastError();
   if (err) return err;
-  const int chunks = dwh_chunks(B, L, H), C = 3 * H;
-  const dim3 grid((C + kTC - 1) / kTC, (H + kTK - 1) / kTK, chunks);
-  gru_dwh_kernel<BF, XT><<<grid, kThreads, 0, s>>>(static_cast<const XT*>(out), h0, dhh, B, L,
-                                                   H, chunk_rows(B, L, H), dwh_part);
-  err = (int)cudaGetLastError();
+  err = launch_dwh<BF, XT>(out, h0, dhh, B, L, H, dwh_part, dwh, s);
   if (err) return err;
-  reduce_partials_kernel<<<(H * C + 255) / 256, 256, 0, s>>>(dwh_part, chunks, H * C, dwh);
-  reduce_partials_kernel<<<(C + 255) / 256, 256, 0, s>>>(dbh_part, blocks, C, dbh);
+  reduce_partials_kernel<<<(3 * H + 255) / 256, 256, 0, s>>>(dbh_part, parts, 3 * H, dbh);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The largest hidden size the kernels take (a multiple of 4), and the
-// largest that keeps wh in shared memory; above it the global-memory
-// instance runs.
+// The largest hidden size the kernels take (a multiple of 4), the largest
+// that keeps wh in one block's shared memory, and the largest that the bf16
+// instance splits over a cluster; above it the global-memory instance runs.
 extern "C" int fused_gru_max_hidden() { return max_hidden(); }
 extern "C" int fused_gru_max_shared_hidden() { return kMaxH; }
+extern "C" int fused_gru_max_cluster_hidden() { return cluster_max_hidden(); }
+
+// The route a call of hidden size H takes: 0 shared memory, 1 cluster, 2
+// device memory.
+extern "C" int fused_gru_route(int H, int bf16) { return (int)route_of(H, bf16 != 0); }
 
 // Shared-memory bytes a block needs for hidden size H, forward or backward,
-// in the instance that H selects.
-extern "C" long long fused_gru_smem_bytes(int H, int backward) {
-  return (long long)smem_bytes(H, backward != 0);
+// on the route that H and the instance select (the cluster route: at its most
+// rows a block).
+extern "C" long long fused_gru_smem_bytes(int H, int backward, int bf16) {
+  return (long long)smem_bytes(H, backward != 0, bf16 != 0);
 }
 
-// Floats of scratch a call needs for hidden size H: 0 with wh in shared
-// memory, else the rounded wh and its transpose (6 H^2).
-extern "C" long long fused_gru_scratch_floats(int H) {
-  return global_wh(H) ? 6LL * H * H : 0LL;
+// Floats of scratch a call needs: 6 H^2 on the global-memory route (the
+// rounded wh and its transpose), else 0.
+extern "C" long long fused_gru_scratch_floats(int H, int bf16) {
+  return route_of(H, bf16 != 0) == kRouteGlobal ? 6LL * H * H : 0LL;
 }
 
-// The number of blocks of the recurrent backward (the rows of its (blocks,
-// 3H) dbh partials), and of the chunks of gru_dwh_kernel (the rows of its
-// (chunks, H * 3H) dwh partials).
-extern "C" int fused_gru_bwd_blocks(int B, int L, int H) {
-  return valid_shape(B, L, H) ? blocks_of(B) : -(int)cudaErrorInvalidValue;
+// The rows of the recurrent backward's (rows, 3H) dbh partials (its blocks,
+// or its clusters), and of gru_dwh_kernel's / gru_dwh_tc_kernel's (chunks,
+// H * 3H) dwh partials. A negative value is a CUDA error.
+extern "C" int fused_gru_bwd_blocks(int B, int L, int H, int bf16) {
+  if (!valid_shape(B, L, H)) return -(int)cudaErrorInvalidValue;
+  int err;
+  const int n = bwd_partials(B, H, bf16 != 0, &err);
+  return err ? -err : n;
 }
 
-extern "C" int fused_gru_dwh_chunks(int B, int L, int H) {
-  return valid_shape(B, L, H) ? dwh_chunks(B, L, H) : -(int)cudaErrorInvalidValue;
+extern "C" int fused_gru_dwh_chunks(int B, int L, int H, int bf16) {
+  return valid_shape(B, L, H) ? dwh_chunks(B, L, H, bf16 != 0) : -(int)cudaErrorInvalidValue;
+}
+
+// The cluster route's geometry for B sequences at hidden size H on the
+// current device: plan[0..5] = cluster size, rows a block, clusters in the
+// grid, clusters the device holds at once, threads a block, shared-memory
+// bytes a block. Returns the CUDA error code.
+extern "C" int fused_gru_cluster_plan(int B, int H, int backward, long long* plan) {
+  if (B < 1 || route_of(H, true) != kRouteCluster) return (int)cudaErrorInvalidValue;
+  const ClusterPlan p = cluster_plan(B, H, backward != 0);
+  if (p.err) return p.err;
+  const long long v[6] = {p.cs, 16LL * p.mt, p.clusters, p.resident, p.threads,
+                          (long long)p.smem};
+  for (int i = 0; i < 6; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// The per-step floor of the cluster forward at (B, L, H): L - 1 steps of the
+// h exchange and the cluster barrier alone (product = 1: with the recurrent
+// product), on the forward's geometry. sink holds clusters x cluster size x
+// threads floats.
+extern "C" int fused_gru_cluster_floor(int B, int L, int H, int product, float* sink,
+                                       void* stream) {
+  if (B < 1 || L < 1 || route_of(H, true) != kRouteCluster) return (int)cudaErrorInvalidValue;
+  const ClusterPlan p = cluster_plan(B, H, false);
+  if (p.err) return p.err;
+  FloorK k = product ? pick_kernel<PickFloorProduct>(p.cs, p.mt) : pick_kernel<PickFloor>(p.cs, p.mt);
+  const ClusterFit f = cluster_fit((const void*)k, p.cs, p.threads, p.smem);
+  if (f.err) return f.err;
+  return launch_cluster(k, p, static_cast<cudaStream_t>(stream), L, H, sink);
 }
 
 // xi (B, L, 3H), out (B, L, H): bf16 when bf16 = 1, else f32; h0 (B, H), wh
-// (H, 3H), bh (3H,) f32, all contiguous; scratch fused_gru_scratch_floats(H)
-// f32 (null when that is 0). Returns the CUDA error code.
+// (H, 3H), bh (3H,) f32, all contiguous; scratch fused_gru_scratch_floats(H,
+// bf16) f32 (null when that is 0). Returns the CUDA error code.
 extern "C" int fused_gru_fwd(const void* xi, const float* h0, const float* wh, const float* bh,
                              int B, int L, int H, int bf16, float* scratch, void* out,
                              void* stream) {
@@ -759,6 +1839,17 @@ extern "C" int fused_gru_fwd(const void* xi, const float* h0, const float* wh, c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fwd<true, __nv_bfloat16>(xi, h0, wh, bh, B, L, H, scratch, out, s)
               : launch_fwd<false, float>(xi, h0, wh, bh, B, L, H, scratch, out, s);
+}
+
+// The backward's last product alone: dwh (H, 3H) f32 from out (B, L, H; bf16
+// when bf16 = 1, else f32), h0 (B, H) and dhh (B, L, 3H) f32, with dwh_part
+// (fused_gru_dwh_chunks, H * 3H) f32. Returns the CUDA error code.
+extern "C" int fused_gru_dwh(const void* out, const float* h0, const float* dhh, int B, int L,
+                             int H, int bf16, float* dwh_part, float* dwh, void* stream) {
+  if (!valid_shape(B, L, H)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_dwh<true, __nv_bfloat16>(out, h0, dhh, B, L, H, dwh_part, dwh, s)
+              : launch_dwh<false, float>(out, h0, dhh, B, L, H, dwh_part, dwh, s);
 }
 
 // As fused_gru_fwd, with out and dout (B, L, H) in, and out: dxi (B, L, 3H)

@@ -42,9 +42,14 @@ one block's shared memory), else it raises. The kernels take H a multiple
 of 4; the dispatcher zero-pads any other H up to one (``pad_hidden``),
 which is exact: a padded unit sees zero xi, bh, wh and h0, so r = z = 1/2,
 n = tanh(0) = 0 and its h stays exactly 0 at every step, and the zero rows
-of wh that it would feed the real units add exact zeros. Up to H = 128 wh
-lives in shared memory; above it the library's global-memory instance
-reads wh from device memory (L2), chosen from H before launch.
+of wh that it would feed the real units add exact zeros. The library
+chooses the route from H and the instance before launch
+(``fused_gru_route``): up to H = 128 wh lives in one block's shared memory;
+above it the bf16 instance splits wh over a thread-block cluster's shared
+memory up to ``fused_gru_max_cluster_hidden`` (384), with the recurrent
+products on the tensor cores; the fp32 instance above 128, and the bf16
+one above the cluster limit, read wh from device memory (L2). The bf16
+instance's dwh is a tensor-core product at every H.
 """
 
 import ctypes
@@ -150,17 +155,24 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_gru_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
         lib.fused_gru_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
-        lib.fused_gru_bwd_blocks.argtypes = [i, i, i]
-        lib.fused_gru_dwh_chunks.argtypes = [i, i, i]
-        lib.fused_gru_smem_bytes.argtypes = [i, i]
-        lib.fused_gru_scratch_floats.argtypes = [i]
-        lib.fused_gru_max_hidden.argtypes = []
-        lib.fused_gru_max_shared_hidden.argtypes = []
+        lib.fused_gru_bwd_blocks.argtypes = [i, i, i, i]
+        lib.fused_gru_dwh_chunks.argtypes = [i, i, i, i]
+        lib.fused_gru_smem_bytes.argtypes = [i, i, i]
+        lib.fused_gru_scratch_floats.argtypes = [i, i]
+        lib.fused_gru_route.argtypes = [i, i]
+        lib.fused_gru_cluster_plan.argtypes = [i, i, i, p]
+        lib.fused_gru_cluster_floor.argtypes = [i, i, i, i, p, p]
+        lib.fused_gru_dwh.argtypes = [p, p, p, i, i, i, i, p, p, p]
+        for fn in (lib.fused_gru_max_hidden, lib.fused_gru_max_shared_hidden,
+                   lib.fused_gru_max_cluster_hidden):
+            fn.argtypes = []
         lib.fused_gru_smem_bytes.restype = ctypes.c_longlong
         lib.fused_gru_scratch_floats.restype = ctypes.c_longlong
         for fn in (lib.fused_gru_fwd, lib.fused_gru_bwd, lib.fused_gru_bwd_blocks,
                    lib.fused_gru_dwh_chunks, lib.fused_gru_max_hidden,
-                   lib.fused_gru_max_shared_hidden):
+                   lib.fused_gru_max_shared_hidden, lib.fused_gru_max_cluster_hidden,
+                   lib.fused_gru_route, lib.fused_gru_cluster_plan,
+                   lib.fused_gru_cluster_floor, lib.fused_gru_dwh):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -190,7 +202,7 @@ def _check(name, xi, h0, wh, bh, bf16, backward):
         raise ValueError(f"{name}: hidden size {H} must be a multiple of 4 (the dispatcher "
                          f"fused_gru pads any other) and at most {most} (the backward keeps 16 "
                          "rows of h, dh and dhh in one block's shared memory)")
-    need = lib.fused_gru_smem_bytes(H, int(backward))
+    need = lib.fused_gru_smem_bytes(H, int(backward), int(bf16))
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: hidden size {H} needs {need} bytes of shared memory a "
                          f"block, more than the {MAX_SMEM_BYTES} a Hopper block may use")
@@ -201,10 +213,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _scratch(H, device):
-    """Room for the global-memory instance's rounded wh and its transpose;
-    None when H keeps wh in shared memory."""
-    n = _lib().fused_gru_scratch_floats(H)
+def _scratch(H, bf16, device):
+    """Room for the global-memory route's rounded wh and its transpose;
+    None on the other routes."""
+    n = _lib().fused_gru_scratch_floats(H, int(bf16))
     return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
@@ -212,32 +224,70 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def cluster_route(H, bf16):
+    """Whether hidden size H (a multiple of 4) takes the cluster kernels."""
+    return _lib().fused_gru_route(H, int(bf16)) == 1
+
+
+def fused_gru_cluster_plan(B, H, backward):
+    """The cluster route's geometry on the current card for B sequences at
+    hidden size H: cluster size, rows a block, clusters in the grid,
+    clusters the card holds at once, threads and shared-memory bytes a
+    block."""
+    plan = (ctypes.c_longlong * 6)()
+    err = _lib().fused_gru_cluster_plan(B, H, int(backward), ctypes.addressof(plan))
+    if err:
+        raise RuntimeError(f"fused_gru_cluster_plan(B={B}, H={H}): CUDA error {err}")
+    return dict(zip(("cluster_size", "rows", "clusters", "resident", "threads", "smem_bytes"),
+                    plan))
+
+
+def fused_gru_cluster_floor_cuda(B, L, H, device, product=False):
+    """Launch ``gru_cluster_floor_kernel``: the cluster forward's L - 1 steps
+    of the h exchange and the cluster barrier alone (``product``: with the
+    recurrent product), on its geometry for (B, H): the per-step floor of
+    the recurrence. A measurement, on no path."""
+    plan = fused_gru_cluster_plan(B, H, False)
+    sink = torch.empty(plan["clusters"] * plan["cluster_size"] * plan["threads"],
+                       dtype=torch.float32, device=device)
+    err = _lib().fused_gru_cluster_floor(B, L, H, int(product), sink.data_ptr(), _stream(sink))
+    if err:
+        raise RuntimeError(f"gru_cluster_floor_kernel launch failed: CUDA error {err}")
+    return sink
+
+
 def fused_gru_fwd_cuda(xi, h0, wh, bh):
-    """Launch ``fused_gru_fwd_kernel``: out (B, L, H) in xi's dtype, which
-    chooses the instance (bfloat16: bf16). Counts its launches in
-    ``fused_gru_fwd_cuda.launches`` (``launches_fp32``: the fp32 instance's
-    among them)."""
+    """Launch the forward kernel of the route (``fused_gru_fwd_kernel``,
+    ``fused_gru_fwd_cluster_kernel`` or ``fused_gru_fwd_global_kernel``):
+    out (B, L, H) in xi's dtype, which chooses the instance (bfloat16:
+    bf16). Counts its launches in ``fused_gru_fwd_cuda.launches``
+    (``launches_fp32``: the fp32 instance's among them;
+    ``launches_cluster``: the cluster route's)."""
     bf16 = xi.dtype == torch.bfloat16
     B, L, H = _check("fused_gru_fwd_cuda", xi, h0, wh, bh, bf16, False)
     out = torch.empty((B, L, H), dtype=xi.dtype, device=xi.device)
-    scratch = _scratch(H, xi.device)
+    scratch = _scratch(H, bf16, xi.device)
     err = _lib().fused_gru_fwd(xi.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
                                B, L, H, int(bf16), _ptr(scratch), out.data_ptr(), _stream(xi))
     if err:
         raise RuntimeError(f"fused_gru_fwd kernel launch failed: CUDA error {err}")
     fused_gru_fwd_cuda.launches += 1
     fused_gru_fwd_cuda.launches_fp32 += not bf16
+    fused_gru_fwd_cuda.launches_cluster += cluster_route(H, bf16)
     return out
 
 
 fused_gru_fwd_cuda.launches = 0
 fused_gru_fwd_cuda.launches_fp32 = 0
+fused_gru_fwd_cuda.launches_cluster = 0
 
 
 def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
-    """Launch ``fused_gru_bwd_kernel``, the ``dwh`` kernel and the
-    reductions of their partials: (dxi, dh0, dwh, dbh). Counts its launches
-    in ``fused_gru_bwd_cuda.launches``."""
+    """Launch the backward kernel of the route, the ``dwh`` kernel
+    (``gru_dwh_tc_kernel`` in the bf16 instance, ``gru_dwh_kernel`` in the
+    fp32 one) and the reductions of their partials: (dxi, dh0, dwh, dbh).
+    Counts its launches in ``fused_gru_bwd_cuda.launches`` (and
+    ``launches_fp32``, ``launches_cluster`` as the forward)."""
     bf16 = xi.dtype == torch.bfloat16
     B, L, H = _check("fused_gru_bwd_cuda", xi, h0, wh, bh, bf16, True)
     for what, t in (("out", out), ("dout", dout)):
@@ -246,8 +296,11 @@ def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
                              f"xi's device")
     out, dout = out.contiguous(), dout.contiguous()
     lib = _lib()
-    rec_blocks = lib.fused_gru_bwd_blocks(B, L, H)
-    dw_chunks = lib.fused_gru_dwh_chunks(B, L, H)
+    rec_blocks = lib.fused_gru_bwd_blocks(B, L, H, int(bf16))
+    dw_chunks = lib.fused_gru_dwh_chunks(B, L, H, int(bf16))
+    if rec_blocks < 1 or dw_chunks < 1:
+        raise RuntimeError(f"fused_gru_bwd_cuda: no launch geometry for B={B}, L={L}, H={H}: "
+                           f"CUDA error {-min(rec_blocks, dw_chunks)}")
     dev = xi.device
     dxi = torch.empty_like(xi)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -256,7 +309,7 @@ def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
     dwh_part = torch.empty((dw_chunks, H * 3 * H), dtype=torch.float32, device=dev)
     dwh = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
     dbh = torch.empty((3 * H,), dtype=torch.float32, device=dev)
-    scratch = _scratch(H, dev)
+    scratch = _scratch(H, bf16, dev)
     err = lib.fused_gru_bwd(xi.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
                             out.data_ptr(), dout.data_ptr(), B, L, H, int(bf16),
                             _ptr(scratch), dxi.data_ptr(), dh0.data_ptr(), dhh.data_ptr(),
@@ -265,11 +318,40 @@ def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
         raise RuntimeError(f"fused_gru_bwd kernel launch failed: CUDA error {err}")
     fused_gru_bwd_cuda.launches += 1
     fused_gru_bwd_cuda.launches_fp32 += not bf16
+    fused_gru_bwd_cuda.launches_cluster += cluster_route(H, bf16)
     return dxi, dh0, dwh, dbh
 
 
 fused_gru_bwd_cuda.launches = 0
 fused_gru_bwd_cuda.launches_fp32 = 0
+fused_gru_bwd_cuda.launches_cluster = 0
+
+
+def fused_gru_dwh_cuda(out, h0, dhh):
+    """The backward's dwh product alone, as ``fused_gru_bwd_cuda`` runs it:
+    sum over the rows (b, t) of h_{t-1}^T dhh (h_{t-1} read from ``out``,
+    h0 at t = 0), by ``gru_dwh_tc_kernel`` for a bfloat16 ``out`` (dhh
+    enters the tensor cores as two bf16 terms) or ``gru_dwh_kernel`` for a
+    float32 one, chunk partials summed in order. For the tests: it counts no
+    launch of its own."""
+    bf16 = out.dtype == torch.bfloat16
+    B, L, H = out.shape
+    if not out.is_cuda or tuple(dhh.shape) != (B, L, 3 * H) or dhh.dtype != torch.float32 \
+            or tuple(h0.shape) != (B, H) or h0.dtype != torch.float32:
+        raise ValueError("fused_gru_dwh_cuda takes CUDA out (B, L, H), h0 (B, H) and dhh "
+                         "(B, L, 3H), the last two float32")
+    lib = _lib()
+    out, h0, dhh = out.contiguous(), h0.contiguous(), dhh.contiguous()
+    chunks = lib.fused_gru_dwh_chunks(B, L, H, int(bf16))
+    if chunks < 1:
+        raise ValueError(f"fused_gru_dwh_cuda: no launch geometry for B={B}, L={L}, H={H}")
+    part = torch.empty((chunks, H * 3 * H), dtype=torch.float32, device=out.device)
+    dwh = torch.empty((H, 3 * H), dtype=torch.float32, device=out.device)
+    err = lib.fused_gru_dwh(out.data_ptr(), h0.data_ptr(), dhh.data_ptr(), B, L, H, int(bf16),
+                            part.data_ptr(), dwh.data_ptr(), _stream(out))
+    if err:
+        raise RuntimeError(f"fused_gru_dwh kernel launch failed: CUDA error {err}")
+    return dwh
 
 
 class FusedGru(torch.autograd.Function):

@@ -100,10 +100,11 @@ def _op_grads_jax(xi, hinit, wh, bh, dy, cdt):
     """The recurrence alone through gru_apply: an identity input projection
     (zero bias) makes its xi equal to x, so jax.vjp gives dxi, dh0, dwh and
     dbh of the lax.scan."""
-    eye = jnp.eye(3 * H, dtype=jnp.float32)
+    hid = wh.shape[0]
+    eye = jnp.eye(3 * hid, dtype=jnp.float32)
 
     def f(xi, h0, wh, bh):
-        layer = [{"wi": eye, "bi": jnp.zeros(3 * H), "wh": wh, "bh": bh}]
+        layer = [{"wi": eye, "bi": jnp.zeros(3 * hid), "wh": wh, "bh": bh}]
         return jax_layers.gru_apply(layer, xi, h0=h0, compute_dtype=cdt).astype(jnp.float32)
 
     y, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (xi, hinit, wh, bh)))
@@ -121,9 +122,8 @@ def _op_grads_port(xi, hinit, wh, bh, dy, bf16):
     th0, twh, tbh = (torch.tensor(a, requires_grad=True) for a in (hinit, wh, bh))
     out = fg.fused_gru_torch(txi, th0, twh, tbh, bf16=bf16)
     assert out.dtype == (torch.bfloat16 if bf16 else torch.float32)
-    assert tbh.shape == (3 * H,)
     (out.float() * torch.as_tensor(dy).to(out.dtype).float()).sum().backward()
-    assert txi.grad.dtype == txi.dtype and tbh.grad.shape == (3 * H,)
+    assert txi.grad.dtype == txi.dtype and tbh.grad.shape == tbh.shape
     return [out.float().detach().numpy()] + [t.grad.float().numpy()
                                              for t in (txi, th0, twh, tbh)]
 
@@ -145,6 +145,31 @@ def test_plain_recurrence_and_gradients_match_gru_apply(bf16, h0):
     dy = rng.randn(B, L, H).astype(np.float32)
     ref = _op_grads_jax(xi, hinit, wh, bh, dy, jnp.bfloat16 if bf16 else None)
     got = _op_grads_port(xi, hinit, wh, bh, dy, bf16)
+    tol = BF16_TOL if bf16 else 2e-4
+    for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), got, ref):
+        _close(a, b, tol, name)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("hidden", [132, 256])
+def test_plain_recurrence_matches_gru_apply_at_cluster_widths(bf16, hidden):
+    """The oracle at the widths the bf16 instance's cluster kernels take
+    (128 < H <= 384) and the fp32 instance's global-memory ones: out, dxi,
+    dh0, dwh and dbh against jax.vjp of gru_apply's scan, B 3, L 4, nonzero
+    h0, wh in gru_init's xavier-uniform range; fp32 at rtol 2e-4 of each
+    tensor's largest value, bf16 at BF16_TOL."""
+    rng = np.random.RandomState(hidden + bf16)
+    xi = rng.randn(3, 4, 3 * hidden).astype(np.float32)
+    if bf16:
+        xi = np.asarray(torch.tensor(xi).to(torch.bfloat16).float())
+    lim = np.sqrt(6.0 / (4 * hidden))
+    wh = rng.uniform(-lim, lim, (hidden, 3 * hidden)).astype(np.float32)
+    bh = (0.1 * rng.randn(3 * hidden)).astype(np.float32)
+    hinit = (0.5 * rng.randn(3, hidden)).astype(np.float32)
+    dy = rng.randn(3, 4, hidden).astype(np.float32)
+    ref = _op_grads_jax(xi, hinit, wh, bh, dy, jnp.bfloat16 if bf16 else None)
+    got = _op_grads_port(xi, hinit, wh, bh, dy, bf16)
+    assert got[0].shape == (3, 4, hidden) and got[3].shape == (hidden, 3 * hidden)
     tol = BF16_TOL if bf16 else 2e-4
     for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), got, ref):
         _close(a, b, tol, name)

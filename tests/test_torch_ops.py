@@ -1072,9 +1072,14 @@ def test_fused_gru_autograd_and_limits_on_card(cuda_device):
     assert torch.isfinite(xi.grad).all() and torch.isfinite(wh.grad).all()
     lib = port_gru._lib()
     assert lib.fused_gru_max_shared_hidden() == 128 and lib.fused_gru_max_hidden() == 700
-    for H in (128, 132, 700):
-        assert lib.fused_gru_smem_bytes(H, 1) <= port_gru.MAX_SMEM_BYTES
-    assert lib.fused_gru_scratch_floats(128) == 0 and lib.fused_gru_scratch_floats(132) > 0
+    assert lib.fused_gru_max_cluster_hidden() == 384
+    for H in (128, 132, 384, 388, 700):
+        for bf16 in (0, 1):
+            assert lib.fused_gru_smem_bytes(H, 1, bf16) <= port_gru.MAX_SMEM_BYTES
+    # scratch (the rounded wh and its transpose) only on the device-memory
+    # route: the fp32 instance above 128, the bf16 one above the cluster limit
+    assert lib.fused_gru_scratch_floats(128, 1) == 0 and lib.fused_gru_scratch_floats(132, 1) == 0
+    assert lib.fused_gru_scratch_floats(132, 0) > 0 and lib.fused_gru_scratch_floats(388, 1) > 0
     for H in (704, 701):
         args = _gru_inputs(2, 3, H, 1, cuda_device, False)[:4]
         before = port_gru.fused_gru_fwd_cuda.launches
@@ -1087,9 +1092,9 @@ def test_fused_gru_autograd_and_limits_on_card(cuda_device):
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("B,L,H", [(2048, 50, 256), (301, 9, 132), (257, 50, 10), (64, 7, 30)])
 def test_fused_gru_wide_and_padded_match_plain_on_card(cuda_device, bf16, B, L, H):
-    """Hidden sizes the shared-memory instance does not take: above 128 the
-    global-memory instance (wh read from device memory), and H not a
-    multiple of 4 zero-padded by the dispatcher. Through ``fused_gru`` and
+    """Hidden sizes the shared-memory route does not take: above 128 the
+    cluster kernels (bf16) or the global-memory ones (fp32, wh read from
+    device memory), and H not a multiple of 4 zero-padded by the dispatcher. Through ``fused_gru`` and
     autograd: out and the gradients of xi, h0, wh and bh against the plain
     version's, within 1e-4 (fp32) or 1e-2 (bf16) of each tensor's largest
     value; one launch each way; two runs bit-identical."""
@@ -1114,6 +1119,65 @@ def test_fused_gru_wide_and_padded_match_plain_on_card(cuda_device, bf16, B, L, 
     for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), got, ref):
         assert torch.isfinite(a.float()).all(), name
         assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [50, 1])
+@pytest.mark.parametrize("B", [2048, 1001, 7])
+@pytest.mark.parametrize("width", ["132", "256", "limit", "limit + 4"])
+def test_fused_gru_cluster_kernels_match_plain_on_card(cuda_device, width, B, L):
+    """The bf16 instance above the shared-memory route: H 132, 256 and the
+    cluster limit take the cluster kernels (wh split over a thread-block
+    cluster, the recurrent products on the tensor cores), the limit + 4 the
+    global-memory ones. out, dxi, dh0, dwh and dbh against the plain version
+    within 1e-2 of each tensor's largest value (the file's bf16 bound); one
+    launch each way, counted in the route's share; two runs bit-identical."""
+    limit = port_gru._lib().fused_gru_max_cluster_hidden()
+    H = {"132": 132, "256": 256, "limit": limit, "limit + 4": limit + 4}[width]
+    cluster = width != "limit + 4"
+    assert port_gru.cluster_route(H, True) == cluster
+    xi, h0, wh, bh, dout = _gru_inputs(B, L, H, 40 + L, cuda_device, True)
+    fwd, bwd = port_gru.fused_gru_fwd_cuda, port_gru.fused_gru_bwd_cuda
+
+    def counts():
+        return fwd.launches, bwd.launches, fwd.launches_cluster, bwd.launches_cluster
+
+    before = counts()
+    out = fwd(xi, h0, wh, bh)
+    grads = bwd(xi, h0, wh, bh, out, dout)
+    assert counts() == tuple(b + d for b, d in zip(before, (1, 1, cluster, cluster)))
+    torch.cuda.synchronize()
+    assert torch.equal(out, fwd(xi, h0, wh, bh))
+    assert all(torch.equal(a, b) for a, b in zip(grads, bwd(xi, h0, wh, bh, out, dout)))
+    ref_out = port_gru.fused_gru_torch_fwd(xi, h0, wh, bh, True)
+    ref = port_gru.fused_gru_torch_bwd(xi, h0, wh, bh, out, dout, True)
+    assert out.dtype == torch.bfloat16 and grads[0].dtype == torch.bfloat16
+    for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), (out, *grads), (ref_out, *ref)):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H", [(2048, 50, 128), (1001, 50, 256), (7, 13, 132)])
+def test_fused_gru_bf16_dwh_matches_plain_on_card(cuda_device, B, L, H):
+    """The bf16 instance's dwh alone (``gru_dwh_tc_kernel``: dhh enters the
+    tensor cores as two bf16 terms, hi + lo) against the plain version's
+    sum over (b, t) of round(h_{t-1})^T dhh, here in float64, on the same
+    bf16 out, h0 and fp32 dhh: within 1e-4 of the largest value, since
+    h_{t-1} is exact in bf16 and hi + lo carries dhh to about 2^-17 of
+    itself, which leaves the fp32 summation order; two runs bit-identical."""
+    rng = np.random.RandomState(B + H)
+    out = torch.from_numpy(rng.randn(B, L, H).astype(np.float32)).to(cuda_device)
+    out = out.to(torch.bfloat16)
+    h0 = torch.from_numpy((0.5 * rng.randn(B, H)).astype(np.float32)).to(cuda_device)
+    dhh = torch.from_numpy(rng.randn(B, L, 3 * H).astype(np.float32)).to(cuda_device)
+    got = port_gru.fused_gru_dwh_cuda(out, h0, dhh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, port_gru.fused_gru_dwh_cuda(out, h0, dhh))
+    hp = torch.cat([h0.to(torch.bfloat16)[:, None], out[:, :-1]], dim=1).double()
+    ref = torch.einsum("blk,blc->kc", hp, dhh.double())
+    assert got.shape == (H, 3 * H) and torch.isfinite(got).all()
+    assert _rel(got.double(), ref) <= 1e-4, _rel(got.double(), ref)
 
 
 # ------------------------------------------------- the attention-only kernels
