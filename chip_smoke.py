@@ -19,9 +19,11 @@ Phases:
      NARM's step, ragged and eval batches, with zero and nonzero h0, and a
      two-layer stack, and at H 132, 256 and the cluster limit (the bf16
      instance's cluster kernels, the fp32 instance's wh in device memory),
-     the limit + 4 and H 10 (zero-padded); the attention-only kernels, causal and
-     bidirectional, dropout off and on, with a sequence that has no valid
-     key, at L 50 and L 200 (key tiles); the rel_apply kernels in both
+     the limit + 4, H 704 (the global route at 8 sequences a block) and H 10
+     (zero-padded); the attention-only kernels on both routes (the whole
+     sequence at L 50, the key tiles at L 200), causal and bidirectional,
+     dropout off and on, with a sequence that has no valid key, and at head
+     width 132 on each route; the rel_apply kernels in both
      instances, forward and backward, at RippleNet's step and at edge
      shapes;
   4. the main paths, each with every kernel's launch count set to 0 just
@@ -52,10 +54,13 @@ Phases:
      g. SASRec at its default widths with fused_attention True (the
         attention-only kernel) on the same file, 1 epoch;
      h. a few steps and a valid pass at widths the kernels took only after
-        their limits were lifted: GRU4Rec at hidden 10 and 256 (the bf16
-        instance's cluster kernels, which must launch), SASRec at
-        hidden 128 and at 200 positions under the default fused_attention
-        "layer2" (routed around the whole-layer kernel) and True;
+        their limits were lifted: GRU4Rec at hidden 10, 256 (the bf16
+        instance's cluster kernels, which must launch) and 704 (the global
+        route), SASRec at hidden 128 (the attention kernels' whole-sequence
+        route) and at 200 positions (their key tiles) under the default
+        fused_attention "layer2" (routed around the whole-layer kernel) and
+        True, and SASRec at its defaults with fused_attention "layer" under
+        bfloat16 (the attention path, as the JAX package takes it);
      i. RippleNet at its defaults (embedding 64, 2 hops, 16 memories,
         batch 2048) under KGTrainer on the ml-1m-shaped file with a KG of
         the reference's ml-1m KG shape (79,388 entities, 385,923 triples, 51
@@ -1042,11 +1047,11 @@ def check_gru(torch):
     # hidden sizes beyond the shared-memory route, through fused_gru and
     # autograd at the step's batch: H 132, 256 and the cluster limit (the
     # bf16 instance's cluster kernels; the fp32 instance reads wh from device
-    # memory), the limit + 4 (device memory in both), and H 10 (zero-padded
-    # to 12 by the dispatcher)
+    # memory), the limit + 4 (device memory in both), 704 (device memory, 8
+    # sequences a block), and H 10 (zero-padded to 12 by the dispatcher)
     lib = fg._lib()
     limit = lib.fused_gru_max_cluster_hidden()
-    for H2 in (132, 256, limit, limit + 4, 10):
+    for H2 in (132, 256, limit, limit + 4, 704, 10):
         Hp = fg.padded_hidden(H2)
         for bf16 in (True, False):
             route = ("shared memory", "cluster", "device memory")[lib.fused_gru_route(Hp, bf16)]
@@ -1115,21 +1120,37 @@ def check_attention(torch):
     kernels draw (autograd of the plain forward for the gradients: so the
     backward kernel's regenerated masks are the forward's), causal and
     bidirectional, dropout 0 and 0.5, with a sequence that has no valid key,
-    at SASRec's step, its ragged last train batch and an eval batch; the
-    keep rates; two runs compared bit for bit."""
+    on both routes: the whole sequence at SASRec's step, its ragged last
+    train batch and an eval batch (L 50), the key tiles at 200 positions,
+    and head width 132 on each (past the 128 a tile held before hd was cut
+    into chunks); the route each call takes; the keep rates; two runs
+    compared bit for bit. Returns the worst |difference| by kernel: the
+    whole route's under fused_attention_whole_*, the tiled route's under
+    fused_attention_*."""
     from recbole_tpu_torch.ops import fused_attention as fa
     L, H = SASREC["L"], SASREC["H"]
     hd = SASREC["D"] // H
-    worst = {"fused_attention_fwd": 0.0, "fused_attention_bwd": 0.0}
-    cases = [("SASRec step", SASREC["B"], L, causal, rate)
+    worst = {f"fused_attention{r}_{way}": 0.0 for r in ("", "_whole") for way in ("fwd", "bwd")}
+    for way in (False, True):
+        log(f"[check] fused_attention at L={L} hd={hd}: route {fa.fused_attention_route(L, hd)}, "
+            f"{fa._lib().fused_attention_smem_bytes(L, hd, way)} bytes of shared memory and "
+            f"{fa.fused_attention_blocks_per_sm(L, hd, True, way)} resident blocks an SM "
+            f"({'backward' if way else 'forward'}); at L 200: "
+            f"{fa.fused_attention_blocks_per_sm(200, hd, True, way)}")
+    cases = [("SASRec step", SASREC["B"], L, H, hd, causal, rate)
              for causal in (True, False) for rate in (0.0, 0.5)]
-    cases += [("last train batch", 1097, L, True, 0.5), ("eval batch", 4096, L, True, 0.0)]
+    cases += [("last train batch", 1097, L, H, hd, True, 0.5),
+              ("eval batch", 4096, L, H, hd, True, 0.0)]
     # 200 positions: seven key tiles, the online softmax across them
-    cases += [("L 200 step", SASREC["B"], 200, causal, 0.5) for causal in (True, False)]
-    for n, (label, B, L, causal, rate) in enumerate(cases):
+    cases += [("L 200 step", SASREC["B"], 200, H, hd, causal, 0.5) for causal in (True, False)]
+    # head width 132 (hidden 264 over 2 heads) on each route; two chunks on the tiled one
+    cases += [(f"hd 132 L {Lw}", 256, Lw, 2, 132, True, 0.5) for Lw in (L, 200)]
+    for n, (label, B, L, H, hd, causal, rate) in enumerate(cases):
         q, k, v, valid, do = attention_inputs(torch, B, L, H, hd, 300 + n)
         seed = torch.tensor([0x7654321 + 31 * n], dtype=torch.int64, device="cuda")
         kw = dict(causal=causal, rate=rate, layer=n % 2)
+        route = fa.fused_attention_route(L, hd)
+        wrappers = (fa.fused_attention_fwd_cuda, fa.fused_attention_bwd_cuda)
 
         def run():
             o, stats = fa.fused_attention_fwd_cuda(q, k, v, valid, seed, with_stats=True, **kw)
@@ -1138,7 +1159,10 @@ def check_attention(torch):
             torch.cuda.synchronize()
             return out
 
+        before = [getattr(fn, f"launches_{route}") for fn in wrappers]
         got, again = run(), run()
+        if [getattr(fn, f"launches_{route}") for fn in wrappers] != [n0 + 2 for n0 in before]:
+            raise AssertionError(f"fused_attention {label}: not launched on the {route} route")
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         masks, kept = None, ""
         if rate > 0.0:
@@ -1149,8 +1173,9 @@ def check_attention(torch):
         (ref * do).sum().backward()
         ref = (ref.detach(), tq.grad, tk.grad, tv.grad)
         errs = {name: rel_err(a, b) for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
-        log(f"[check] fused_attention ({label}) B={B} L={L} H={H} hd={hd} causal={causal} "
-            f"dropout={rate} empty_row=True: " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        log(f"[check] fused_attention ({label}, {route} route) B={B} L={L} H={H} hd={hd} "
+            f"causal={causal} dropout={rate} empty_row=True: "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
             + f" (tolerance {ATTN_TOL} of the tensor's largest value){kept}; two runs "
             f"bit-identical: {same}")
         if not all(bool(torch.isfinite(t).all()) for t in got):
@@ -1159,9 +1184,9 @@ def check_attention(torch):
             raise AssertionError(f"fused_attention {label}: beyond tolerance: {errs}")
         if not same:
             raise AssertionError(f"fused_attention {label}: two runs differ")
-        worst["fused_attention_fwd"] = max(worst["fused_attention_fwd"],
-                                           float((got[0] - ref[0]).abs().max()))
-        worst["fused_attention_bwd"] = max([worst["fused_attention_bwd"], *(
+        name = "fused_attention" + ("_whole" if route == "whole" else "")
+        worst[f"{name}_fwd"] = max(worst[f"{name}_fwd"], float((got[0] - ref[0]).abs().max()))
+        worst[f"{name}_bwd"] = max([worst[f"{name}_bwd"], *(
             float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))])
     return worst
 
@@ -1293,7 +1318,8 @@ def kernel_wrappers():
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        for share in ("launches_fp32", "launches_bf16", "launches_cluster"):
+        for share in ("launches_fp32", "launches_bf16", "launches_cluster", "launches_whole",
+                      "launches_tiled"):
             if hasattr(fn, share):
                 setattr(fn, share, 0)
 
@@ -1304,12 +1330,17 @@ def read_launches(path, must_launch):
     fused_transformer_layer_* the fp32 instance's. fused_gru_* count both of
     theirs (one TPU kernel), fused_gru_*_fp32 is the fp32 share and
     fused_gru_*_cluster the cluster route's; rel_apply_* count both of
-    theirs, rel_apply_*_bf16 the bf16 share."""
+    theirs, rel_apply_*_bf16 the bf16 share; fused_attention_* count both
+    routes' launches, told apart here: fused_attention_* is the key-tiled
+    route's share, fused_attention_whole_* the whole-sequence route's."""
     launches = {}
     for name, fn in kernel_wrappers().items():
         if name.startswith("trm_layer"):
             launches[name] = fn.launches - fn.launches_fp32
             launches[name.replace("trm_layer", "fused_transformer_layer")] = fn.launches_fp32
+        elif name.startswith("fused_attention"):
+            launches[name] = fn.launches_tiled
+            launches[name.replace("fused_attention", "fused_attention_whole")] = fn.launches_whole
         else:
             launches[name] = fn.launches
             if hasattr(fn, "launches_fp32"):
@@ -1679,15 +1710,17 @@ def phase_narm(torch, tmp):
 
 def phase_sasrec_attention(torch, tmp):
     """SASRec at its default widths with fused_attention True, 1 epoch: the
-    attention-only kernels; the whole-layer kernels stay off."""
+    attention-only kernels on their whole-sequence route (L 50); the
+    whole-layer kernels and the key-tiled route stay off."""
     launches, model, widths = seq_phase(
         torch, tmp, "sasrec_attention", "SASRec", {"fused_attention": True}, 1,
         ("n_layers", "n_heads", "hidden_size", "inner_size", "MAX_ITEM_LIST_LENGTH",
          "attn_dropout_prob", "fused_attention", "train_batch_size"),
-        ("fused_attention_fwd", "fused_attention_bwd", "onehot_matmul_grad", "adam_leaf",
-         "masked_topk"),
+        ("fused_attention_whole_fwd", "fused_attention_whole_bwd", "onehot_matmul_grad",
+         "adam_leaf", "masked_topk"),
         ("trm_layer_fwd", "trm_layer_bwd", "fused_transformer_layer_fwd",
-         "fused_transformer_layer_bwd", "windowed_grad"))
+         "fused_transformer_layer_bwd", "windowed_grad", "fused_attention_fwd",
+         "fused_attention_bwd"))
     if tuple(widths.values()) != (2, 2, 64, 256, 50, 0.5, True, 2048):
         raise AssertionError(f"SASRec was not built at its default widths: {widths}")
     return launches
@@ -1757,34 +1790,44 @@ def short_run(torch, tmp, tag, model_name, extra, loaders, steps, must_launch, m
 
 def phase_wide(torch, tmp):
     """Widths the kernels took only after their limits were lifted, a few
-    steps each on the ml-1m-shaped file: GRU4Rec at hidden 10 (padded) and
-    256 (the bf16 instance's cluster kernels: wh split over a thread-block
-    cluster), SASRec at hidden 128 (50 positions) and at
-    200 positions, each under the default fused_attention "layer2", which
-    routes around the whole-layer kernel, and under True."""
-    off_gru = ("trm_layer_fwd", "fused_attention_fwd", "rel_apply_fwd")
+    steps each on the ml-1m-shaped file: GRU4Rec at hidden 10 (padded), 256
+    (the bf16 instance's cluster kernels: wh split over a thread-block
+    cluster) and 704 (wh in device memory, 8 sequences a block), SASRec at
+    hidden 128 (50 positions: the attention kernels' whole-sequence route)
+    and at 200 positions (their key tiles), each under the default
+    fused_attention "layer2", which routes around the whole-layer kernel,
+    and under True; and SASRec at its defaults with fused_attention "layer"
+    under its bfloat16 compute dtype, which takes the attention path (True)
+    as the JAX package does."""
+    off_gru = ("trm_layer_fwd", "fused_attention_fwd", "fused_attention_whole_fwd",
+               "rel_apply_fwd")
     routed = ("trm_layer_fwd", "trm_layer_bwd", "fused_transformer_layer_fwd",
               "fused_transformer_layer_bwd", "fused_gru_fwd")
+    whole = ("fused_attention_whole_fwd", "fused_attention_whole_bwd")
+    tiled = ("fused_attention_fwd", "fused_attention_bwd")
     out = {}
     loaders = seq_loaders(torch, tmp, "GRU4Rec", {})
-    for hidden in (10, 256):
-        wide = hidden > 128
+    for hidden in (10, 256, 704):
+        cluster = 128 < hidden <= 384
         out[f"gru4rec_h{hidden}"] = short_run(
             torch, tmp, f"gru4rec_h{hidden}", "GRU4Rec", {"hidden_size": hidden}, loaders, 5,
             ("fused_gru_fwd", "fused_gru_bwd")
-            + (("fused_gru_fwd_cluster", "fused_gru_bwd_cluster") if wide else ()),
-            off_gru + (() if wide else ("fused_gru_fwd_cluster",)))
+            + (("fused_gru_fwd_cluster", "fused_gru_bwd_cluster") if cluster else ()),
+            off_gru + (() if cluster else ("fused_gru_fwd_cluster", "fused_gru_bwd_cluster")))
     for fused in ("layer2", True):
         out[f"sasrec_d128_{fused}"] = short_run(
             torch, tmp, f"sasrec_d128_{fused}", "SASRec",
-            {"hidden_size": 128, "fused_attention": fused}, loaders, 5,
-            ("fused_attention_fwd", "fused_attention_bwd"), routed)
+            {"hidden_size": 128, "fused_attention": fused}, loaders, 5, whole, routed + tiled)
+    out["sasrec_layer_bf16"] = short_run(
+        torch, tmp, "sasrec_layer_bf16", "SASRec",
+        {"fused_attention": "layer"}, loaders, 5, whole,
+        routed + tiled)
     loaders = seq_loaders(torch, tmp, "SASRec", {"MAX_ITEM_LIST_LENGTH": 200})
     for fused in ("layer2", True):
         out[f"sasrec_l200_{fused}"] = short_run(
             torch, tmp, f"sasrec_l200_{fused}", "SASRec",
-            {"MAX_ITEM_LIST_LENGTH": 200, "fused_attention": fused}, loaders, 5,
-            ("fused_attention_fwd", "fused_attention_bwd"), routed)
+            {"MAX_ITEM_LIST_LENGTH": 200, "fused_attention": fused}, loaders, 5, tiled,
+            routed + whole)
     return out
 
 
@@ -1863,7 +1906,8 @@ def phase_ripplenet(torch, tmp):
     launches = read_launches("ripplenet", ("rel_apply_fwd", "rel_apply_bwd", "adam_leaf"))
     release()
     off = ("masked_topk", "rel_apply_fwd_bf16", "rel_apply_bwd_bf16", "onehot_matmul_grad",
-           "windowed_grad", "trm_layer_fwd", "fused_gru_fwd", "fused_attention_fwd")
+           "windowed_grad", "trm_layer_fwd", "fused_gru_fwd", "fused_attention_fwd",
+           "fused_attention_whole_fwd")
     ran = {k: launches[k] for k in off if launches[k]}
     if ran:
         raise AssertionError(f"kernels off the ripplenet path were launched: {ran}")
@@ -2431,22 +2475,25 @@ def time_gru(torch):
 
 
 def time_attention(torch):
-    """Both attention kernels at SASRec's step (B 2,048, L 50, H 2, hd 32),
-    causal, dropout 0.5, beside the plain version (forward, and forward +
-    autograd backward beside the backward kernel), the bound and
+    """The attention kernels at SASRec's step (B 2,048, H 2, hd 32, causal,
+    dropout 0.5): the whole-sequence route at L 50 (fused_attention_whole_*,
+    the kernel table's row 7) and the key-tiled route at L 200
+    (fused_attention_*, row 7b), beside the plain version (forward, and
+    forward + autograd backward beside the backward kernel), the bound and
     F.scaled_dot_product_attention with a boolean mask in fp32 on inputs
     already in its (B, H, L, hd) layout (the transposes not counted), no
-    dropout: forward, and forward + backward. The bound: q, k, v, the key
-    validity (dO) in and o (dq, dk, dv) out once; the products over the
-    L (L + 1) / 2 causal pairs (two forward, five backward)."""
+    dropout: forward, and forward + backward. The forward is also timed at
+    dropout 0 (ms_rate0), like for like with the library; ms is the main
+    path's rate 0.5. The bound: the function's own bytes, q, k, v and the
+    key validity in and o out (forward), q, k, v, dO and the key validity in
+    and dq, dk, dv out (backward: 6 slabs; what a design re-reads, such as
+    the tiled route's o and row statistics, is not counted), and its
+    products over the L (L + 1) / 2 causal pairs (two forward, five
+    backward) at the fp32 rate."""
     out = {}
-    for L in (SASREC["L"], 200):
+    for L, name in ((SASREC["L"], "fused_attention_whole"), (200, "fused_attention")):
         for way, t in time_attention_at(torch, L).items():
-            key = f"fused_attention_{way}"
-            if L == SASREC["L"]:
-                out[key] = t
-            else:
-                out[key][f"L{L}"] = t
+            out[f"{name}_{way}"] = t
     return out
 
 
@@ -2491,13 +2538,17 @@ def time_attention_at(torch, L):
     out = {}
     for way, (kernel, plain, lib) in calls.items():
         flops = 2.0 * B * H * pairs * hd * (5 if way == "bwd" else 2)
-        nbytes = slab * (7 if way == "bwd" else 4) + B * L * 4
+        nbytes = slab * (6 if way == "bwd" else 4) + B * L * 4
         t = {"ms": cuda_ms(torch, kernel, 50), "plain_ms": cuda_ms(torch, plain, 20),
              "library_ms": cuda_ms(torch, lib, 50)}
+        if way == "fwd":
+            t["ms_rate0"] = cuda_ms(torch, lambda: fa.fused_attention_fwd_cuda(
+                q, k, v, valid, causal=True), 50)
         t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
         out[way] = t
-        log(f"[time] fused_attention_{way} B={B} L={L} H={H} hd={hd} causal, dropout 0.5 "
-            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): {t}")
+        log(f"[time] fused_attention_{way} ({fa.fused_attention_route(L, hd)} route) B={B} "
+            f"L={L} H={H} hd={hd} causal, dropout 0.5 ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB): {t}")
     return out
 
 
@@ -2591,12 +2642,21 @@ KERNEL_META = {
                       "replaces": "recbole_tpu/ops/fused_gru.py:192"},
     "fused_gru_bwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/fused_gru.cu",
                       "replaces": "recbole_tpu/ops/fused_gru.py:192"},
+    # the attention kernels by route: fused_attention_* the key-tiled kernels
+    # (L > 64, timed at 200 positions), fused_attention_whole_* the
+    # whole-sequence ones (L <= 64, timed at SASRec's 50)
     "fused_attention_fwd": {"route": "cuda",
                             "source": "recbole_tpu_torch/csrc/fused_attention.cu",
                             "replaces": "recbole_tpu/ops/fused_attention.py:204"},
     "fused_attention_bwd": {"route": "cuda",
                             "source": "recbole_tpu_torch/csrc/fused_attention.cu",
                             "replaces": "recbole_tpu/ops/fused_attention.py:204"},
+    "fused_attention_whole_fwd": {"route": "cuda",
+                                  "source": "recbole_tpu_torch/csrc/fused_attention.cu",
+                                  "replaces": "recbole_tpu/ops/fused_attention.py:204"},
+    "fused_attention_whole_bwd": {"route": "cuda",
+                                  "source": "recbole_tpu_torch/csrc/fused_attention.cu",
+                                  "replaces": "recbole_tpu/ops/fused_attention.py:204"},
     # the relation apply, both instances together (fp32: RippleNet's
     # default; bf16: the TPU kernel's rounding points); the timing's "bf16"
     # entry is the bf16 instance's

@@ -71,9 +71,12 @@
 // the same on every route: dwh by chunk partials (gru_dwh_tc_kernel on the
 // tensor cores in the bf16 instance, dhh entering as two bf16 terms;
 // gru_dwh_kernel in fp32 in the fp32 instance), dbh by per-block (per-
-// cluster) partials, both summed in order. The global route's shared memory
-// is 16 rows of h, dh and dhh ((5 x 16 + 3) H floats in the backward), so
-// H <= fused_gru_max_hidden() (700). H must be a multiple of 4 (the wrapper
+// cluster) partials, both summed in order. The global route's block owns R
+// sequences, R a template parameter of its kernels (16, 8, 4, 2 or 1, the
+// largest whose shared memory fits, chosen before launch by global_rows): the
+// backward keeps R rows of h, dh and dhh ((5 R + 3) H floats), so R 16 runs
+// up to H 700, R 8 up to 1,348 and R 1 up to fused_gru_max_hidden() (7,264).
+// H must be a multiple of 4 (the wrapper
 // zero-pads any other H, which is exact: recbole_tpu_torch/ops/fused_gru.py).
 // Any B and L.
 //
@@ -369,14 +372,15 @@ __global__ void gru_prep_wh_kernel(const float* __restrict__ wh, int H, float* _
   }
 }
 
-// acc[r][g] = sum_k hs[row r][k] * wr[k][j + g H] for all kRows rows, wr read
+// acc[r][g] = sum_k hs[row r][k] * wr[k][j + g H] for all R rows, wr read
 // from device memory (L2) four rows of k at a time
+template <int R>
 __device__ __forceinline__ void recurrent_product_global(const float* hs,
                                                          const float* __restrict__ wr, int H,
-                                                         int j, float acc[kRows][3]) {
+                                                         int j, float acc[R][3]) {
   const size_t C = 3 * (size_t)H;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
   for (int k = 0; k < H; k += 4) {
     float w[3][4];
 #pragma unroll
@@ -384,7 +388,7 @@ __device__ __forceinline__ void recurrent_product_global(const float* hs,
 #pragma unroll
       for (int g = 0; g < 3; ++g) w[g][kk] = wr[(k + kk) * C + j + g * H];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       const float4 h = *reinterpret_cast<const float4*>(hs + r * H + k);
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
@@ -399,19 +403,20 @@ __device__ __forceinline__ void recurrent_product_global(const float* hs,
   }
 }
 
-// the forward with wh in device memory: shared memory holds two buffers of
-// the block's rounded h rows and the fp32 carry, [3][kRows][H]
-template <bool BF, typename XT>
+// the forward with wh in device memory: a block owns R sequences; shared
+// memory holds two buffers of the block's rounded h rows and the fp32 carry,
+// [3][R][H]
+template <bool BF, typename XT, int R>
 __global__ void __launch_bounds__(kThreads)
 fused_gru_fwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__ h0,
                             const float* __restrict__ wr, const float* __restrict__ bh, int B,
                             int L, int H, XT* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  float* hbuf = reinterpret_cast<float*>(smem4);  // [2][kRows][H]
-  float* hc = hbuf + 2 * kRows * H;               // [kRows][H]
-  const int b0 = blockIdx.x * kRows;
+  float* hbuf = reinterpret_cast<float*>(smem4);  // [2][R][H]
+  float* hc = hbuf + 2 * R * H;                   // [R][H]
+  const int b0 = blockIdx.x * R;
   const size_t C = 3 * (size_t)H;
-  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
+  for (int i = threadIdx.x; i < R * H; i += blockDim.x) {
     const int r = i / H, j = i - r * H, b = b0 + r;
     const float v = b < B ? h0[(size_t)b * H + j] : 0.0f;
     hc[i] = v;
@@ -420,14 +425,14 @@ fused_gru_fwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__
   __syncthreads();
   int cur = 0;
   for (int t = 0; t < L; ++t) {
-    const float* hs = hbuf + cur * kRows * H;
-    float* nxt = hbuf + (cur ^ 1) * kRows * H;
+    const float* hs = hbuf + cur * R * H;
+    float* nxt = hbuf + (cur ^ 1) * R * H;
     for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      float acc[kRows][3];
-      recurrent_product_global(hs, wr, H, j, acc);
+      float acc[R][3];
+      recurrent_product_global<R>(hs, wr, H, j, acc);
       const float bias[3] = {bh[j], bh[H + j], bh[2 * H + j]};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const int b = b0 + r;
         const size_t base = ((size_t)b * L + t) * C + j;
         float x[3] = {0.0f, 0.0f, 0.0f};
@@ -447,10 +452,10 @@ fused_gru_fwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__
   }
 }
 
-// the backward with wh in device memory: shared memory holds the h_{t-1}
-// rows, this step's dhh rows, the fp32 dh carry and the block's dbh sums,
-// [kRows][H] + [kRows][3H] + [kRows][H] + [3H]
-template <bool BF, typename XT>
+// the backward with wh in device memory, R sequences a block: shared memory
+// holds the h_{t-1} rows, this step's dhh rows, the fp32 dh carry and the
+// block's dbh sums, [R][H] + [R][3H] + [R][H] + [3H]
+template <bool BF, typename XT, int R>
 __global__ void __launch_bounds__(kThreads)
 fused_gru_bwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__ h0,
                             const float* __restrict__ wr, const float* __restrict__ wt,
@@ -460,36 +465,36 @@ fused_gru_bwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__
                             float* __restrict__ dhh, float* __restrict__ dbh_part) {
   extern __shared__ float4 smem4[];
   const int C = 3 * H;
-  float* hs = reinterpret_cast<float*>(smem4);  // [kRows][H]: h_{t-1} as the product reads it
-  float* ds = hs + kRows * H;                   // [kRows][3H]: this step's dhh rows
-  float* dhc = ds + kRows * C;                  // [kRows][H]: dh, fp32
-  float* dbs = dhc + kRows * H;                 // [3H]: the block's dbh
+  float* hs = reinterpret_cast<float*>(smem4);  // [R][H]: h_{t-1} as the product reads it
+  float* ds = hs + R * H;                       // [R][3H]: this step's dhh rows
+  float* dhc = ds + R * C;                      // [R][H]: dh, fp32
+  float* dbs = dhc + R * H;                     // [3H]: the block's dbh
   const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kRows;
+  const int b0 = blockIdx.x * R;
 
   auto h_prev = [&](int b, int t, int k) -> float {
     return t == 0 ? h0[(size_t)b * H + k] : ld(out, ((size_t)b * L + t - 1) * H + k);
   };
   auto load_hs = [&](int t) {
-    for (int i = tid; i < kRows * H; i += blockDim.x) {
+    for (int i = tid; i < R * H; i += blockDim.x) {
       const int rr = i / H, k = i - rr * H, b = b0 + rr;
       hs[i] = b < B ? rnd<BF>(h_prev(b, t, k)) : 0.0f;
     }
   };
 
   load_hs(L - 1);
-  for (int i = tid; i < kRows * H; i += blockDim.x) dhc[i] = 0.0f;
+  for (int i = tid; i < R * H; i += blockDim.x) dhc[i] = 0.0f;
   for (int i = tid; i < C; i += blockDim.x) dbs[i] = 0.0f;
   __syncthreads();
 
   for (int t = L - 1; t >= 0; --t) {
     for (int j = tid; j < H; j += blockDim.x) {
-      float acc[kRows][3];
-      recurrent_product_global(hs, wr, H, j, acc);
+      float acc[R][3];
+      recurrent_product_global<R>(hs, wr, H, j, acc);
       const float bias[3] = {bh[j], bh[H + j], bh[2 * H + j]};
       float dbj[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const int b = b0 + r;
         const bool ok = b < B;
         const size_t base = ((size_t)b * L + t) * C + j;
@@ -530,14 +535,14 @@ fused_gru_bwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__
     if (t > 0) load_hs(t - 1);
     // dh = dh z + round(dhh wh^T), wh^T read from device memory by column j
     for (int j = tid; j < H; j += blockDim.x) {
-      float p[kRows];
+      float p[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) p[r] = 0.0f;
+      for (int r = 0; r < R; ++r) p[r] = 0.0f;
       for (int c = 0; c < C; c += 4) {
         const float w0 = wt[(size_t)c * H + j], w1 = wt[(size_t)(c + 1) * H + j],
                     w2 = wt[(size_t)(c + 2) * H + j], w3 = wt[(size_t)(c + 3) * H + j];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
+        for (int r = 0; r < R; ++r) {
           const float4 d = *reinterpret_cast<const float4*>(ds + r * C + c);
           float a = p[r];
           a = fmaf(d.x, w0, a);
@@ -548,11 +553,11 @@ fused_gru_bwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__
         }
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) dhc[r * H + j] += rnd<BF>(p[r]);
+      for (int r = 0; r < R; ++r) dhc[r * H + j] += rnd<BF>(p[r]);
     }
     __syncthreads();  // hs holds the next step's rows; ds may be written again
   }
-  for (int i = tid; i < kRows * H; i += blockDim.x) {
+  for (int i = tid; i < R * H; i += blockDim.x) {
     const int r = i / H, j = i - r * H, b = b0 + r;
     if (b < B) dh0[(size_t)b * H + j] = dhc[i];
   }
@@ -1419,14 +1424,27 @@ gru_dwh_tc_kernel(const bf16* __restrict__ out, const float* __restrict__ h0,
 // memory (the *_global kernels: fp32 above kMaxH, bf16 above the cluster limit).
 enum Route { kRouteShared = 0, kRouteCluster = 1, kRouteGlobal = 2 };
 
-// shared-memory floats of the global-memory instance
-inline size_t smem_floats_global(int H, bool backward) {
-  return backward ? (size_t)(5 * kRows + 3) * H : (size_t)3 * kRows * H;
+// shared-memory floats of the global-memory instance at R sequences a block
+inline size_t smem_floats_global(int H, bool backward, int R) {
+  return backward ? (size_t)(5 * R + 3) * H : (size_t)3 * R * H;
 }
 
-// the largest H whose backward fits a block's shared memory (a multiple of 4)
+// The global route's sequences a block, a template parameter of its kernels:
+// the largest of 16, 8, 4, 2, 1 whose shared memory fits a block at H (0:
+// none fits). The backward's (5 R + 3) H floats bound it: R 16 up to H 700,
+// R 8 up to 1,348, R 1 up to 7,264.
+constexpr int kGlobalRows[5] = {16, 8, 4, 2, 1};
+
+inline int global_rows(int H, bool backward) {
+  for (int R : kGlobalRows)
+    if (sizeof(float) * smem_floats_global(H, backward, R) <= kSmemOptin) return R;
+  return 0;
+}
+
+// the largest H whose backward fits a block's shared memory at one sequence
+// a block (a multiple of 4)
 inline int max_hidden() {
-  return (int)(kSmemOptin / (sizeof(float) * (5 * kRows + 3))) / 4 * 4;
+  return (int)(kSmemOptin / (sizeof(float) * (5 + 3))) / 4 * 4;
 }
 
 // Cluster sizes, smallest first: 2 would hold H <= 2 kClusterMaxUp = 128,
@@ -1461,7 +1479,7 @@ inline Route route_of(int H, bool bf16) {
 inline size_t smem_bytes(int H, bool backward, bool bf16) {
   switch (route_of(H, bf16)) {
     case kRouteShared: return sizeof(float) * smem_floats(H, backward);
-    case kRouteGlobal: return sizeof(float) * smem_floats_global(H, backward);
+    case kRouteGlobal: return sizeof(float) * smem_floats_global(H, backward, global_rows(H, backward));
     default: break;
   }
   const int cs = cluster_size(H);
@@ -1487,6 +1505,31 @@ int allow_smem(K kernel, size_t bytes) {
 }
 
 int blocks_of(int B) { return (B + kRows - 1) / kRows; }
+int global_blocks(int B, int R) { return (B + R - 1) / R; }
+
+// one global-route kernel at R sequences a block
+template <bool BF, typename XT, int R>
+int fwd_global(const XT* xi, const float* h0, const float* wr, const float* bh, int B, int L,
+               int H, XT* out, cudaStream_t s) {
+  const size_t smem = sizeof(float) * smem_floats_global(H, false, R);
+  const int err = allow_smem(fused_gru_fwd_global_kernel<BF, XT, R>, smem);
+  if (err) return err;
+  fused_gru_fwd_global_kernel<BF, XT, R><<<global_blocks(B, R), kThreads, smem, s>>>(
+      xi, h0, wr, bh, B, L, H, out);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF, typename XT, int R>
+int bwd_global(const XT* xi, const float* h0, const float* wr, const float* wt, const float* bh,
+               const XT* out, const XT* dout, int B, int L, int H, XT* dxi, float* dh0,
+               float* dhh, float* dbh_part, cudaStream_t s) {
+  const size_t smem = sizeof(float) * smem_floats_global(H, true, R);
+  const int err = allow_smem(fused_gru_bwd_global_kernel<BF, XT, R>, smem);
+  if (err) return err;
+  fused_gru_bwd_global_kernel<BF, XT, R><<<global_blocks(B, R), kThreads, smem, s>>>(
+      xi, h0, wr, wt, bh, out, dout, B, L, H, dxi, dh0, dhh, dbh_part);
+  return (int)cudaGetLastError();
+}
 
 // dwh's chunks of the B L rows: about kDwhBlocks blocks of gru_dwh_kernel
 // (fp32), or a wave of gru_dwh_tc_kernel (bf16: 4 / KW blocks an SM)
@@ -1671,12 +1714,18 @@ int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh
                           h0, wh, bh, B, L, H, static_cast<bf16*>(out));
   }
   if (route == kRouteGlobal) {
-    int err = allow_smem(fused_gru_fwd_global_kernel<BF, XT>, smem);
-    if (!err) err = prep_wh<BF>(wh, H, scratch, s);
+    const int err = prep_wh<BF>(wh, H, scratch, s);
     if (err) return err;
-    fused_gru_fwd_global_kernel<BF, XT><<<blocks_of(B), kThreads, smem, s>>>(
-        static_cast<const XT*>(xi), h0, scratch, bh, B, L, H, static_cast<XT*>(out));
-    return (int)cudaGetLastError();
+    const XT* x = static_cast<const XT*>(xi);
+    XT* o = static_cast<XT*>(out);
+    switch (global_rows(H, false)) {
+      case 16: return fwd_global<BF, XT, 16>(x, h0, scratch, bh, B, L, H, o, s);
+      case 8: return fwd_global<BF, XT, 8>(x, h0, scratch, bh, B, L, H, o, s);
+      case 4: return fwd_global<BF, XT, 4>(x, h0, scratch, bh, B, L, H, o, s);
+      case 2: return fwd_global<BF, XT, 2>(x, h0, scratch, bh, B, L, H, o, s);
+      case 1: return fwd_global<BF, XT, 1>(x, h0, scratch, bh, B, L, H, o, s);
+    }
+    return (int)cudaErrorInvalidValue;
   }
   int err = allow_smem(fused_gru_fwd_kernel<BF, XT>, smem);
   if (err) return err;
@@ -1688,6 +1737,7 @@ int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh
 // the rows of the recurrent backward's dbh partials: its blocks, or its clusters
 int bwd_partials(int B, int H, bool bf16, int* err) {
   *err = 0;
+  if (route_of(H, bf16) == kRouteGlobal) return global_blocks(B, global_rows(H, true));
   if (route_of(H, bf16) != kRouteCluster) return blocks_of(B);
   const ClusterPlan p = cluster_plan(B, H, true);
   *err = p.err;
@@ -1737,14 +1787,25 @@ int launch_bwd(const void* xi, const float* h0, const float* wh, const float* bh
                          static_cast<const bf16*>(dout), B, L, H, static_cast<bf16*>(dxi), dh0,
                          dhh, dbh_part);
   } else if (route == kRouteGlobal) {
-    err = allow_smem(fused_gru_bwd_global_kernel<BF, XT>, smem);
-    if (!err) err = prep_wh<BF>(wh, H, scratch, s);
+    err = prep_wh<BF>(wh, H, scratch, s);
     if (err) return err;
-    fused_gru_bwd_global_kernel<BF, XT><<<parts, kThreads, smem, s>>>(
-        static_cast<const XT*>(xi), h0, scratch, scratch + (size_t)H * 3 * H, bh,
-        static_cast<const XT*>(out), static_cast<const XT*>(dout), B, L, H,
-        static_cast<XT*>(dxi), dh0, dhh, dbh_part);
-    err = (int)cudaGetLastError();
+    const int R = global_rows(H, true);
+    parts = global_blocks(B, R);
+    const XT *x = static_cast<const XT*>(xi), *o = static_cast<const XT*>(out),
+             *d = static_cast<const XT*>(dout);
+    const float* wt = scratch + (size_t)H * 3 * H;
+    XT* dx = static_cast<XT*>(dxi);
+    switch (R) {
+#define GRU_BWD_GLOBAL(RR) \
+  bwd_global<BF, XT, RR>(x, h0, scratch, wt, bh, o, d, B, L, H, dx, dh0, dhh, dbh_part, s)
+      case 16: err = GRU_BWD_GLOBAL(16); break;
+      case 8: err = GRU_BWD_GLOBAL(8); break;
+      case 4: err = GRU_BWD_GLOBAL(4); break;
+      case 2: err = GRU_BWD_GLOBAL(2); break;
+      case 1: err = GRU_BWD_GLOBAL(1); break;
+#undef GRU_BWD_GLOBAL
+      default: err = (int)cudaErrorInvalidValue;
+    }
   } else {
     err = allow_smem(fused_gru_bwd_kernel<BF, XT>, smem);
     if (err) return err;

@@ -285,9 +285,11 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
       ``compute_dtype`` is bfloat16 and kept float32 when it is None or
       float32. (The JAX package's layer2 path runs bf16 whatever
       ``compute_dtype`` says; the port honours the key.)
-    * ``"layer"``: the float32 instance (ops/fused_transformer.py); a
-      bfloat16 ``compute_dtype`` raises, as the JAX package takes this path
-      only under float32.
+    * ``"layer"``: the float32 instance (ops/fused_transformer.py). Under
+      a bfloat16 ``compute_dtype`` it takes the ``True`` path below, as the
+      JAX package does: its whole-layer branch runs only without a compute
+      dtype (JAX :361), and any truthy ``fused`` then reaches its
+      attention-kernel branch (:390-394).
 
       For both, a shape whose whole layer does not fit one block
       (``trm_layer.layer_route`` from L, D and the inner size, decided
@@ -312,13 +314,10 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
         if mask_spec is None or callable(act):
             raise ValueError(f"fused_attention: {fused!r} needs mask_spec=(key_valid, "
                              "causal) and a named activation")
-        if fused == "layer" and bf16:
-            raise NotImplementedError(
-                'fused_attention: "layer" is the float32 whole-layer kernel; set '
-                'compute_dtype: float32, or fused_attention: "layer2" for bfloat16 operands')
         from ..ops.trm_layer import draw_seed, layer_route, trm_layer
         B, L, D = x.shape
-        if params and layer_route(L, D, params[0]["ff1_w"].shape[1]) == "attention":
+        if (fused == "layer" and bf16) or (
+                params and layer_route(L, D, params[0]["ff1_w"].shape[1]) == "attention"):
             fused = True
     if fused in ("layer2", "layer"):
         key_valid, causal = mask_spec

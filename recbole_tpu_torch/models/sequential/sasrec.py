@@ -64,6 +64,12 @@ class SASRec(SequentialRecommender):
         if fused not in ("layer2", "layer"):
             return
         L, D, I = self.max_seq_length, self.hidden_size, self.inner_size
+        if fused == "layer" and self.cdt is not None:
+            get_logger().info("fused_attention 'layer' under compute dtype %s: the layers take "
+                              "the attention kernel inside plain projections and FFN (the "
+                              "fused_attention: True path), as the JAX package does",
+                              self.cdt)
+            return
         need = 4 * smem_floats(L, D, I, True)
         if layer_route(L, D, I) == "layer":
             get_logger().info("fused_attention %r at L=%d, D=%d, inner=%d: the whole-layer "

@@ -19,7 +19,7 @@ Three things live here:
   ``trm_layer.plain_dropout_masks`` draws the attention masks);
 * the launchers of the hand-written Hopper kernels in
   ``csrc/fused_attention.cu`` (``fused_attention_fwd_cuda``,
-  ``fused_attention_bwd_cuda``, each with a launch count, and
+  ``fused_attention_bwd_cuda``, each with launch counts by route, and
   ``fused_attention_dropout_masks_cuda``, which writes out the masks the
   kernels draw), wrapped for autograd in ``FusedAttention``. Their dropout
   is keyed by one int64 seed on the device (``trm_layer.draw_seed``) and
@@ -30,12 +30,21 @@ Three things live here:
 
 A masked score has no gradient (the mask is a select, as in
 ``attention_xla``); the JAX kernel adds -1e9 instead, and its backward
-differs from this one in a row with no valid key only. The kernels tile
-queries and keys (32 each) and stream the key tiles with an online softmax,
-so any L runs; the forward also returns each query row's max score and
-softmax sum, which the backward reads. Limit: head width at most
-``fused_attention_max_head_width`` of the built library (128), else it
-raises.
+differs from this one in a row with no valid key only.
+
+The kernels take one of two routes, chosen from (L, hd) before launch
+(``fused_attention_route``; the library's ``fused_attention_route`` decides
+at launch, and ``whole_smem_bytes`` is a copy of its formula for the CPU):
+
+* ``"whole"``, L <= 64 while the backward's block fits the shared memory: a
+  block per (sequence, head) holds all L x L scores, an exact softmax
+  forward, and one backward kernel that recomputes P and forms t =
+  rowsum(dp P) itself, reading neither the forward's output nor any
+  statistics;
+* ``"tiled"``, any other shape: tiles of 32 queries and 32 keys with an
+  online softmax, head widths in chunks of 128 columns, so any L and any hd
+  run; the forward also returns each query row's max score and softmax sum,
+  which its two backward kernels read with the forward's output.
 """
 
 import ctypes
@@ -48,6 +57,32 @@ from .trm_layer import plain_dropout_masks
 
 NEG = -1e9
 MAX_SMEM_BYTES = 232448  # opt-in shared memory of a Hopper block
+WHOLE_MAX_L = 64         # the whole-sequence route's longest sequence
+MAX_L = 46340            # L L fits the kernels' 32-bit element counter
+
+
+def _odd_quads(n):
+    """n rounded up to a multiple of 4 whose count of float4s is odd."""
+    return 4 * (((n + 3) // 4) | 1)
+
+
+def whole_smem_bytes(L, hd, backward):
+    """Shared-memory bytes of a whole-sequence block: a copy of
+    ``whole_bytes`` in csrc/fused_attention.cu (q, k, v and, backward, dO
+    rows at an odd-float4 stride; one or two L x L matrices; flags; 64 keep
+    bytes a row)."""
+    Lr = (L + 3) // 4 * 4
+    s, sp = _odd_quads(hd), _odd_quads(Lr)
+    floats = (4 if backward else 3) * Lr * s + (2 if backward else 1) * Lr * sp
+    return 4 * floats + 4 * (Lr + 4) + 64 * Lr
+
+
+def fused_attention_route(L, hd):
+    """The route the kernels take at length L and head width hd: "whole"
+    (L <= 64 and the backward's block fits) or "tiled"."""
+    if L <= WHOLE_MAX_L and whole_smem_bytes(L, hd, True) <= MAX_SMEM_BYTES:
+        return "whole"
+    return "tiled"
 
 
 def _visible(key_valid, L, causal):
@@ -78,6 +113,7 @@ def fused_attention_torch(q, k, v, key_valid, causal=True, rate=0.0, masks=None,
 # ----------------------------------------------------------------- launchers
 
 _LIB = None
+ROUTES = ("whole", "tiled")
 
 
 def _lib():
@@ -89,18 +125,21 @@ def _lib():
         lib.fused_attention_fwd.argtypes = [p, p, p, p, p, *shape, p, p, p]
         lib.fused_attention_bwd.argtypes = [p, p, p, p, p, *shape, p, p, p, p, p, p, p]
         lib.fused_attention_dropout_masks.argtypes = [p, i, i, i, f, i, p, p]
-        lib.fused_attention_smem_bytes.argtypes = [i, i]
+        lib.fused_attention_smem_bytes.argtypes = [i, i, i]
         lib.fused_attention_smem_bytes.restype = ctypes.c_longlong
-        lib.fused_attention_max_head_width.argtypes = []
+        lib.fused_attention_route.argtypes = [i, i]
+        lib.fused_attention_blocks_per_sm.argtypes = [i, i, i, i]
         for fn in (lib.fused_attention_fwd, lib.fused_attention_bwd,
-                   lib.fused_attention_dropout_masks, lib.fused_attention_max_head_width):
+                   lib.fused_attention_dropout_masks, lib.fused_attention_route,
+                   lib.fused_attention_blocks_per_sm):
             fn.restype = i
         _LIB = lib
     return _LIB
 
 
 def _check(name, q, k, v, key_valid, seed, rate, backward):
-    """Validate one call's tensors; returns (B, L, H, hd)."""
+    """Validate one call's tensors; returns (B, L, H, hd, route), the route
+    the built library takes."""
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
     if q.dim() != 4:
@@ -119,16 +158,15 @@ def _check(name, q, k, v, key_valid, seed, rate, backward):
     if rate > 0.0 and (seed is None or seed.dtype != torch.int64 or seed.numel() != 1
                        or seed.device != q.device):
         raise ValueError(f"{name} with dropout takes its seed as one int64 on q's device")
-    most = _lib().fused_attention_max_head_width()
-    if hd > most:
-        raise ValueError(f"{name}: head width {hd} is wider than the {most} the kernels take "
-                         "(a tile of its rows in shared memory); raise n_heads, or set "
-                         "fused_attention to another path")
-    need = _lib().fused_attention_smem_bytes(hd, int(backward))
+    if L > MAX_L:
+        raise ValueError(f"{name}: length {L} is longer than the {MAX_L} the kernels count "
+                         "(the dropout counter is element / 4 of the L x L scores, 32 bits)")
+    lib = _lib()
+    need = lib.fused_attention_smem_bytes(L, hd, int(backward))
     if need > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: head width {hd} needs {need} bytes of shared memory a "
-                         f"block, more than the {MAX_SMEM_BYTES} a Hopper block may use")
-    return B, L, H, hd
+        raise ValueError(f"{name}: L {L}, head width {hd} need {need} bytes of shared memory "
+                         f"a block, more than the {MAX_SMEM_BYTES} a Hopper block may use")
+    return B, L, H, hd, ROUTES[lib.fused_attention_route(L, hd)]
 
 
 def _args(B, L, H, hd, causal, rate, layer):
@@ -139,56 +177,86 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _count(fn, route):
+    fn.launches += 1
+    setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
+
+
+def fused_attention_blocks_per_sm(L, hd, causal=True, backward=False):
+    """Blocks of the route's kernel (the tiled backward: its dk-dv kernel)
+    an SM of the current card holds at once at (L, hd)."""
+    n = _lib().fused_attention_blocks_per_sm(L, hd, int(causal), int(backward))
+    if n < 0:
+        raise RuntimeError(f"fused_attention_blocks_per_sm(L={L}, hd={hd}): CUDA error {-n}")
+    return n
+
+
 def fused_attention_fwd_cuda(q, k, v, key_valid, seed=None, *, causal=True, rate=0.0, layer=0,
                              with_stats=False):
-    """Launch ``fused_attention_fwd_kernel``: o (B, L, H, hd), and with
-    ``with_stats`` also (o, stats), stats (B, H, L, 2) the query rows' max
-    score and softmax sum that the backward reads. Counts its launches in
-    ``fused_attention_fwd_cuda.launches``."""
-    B, L, H, hd = _check("fused_attention_fwd_cuda", q, k, v, key_valid, seed, rate, False)
+    """Launch the route's forward kernel (``fused_attention_whole_fwd_kernel``
+    or the key-tiled ``fused_attention_fwd_kernel``): o (B, L, H, hd), and
+    with ``with_stats`` also (o, stats), stats (B, H, L, 2) the query rows'
+    max score and softmax sum that the tiled backward reads (None on the
+    whole route, whose backward reads none). Counts its launches in
+    ``fused_attention_fwd_cuda.launches``, by route in ``launches_whole``
+    and ``launches_tiled``."""
+    B, L, H, hd, route = _check("fused_attention_fwd_cuda", q, k, v, key_valid, seed, rate,
+                                False)
     o = torch.empty_like(q)
-    stats = torch.empty((B, H, L, 2), dtype=torch.float32, device=q.device)
+    stats = (torch.empty((B, H, L, 2), dtype=torch.float32, device=q.device)
+             if route == "tiled" else None)
     err = _lib().fused_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         _ptr(seed) if rate > 0.0 else None, *_args(B, L, H, hd, causal, rate, layer),
-        o.data_ptr(), stats.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        o.data_ptr(), _ptr(stats), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_attention_fwd kernel launch failed: CUDA error {err}")
-    fused_attention_fwd_cuda.launches += 1
+    _count(fused_attention_fwd_cuda, route)
     return (o, stats) if with_stats else o
 
 
 fused_attention_fwd_cuda.launches = 0
+fused_attention_fwd_cuda.launches_whole = 0
+fused_attention_fwd_cuda.launches_tiled = 0
 
 
 def fused_attention_bwd_cuda(q, k, v, key_valid, dout, seed=None, *, o=None, stats=None,
                              causal=True, rate=0.0, layer=0):
-    """Launch the backward's ``fused_attention_bwd_dq_kernel`` and
-    ``fused_attention_bwd_dkdv_kernel`` on the forward's ``o`` and ``stats``
-    (``fused_attention_fwd_cuda(..., with_stats=True)``): (dq, dk, dv).
-    Counts its launches in ``fused_attention_bwd_cuda.launches``."""
-    B, L, H, hd = _check("fused_attention_bwd_cuda", q, k, v, key_valid, seed, rate, True)
-    if o is None or stats is None:
-        raise ValueError("fused_attention_bwd_cuda reads the forward's o and stats "
-                         "(fused_attention_fwd_cuda(..., with_stats=True))")
-    for what, t, shape in (("dout", dout, (B, L, H, hd)), ("o", o, (B, L, H, hd)),
-                           ("stats", stats, (B, H, L, 2))):
+    """Launch the route's backward: ``fused_attention_whole_bwd_kernel`` (one
+    kernel; ``o`` and ``stats`` are not read), or the tiled
+    ``fused_attention_bwd_dq_kernel`` + ``fused_attention_bwd_dkdv_kernel``
+    on the forward's ``o`` and ``stats`` (``fused_attention_fwd_cuda(...,
+    with_stats=True)``): (dq, dk, dv). Counts its launches as the forward."""
+    B, L, H, hd, route = _check("fused_attention_bwd_cuda", q, k, v, key_valid, seed, rate,
+                                True)
+    wanted = [("dout", dout, (B, L, H, hd))]
+    if route == "tiled":
+        if o is None or stats is None:
+            raise ValueError("fused_attention_bwd_cuda on the tiled route reads the forward's o "
+                             "and stats (fused_attention_fwd_cuda(..., with_stats=True))")
+        wanted += [("o", o, (B, L, H, hd)), ("stats", stats, (B, H, L, 2))]
+        o, stats = o.contiguous(), stats.contiguous()
+    else:
+        o = stats = None
+    for what, t, shape in wanted:
         if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != q.device:
             raise ValueError(f"{what} must be float32 {shape} on q's device")
-    dout, o, stats = dout.contiguous(), o.contiguous(), stats.contiguous()
+    dout = dout.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     err = _lib().fused_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         _ptr(seed) if rate > 0.0 else None, *_args(B, L, H, hd, causal, rate, layer),
-        o.data_ptr(), stats.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        _ptr(o), _ptr(stats), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_attention_bwd kernel launch failed: CUDA error {err}")
-    fused_attention_bwd_cuda.launches += 1
+    _count(fused_attention_bwd_cuda, route)
     return dq, dk, dv
 
 
 fused_attention_bwd_cuda.launches = 0
+fused_attention_bwd_cuda.launches_whole = 0
+fused_attention_bwd_cuda.launches_tiled = 0
 
 
 def fused_attention_dropout_masks_cuda(seed, B, H, L, rate, layer=0):
@@ -206,23 +274,25 @@ def fused_attention_dropout_masks_cuda(seed, B, H, L, rate, layer=0):
 
 
 class FusedAttention(torch.autograd.Function):
-    """Attention on CUDA tensors: the forward kernel, and the backward's two
-    kernels on its saved output and row statistics."""
+    """Attention on CUDA tensors: the route's forward kernel, and its
+    backward (the tiled route's on the saved output and row statistics)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, seed, kw):
         ctx.kw = kw
-        ctx.has_seed = seed is not None
         o, stats = fused_attention_fwd_cuda(q, k, v, key_valid, seed, with_stats=True,
                                             **dict(kw))
-        ctx.save_for_backward(q, k, v, key_valid, o, stats,
+        ctx.tiled = stats is not None
+        ctx.has_seed = seed is not None
+        ctx.save_for_backward(q, k, v, key_valid, *((o, stats) if ctx.tiled else ()),
                               *((seed,) if seed is not None else ()))
         return o
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, key_valid, o, stats, *rest = ctx.saved_tensors
-        seed = rest[0] if ctx.has_seed else None
+        q, k, v, key_valid, *rest = ctx.saved_tensors
+        o, stats = (rest[0], rest[1]) if ctx.tiled else (None, None)
+        seed = rest[-1] if ctx.has_seed else None
         dq, dk, dv = fused_attention_bwd_cuda(q, k, v, key_valid, dout, seed, o=o, stats=stats,
                                               **dict(ctx.kw))
         return dq, dk, dv, None, None, None

@@ -37,8 +37,8 @@ kernels in ``csrc/fused_gru.cu`` (``fused_gru_fwd_cuda``,
 Function ``FusedGru``; and the dispatcher ``fused_gru``: the plain version
 for CPU tensors, the kernels for CUDA tensors, nothing falling back. It
 takes any B and any hidden size up to the built library's limit
-(``fused_gru_max_hidden``, 700: the backward's 16 rows of h, dh and dhh in
-one block's shared memory), else it raises. The kernels take H a multiple
+(``fused_gru_max_hidden``, 7,264: the backward's rows of h, dh and dhh for
+one sequence in one block's shared memory), else it raises. The kernels take H a multiple
 of 4; the dispatcher zero-pads any other H up to one (``pad_hidden``),
 which is exact: a padded unit sees zero xi, bh, wh and h0, so r = z = 1/2,
 n = tanh(0) = 0 and its h stays exactly 0 at every step, and the zero rows
@@ -48,8 +48,10 @@ chooses the route from H and the instance before launch
 above it the bf16 instance splits wh over a thread-block cluster's shared
 memory up to ``fused_gru_max_cluster_hidden`` (384), with the recurrent
 products on the tensor cores; the fp32 instance above 128, and the bf16
-one above the cluster limit, read wh from device memory (L2). The bf16
-instance's dwh is a tensor-core product at every H.
+one above the cluster limit, read wh from device memory (L2), each block
+owning 16, 8, 4, 2 or 1 sequences (the most whose rows fit its shared
+memory: 16 up to H 700, 1 above 4,468). The bf16 instance's dwh is a
+tensor-core product at every H.
 """
 
 import ctypes
@@ -200,8 +202,8 @@ def _check(name, xi, h0, wh, bh, bf16, backward):
     most = lib.fused_gru_max_hidden()
     if H % 4 or H > most:
         raise ValueError(f"{name}: hidden size {H} must be a multiple of 4 (the dispatcher "
-                         f"fused_gru pads any other) and at most {most} (the backward keeps 16 "
-                         "rows of h, dh and dhh in one block's shared memory)")
+                         f"fused_gru pads any other) and at most {most} (the backward keeps a "
+                         "sequence's rows of h, dh and dhh in one block's shared memory)")
     need = lib.fused_gru_smem_bytes(H, int(backward), int(bf16))
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: hidden size {H} needs {need} bytes of shared memory a "

@@ -151,10 +151,11 @@ def test_plain_recurrence_and_gradients_match_gru_apply(bf16, h0):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("hidden", [132, 256])
+@pytest.mark.parametrize("hidden", [132, 256, 704])
 def test_plain_recurrence_matches_gru_apply_at_cluster_widths(bf16, hidden):
     """The oracle at the widths the bf16 instance's cluster kernels take
-    (128 < H <= 384) and the fp32 instance's global-memory ones: out, dxi,
+    (128 < H <= 384) and the fp32 instance's global-memory ones, and at 704,
+    the first width past the global route's 16 sequences a block: out, dxi,
     dh0, dwh and dbh against jax.vjp of gru_apply's scan, B 3, L 4, nonzero
     h0, wh in gru_init's xavier-uniform range; fp32 at rtol 2e-4 of each
     tensor's largest value, bf16 at BF16_TOL."""

@@ -1071,19 +1071,24 @@ def test_fused_gru_autograd_and_limits_on_card(cuda_device):
                                rtol=1e-4, atol=1e-5)
     assert torch.isfinite(xi.grad).all() and torch.isfinite(wh.grad).all()
     lib = port_gru._lib()
-    assert lib.fused_gru_max_shared_hidden() == 128 and lib.fused_gru_max_hidden() == 700
+    assert lib.fused_gru_max_shared_hidden() == 128 and lib.fused_gru_max_hidden() == 7264
     assert lib.fused_gru_max_cluster_hidden() == 384
-    for H in (128, 132, 384, 388, 700):
+    for H in (128, 132, 384, 388, 700, 704, 1348, 1352, 7264):
         for bf16 in (0, 1):
             assert lib.fused_gru_smem_bytes(H, 1, bf16) <= port_gru.MAX_SMEM_BYTES
     # scratch (the rounded wh and its transpose) only on the device-memory
     # route: the fp32 instance above 128, the bf16 one above the cluster limit
     assert lib.fused_gru_scratch_floats(128, 1) == 0 and lib.fused_gru_scratch_floats(132, 1) == 0
     assert lib.fused_gru_scratch_floats(132, 0) > 0 and lib.fused_gru_scratch_floats(388, 1) > 0
-    for H in (704, 701):
+    # the global route's blocks own 16, 8, ... 1 sequences: its backward's
+    # dbh partials, one row a block, say how many
+    for H, rows in ((700, 16), (704, 8), (1348, 8), (1352, 4), (4468, 2), (4472, 1),
+                    (7264, 1)):
+        assert lib.fused_gru_bwd_blocks(33, 5, H, 0) == -(-33 // rows), H
+    for H in (7268, 7265):
         args = _gru_inputs(2, 3, H, 1, cuda_device, False)[:4]
         before = port_gru.fused_gru_fwd_cuda.launches
-        with pytest.raises(ValueError, match="at most 700"):
+        with pytest.raises(ValueError, match="at most 7264"):
             port_gru.fused_gru(*args)
         assert port_gru.fused_gru_fwd_cuda.launches == before
 
@@ -1115,6 +1120,39 @@ def test_fused_gru_wide_and_padded_match_plain_on_card(cuda_device, bf16, B, L, 
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = run(lambda *a: port_gru.fused_gru_torch(*a, bf16=bf16))
     assert got[0].shape == (B, L, H) and got[0].dtype == xi.dtype
+    tol = 1e-2 if bf16 else 1e-4
+    for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), got, ref):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("width", ["704", "1352", "limit"])
+def test_fused_gru_global_rows_match_plain_on_card(cuda_device, bf16, width):
+    """Hidden sizes past 700, where the global route's blocks own fewer
+    than 16 sequences: 704 (8), 1352 (4) and the library's limit (1, H
+    7,264), through fused_gru and autograd against the plain version, within
+    1e-4 (fp32) or 1e-2 (bf16) of each tensor's largest value; one launch
+    each way; two runs bit-identical."""
+    H = port_gru._lib().fused_gru_max_hidden() if width == "limit" else int(width)
+    B, L = (5, 3) if width == "limit" else (37, 6)
+    xi, h0, wh, bh, dout = _gru_inputs(B, L, H, 30 + bf16, cuda_device, bf16)
+
+    def run(fn):
+        args = [t.clone().requires_grad_(True) for t in (xi, h0, wh, bh)]
+        out = fn(*args)
+        (out.float() * dout.float()).sum().backward()
+        return [out.detach()] + [a.grad for a in args]
+
+    before = (port_gru.fused_gru_fwd_cuda.launches, port_gru.fused_gru_bwd_cuda.launches)
+    got = run(port_gru.fused_gru)
+    assert (port_gru.fused_gru_fwd_cuda.launches,
+            port_gru.fused_gru_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    again = run(port_gru.fused_gru)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = run(lambda *a: port_gru.fused_gru_torch(*a, bf16=bf16))
     tol = 1e-2 if bf16 else 1e-4
     for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), got, ref):
         assert torch.isfinite(a.float()).all(), name
@@ -1193,6 +1231,33 @@ def _attn_inputs(B, L, H, hd, seed, device, empty_row=True):
     return q, k, v, valid.to(device), do
 
 
+def _attn_launches():
+    """The forward's and the backward's launch counts: (all, whole-sequence
+    route, key-tiled route)."""
+    return np.array([[fn.launches, fn.launches_whole, fn.launches_tiled]
+                     for fn in (port_attn.fused_attention_fwd_cuda,
+                                port_attn.fused_attention_bwd_cuda)])
+
+
+def test_attention_route_follows_length_and_width():
+    """The route is chosen from (L, hd) before any launch: the whole
+    sequence up to L 64 while the backward's block (q, k, v, dO rows, two
+    L x L matrices, keep bytes) fits a Hopper block's shared memory, the key
+    tiles beyond; SASRec's default shape takes the whole route with room for
+    four blocks' shared memory an SM."""
+    route = port_attn.fused_attention_route
+    assert [route(L, 32) for L in (1, 50, 63, 64, 65, 200)] == ["whole"] * 4 + ["tiled"] * 2
+    assert [route(64, hd) for hd in (8, 32, 64, 129, 132, 188, 192, 256)] == \
+        ["whole"] * 6 + ["tiled"] * 2
+    assert route(50, 192) == "whole" and route(50, 256) == "tiled"
+    for L in (1, 50, 64):
+        for hd in (8, 32, 129):
+            fwd, bwd = (port_attn.whole_smem_bytes(L, hd, b) for b in (False, True))
+            assert 0 < fwd < bwd <= port_attn.MAX_SMEM_BYTES
+    assert port_attn.whole_smem_bytes(50, 32, True) == 55136
+    assert 4 * (port_attn.whole_smem_bytes(50, 32, True) + 1024) <= 233472
+
+
 def test_attention_launchers_refuse_cpu_tensors_and_dispatch_stays_plain():
     q, k, v, valid, do = _attn_inputs(3, 5, 2, 4, 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
@@ -1223,12 +1288,12 @@ def test_fused_attention_kernels_match_plain_on_card(cuda_device, causal, rate):
     q, k, v, valid, do = _attn_inputs(B, L, H, hd, 4, cuda_device)
     seed = torch.tensor([1234], dtype=torch.int64, device=cuda_device)
     kw = dict(causal=causal, rate=rate, layer=1)
-    before = (port_attn.fused_attention_fwd_cuda.launches,
-              port_attn.fused_attention_bwd_cuda.launches)
+    before = _attn_launches()
     o, stats = port_attn.fused_attention_fwd_cuda(q, k, v, valid, seed, with_stats=True, **kw)
     grads = port_attn.fused_attention_bwd_cuda(q, k, v, valid, do, seed, o=o, stats=stats, **kw)
-    assert (port_attn.fused_attention_fwd_cuda.launches,
-            port_attn.fused_attention_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    # SASRec's length takes the whole-sequence route: one launch each way
+    assert stats is None
+    assert (_attn_launches() - before).tolist() == [[1, 1, 0], [1, 1, 0]]
     torch.cuda.synchronize()
     assert torch.equal(o, port_attn.fused_attention_fwd_cuda(q, k, v, valid, seed, **kw))
     again = port_attn.fused_attention_bwd_cuda(q, k, v, valid, do, seed, o=o, stats=stats, **kw)
@@ -1247,8 +1312,9 @@ def test_fused_attention_autograd_masks_and_limits_on_card(cuda_device):
     """The dispatcher on CUDA tensors goes through FusedAttention, its
     dropout keyed by the seed; the keep masks are those of the whole-layer
     kernels' attention sites for the same seed and layer, keep about half at
-    rate 0.5, and differ between layers; widths beyond the shared memory
-    raise and nothing falls back."""
+    rate 0.5, and differ between layers; every route's block fits a Hopper
+    block's shared memory, and head width 132 runs and matches the plain
+    version."""
     from recbole_tpu_torch.ops import trm_layer as port_trm
     B, L, H, hd = 64, 50, 2, 32
     q, k, v, valid, do = _attn_inputs(B, L, H, hd, 5, cuda_device)
@@ -1268,29 +1334,41 @@ def test_fused_attention_autograd_masks_and_limits_on_card(cuda_device):
     assert not torch.equal(masks, other)
     with pytest.raises(ValueError, match="seed"):
         port_attn.fused_attention(q, k, v, valid, rate=0.5)
-    assert port_attn._lib().fused_attention_max_head_width() == 128
-    assert port_attn._lib().fused_attention_smem_bytes(128, 1) <= port_attn.MAX_SMEM_BYTES
-    wide = _attn_inputs(2, 9, 1, 132, 6, cuda_device)
-    before = port_attn.fused_attention_fwd_cuda.launches
-    with pytest.raises(ValueError, match="head width"):
-        port_attn.fused_attention(*wide[:4])
-    assert port_attn.fused_attention_fwd_cuda.launches == before
+    for L, hd in ((50, 32), (64, 132), (65, 132), (200, 1024)):
+        for backward in (0, 1):
+            assert port_attn._lib().fused_attention_smem_bytes(L, hd, backward) <= \
+                port_attn.MAX_SMEM_BYTES
+    # head width 132 (past the 128 a tile held before hd was cut into chunks)
+    # runs and matches the plain version, forward and backward
+    wq, wk, wv, wvalid, wdo = _attn_inputs(2, 9, 1, 132, 6, cuda_device)
+    wq.requires_grad_(True)
+    before = _attn_launches()
+    out = port_attn.fused_attention(wq, wk, wv, wvalid)
+    (out * wdo).sum().backward()
+    assert (_attn_launches() - before).tolist() == [[1, 1, 0], [1, 1, 0]]
+    tq = wq.detach().clone().requires_grad_(True)
+    ref = port_attn.fused_attention_torch(tq, wk, wv, wvalid, True)
+    (ref * wdo).sum().backward()
+    assert _rel(out.detach(), ref) <= 1e-4 and _rel(wq.grad, tq.grad) <= 1e-4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("rate", [0.0, 0.5])
-@pytest.mark.parametrize("B,L,H,hd", [(64, 200, 2, 32), (33, 97, 1, 128), (40, 33, 4, 16)])
+@pytest.mark.parametrize("B,L,H,hd", [(64, 200, 2, 32), (33, 97, 1, 128), (40, 65, 4, 16)])
 def test_fused_attention_key_tiles_match_plain_on_card(cuda_device, causal, rate, B, L, H, hd):
-    """Lengths past one 32-key tile and head widths up to 128, with a
-    sequence that has no valid key: the tiled forward (online softmax) and
-    the two backward kernels against the plain version fed the kernels'
-    masks, within 1e-4 of each tensor's largest value; two runs bit-identical."""
+    """Lengths past the whole-sequence route (L > 64) and head widths up to
+    128, with a sequence that has no valid key: the tiled forward (online
+    softmax) and the two backward kernels against the plain version fed the
+    kernels' masks, within 1e-4 of each tensor's largest value; two runs
+    bit-identical."""
     q, k, v, valid, do = _attn_inputs(B, L, H, hd, 7 + L, cuda_device)
     seed = torch.tensor([99], dtype=torch.int64, device=cuda_device)
     kw = dict(causal=causal, rate=rate, layer=2)
+    before = _attn_launches()
     o, stats = port_attn.fused_attention_fwd_cuda(q, k, v, valid, seed, with_stats=True, **kw)
     grads = port_attn.fused_attention_bwd_cuda(q, k, v, valid, do, seed, o=o, stats=stats, **kw)
+    assert (_attn_launches() - before).tolist() == [[1, 0, 1], [1, 0, 1]]
     torch.cuda.synchronize()
     again = port_attn.fused_attention_bwd_cuda(q, k, v, valid, do, seed, o=o, stats=stats, **kw)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -1302,6 +1380,80 @@ def test_fused_attention_key_tiles_match_plain_on_card(cuda_device, causal, rate
     for name, a, b in zip(("o", "dq", "dk", "dv"), (o, *grads), (ref, tq.grad, tk.grad, tv.grad)):
         assert torch.isfinite(a).all(), name
         assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+
+
+# (B, L, H, hd): L 1, 50, 63, 64 on the whole-sequence route, 65 and 200 on
+# the key tiles; head widths 8 to 256 (129: not a multiple of 4, so no
+# 16-byte loads; 132 and 256 in two chunks of the tiled route, 256 also past
+# the whole route's shared memory at L 50 and 64)
+ATTN_ROUTE_CASES = [(9, 1, 2, 8), (64, 50, 2, 32), (33, 63, 4, 8), (17, 64, 1, 64),
+                    (11, 50, 1, 129), (7, 64, 2, 132), (5, 50, 1, 256), (19, 65, 2, 32),
+                    (6, 200, 1, 129), (5, 65, 4, 132), (4, 200, 2, 256), (3, 64, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("B,L,H,hd", ATTN_ROUTE_CASES)
+def test_fused_attention_routes_match_plain_on_card(cuda_device, causal, rate, B, L, H, hd):
+    """Each route against the plain version fed the kernels' masks, with a
+    sequence that has no valid key: o, dq, dk, dv within 1e-4 of each
+    tensor's largest value; one launch each way, counted on the route
+    fused_attention_route names; two runs bit-identical."""
+    q, k, v, valid, do = _attn_inputs(B, L, H, hd, 11 + L + hd, cuda_device)
+    seed = torch.tensor([4321 + hd], dtype=torch.int64, device=cuda_device)
+    kw = dict(causal=causal, rate=rate, layer=L % 3)
+    route = port_attn.fused_attention_route(L, hd)
+    assert port_attn.ROUTES[port_attn._lib().fused_attention_route(L, hd)] == route
+
+    def run():
+        o, stats = port_attn.fused_attention_fwd_cuda(q, k, v, valid, seed, with_stats=True,
+                                                      **kw)
+        out = (o, *port_attn.fused_attention_bwd_cuda(q, k, v, valid, do, seed, o=o,
+                                                      stats=stats, **kw))
+        torch.cuda.synchronize()
+        return out
+
+    before = _attn_launches()
+    got = run()
+    one = [1, 1, 0] if route == "whole" else [1, 0, 1]
+    assert (_attn_launches() - before).tolist() == [one, one]
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    masks = (port_attn.fused_attention_dropout_masks_cuda(seed, B, H, L, rate, layer=L % 3)
+             if rate else None)
+    tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = port_attn.fused_attention_torch(tq, tk, tv, valid, causal, rate, masks=masks)
+    (ref * do).sum().backward()
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, (ref, tq.grad, tk.grad, tv.grad)):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_fused_attention_route_copy_matches_library_on_card(cuda_device):
+    """The Python copy of the whole route's shared-memory formula, which
+    names the route before any launch, gives the built library's bytes and
+    route; SASRec's shape holds at least two whole-route blocks an SM each
+    way; a tensor that is not 16-byte aligned (4-byte loads) gives the
+    same bits as an aligned copy."""
+    lib = port_attn._lib()
+    for L in (1, 4, 17, 50, 63, 64, 65, 200):
+        for hd in (1, 8, 30, 32, 64, 129, 132, 188, 192, 256, 1024):
+            assert port_attn.ROUTES[lib.fused_attention_route(L, hd)] == \
+                port_attn.fused_attention_route(L, hd), (L, hd)
+            if port_attn.fused_attention_route(L, hd) == "whole":
+                for backward in (0, 1):
+                    assert lib.fused_attention_smem_bytes(L, hd, backward) == \
+                        port_attn.whole_smem_bytes(L, hd, bool(backward)), (L, hd, backward)
+    for backward in (False, True):
+        assert port_attn.fused_attention_blocks_per_sm(50, 32, True, backward) >= 2
+    B, L, H, hd = 5, 50, 2, 32
+    q, k, v, valid, do = _attn_inputs(B, L, H, hd, 12, cuda_device)
+    shifted = torch.empty(B * L * H * hd + 1, device=cuda_device)[1:].view(B, L, H, hd)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(port_attn.fused_attention_fwd_cuda(shifted, k, v, valid),
+                       port_attn.fused_attention_fwd_cuda(q, k, v, valid))
 
 
 @pytest.mark.cuda

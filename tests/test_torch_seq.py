@@ -199,13 +199,47 @@ def test_transformer_apply_unported_and_invalid_paths_raise():
     tp = {k: torch.as_tensor(v) for k, v in params.items()}
     args = ([tp], torch.as_tensor(x), None, H)
     spec = (torch.as_tensor(valid), True)
-    with pytest.raises(NotImplementedError, match="float32 whole-layer"):
-        layers.transformer_apply(*args, mask_spec=spec, fused="layer",
-                                 compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="mask_spec"):
         layers.transformer_apply(*args, fused="layer2")
     with pytest.raises(ValueError, match="activation"):
         tl.trm_layer(torch.as_tensor(x), tp, spec[0], n_heads=H, causal=True, act="leakyrelu")
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_layer_under_bf16_takes_the_attention_path_as_jax(seed):
+    """fused_attention "layer" under a bfloat16 compute dtype takes the
+    attention-kernel path (True), as the JAX package does: its fp32
+    whole-layer branch needs compute_dtype None, and any truthy fused then
+    reaches the attention branch, which is XLA on the CPU. SASRec's causal
+    mask, every sequence with a valid key: the XLA path's bidirectional
+    mask also masks padded queries where the kernel masks keys only, and its
+    additive mask passes a gradient to the scores of a row with no valid key
+    where the port selects (ROADMAP, known faults in the reference). Two
+    layers, output and all gradients against JAX transformer_apply(
+    fused="layer", compute_dtype=bfloat16) at BF16_XLA_TOL (the two round q
+    and k at other places: the port's attention kernel takes fp32 q, k, v),
+    and equal to the port's own True path bit for bit."""
+    causal = True
+    x, dy, valid, params = _layer_inputs(seed)
+    jv = jnp.asarray(valid)
+
+    def jfn(p, x):
+        return jax_layers.transformer_apply([p, p], x, None, H, act="gelu",
+                                            compute_dtype=jnp.bfloat16,
+                                            mask_spec=(jv, causal), fused="layer")
+
+    ref = _jax_grads(jfn, params, jnp.asarray(x), jnp.asarray(dy))
+
+    def port(fused):
+        return _torch_grads(lambda p, x: layers.transformer_apply(
+            [p, p], x, None, H, act="gelu", compute_dtype=torch.bfloat16,
+            mask_spec=(torch.as_tensor(valid), causal), fused=fused), params, x, dy)
+
+    got = port("layer")
+    _all_close(got, ref, BF16_XLA_TOL, floor=BF16_XLA_FLOOR)
+    attention = port(True)
+    assert np.array_equal(got[0], attention[0]) and np.array_equal(got[2], attention[2])
+    assert all(np.array_equal(got[1][k], attention[1][k]) for k in got[1])
 
 
 # ------------------------------------------- (b'): the attention-only kernel
