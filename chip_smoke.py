@@ -835,6 +835,17 @@ def trm_cases():
         cases.append(("ragged B=1001, I=384", dict(SASREC, B=1001, I=384), False, "gelu", bf16,
                       0.5, True))
         cases.append(("last train batch", dict(SASREC, B=1097), True, "gelu", bf16, 0.5, False))
+        # the bf16 instance's tile edges (16-row tiles, 8-column strips,
+        # 16-deep k-steps, FFN chunks): one position, 7, 16, 57; D 16, 32,
+        # 64 with 1, 2 and 4 heads (a head 4 wide); inner 32 and 260 (a
+        # chunk's ragged end); a sequence with no valid key where not causal
+        for label, shape, causal, rate in (
+                ("L=1 D=16 H=4", dict(B=1, L=1, D=16, H=4, I=32), True, 0.0),
+                ("L=7 D=16 H=1", dict(B=3, L=7, D=16, H=1, I=32), False, 0.5),
+                ("L=16 D=32 H=2 I=260", dict(B=3, L=16, D=32, H=2, I=260), True, 0.5),
+                ("L=57 D=64 H=4", dict(B=5, L=57, D=64, H=4, I=256), False, 0.5),
+                ("L=50 D=32 H=4 I=32", dict(B=3, L=50, D=32, H=4, I=32), True, 0.0)):
+            cases.append((label, shape, causal, "gelu", bf16, rate, not causal))
     cases = [(*c, True) for c in cases]
     for bf16 in (True, False):
         cases.append(("eval batch", dict(SASREC, B=4096), True, "gelu", bf16, 0.0, False, False))
@@ -977,7 +988,8 @@ def check_gru(torch):
     bit; then a two-layer GRU4Rec stack at full width through
     layers.gru_apply against the plain version, forward and gradients; then
     through fused_gru and autograd at H 132, 256 and the cluster limit (the
-    bf16 instance's cluster kernels), the limit + 4 and H 10 (padded)."""
+    bf16 instance's cluster kernels), the limit + 4, H 10 (padded) and H
+    7,268 (the global route with its rows in device memory)."""
     from recbole_tpu_torch.models.layers import GRU
     from recbole_tpu_torch.ops import fused_gru as fg
     L, E, H = GRU4REC["L"], GRU4REC["E"], GRU4REC["H"]
@@ -1048,13 +1060,19 @@ def check_gru(torch):
     # autograd at the step's batch: H 132, 256 and the cluster limit (the
     # bf16 instance's cluster kernels; the fp32 instance reads wh from device
     # memory), the limit + 4 (device memory in both), 704 (device memory, 8
-    # sequences a block), and H 10 (zero-padded to 12 by the dispatcher)
+    # sequences a block), and H 10 (zero-padded to 12 by the dispatcher);
+    # then, at 5 sequences of 3 steps, H 7,268, past the last width whose
+    # backward rows fit a block (one sequence a block, its rows in device
+    # memory)
     lib = fg._lib()
     limit = lib.fused_gru_max_cluster_hidden()
-    for H2 in (132, 256, limit, limit + 4, 704, 10):
+    widths = [(H2, GRU4REC["B"], L) for H2 in (132, 256, limit, limit + 4, 704, 10)]
+    widths.append((lib.fused_gru_max_hidden() + 4, 5, 3))
+    for H2, B2, L2 in widths:
         Hp = fg.padded_hidden(H2)
         for bf16 in (True, False):
-            route = ("shared memory", "cluster", "device memory")[lib.fused_gru_route(Hp, bf16)]
+            route = ("shared memory", "cluster", "device memory",
+                     "device memory, rows in device memory")[lib.fused_gru_route(Hp, bf16)]
             plan = ""
             if route == "cluster":
                 plan = "; plan forward {}, backward {}".format(
@@ -1063,8 +1081,7 @@ def check_gru(torch):
             log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} H={H2}: runs at H={Hp}, wh in "
                 f"{route}, {lib.fused_gru_smem_bytes(Hp, 1, bf16)} bytes of shared memory a "
                 f"block at most (backward){plan}")
-            xi, hinit, wh, bh, dout = gru_inputs(torch, GRU4REC["B"], L, H2, 260 + H2 + bf16,
-                                                 bf16, True)
+            xi, hinit, wh, bh, dout = gru_inputs(torch, B2, L2, H2, 260 + H2 + bf16, bf16, True)
 
             def run(fn):
                 args = [t.clone().requires_grad_(True) for t in (xi, hinit, wh, bh)]
@@ -1089,7 +1106,7 @@ def check_gru(torch):
             errs = {k: rel_err(a, b) for k, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"),
                                                         got, ref)}
             tol = GRU_TOL[bf16]
-            log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} B={GRU4REC['B']} L={L} H={H2}: "
+            log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} B={B2} L={L2} H={H2}: "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                 + f" (tolerance {tol}); two runs bit-identical: {same}")
             if not all(bool(torch.isfinite(t.float()).all()) for t in got) \
@@ -2332,9 +2349,11 @@ def trm_work(B, L, D, H, I, causal, backward):
 
 def time_trm_layer(torch):
     """Both kernels, both instances, at SASRec's train shape with dropout
-    0.5, beside the plain version, the bound and the library's layer
-    (nn.TransformerEncoderLayer without dropout: forward, and forward +
-    backward beside the backward kernel, which recomputes the forward)."""
+    0.5 (CUDA events, and in a CUDA graph), beside the plain version, the
+    bound and the library's layer (nn.TransformerEncoderLayer without
+    dropout: forward, and forward + backward beside the backward kernel,
+    which recomputes the forward), in fp32 (library_ms) and under bf16
+    autocast (library_bf16_ms)."""
     from recbole_tpu_torch.ops import trm_layer as tl
     B, L, D, H, I = (SASREC[k] for k in "BLDHI")
     x, params, valid, dy = trm_inputs(torch, B, L, D, H, I, seed=21)
@@ -2346,17 +2365,22 @@ def time_trm_layer(torch):
     pad = valid == 0
     xg = x.clone().requires_grad_(True)
 
-    def lib_fwd():
-        with torch.no_grad():
+    def lib_fwd(dtype=None):
+        with torch.no_grad(), torch.autocast("cuda", dtype=dtype, enabled=dtype is not None):
             return lib(x, src_mask=causal, src_key_padding_mask=pad)
 
-    def lib_fwd_bwd():
+    def lib_fwd_bwd(dtype=None):
         for p in lib.parameters():
             p.grad = None
         xg.grad = None
-        lib(xg, src_mask=causal, src_key_padding_mask=pad).backward(dy)
+        with torch.autocast("cuda", dtype=dtype, enabled=dtype is not None):
+            y = lib(xg, src_mask=causal, src_key_padding_mask=pad)
+        y.float().backward(dy)
 
     library = {"fwd": cuda_ms(torch, lib_fwd, 10), "bwd": cuda_ms(torch, lib_fwd_bwd, 10)}
+    bf16 = torch.bfloat16
+    library_bf16 = {"fwd": cuda_ms(torch, lambda: lib_fwd(bf16), 10),
+                    "bwd": cuda_ms(torch, lambda: lib_fwd_bwd(bf16), 10)}
     out = {}
     for bf16, name in ((True, "trm_layer"), (False, "fused_transformer_layer")):
         kw = dict(n_heads=H, causal=True, act="gelu", dropout=0.5, attn_dropout=0.5, bf16=bf16)
@@ -2369,7 +2393,8 @@ def time_trm_layer(torch):
                     lambda: tl.trm_layer_torch_bwd(x, params, valid, masks, dy, *cfg))}
         for way, (kernel, plain) in calls.items():
             t = {"ms": cuda_ms(torch, kernel, 20), "plain_ms": cuda_ms(torch, plain, 10),
-                 "library_ms": library[way]}
+                 "library_ms": library[way], "library_bf16_ms": library_bf16[way],
+                 "graph_ms": graph_ms(torch, kernel, calls=10, replays=10)}
             flops, nbytes = trm_work(B, L, D, H, I, True, way == "bwd")
             t["bound_ms"], t["bound_by"] = bound(
                 flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)

@@ -403,16 +403,18 @@ __device__ __forceinline__ void recurrent_product_global(const float* hs,
   }
 }
 
-// the forward with wh in device memory: a block owns R sequences; shared
-// memory holds two buffers of the block's rounded h rows and the fp32 carry,
-// [3][R][H]
+// the forward with wh in device memory: a block owns R sequences; its rows,
+// two buffers of the block's rounded h rows and the fp32 carry, [3][R][H],
+// lie in shared memory, or in device memory at rows_gm (3 R H floats a
+// block) when they do not fit
 template <bool BF, typename XT, int R>
 __global__ void __launch_bounds__(kThreads)
 fused_gru_fwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__ h0,
                             const float* __restrict__ wr, const float* __restrict__ bh, int B,
-                            int L, int H, XT* __restrict__ out) {
+                            int L, int H, float* __restrict__ rows_gm, XT* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  float* hbuf = reinterpret_cast<float*>(smem4);  // [2][R][H]
+  float* hbuf = rows_gm ? rows_gm + (size_t)blockIdx.x * 3 * R * H
+                        : reinterpret_cast<float*>(smem4);  // [2][R][H]
   float* hc = hbuf + 2 * R * H;                   // [R][H]
   const int b0 = blockIdx.x * R;
   const size_t C = 3 * (size_t)H;
@@ -452,20 +454,23 @@ fused_gru_fwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__
   }
 }
 
-// the backward with wh in device memory, R sequences a block: shared memory
-// holds the h_{t-1} rows, this step's dhh rows, the fp32 dh carry and the
-// block's dbh sums, [R][H] + [R][3H] + [R][H] + [3H]
+// the backward with wh in device memory, R sequences a block: its rows, the
+// h_{t-1} rows, this step's dhh rows, the fp32 dh carry and the block's dbh
+// sums, [R][H] + [R][3H] + [R][H] + [3H], lie in shared memory, or in device
+// memory at rows_gm ((5 R + 3) H floats a block) when they do not fit
 template <bool BF, typename XT, int R>
 __global__ void __launch_bounds__(kThreads)
 fused_gru_bwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__ h0,
                             const float* __restrict__ wr, const float* __restrict__ wt,
                             const float* __restrict__ bh, const XT* __restrict__ out,
                             const XT* __restrict__ dout, int B, int L, int H,
-                            XT* __restrict__ dxi, float* __restrict__ dh0,
-                            float* __restrict__ dhh, float* __restrict__ dbh_part) {
+                            float* __restrict__ rows_gm, XT* __restrict__ dxi,
+                            float* __restrict__ dh0, float* __restrict__ dhh,
+                            float* __restrict__ dbh_part) {
   extern __shared__ float4 smem4[];
   const int C = 3 * H;
-  float* hs = reinterpret_cast<float*>(smem4);  // [R][H]: h_{t-1} as the product reads it
+  float* hs = rows_gm ? rows_gm + (size_t)blockIdx.x * (5 * R + 3) * H
+                      : reinterpret_cast<float*>(smem4);  // [R][H]: h_{t-1} as the product reads it
   float* ds = hs + R * H;                       // [R][3H]: this step's dhh rows
   float* dhc = ds + R * C;                      // [R][H]: dh, fp32
   float* dbs = dhc + R * H;                     // [3H]: the block's dbh
@@ -620,9 +625,9 @@ gru_dwh_kernel(const XT* __restrict__ out, const float* __restrict__ h0,
 }
 
 // out[p] = sum of the n partials, in their order
-__global__ void reduce_partials_kernel(const float* __restrict__ partials, int n, int P,
+__global__ void reduce_partials_kernel(const float* __restrict__ partials, int n, long long P,
                                        float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (p >= P) return;
   float s = 0.0f;
   for (int b = 0; b < n; ++b) s += partials[(size_t)b * P + p];
@@ -1431,8 +1436,9 @@ inline size_t smem_floats_global(int H, bool backward, int R) {
 
 // The global route's sequences a block, a template parameter of its kernels:
 // the largest of 16, 8, 4, 2, 1 whose shared memory fits a block at H (0:
-// none fits). The backward's (5 R + 3) H floats bound it: R 16 up to H 700,
-// R 8 up to 1,348, R 1 up to 7,264.
+// none fits, and a block owns one sequence whose rows lie in device memory).
+// The backward's (5 R + 3) H floats bound it: R 16 up to H 700, R 8 up to
+// 1,348, R 1 up to 7,264; the forward's 3 R H floats up to 19,368.
 constexpr int kGlobalRows[5] = {16, 8, 4, 2, 1};
 
 inline int global_rows(int H, bool backward) {
@@ -1441,8 +1447,8 @@ inline int global_rows(int H, bool backward) {
   return 0;
 }
 
-// the largest H whose backward fits a block's shared memory at one sequence
-// a block (a multiple of 4)
+// the largest H whose backward rows fit a block's shared memory at one
+// sequence a block (a multiple of 4); above it they lie in device memory
 inline int max_hidden() {
   return (int)(kSmemOptin / (sizeof(float) * (5 + 3))) / 4 * 4;
 }
@@ -1475,11 +1481,21 @@ inline Route route_of(int H, bool bf16) {
   return bf16 && H <= cluster_max_hidden() ? kRouteCluster : kRouteGlobal;
 }
 
+// floats of the device-memory rows a call needs: B blocks of 3 H (forward)
+// or 8 H (backward) when the global route's rows do not fit a block, else 0
+inline long long rows_floats(int B, int H, bool backward, bool bf16) {
+  if (route_of(H, bf16) != kRouteGlobal || global_rows(H, backward)) return 0;
+  return (long long)B * (backward ? 8 : 3) * H;
+}
+
 // the most bytes a block of the route takes (the cluster route: its most rows)
 inline size_t smem_bytes(int H, bool backward, bool bf16) {
   switch (route_of(H, bf16)) {
     case kRouteShared: return sizeof(float) * smem_floats(H, backward);
-    case kRouteGlobal: return sizeof(float) * smem_floats_global(H, backward, global_rows(H, backward));
+    case kRouteGlobal: {  // 0 when the rows lie in device memory
+      const int R = global_rows(H, backward);
+      return R ? sizeof(float) * smem_floats_global(H, backward, R) : 0;
+    }
     default: break;
   }
   const int cs = cluster_size(H);
@@ -1489,9 +1505,7 @@ inline size_t smem_bytes(int H, bool backward, bool bf16) {
   return most;
 }
 
-int valid_shape(int B, int L, int H) {
-  return B >= 1 && L >= 1 && H >= 4 && H % 4 == 0 && H <= max_hidden();
-}
+int valid_shape(int B, int L, int H) { return B >= 1 && L >= 1 && H >= 4 && H % 4 == 0; }
 
 template <typename K>
 int allow_smem(K kernel, size_t bytes) {
@@ -1507,27 +1521,28 @@ int allow_smem(K kernel, size_t bytes) {
 int blocks_of(int B) { return (B + kRows - 1) / kRows; }
 int global_blocks(int B, int R) { return (B + R - 1) / R; }
 
-// one global-route kernel at R sequences a block
+// one global-route kernel at R sequences a block; rows_gm (R = 1 only): the
+// block's rows in device memory, no shared memory
 template <bool BF, typename XT, int R>
 int fwd_global(const XT* xi, const float* h0, const float* wr, const float* bh, int B, int L,
-               int H, XT* out, cudaStream_t s) {
-  const size_t smem = sizeof(float) * smem_floats_global(H, false, R);
+               int H, float* rows_gm, XT* out, cudaStream_t s) {
+  const size_t smem = rows_gm ? 0 : sizeof(float) * smem_floats_global(H, false, R);
   const int err = allow_smem(fused_gru_fwd_global_kernel<BF, XT, R>, smem);
   if (err) return err;
   fused_gru_fwd_global_kernel<BF, XT, R><<<global_blocks(B, R), kThreads, smem, s>>>(
-      xi, h0, wr, bh, B, L, H, out);
+      xi, h0, wr, bh, B, L, H, rows_gm, out);
   return (int)cudaGetLastError();
 }
 
 template <bool BF, typename XT, int R>
 int bwd_global(const XT* xi, const float* h0, const float* wr, const float* wt, const float* bh,
-               const XT* out, const XT* dout, int B, int L, int H, XT* dxi, float* dh0,
-               float* dhh, float* dbh_part, cudaStream_t s) {
-  const size_t smem = sizeof(float) * smem_floats_global(H, true, R);
+               const XT* out, const XT* dout, int B, int L, int H, float* rows_gm, XT* dxi,
+               float* dh0, float* dhh, float* dbh_part, cudaStream_t s) {
+  const size_t smem = rows_gm ? 0 : sizeof(float) * smem_floats_global(H, true, R);
   const int err = allow_smem(fused_gru_bwd_global_kernel<BF, XT, R>, smem);
   if (err) return err;
   fused_gru_bwd_global_kernel<BF, XT, R><<<global_blocks(B, R), kThreads, smem, s>>>(
-      xi, h0, wr, wt, bh, out, dout, B, L, H, dxi, dh0, dhh, dbh_part);
+      xi, h0, wr, wt, bh, out, dout, B, L, H, rows_gm, dxi, dh0, dhh, dbh_part);
   return (int)cudaGetLastError();
 }
 
@@ -1704,7 +1719,7 @@ int launch_cluster(K kernel, const ClusterPlan& p, cudaStream_t s, Args... args)
 
 template <bool BF, typename XT>
 int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh, int B, int L,
-               int H, float* scratch, void* out, cudaStream_t s) {
+               int H, float* scratch, float* rows, void* out, cudaStream_t s) {
   const Route route = route_of(H, BF);
   const size_t smem = smem_bytes(H, false, BF);
   if (route == kRouteCluster) {
@@ -1719,11 +1734,14 @@ int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh
     const XT* x = static_cast<const XT*>(xi);
     XT* o = static_cast<XT*>(out);
     switch (global_rows(H, false)) {
-      case 16: return fwd_global<BF, XT, 16>(x, h0, scratch, bh, B, L, H, o, s);
-      case 8: return fwd_global<BF, XT, 8>(x, h0, scratch, bh, B, L, H, o, s);
-      case 4: return fwd_global<BF, XT, 4>(x, h0, scratch, bh, B, L, H, o, s);
-      case 2: return fwd_global<BF, XT, 2>(x, h0, scratch, bh, B, L, H, o, s);
-      case 1: return fwd_global<BF, XT, 1>(x, h0, scratch, bh, B, L, H, o, s);
+      case 16: return fwd_global<BF, XT, 16>(x, h0, scratch, bh, B, L, H, nullptr, o, s);
+      case 8: return fwd_global<BF, XT, 8>(x, h0, scratch, bh, B, L, H, nullptr, o, s);
+      case 4: return fwd_global<BF, XT, 4>(x, h0, scratch, bh, B, L, H, nullptr, o, s);
+      case 2: return fwd_global<BF, XT, 2>(x, h0, scratch, bh, B, L, H, nullptr, o, s);
+      case 1: return fwd_global<BF, XT, 1>(x, h0, scratch, bh, B, L, H, nullptr, o, s);
+      case 0:
+        if (!rows) return (int)cudaErrorInvalidValue;
+        return fwd_global<BF, XT, 1>(x, h0, scratch, bh, B, L, H, rows, o, s);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -1737,7 +1755,7 @@ int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh
 // the rows of the recurrent backward's dbh partials: its blocks, or its clusters
 int bwd_partials(int B, int H, bool bf16, int* err) {
   *err = 0;
-  if (route_of(H, bf16) == kRouteGlobal) return global_blocks(B, global_rows(H, true));
+  if (route_of(H, bf16) == kRouteGlobal) return global_blocks(B, std::max(global_rows(H, true), 1));
   if (route_of(H, bf16) != kRouteCluster) return blocks_of(B);
   const ClusterPlan p = cluster_plan(B, H, true);
   *err = p.err;
@@ -1765,15 +1783,16 @@ int launch_dwh(const void* out, const float* h0, const float* dhh, int B, int L,
   }
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  reduce_partials_kernel<<<(H * C + 255) / 256, 256, 0, s>>>(dwh_part, chunks, H * C, dwh);
+  const long long P = (long long)H * C;
+  reduce_partials_kernel<<<(int)((P + 255) / 256), 256, 0, s>>>(dwh_part, chunks, P, dwh);
   return (int)cudaGetLastError();
 }
 
 template <bool BF, typename XT>
 int launch_bwd(const void* xi, const float* h0, const float* wh, const float* bh,
                const void* out, const void* dout, int B, int L, int H, float* scratch,
-               void* dxi, float* dh0, float* dhh, float* dbh_part, float* dwh_part, float* dwh,
-               float* dbh, cudaStream_t s) {
+               float* rows, void* dxi, float* dh0, float* dhh, float* dbh_part,
+               float* dwh_part, float* dwh, float* dbh, cudaStream_t s) {
   const Route route = route_of(H, BF);
   const size_t smem = smem_bytes(H, true, BF);
   int parts = blocks_of(B);
@@ -1790,19 +1809,21 @@ int launch_bwd(const void* xi, const float* h0, const float* wh, const float* bh
     err = prep_wh<BF>(wh, H, scratch, s);
     if (err) return err;
     const int R = global_rows(H, true);
-    parts = global_blocks(B, R);
+    if (!R && !rows) return (int)cudaErrorInvalidValue;
+    parts = global_blocks(B, R ? R : 1);
     const XT *x = static_cast<const XT*>(xi), *o = static_cast<const XT*>(out),
              *d = static_cast<const XT*>(dout);
     const float* wt = scratch + (size_t)H * 3 * H;
     XT* dx = static_cast<XT*>(dxi);
     switch (R) {
-#define GRU_BWD_GLOBAL(RR) \
-  bwd_global<BF, XT, RR>(x, h0, scratch, wt, bh, o, d, B, L, H, dx, dh0, dhh, dbh_part, s)
-      case 16: err = GRU_BWD_GLOBAL(16); break;
-      case 8: err = GRU_BWD_GLOBAL(8); break;
-      case 4: err = GRU_BWD_GLOBAL(4); break;
-      case 2: err = GRU_BWD_GLOBAL(2); break;
-      case 1: err = GRU_BWD_GLOBAL(1); break;
+#define GRU_BWD_GLOBAL(RR, GM) \
+  bwd_global<BF, XT, RR>(x, h0, scratch, wt, bh, o, d, B, L, H, GM, dx, dh0, dhh, dbh_part, s)
+      case 16: err = GRU_BWD_GLOBAL(16, nullptr); break;
+      case 8: err = GRU_BWD_GLOBAL(8, nullptr); break;
+      case 4: err = GRU_BWD_GLOBAL(4, nullptr); break;
+      case 2: err = GRU_BWD_GLOBAL(2, nullptr); break;
+      case 1: err = GRU_BWD_GLOBAL(1, nullptr); break;
+      case 0: err = GRU_BWD_GLOBAL(1, rows); break;
 #undef GRU_BWD_GLOBAL
       default: err = (int)cudaErrorInvalidValue;
     }
@@ -1823,16 +1844,28 @@ int launch_bwd(const void* xi, const float* h0, const float* wh, const float* bh
 
 }  // namespace
 
-// The largest hidden size the kernels take (a multiple of 4), the largest
-// that keeps wh in one block's shared memory, and the largest that the bf16
-// instance splits over a cluster; above it the global-memory instance runs.
+// The largest hidden size whose backward rows fit one block's shared memory
+// (a multiple of 4; above it the global route keeps them in device memory,
+// and only device memory bounds H), the largest that keeps wh in one block's
+// shared memory, and the largest that the bf16 instance splits over a
+// cluster; above it the global-memory instance runs.
 extern "C" int fused_gru_max_hidden() { return max_hidden(); }
 extern "C" int fused_gru_max_shared_hidden() { return kMaxH; }
 extern "C" int fused_gru_max_cluster_hidden() { return cluster_max_hidden(); }
 
 // The route a call of hidden size H takes: 0 shared memory, 1 cluster, 2
-// device memory.
-extern "C" int fused_gru_route(int H, int bf16) { return (int)route_of(H, bf16 != 0); }
+// wh in device memory, 3 wh and the backward's rows in device memory.
+extern "C" int fused_gru_route(int H, int bf16) {
+  const Route r = route_of(H, bf16 != 0);
+  return r == kRouteGlobal && !global_rows(H, true) ? 3 : (int)r;
+}
+
+// Floats of device-memory rows scratch a call of B sequences needs: B x 3 H
+// (forward) or B x 8 H (backward) when the global route's rows do not fit a
+// block's shared memory, else 0.
+extern "C" long long fused_gru_rows_floats(int B, int H, int backward, int bf16) {
+  return valid_shape(B, 1, H) ? rows_floats(B, H, backward != 0, bf16 != 0) : 0;
+}
 
 // Shared-memory bytes a block needs for hidden size H, forward or backward,
 // on the route that H and the instance select (the cluster route: at its most
@@ -1892,14 +1925,15 @@ extern "C" int fused_gru_cluster_floor(int B, int L, int H, int product, float* 
 
 // xi (B, L, 3H), out (B, L, H): bf16 when bf16 = 1, else f32; h0 (B, H), wh
 // (H, 3H), bh (3H,) f32, all contiguous; scratch fused_gru_scratch_floats(H,
-// bf16) f32 (null when that is 0). Returns the CUDA error code.
+// bf16) f32 and rows fused_gru_rows_floats(B, H, 0, bf16) f32 (each null
+// when its size is 0). Returns the CUDA error code.
 extern "C" int fused_gru_fwd(const void* xi, const float* h0, const float* wh, const float* bh,
-                             int B, int L, int H, int bf16, float* scratch, void* out,
-                             void* stream) {
+                             int B, int L, int H, int bf16, float* scratch, float* rows,
+                             void* out, void* stream) {
   if (!valid_shape(B, L, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd<true, __nv_bfloat16>(xi, h0, wh, bh, B, L, H, scratch, out, s)
-              : launch_fwd<false, float>(xi, h0, wh, bh, B, L, H, scratch, out, s);
+  return bf16 ? launch_fwd<true, __nv_bfloat16>(xi, h0, wh, bh, B, L, H, scratch, rows, out, s)
+              : launch_fwd<false, float>(xi, h0, wh, bh, B, L, H, scratch, rows, out, s);
 }
 
 // The backward's last product alone: dwh (H, 3H) f32 from out (B, L, H; bf16
@@ -1914,18 +1948,20 @@ extern "C" int fused_gru_dwh(const void* out, const float* h0, const float* dhh,
 }
 
 // As fused_gru_fwd, with out and dout (B, L, H) in, and out: dxi (B, L, 3H)
-// in xi's type, dh0 (B, H), dwh (H, 3H), dbh (3H,) f32; scratch as above and
-// dhh (B, L, 3H), dbh_part (fused_gru_bwd_blocks, 3H) and dwh_part
-// (fused_gru_dwh_chunks, H * 3H) f32.
+// in xi's type, dh0 (B, H), dwh (H, 3H), dbh (3H,) f32; scratch as above,
+// rows fused_gru_rows_floats(B, H, 1, bf16) f32 (null when 0), and dhh (B, L,
+// 3H), dbh_part (fused_gru_bwd_blocks, 3H) and dwh_part (fused_gru_dwh_chunks,
+// H * 3H) f32.
 extern "C" int fused_gru_bwd(const void* xi, const float* h0, const float* wh, const float* bh,
                              const void* out, const void* dout, int B, int L, int H, int bf16,
-                             float* scratch, void* dxi, float* dh0, float* dhh,
+                             float* scratch, float* rows, void* dxi, float* dh0, float* dhh,
                              float* dbh_part, float* dwh_part, float* dwh, float* dbh,
                              void* stream) {
   if (!valid_shape(B, L, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_bwd<true, __nv_bfloat16>(xi, h0, wh, bh, out, dout, B, L, H, scratch,
-                                                dxi, dh0, dhh, dbh_part, dwh_part, dwh, dbh, s)
-              : launch_bwd<false, float>(xi, h0, wh, bh, out, dout, B, L, H, scratch, dxi,
-                                         dh0, dhh, dbh_part, dwh_part, dwh, dbh, s);
+                                                rows, dxi, dh0, dhh, dbh_part, dwh_part, dwh,
+                                                dbh, s)
+              : launch_bwd<false, float>(xi, h0, wh, bh, out, dout, B, L, H, scratch, rows,
+                                         dxi, dh0, dhh, dbh_part, dwh_part, dwh, dbh, s);
 }

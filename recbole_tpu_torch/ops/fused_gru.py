@@ -36,10 +36,8 @@ kernels in ``csrc/fused_gru.cu`` (``fused_gru_fwd_cuda``,
 ``fused_gru_bwd_cuda``, each with a launch count) and their autograd
 Function ``FusedGru``; and the dispatcher ``fused_gru``: the plain version
 for CPU tensors, the kernels for CUDA tensors, nothing falling back. It
-takes any B and any hidden size up to the built library's limit
-(``fused_gru_max_hidden``, 7,264: the backward's rows of h, dh and dhh for
-one sequence in one block's shared memory), else it raises. The kernels take H a multiple
-of 4; the dispatcher zero-pads any other H up to one (``pad_hidden``),
+takes any B and any hidden size that device memory holds. The kernels take
+H a multiple of 4; the dispatcher zero-pads any other H up to one (``pad_hidden``),
 which is exact: a padded unit sees zero xi, bh, wh and h0, so r = z = 1/2,
 n = tanh(0) = 0 and its h stays exactly 0 at every step, and the zero rows
 of wh that it would feed the real units add exact zeros. The library
@@ -50,8 +48,12 @@ memory up to ``fused_gru_max_cluster_hidden`` (384), with the recurrent
 products on the tensor cores; the fp32 instance above 128, and the bf16
 one above the cluster limit, read wh from device memory (L2), each block
 owning 16, 8, 4, 2 or 1 sequences (the most whose rows fit its shared
-memory: 16 up to H 700, 1 above 4,468). The bf16 instance's dwh is a
-tensor-core product at every H.
+memory: 16 up to H 700, 1 above 4,468); above ``fused_gru_max_hidden``
+(7,264), where not even one sequence's backward rows of h, dh and dhh fit a
+block, a block owns one sequence and keeps its rows in a device-memory
+scratch that the launcher allocates (``fused_gru_rows_floats``; the forward's
+rows go there too above 19,368; route 3 of ``fused_gru_route``). The bf16
+instance's dwh is a tensor-core product at every H.
 """
 
 import ctypes
@@ -155,8 +157,11 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("fused_gru")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_gru_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
-        lib.fused_gru_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+        lib.fused_gru_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p]
+        lib.fused_gru_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p,
+                                      p]
+        lib.fused_gru_rows_floats.argtypes = [i, i, i, i]
+        lib.fused_gru_rows_floats.restype = ctypes.c_longlong
         lib.fused_gru_bwd_blocks.argtypes = [i, i, i, i]
         lib.fused_gru_dwh_chunks.argtypes = [i, i, i, i]
         lib.fused_gru_smem_bytes.argtypes = [i, i, i]
@@ -199,11 +204,9 @@ def _check(name, xi, h0, wh, bh, bf16, backward):
             raise ValueError(f"{name}: {what} must be a contiguous float32 {shape} on "
                              f"{xi.device}, got {t.dtype} {tuple(t.shape)}")
     lib = _lib()
-    most = lib.fused_gru_max_hidden()
-    if H % 4 or H > most:
+    if H % 4:
         raise ValueError(f"{name}: hidden size {H} must be a multiple of 4 (the dispatcher "
-                         f"fused_gru pads any other) and at most {most} (the backward keeps a "
-                         "sequence's rows of h, dh and dhh in one block's shared memory)")
+                         "fused_gru pads any other)")
     need = lib.fused_gru_smem_bytes(H, int(backward), int(bf16))
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: hidden size {H} needs {need} bytes of shared memory a "
@@ -219,6 +222,13 @@ def _scratch(H, bf16, device):
     """Room for the global-memory route's rounded wh and its transpose;
     None on the other routes."""
     n = _lib().fused_gru_scratch_floats(H, int(bf16))
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+
+
+def _rows(B, H, bf16, backward, device):
+    """Room for the blocks' rows when they do not fit shared memory (route
+    3, above ``fused_gru_max_hidden``); None otherwise."""
+    n = _lib().fused_gru_rows_floats(B, H, int(backward), int(bf16))
     return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
@@ -269,8 +279,10 @@ def fused_gru_fwd_cuda(xi, h0, wh, bh):
     B, L, H = _check("fused_gru_fwd_cuda", xi, h0, wh, bh, bf16, False)
     out = torch.empty((B, L, H), dtype=xi.dtype, device=xi.device)
     scratch = _scratch(H, bf16, xi.device)
+    rows = _rows(B, H, bf16, False, xi.device)
     err = _lib().fused_gru_fwd(xi.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-                               B, L, H, int(bf16), _ptr(scratch), out.data_ptr(), _stream(xi))
+                               B, L, H, int(bf16), _ptr(scratch), _ptr(rows), out.data_ptr(),
+                               _stream(xi))
     if err:
         raise RuntimeError(f"fused_gru_fwd kernel launch failed: CUDA error {err}")
     fused_gru_fwd_cuda.launches += 1
@@ -312,10 +324,12 @@ def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
     dwh = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
     dbh = torch.empty((3 * H,), dtype=torch.float32, device=dev)
     scratch = _scratch(H, bf16, dev)
+    rows = _rows(B, H, bf16, True, dev)
     err = lib.fused_gru_bwd(xi.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
                             out.data_ptr(), dout.data_ptr(), B, L, H, int(bf16),
-                            _ptr(scratch), dxi.data_ptr(), dh0.data_ptr(), dhh.data_ptr(),
-                            dbh_part.data_ptr(), dwh_part.data_ptr(), dwh.data_ptr(), dbh.data_ptr(), _stream(xi))
+                            _ptr(scratch), _ptr(rows), dxi.data_ptr(), dh0.data_ptr(),
+                            dhh.data_ptr(), dbh_part.data_ptr(), dwh_part.data_ptr(),
+                            dwh.data_ptr(), dbh.data_ptr(), _stream(xi))
     if err:
         raise RuntimeError(f"fused_gru_bwd kernel launch failed: CUDA error {err}")
     fused_gru_bwd_cuda.launches += 1

@@ -26,27 +26,31 @@ Three things live here:
 * the dispatcher ``trm_layer``: the plain version for a CPU tensor, the
   kernels for a CUDA tensor, and no fallback between them.
 
-On the H100 both kernels are bound by operations, not bytes: at SASRec's
-ml-1m shape (B 2048, L 50, D 64, H 2, I 256) the forward is 11.4 GFLOP
-over 52 MB and the backward about 34 GFLOP over 79 MB. The kernels keep a
-whole sequence in shared memory, so device memory sees x, y, dy, dx and
-the weights only; parameter gradients are summed per block into private
-partials and then across blocks in block order, so two runs give the same
-bits. Dropout bits come from Philox keyed by (seed, layer, sequence, site,
-element): the seed is one int64 drawn on the device from the caller's
-generator, so nothing waits on the host.
+The kernels keep a whole sequence in shared memory, so device memory sees
+x, y, dy, dx and the weights only; parameter gradients are summed per block
+into private partials and then across blocks in block order, so two runs
+give the same bits. Dropout bits come from Philox keyed by (seed, layer,
+sequence, site, element): the seed is one int64 drawn on the device from the
+caller's generator, so nothing waits on the host. The two instances compute
+differently (the head of csrc/trm_layer.cu has the design): the fp32 one
+with register-tiled FMA loops, the bf16 one with every product on the
+tensor cores (``mma.sync`` on bf16 operands, fp32 sums), its weights packed
+once a call in the order of the products' fragments.
 
 Limits (checked here, a clear error beyond them): D, D / n_heads and the
-inner size multiples of 4, and a working set (``trm_layer_smem_bytes`` of
-the built library: ``smem_floats`` in csrc/trm_layer.cu) within the 227 KB of
+inner size multiples of 4, and a working set (``trm_layer_smem_bytes`` and
+``trm_layer_smem_bytes_bf16`` of the built library) within the 227 KB of
 shared memory a block may use (L 50, D 64, I 256 takes 198,200 bytes in the
-backward). ``smem_floats`` below is a copy of that formula, so that a
-caller can choose the path from the shape before any launch
-(``layer_route``): at L >= 58 with D 64 and I 256, or at D 128 with L 50,
-the whole layer does not fit a block, and ``models/layers.transformer_apply``
-builds the layer as ``fused_attention: True`` does (plain projections and
-FFN around the key-tiled attention kernel), as the JAX package takes XLA
-where its kernel's support check fails.
+fp32 backward, 105,312 in the bf16 one). ``smem_floats`` and
+``smem_bytes_bf16`` below are copies of those formulas. The route is
+chosen from the fp32 one, whatever the instance (the bf16 working set is
+the smaller at every shape it admits), so that a caller can choose the path
+from the shape before any launch (``layer_route``): at L >= 58 with D 64 and
+I 256, or at D 128 with L 50, the whole layer does not fit a block, and
+``models/layers.transformer_apply`` builds the layer as
+``fused_attention: True`` does (plain projections and FFN around the
+attention kernel), as the JAX package takes XLA where its kernel's support
+check fails.
 """
 
 import ctypes
@@ -64,8 +68,11 @@ NEG = -1e9
 MAX_SMEM_BYTES = 232448  # opt-in shared memory of a Hopper block
 
 
-# csrc/trm_layer.cu's FFN chunk and row padding (kChunk, kPad)
-_CHUNK, _PAD = 128, 4
+# csrc/trm_layer.cu's FFN chunk and row padding (kChunk, kPad), the bf16
+# backward's FFN chunk (kChunkBwd) and the bf16 instance's most positions
+# (kMaxRowBf16)
+_CHUNK, _PAD, _CHUNK_BWD = 128, 4, 64
+MAX_LEN_BF16 = 256
 
 
 def smem_floats(L, D, I, backward):
@@ -78,6 +85,39 @@ def smem_floats(L, D, I, backward):
     if backward:
         return 9 * ld + 2 * lc + 2 * ls + 3 * L
     return 7 * ld + lc + ls + 3 * L
+
+
+def _al16(v):
+    return (v + 15) // 16 * 16
+
+
+def smem_bytes_bf16(L, D, I, backward):
+    """Shared-memory bytes of one block of the bf16 instance: a copy of
+    ``tc_layout`` in csrc/trm_layer.cu (a ``cuda`` test holds it against the
+    built library's ``trm_layer_smem_bytes_bf16``). Persistent bf16 copies
+    of x, q | k | v, ctx and a1, the backward's fp32 residual cotangent,
+    five (L,) vectors and the key validity; then the larger of two areas
+    that share their room: the FFN's (fp32 xhat1, a chunk of act(f1) and its
+    fp32 sum, in the backward df2 and df1; chunks of 128 forward, 64
+    backward) and the attention's (one
+    head's fp32 scores and probabilities, in the backward after dO and
+    dq | dk | dv)."""
+    IC = min(I, _CHUNK_BWD if backward else _CHUNK)
+
+    def sb(n):                 # a bf16 row: n rounded up to 16, plus 8
+        return (n + 15) // 16 * 16 + 8
+
+    LS = (L + 3) // 4 * 4      # a score row: 4 mod 8 floats, at least 12
+    LS = max(LS + 4 if LS % 8 == 0 else LS, 12)
+    bD, bQ, bI = (_al16(L * sb(n) * 2) for n in (D, 3 * D, IC))
+    fD, fS, vec = L * (D + 4) * 4, L * LS * 4, _al16(L * 4)
+    persistent = 3 * bD + bQ + 3 * vec + (fD + 3 * vec if backward else 0)
+    if backward:
+        ffn = fD + 2 * bI + fD + bD
+        attn = bD + bQ + max(2 * fS, fD + bD)
+    else:
+        ffn, attn = fD + bI + fD, 2 * fS
+    return persistent + max(attn, ffn) + 64
 
 
 def layer_route(L, D, I):
@@ -318,8 +358,10 @@ def _lib():
         lib.trm_layer_bwd.argtypes = [p, p, p, p, *shape, p, p, p, p, p, p]
         lib.trm_dropout_masks.argtypes = [p, i, i, i, i, f, f, i, p, p, p]
         lib.trm_layer_blocks.argtypes = [i] * 7
-        lib.trm_layer_smem_bytes.argtypes = [i] * 4
-        lib.trm_layer_smem_bytes.restype = ctypes.c_longlong
+        for fn in (lib.trm_layer_smem_bytes, lib.trm_layer_smem_bytes_bf16,
+                   lib.trm_layer_scratch_floats):
+            fn.argtypes = [i] * 4
+            fn.restype = ctypes.c_longlong
         for fn in (lib.trm_layer_fwd, lib.trm_layer_bwd, lib.trm_dropout_masks,
                    lib.trm_layer_blocks):
             fn.restype = i
@@ -327,7 +369,7 @@ def _lib():
     return _LIB
 
 
-def _check(name, x, valid, params, seed, n_heads, act, attn_rate, rate, backward):
+def _check(name, x, valid, params, seed, n_heads, act, attn_rate, rate, backward, bf16):
     """Validate one call's tensors and widths; returns (B, L, D, I)."""
     if not x.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
@@ -358,7 +400,12 @@ def _check(name, x, valid, params, seed, n_heads, act, attn_rate, rate, backward
         if seed is None or seed.dtype != torch.int64 or seed.numel() != 1 \
                 or seed.device != x.device:
             raise ValueError(f"{name} with dropout takes its seed as one int64 on x's device")
-    need = _lib().trm_layer_smem_bytes(L, D, I, int(backward))
+    if bf16 and L > MAX_LEN_BF16:
+        raise ValueError(f"{name}: the bf16 instance takes at most {MAX_LEN_BF16} positions, "
+                         f"got {L}")
+    lib = _lib()
+    need = (lib.trm_layer_smem_bytes_bf16 if bf16 else lib.trm_layer_smem_bytes)(
+        L, D, I, int(backward))
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name}: L={L}, D={D}, inner={I} needs {need} bytes of shared memory a block "
@@ -373,12 +420,11 @@ def _pointers(params):
 
 
 def _scratch(D, I, bf16, backward, device):
-    """Room for the kernels' copies of the six weight matrices: rounded to
-    bfloat16 (bf16 instance) and transposed (backward)."""
-    sets = int(bf16) + int(backward)
-    if not sets:
-        return None
-    return torch.empty(sets * (4 * D * D + 2 * D * I), dtype=torch.float32, device=device)
+    """Room for the kernels' copies of the weight matrices: the bf16
+    instance's packed bf16 fragments (W, and W^T for the backward), the fp32
+    instance's transposes (backward)."""
+    n = _lib().trm_layer_scratch_floats(D, I, int(bf16), int(backward))
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
 def _shape_args(B, L, D, I, n_heads, causal, act, eps, attn_rate, rate, layer, bf16):
@@ -398,7 +444,7 @@ def trm_layer_fwd_cuda(x, params, key_valid, seed=None, *, n_heads, causal, act=
     ``trm_layer_fwd_cuda.launches`` (``launches_fp32``: those of the fp32
     instance among them)."""
     B, L, D, I = _check("trm_layer_fwd_cuda", x, key_valid, params, seed, n_heads, act,
-                        attn_dropout, dropout, False)
+                        attn_dropout, dropout, False, bf16)
     y = torch.empty_like(x)
     wr = _scratch(D, I, bf16, False, x.device)
     err = _lib().trm_layer_fwd(
@@ -434,7 +480,7 @@ def trm_layer_bwd_cuda(x, params, key_valid, dy, seed=None, *, n_heads, causal, 
     partials: (dx (B, L, D), {name: gradient}). Counts its launches in
     ``trm_layer_bwd_cuda.launches``."""
     B, L, D, I = _check("trm_layer_bwd_cuda", x, key_valid, params, seed, n_heads, act,
-                        attn_dropout, dropout, True)
+                        attn_dropout, dropout, True, bf16)
     if tuple(dy.shape) != (B, L, D) or dy.dtype != torch.float32 or dy.device != x.device:
         raise ValueError("dy must be float32 (B, L, D) on x's device")
     dy = dy.contiguous()

@@ -844,18 +844,57 @@ def test_trm_layer_launchers_refuse_cpu_tensors_and_dispatch_stays_plain():
     assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
+def test_trm_layer_bf16_working_set_fits_wherever_the_route_takes_the_kernel():
+    """The route to the whole-layer kernel is decided from the fp32
+    instance's working set (``smem_floats``), whatever the instance; the
+    bf16 instance's (``smem_bytes_bf16``, a copy of the library's formula)
+    fits a Hopper block, forward and backward, at every shape the route sends
+    to the kernel: D from 4 to 256 and wide ones to 6,400, inner sizes below,
+    at and past one FFN chunk, every L up to the last that the route takes;
+    and those L stay within the bf16 instance's row passes."""
+    taken = 0
+    for D in list(range(4, 260, 4)) + [384, 512, 1024, 4096, 6400]:
+        for I in (4, 32, 124, 128, 256, 260):
+            for L in range(1, 400):
+                if port_trm.layer_route(L, D, I) != "layer":
+                    break
+                taken += 1
+                assert L <= port_trm.MAX_LEN_BF16, (L, D, I)
+                for backward in (False, True):
+                    need = port_trm.smem_bytes_bf16(L, D, I, backward)
+                    assert need <= port_trm.MAX_SMEM_BYTES, (L, D, I, backward, need)
+    assert taken > 10000
+    # SASRec's shape: the working sets the library reports on the card
+    assert port_trm.smem_bytes_bf16(50, 64, 256, True) == 105312
+    assert port_trm.smem_bytes_bf16(50, 64, 256, False) == 83088
+    assert port_trm.layer_route(57, 64, 256) == "layer" != port_trm.layer_route(58, 64, 256)
+
+
+# (B, L, D, H, I): SASRec's widths at a ragged B, and shapes at the tile edges
+# of the bf16 instance's products (16-row tiles, 8-column strips, 16-deep
+# k-steps, FFN chunks of 128): one position, 7, 16, 57; D 16, 32, 64 with 1, 2
+# and 4 heads (a head 4 wide); inner 32, 256 and 260 (a chunk's ragged end)
+TRM_SHAPES = {"sasrec": (257, 50, 64, 2, 256), "L1-D16-H4": (1, 1, 16, 4, 32),
+              "L7-D16-H1": (3, 7, 16, 1, 32), "L16-D32-H2-I260": (3, 16, 32, 2, 260),
+              "L57-D64-H4": (5, 57, 64, 4, 256), "L50-D32-H4-I32": (3, 50, 32, 4, 32),
+              "B1-L50-D64-H1": (1, 50, 64, 1, 256)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(TRM_SHAPES))
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("rate", [0.0, 0.5])
-def test_trm_layer_kernels_match_plain_on_card(cuda_device, bf16, causal, rate):
-    """trm_layer_fwd and trm_layer_bwd at SASRec's widths against the plain
-    version fed the masks the kernels draw: y, dx and the 16 gradients, each
-    within 2e-4 (fp32 instance) or 2e-2 (bf16 instance: one bf16 step where an
-    fp32 sum crosses a rounding boundary) of the tensor's largest value, a
-    gradient that is 0 but for rounding (bk) within that of 1% of the largest
-    gradient; one launch each; two runs bit-identical."""
-    B, L, D, H, I = 257, 50, 64, 2, 256
+def test_trm_layer_kernels_match_plain_on_card(cuda_device, shape, bf16, causal, rate):
+    """trm_layer_fwd and trm_layer_bwd against the plain version fed the masks
+    the kernels draw, at SASRec's widths and at the bf16 instance's tile
+    edges (TRM_SHAPES; the bidirectional cases with a sequence that has no
+    valid key): y, dx and the 16 gradients, each within 2e-4 (fp32 instance)
+    or 1e-2 (bf16 instance: one bf16 step where an fp32 sum crosses a
+    rounding boundary) of the tensor's largest value, a gradient that is 0
+    but for rounding (bk) within that of 1% of the largest gradient; one
+    launch each; two runs bit-identical."""
+    B, L, D, H, I = TRM_SHAPES[shape]
     x, params, valid, dy = _trm_inputs(B, L, D, I, 3, cuda_device, empty_row=not causal)
     seed = torch.tensor([99], dtype=torch.int64, device=cuda_device)
     kw = dict(n_heads=H, causal=causal, act="gelu", dropout=rate, attn_dropout=rate,
@@ -873,7 +912,7 @@ def test_trm_layer_kernels_match_plain_on_card(cuda_device, bf16, causal, rate):
     cfg = (H, causal, "gelu", 1e-12, bf16)
     ref_y = port_trm.trm_layer_torch_fwd(x, params, valid, masks, *cfg)
     ref_dx, ref_g = port_trm.trm_layer_torch_bwd(x, params, valid, masks, dy, *cfg)
-    tol = 2e-2 if bf16 else 2e-4
+    tol = 1e-2 if bf16 else 2e-4
     floor = 1e-2 * max(float(v.abs().max()) for v in ref_g.values())
     for name, a, b, least in [("y", y, ref_y, 0.0), ("dx", dx, ref_dx, 0.0)] + [
             (k, g[k], ref_g[k], floor) for k in g]:
@@ -882,31 +921,51 @@ def test_trm_layer_kernels_match_plain_on_card(cuda_device, bf16, causal, rate):
 
 
 @pytest.mark.cuda
-def test_trm_layer_autograd_and_limits_on_card(cuda_device):
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("shape", [(7, 8, 16, 2, 32), (3, 57, 64, 4, 260)],
+                         ids=["L8-D16", "L57-D64-I260"])
+def test_trm_layer_autograd_and_limits_on_card(cuda_device, bf16, shape):
     """The dispatcher on CUDA tensors goes through TrmLayer (one forward and
-    one backward launch), its dropout keyed by the seed; widths beyond the
-    kernel's limits raise and nothing falls back."""
-    B, L, D, H, I = 7, 8, 16, 2, 32
+    one backward launch), its dropout keyed by the seed, in both instances,
+    at a small shape and at the bf16 instance's edges (57 positions, 4
+    heads, a ragged FFN chunk); y against the plain version (fp32 within
+    2e-4 relative, bf16 within 1e-2 of its largest value), the gradients of
+    x and every leaf against the plain version's autograd at the same bound;
+    widths beyond the kernel's limits raise and nothing falls back."""
+    B, L, D, H, I = shape
     x, params, valid, dy = _trm_inputs(B, L, D, I, 5, cuda_device)
+    x.requires_grad_(True)
     for p in params.values():
         p.requires_grad_(True)
     seed = torch.tensor([7], dtype=torch.int64, device=cuda_device)
-    kw = dict(n_heads=H, causal=True, dropout=0.5, attn_dropout=0.5, seed=seed, bf16=False)
+    kw = dict(n_heads=H, causal=True, dropout=0.5, attn_dropout=0.5, seed=seed, bf16=bf16)
     before = (port_trm.trm_layer_fwd_cuda.launches, port_trm.trm_layer_bwd_cuda.launches)
     y = port_trm.trm_layer(x, params, valid, **kw)
     (y * dy).sum().backward()
     assert (port_trm.trm_layer_fwd_cuda.launches,
             port_trm.trm_layer_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
     masks = port_trm.trm_dropout_masks_cuda(seed, B, H, L, D, 0.5, 0.5)
-    ref = port_trm.trm_layer_torch(x, {k: v.detach() for k, v in params.items()}, valid,
-                                   masks, n_heads=H, causal=True, bf16=False)
-    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-5)
-    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in params.values())
+    xr = x.detach().clone().requires_grad_(True)
+    pr = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    ref = port_trm.trm_layer_torch(xr, pr, valid, masks, n_heads=H, causal=True, bf16=bf16)
+    (ref * dy).sum().backward()
+    if not bf16:
+        torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-5)
+    tol = 1e-2 if bf16 else 2e-4
+    floor = 1e-2 * max(float(v.grad.abs().max()) for v in pr.values())
+    pairs = [("y", y.detach(), ref.detach(), 0.0), ("x", x.grad, xr.grad, 0.0)]
+    for name, a, b, least in pairs + [(k, params[k].grad, pr[k].grad, floor) for k in params]:
+        assert a is not None and torch.isfinite(a).all(), name
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), least, 1e-30)
+        assert err <= tol, (name, err)
     with pytest.raises(ValueError, match="seed"):
         port_trm.trm_layer(x, params, valid, n_heads=H, causal=True, dropout=0.5)
     # the working set is the built library's own figure, held to the card's limit
     smem = port_trm._lib().trm_layer_smem_bytes
     assert smem(50, 64, 256, 1) == 198200 <= port_trm.MAX_SMEM_BYTES < smem(200, 64, 256, 1)
+    smem_bf16 = port_trm._lib().trm_layer_smem_bytes_bf16
+    assert smem_bf16(50, 64, 256, 1) == 105312 < port_trm.MAX_SMEM_BYTES \
+        < smem_bf16(200, 64, 256, 1)
     wide, wparams, wvalid, _ = _trm_inputs(2, 200, 64, 256, 6, cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         port_trm.trm_layer(wide, wparams, wvalid, n_heads=2, causal=True)
@@ -1085,12 +1144,22 @@ def test_fused_gru_autograd_and_limits_on_card(cuda_device):
     for H, rows in ((700, 16), (704, 8), (1348, 8), (1352, 4), (4468, 2), (4472, 1),
                     (7264, 1)):
         assert lib.fused_gru_bwd_blocks(33, 5, H, 0) == -(-33 // rows), H
-    for H in (7268, 7265):
-        args = _gru_inputs(2, 3, H, 1, cuda_device, False)[:4]
-        before = port_gru.fused_gru_fwd_cuda.launches
-        with pytest.raises(ValueError, match="at most 7264"):
-            port_gru.fused_gru(*args)
-        assert port_gru.fused_gru_fwd_cuda.launches == before
+    # past 7,264 no sequence's backward rows fit a block: they lie in a
+    # device-memory scratch (route 3), the forward's too past 19,368, and
+    # the kernels run on (test_fused_gru_global_rows_match_plain_on_card)
+    for bf16 in (0, 1):
+        assert lib.fused_gru_route(7264, bf16) == 2 and lib.fused_gru_route(7268, bf16) == 3
+        assert lib.fused_gru_rows_floats(33, 7264, 1, bf16) == 0
+        assert lib.fused_gru_rows_floats(33, 7268, 1, bf16) == 33 * 8 * 7268
+        assert lib.fused_gru_rows_floats(33, 19368, 0, bf16) == 0
+        assert lib.fused_gru_rows_floats(33, 19372, 0, bf16) == 33 * 3 * 19372
+        assert lib.fused_gru_smem_bytes(7268, 1, bf16) == 0
+        assert lib.fused_gru_bwd_blocks(33, 5, 7268, bf16) == 33
+    args = _gru_inputs(2, 3, 7265, 1, cuda_device, False)[:4]
+    before = port_gru.fused_gru_fwd_cuda.launches
+    out = port_gru.fused_gru(*args)
+    assert port_gru.fused_gru_fwd_cuda.launches == before + 1
+    assert out.shape == (2, 3, 7265) and torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
@@ -1128,15 +1197,20 @@ def test_fused_gru_wide_and_padded_match_plain_on_card(cuda_device, bf16, B, L, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [True, False])
-@pytest.mark.parametrize("width", ["704", "1352", "limit"])
+@pytest.mark.parametrize("width", ["704", "1352", "limit", "limit + 4", "19372"])
 def test_fused_gru_global_rows_match_plain_on_card(cuda_device, bf16, width):
     """Hidden sizes past 700, where the global route's blocks own fewer
-    than 16 sequences: 704 (8), 1352 (4) and the library's limit (1, H
-    7,264), through fused_gru and autograd against the plain version, within
-    1e-4 (fp32) or 1e-2 (bf16) of each tensor's largest value; one launch
-    each way; two runs bit-identical."""
-    H = port_gru._lib().fused_gru_max_hidden() if width == "limit" else int(width)
-    B, L = (5, 3) if width == "limit" else (37, 6)
+    than 16 sequences: 704 (8), 1352 (4) and the limit of rows in shared
+    memory (1, H 7,264); past it one sequence a block with its rows in
+    device memory: the backward's at 7,268, both ways' at 19,372. Through
+    fused_gru and autograd against the plain version, within 1e-4 (fp32) or
+    1e-2 (bf16) of each tensor's largest value; one launch each way; two
+    runs bit-identical."""
+    limit = port_gru._lib().fused_gru_max_hidden()
+    H = {"limit": limit, "limit + 4": limit + 4}.get(width) or int(width)
+    B, L = (5, 3) if H >= limit else (37, 6)
+    if H > 10000:
+        B, L = 2, 2
     xi, h0, wh, bh, dout = _gru_inputs(B, L, H, 30 + bf16, cuda_device, bf16)
 
     def run(fn):
@@ -1458,16 +1532,18 @@ def test_fused_attention_route_copy_matches_library_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_trm_layer_smem_copy_matches_library_on_card(cuda_device):
-    """The Python copy of the whole-layer kernel's shared-memory formula,
-    which routes a layer before any launch, gives the built library's
-    bytes; SASRec's default shape takes the kernel, L 58 / D 64, L 200 and
-    D 128 take the attention path."""
+    """The Python copies of the whole-layer kernel's shared-memory formulas,
+    the fp32 instance's (which routes a layer before any launch) and the
+    bf16 instance's, give the built library's bytes; SASRec's default shape
+    takes the kernel, L 58 / D 64, L 200 and D 128 take the attention path."""
     lib = port_trm._lib()
     for L, D, I in ((50, 64, 256), (57, 64, 256), (58, 64, 256), (200, 64, 256),
-                    (50, 128, 256), (8, 16, 32), (100, 32, 64)):
+                    (50, 128, 256), (8, 16, 32), (100, 32, 64), (1, 16, 260), (147, 4, 4)):
         for backward in (0, 1):
             assert 4 * port_trm.smem_floats(L, D, I, backward) == \
                 lib.trm_layer_smem_bytes(L, D, I, backward), (L, D, I, backward)
+            assert port_trm.smem_bytes_bf16(L, D, I, backward) == \
+                lib.trm_layer_smem_bytes_bf16(L, D, I, backward), (L, D, I, backward)
     assert port_trm.layer_route(50, 64, 256) == "layer"
     assert {port_trm.layer_route(*s) for s in ((58, 64, 256), (200, 64, 256),
                                                 (50, 128, 256))} == {"attention"}
