@@ -11,9 +11,11 @@ Phases:
   3. each kernel against its plain PyTorch version, on the card, at the main
      paths' shapes and at edge shapes, and twice on the same input to
      compare the two results bit for bit; the whole-layer transformer
-     kernels in both instances (bf16-rounded and fp32 operands), forward and
-     backward, with dropout off and on (the plain version is handed the
-     masks the kernels draw); the packed-bit row and column kernels on the
+     kernels in both instances (bf16-rounded operands, and fp32 ones as
+     3xTF32 products), forward and backward, with dropout off and on (the
+     plain version is handed the masks the kernels draw), with the worst
+     relative error per tensor, at SASRec's step beside the fp32 FMA
+     kernels' last; the packed-bit row and column kernels on the
      Yelp shape's packed rows and on random bytes; the GRU recurrence
      kernels in both instances, forward and backward, at GRU4Rec's and
      NARM's step, ragged and eval batches, with zero and nonzero h0, and a
@@ -93,9 +95,10 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, bf16 in them (dense), and HBM3 bandwidth
+# cores, bf16 and TF32 in them (dense), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES = 3.35e12
 
 # ml-1m's shape (users, items, interactions)
@@ -844,7 +847,13 @@ def trm_cases():
                 ("L=7 D=16 H=1", dict(B=3, L=7, D=16, H=1, I=32), False, 0.5),
                 ("L=16 D=32 H=2 I=260", dict(B=3, L=16, D=32, H=2, I=260), True, 0.5),
                 ("L=57 D=64 H=4", dict(B=5, L=57, D=64, H=4, I=256), False, 0.5),
-                ("L=50 D=32 H=4 I=32", dict(B=3, L=50, D=32, H=4, I=32), True, 0.0)):
+                ("L=50 D=32 H=4 I=32", dict(B=3, L=50, D=32, H=4, I=32), True, 0.0),
+                # the tf32 tile edges (8-deep k-steps): L 13 and 33, heads 4
+                # and 12 wide, inner chunks ending at 36 and 4, and D 20, where
+                # bf16 dqkv's k and v columns start 8 bytes off a 16-byte line
+                ("L=13 D=16 H=4 I=36", dict(B=4, L=13, D=16, H=4, I=36), True, 0.5),
+                ("L=33 D=24 H=2 I=68", dict(B=3, L=33, D=24, H=2, I=68), False, 0.5),
+                ("L=20 D=20 H=5 I=44", dict(B=2, L=20, D=20, H=5, I=44), False, 0.5)):
             cases.append((label, shape, causal, "gelu", bf16, rate, not causal))
     cases = [(*c, True) for c in cases]
     for bf16 in (True, False):
@@ -877,6 +886,7 @@ def check_trm_layer(torch):
     from recbole_tpu_torch.ops import trm_layer as tl
     worst = {f"{name}_{way}": 0.0 for name in ("trm_layer", "fused_transformer_layer")
              for way in ("fwd", "bwd")}
+    per_tensor = {"trm_layer": {}, "fused_transformer_layer": {}}
     for n, (label, shape, causal, act, bf16, rate, empty_row, backward) in enumerate(trm_cases()):
         B, L, D, H, I = (shape[k] for k in "BLDHI")
         x, params, valid, dy = trm_inputs(torch, B, L, D, H, I, seed=100 + n,
@@ -940,6 +950,11 @@ def check_trm_layer(torch):
                                    float((got["y"] - ref["y"]).abs().max()))
         worst[f"{name}_bwd"] = max([worst[f"{name}_bwd"],
                                     *(float((got[k] - ref[k]).abs().max()) for k in errs)])
+        for k, e in [("y", e_fwd), *errs.items()]:
+            per_tensor[name][k] = max(per_tensor[name].get(k, 0.0), e)
+    for name, errs in per_tensor.items():
+        log(f"[check] {name}: worst relative error per tensor over the cases above: "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
     return worst
 
 
@@ -2347,13 +2362,49 @@ def trm_work(B, L, D, H, I, causal, backward):
     return fwd, 4 * (2 * R * D + B * L + P)
 
 
+# the relative error per tensor of the fp32 instance's register-tiled FMA
+# kernels, which the 3xTF32 ones replaced, against the plain version at
+# SASRec's step with trm_inputs(seed 21) and the masks of seed 21: the last
+# values of that version (scripts/torch_trm_ab.py with a checkout of it as
+# TREE, NVIDIA H100 80GB HBM3, 700.00 W)
+FMA_TRM_ERRORS = {"y": 5.356e-07, "dx": 3.387e-07, "wq": 7.913e-07, "bq": 5.569e-07,
+                  "wk": 6.477e-07, "bk": 1.409e-06, "wv": 6.562e-07, "bv": 2.917e-07,
+                  "wo": 7.514e-07, "bo": 7.927e-07, "ln1_g": 2.872e-07, "ln1_b": 4.319e-07,
+                  "ff1_w": 7.294e-07, "ff1_b": 4.362e-07, "ff2_w": 5.605e-07, "ff2_b": 4.229e-07,
+                  "ln2_g": 3.948e-07, "ln2_b": 4.587e-07}
+
+
+def trm_rel_errors(torch, tl, x, params, valid, dy, seed, H, causal, rate, bf16):
+    """The kernels' y, dx and 16 gradients against the plain version fed
+    the masks the kernels draw: the largest |difference| over the tensor's
+    largest |value| (a gradient that is 0 but for rounding, bk, over a
+    hundredth of the largest gradient), per tensor."""
+    B, L, D = x.shape
+    kw = dict(n_heads=H, causal=causal, act="gelu", dropout=rate, attn_dropout=rate, bf16=bf16)
+    got = {"y": tl.trm_layer_fwd_cuda(x, params, valid, seed, **kw)}
+    got["dx"], g = tl.trm_layer_bwd_cuda(x, params, valid, dy, seed, **kw)
+    got.update(g)
+    masks = tl.trm_dropout_masks_cuda(seed, B, H, L, D, rate, rate) if rate else None
+    cfg = (H, causal, "gelu", 1e-12, bf16)
+    ref = {"y": tl.trm_layer_torch_fwd(x, params, valid, masks, *cfg)}
+    ref["dx"], ref_g = tl.trm_layer_torch_bwd(x, params, valid, masks, dy, *cfg)
+    ref.update(ref_g)
+    floor = 1e-2 * max(float(v.abs().max()) for v in ref_g.values())
+    return {k: float((got[k] - ref[k]).abs().max())
+            / max(float(ref[k].abs().max()), 1e-30 if k in ("y", "dx") else floor)
+            for k in got}
+
+
 def time_trm_layer(torch):
     """Both kernels, both instances, at SASRec's train shape with dropout
     0.5 (CUDA events, and in a CUDA graph), beside the plain version, the
     bound and the library's layer (nn.TransformerEncoderLayer without
     dropout: forward, and forward + backward beside the backward kernel,
     which recomputes the forward), in fp32 (library_ms) and under bf16
-    autocast (library_bf16_ms)."""
+    autocast (library_bf16_ms). The fp32 instance's log line also gives the
+    same work's time at the 3xTF32 rate (a third of dense TF32), a note
+    beside its bound, and its errors per tensor on these inputs beside the
+    FMA kernels' last."""
     from recbole_tpu_torch.ops import trm_layer as tl
     B, L, D, H, I = (SASREC[k] for k in "BLDHI")
     x, params, valid, dy = trm_inputs(torch, B, L, D, H, I, seed=21)
@@ -2399,8 +2450,16 @@ def time_trm_layer(torch):
             t["bound_ms"], t["bound_by"] = bound(
                 flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
             out[f"{name}_{way}"] = t
+            at_3xtf32 = ("" if bf16 else "; at the 3xTF32 rate the bound would be "
+                         f"{bound(flops, nbytes, PEAK_TF32_FLOPS / 3)[0]} ms")
             log(f"[time] {name}_{way} B={B} L={L} D={D} H={H} I={I} causal, dropout 0.5 "
-                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): {t}")
+                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): {t}{at_3xtf32}")
+        errs = trm_rel_errors(torch, tl, x, params, valid, dy, seed, H, True, 0.5, bf16)
+        worst = max(errs, key=errs.get)
+        log(f"[check] {name} at SASRec's step, dropout 0.5, causal: worst relative error "
+            f"{worst} {errs[worst]:.3e}; per tensor {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+            + ("" if bf16 else f"; the FMA kernels it replaced, on these inputs: worst "
+               f"{max(FMA_TRM_ERRORS.values()):.3e}, per tensor {json.dumps(FMA_TRM_ERRORS)}"))
     return out
 
 
@@ -2645,17 +2704,21 @@ KERNEL_META = {
     "windowed_grad": {"route": "cuda", "source": "recbole_tpu_torch/csrc/embed_grad.cu",
                       "replaces": "recbole_tpu/ops/embed_grad.py:170"},
     # the two whole-layer kernels, each in its bf16 instance (the JAX package's
-    # trm_layer.py) and its fp32 instance (fused_transformer.py)
+    # trm_layer.py) and its fp32 instance (fused_transformer.py: 3xTF32)
     "trm_layer_fwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/trm_layer.cu",
-                      "replaces": "recbole_tpu/ops/trm_layer.py:433"},
+                      "replaces": "recbole_tpu/ops/trm_layer.py:433",
+                      "kernel": "trm_layer_bf16_fwd_kernel"},
     "trm_layer_bwd": {"route": "cuda", "source": "recbole_tpu_torch/csrc/trm_layer.cu",
-                      "replaces": "recbole_tpu/ops/trm_layer.py:433"},
+                      "replaces": "recbole_tpu/ops/trm_layer.py:433",
+                      "kernel": "trm_layer_bf16_bwd_kernel"},
     "fused_transformer_layer_fwd": {"route": "cuda",
                                     "source": "recbole_tpu_torch/csrc/trm_layer.cu",
-                                    "replaces": "recbole_tpu/ops/fused_transformer.py:409"},
+                                    "replaces": "recbole_tpu/ops/fused_transformer.py:409",
+                                    "kernel": "trm_layer_tf32x3_fwd_kernel"},
     "fused_transformer_layer_bwd": {"route": "cuda",
                                     "source": "recbole_tpu_torch/csrc/trm_layer.cu",
-                                    "replaces": "recbole_tpu/ops/fused_transformer.py:409"},
+                                    "replaces": "recbole_tpu/ops/fused_transformer.py:409",
+                                    "kernel": "trm_layer_tf32x3_bwd_kernel"},
     "bit_rows_matmul": {"route": "cuda", "source": "recbole_tpu_torch/csrc/bit_kernels.cu",
                         "replaces": "recbole_tpu/ops/bit_kernels.py:56"},
     "bit_cols_matmul": {"route": "cuda", "source": "recbole_tpu_torch/csrc/bit_kernels.cu",

@@ -15,7 +15,7 @@ from ..base import SequentialRecommender
 from ..layers import (TransformerEncoder, transformer_apply, layer_norm, dropout_apply,
                       normal_init, dot_c)
 from ..losses import bpr_loss, ce_loss
-from ...ops.trm_layer import MAX_SMEM_BYTES, layer_route, smem_floats
+from ...ops.trm_layer import MAX_SMEM_BYTES, layer_route, route_floats
 from ...utils.enums import InputType
 from ...utils.logger import get_logger
 from .. import register_model
@@ -70,16 +70,17 @@ class SASRec(SequentialRecommender):
                               "fused_attention: True path), as the JAX package does",
                               self.cdt)
             return
-        need = 4 * smem_floats(L, D, I, True)
+        need = 4 * route_floats(L, D, I)
         if layer_route(L, D, I) == "layer":
             get_logger().info("fused_attention %r at L=%d, D=%d, inner=%d: the whole-layer "
-                              "kernel (%d bytes of shared memory a block)", fused, L, D, I, need)
+                              "kernel (the route's rule: %d bytes of shared memory a block)",
+                              fused, L, D, I, need)
         else:
-            get_logger().info("fused_attention %r at L=%d, D=%d, inner=%d: the whole layer "
-                              "needs %d bytes of shared memory a block, more than %d; the "
-                              "layers take the attention kernel inside plain projections and "
-                              "FFN (the fused_attention: True path)", fused, L, D, I, need,
-                              MAX_SMEM_BYTES)
+            get_logger().info("fused_attention %r at L=%d, D=%d, inner=%d: the route's rule "
+                              "gives the whole layer %d bytes of shared memory a block, more "
+                              "than %d; the layers take the attention kernel inside plain "
+                              "projections and FFN (the fused_attention: True path)", fused, L,
+                              D, I, need, MAX_SMEM_BYTES)
 
     def forward(self, batch, generator=None):
         """(B, D) output at each sequence's last position. Dropout runs in

@@ -4,10 +4,14 @@ Port of recbole_tpu/ops/fused_transformer.py::fused_transformer_layer (:409).
 The JAX package wrote this layer twice, once with fp32 operands (this
 module's counterpart) and once with bf16 operands (ops/trm_layer.py), with
 one signature. The port has one CUDA source, ``csrc/trm_layer.cu``, whose
-kernels are instantiated for both; this module is the entry to the fp32
-instance: products run as fp32 FMAs on unrounded operands, bounded on the
-H100 by its 67 TFLOP/s fp32 rate. The plain version, the launchers, the
-launch counts and the limits are those of ``ops/trm_layer.py``.
+layer body is instantiated for both; this module is the entry to the fp32
+instance, ``trm_layer_tf32x3_fwd_kernel`` / ``trm_layer_tf32x3_bwd_kernel``:
+fp32 operands, every product on the tensor cores as three TF32 products
+(a_lo b_hi + a_hi b_lo + a_hi b_hi, hi and lo the two tf32 parts of an fp32
+value), which keeps fp32's precision (the kernels are held to 2e-4 of each
+tensor's largest value against the plain version). The plain version, the
+launchers, the launch counts and the limits are those of
+``ops/trm_layer.py``.
 """
 
 from .trm_layer import trm_layer, trm_layer_torch

@@ -31,26 +31,27 @@ x, y, dy, dx and the weights only; parameter gradients are summed per block
 into private partials and then across blocks in block order, so two runs
 give the same bits. Dropout bits come from Philox keyed by (seed, layer,
 sequence, site, element): the seed is one int64 drawn on the device from the
-caller's generator, so nothing waits on the host. The two instances compute
-differently (the head of csrc/trm_layer.cu has the design): the fp32 one
-with register-tiled FMA loops, the bf16 one with every product on the
-tensor cores (``mma.sync`` on bf16 operands, fp32 sums), its weights packed
-once a call in the order of the products' fragments.
+caller's generator, so nothing waits on the host. Both instances run one
+body (the head of csrc/trm_layer.cu has the design) with every product on
+the tensor cores and the weights packed once a call in the order of the
+products' fragments: the bf16 one as ``mma.sync`` on bf16 operands with
+fp32 sums, the fp32 one as three TF32 products (hi and lo parts) a k-step,
+which keeps fp32's precision.
 
 Limits (checked here, a clear error beyond them): D, D / n_heads and the
-inner size multiples of 4, and a working set (``trm_layer_smem_bytes`` and
-``trm_layer_smem_bytes_bf16`` of the built library) within the 227 KB of
-shared memory a block may use (L 50, D 64, I 256 takes 198,200 bytes in the
-fp32 backward, 105,312 in the bf16 one). ``smem_floats`` and
-``smem_bytes_bf16`` below are copies of those formulas. The route is
-chosen from the fp32 one, whatever the instance (the bf16 working set is
-the smaller at every shape it admits), so that a caller can choose the path
-from the shape before any launch (``layer_route``): at L >= 58 with D 64 and
-I 256, or at D 128 with L 50, the whole layer does not fit a block, and
-``models/layers.transformer_apply`` builds the layer as
-``fused_attention: True`` does (plain projections and FFN around the
-attention kernel), as the JAX package takes XLA where its kernel's support
-check fails.
+inner size multiples of 4, at most 256 positions, and a working set
+(``trm_layer_smem_bytes`` and ``trm_layer_smem_bytes_bf16`` of the built
+library) within the 227 KB of shared memory a block may use (L 50, D 64, I
+256 takes 114,112 bytes in the fp32 backward, 105,312 in the bf16 one).
+``smem_bytes_fp32`` and ``smem_bytes_bf16`` below are copies of those
+formulas. The route is chosen before any launch by one rule for both
+instances (``layer_route``, from ``route_floats``: the working set of the
+fp32 instance's former FMA kernels, which both instances' blocks fit
+wherever it admits a shape): at L >= 58 with D 64 and I 256, or at D 128
+with L 50, the route takes ``models/layers.transformer_apply`` to build the
+layer as ``fused_attention: True`` does (plain projections and FFN around
+the attention kernel), as the JAX package takes XLA where its kernel's
+support check fails.
 """
 
 import ctypes
@@ -68,32 +69,54 @@ NEG = -1e9
 MAX_SMEM_BYTES = 232448  # opt-in shared memory of a Hopper block
 
 
-# csrc/trm_layer.cu's FFN chunk and row padding (kChunk, kPad), the bf16
-# backward's FFN chunk (kChunkBwd) and the bf16 instance's most positions
-# (kMaxRowBf16)
-_CHUNK, _PAD, _CHUNK_BWD = 128, 4, 64
-MAX_LEN_BF16 = 256
+# csrc/trm_layer.cu's FFN chunks (kChunk forward, kChunkBwd backward) and
+# the most positions (kMaxRow)
+_CHUNK, _CHUNK_BWD = 128, 64
+MAX_LEN = 256
 
 
-def smem_floats(L, D, I, backward):
-    """Shared-memory floats of one whole-layer block: a copy of
-    ``smem_floats`` in csrc/trm_layer.cu (a ``cuda`` test holds it against
-    the built library's ``trm_layer_smem_bytes``)."""
-    IC = min(I, _CHUNK)
-    LS = (L + 3) // 4 * 4 + _PAD
-    ld, lc, ls = L * (D + _PAD), L * (IC + _PAD), L * LS
-    if backward:
-        return 9 * ld + 2 * lc + 2 * ls + 3 * L
-    return 7 * ld + lc + ls + 3 * L
+def route_floats(L, D, I):
+    """The route's rule: the floats of shared memory a backward block of the
+    fp32 instance's former FMA kernels took (nine (L, D + 4) buffers, two
+    FFN chunks of 128, two (L, L) score matrices, three (L,) vectors). Kept
+    as the rule after those kernels went, so that every shape takes the
+    path it took before; both instances' blocks fit wherever it admits a
+    shape (a CPU test walks them)."""
+    IC = min(I, 128)
+    LS = (L + 3) // 4 * 4 + 4
+    return 9 * L * (D + 4) + 2 * L * (IC + 4) + 2 * L * LS + 3 * L
 
 
 def _al16(v):
     return (v + 15) // 16 * 16
 
 
+def _score_stride(L):          # a score row: 4 mod 8 floats, at least 12
+    LS = (L + 3) // 4 * 4
+    return max(LS + 4 if LS % 8 == 0 else LS, 12)
+
+
+def smem_bytes_fp32(L, D, I, backward):
+    """Shared-memory bytes of one block of the fp32 instance: a copy of
+    ``tc_layout_f32`` in csrc/trm_layer.cu (a ``cuda`` test holds it against
+    the built library's ``trm_layer_smem_bytes``). Rows of n floats n + 4
+    long; only the (L,) vectors stay put, every buffer takes the room of
+    those dead in its phase. Forward: x then ctx, q | k | v and one head's
+    scores and probabilities, or a1, the FFN sum and a chunk. Backward: its
+    forward's attention (x then ctx, two score matrices, q | k | v) and then
+    dctx; or ctx, xhat1, a1, the FFN sum, two chunks of 64 and the residual
+    cotangent."""
+    IC = min(I, _CHUNK_BWD if backward else _CHUNK)
+    bD, bQ, bI = (L * (n + 4) * 4 for n in (D, 3 * D, IC))
+    fS, vec = L * _score_stride(L) * 4, _al16(L * 4)
+    if backward:
+        return 6 * vec + max(2 * bQ + 2 * fS + bD, 5 * bD + 2 * bI) + 64
+    return 3 * vec + max(bD + bQ + 2 * fS, 3 * bD + bI) + 64
+
+
 def smem_bytes_bf16(L, D, I, backward):
     """Shared-memory bytes of one block of the bf16 instance: a copy of
-    ``tc_layout`` in csrc/trm_layer.cu (a ``cuda`` test holds it against the
+    ``tc_layout_bf16`` in csrc/trm_layer.cu (a ``cuda`` test holds it against the
     built library's ``trm_layer_smem_bytes_bf16``). Persistent bf16 copies
     of x, q | k | v, ctx and a1, the backward's fp32 residual cotangent,
     five (L,) vectors and the key validity; then the larger of two areas
@@ -107,10 +130,8 @@ def smem_bytes_bf16(L, D, I, backward):
     def sb(n):                 # a bf16 row: n rounded up to 16, plus 8
         return (n + 15) // 16 * 16 + 8
 
-    LS = (L + 3) // 4 * 4      # a score row: 4 mod 8 floats, at least 12
-    LS = max(LS + 4 if LS % 8 == 0 else LS, 12)
     bD, bQ, bI = (_al16(L * sb(n) * 2) for n in (D, 3 * D, IC))
-    fD, fS, vec = L * (D + 4) * 4, L * LS * 4, _al16(L * 4)
+    fD, fS, vec = L * (D + 4) * 4, L * _score_stride(L) * 4, _al16(L * 4)
     persistent = 3 * bD + bQ + 3 * vec + (fD + 3 * vec if backward else 0)
     if backward:
         ffn = fD + 2 * bI + fD + bD
@@ -122,9 +143,10 @@ def smem_bytes_bf16(L, D, I, backward):
 
 def layer_route(L, D, I):
     """The path a fused layer of this shape takes: ``"layer"``, the
-    whole-layer kernel, when its backward's working set fits a block, else
-    ``"attention"``, the layer built around the attention kernel."""
-    return "layer" if 4 * smem_floats(L, D, I, True) <= MAX_SMEM_BYTES else "attention"
+    whole-layer kernel, when the route's rule (``route_floats``) fits a
+    block, else ``"attention"``, the layer built around the attention
+    kernel."""
+    return "layer" if 4 * route_floats(L, D, I) <= MAX_SMEM_BYTES else "attention"
 
 
 def param_shapes(D, I):
@@ -400,9 +422,8 @@ def _check(name, x, valid, params, seed, n_heads, act, attn_rate, rate, backward
         if seed is None or seed.dtype != torch.int64 or seed.numel() != 1 \
                 or seed.device != x.device:
             raise ValueError(f"{name} with dropout takes its seed as one int64 on x's device")
-    if bf16 and L > MAX_LEN_BF16:
-        raise ValueError(f"{name}: the bf16 instance takes at most {MAX_LEN_BF16} positions, "
-                         f"got {L}")
+    if L > MAX_LEN:
+        raise ValueError(f"{name}: the kernels take at most {MAX_LEN} positions, got {L}")
     lib = _lib()
     need = (lib.trm_layer_smem_bytes_bf16 if bf16 else lib.trm_layer_smem_bytes)(
         L, D, I, int(backward))
@@ -420,11 +441,10 @@ def _pointers(params):
 
 
 def _scratch(D, I, bf16, backward, device):
-    """Room for the kernels' copies of the weight matrices: the bf16
-    instance's packed bf16 fragments (W, and W^T for the backward), the fp32
-    instance's transposes (backward)."""
+    """Room for the kernels' packed weight matrices (W, and W^T for the
+    backward): bf16 fragments, or the fp32 instance's tf32 hi and lo ones."""
     n = _lib().trm_layer_scratch_floats(D, I, int(bf16), int(backward))
-    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def _shape_args(B, L, D, I, n_heads, causal, act, eps, attn_rate, rate, layer, bf16):
@@ -438,11 +458,12 @@ def _ptr(t):
 
 def trm_layer_fwd_cuda(x, params, key_valid, seed=None, *, n_heads, causal, act="gelu",
                        eps=1e-12, dropout=0.0, attn_dropout=0.0, layer=0, bf16=True):
-    """Launch ``trm_layer_fwd_kernel``: y (B, L, D). ``seed`` is one int64
-    on the device (needed only with dropout); ``layer`` strides the dropout
-    streams of stacked layers. Counts its launches in
-    ``trm_layer_fwd_cuda.launches`` (``launches_fp32``: those of the fp32
-    instance among them)."""
+    """Launch the forward kernel, ``trm_layer_bf16_fwd_kernel`` or (``bf16``
+    False) ``trm_layer_tf32x3_fwd_kernel``, after the weights' packing: y
+    (B, L, D). ``seed`` is one int64 on the device (needed only with
+    dropout); ``layer`` strides the dropout streams of stacked layers.
+    Counts its launches in ``trm_layer_fwd_cuda.launches``
+    (``launches_fp32``: those of the fp32 instance among them)."""
     B, L, D, I = _check("trm_layer_fwd_cuda", x, key_valid, params, seed, n_heads, act,
                         attn_dropout, dropout, False, bf16)
     y = torch.empty_like(x)
@@ -476,7 +497,8 @@ def _bwd_blocks(B, L, D, n_heads, I, bf16, device):
 
 def trm_layer_bwd_cuda(x, params, key_valid, dy, seed=None, *, n_heads, causal, act="gelu",
                        eps=1e-12, dropout=0.0, attn_dropout=0.0, layer=0, bf16=True):
-    """Launch ``trm_layer_bwd_kernel`` and the reduction of its per-block
+    """Launch the backward kernel (``trm_layer_bf16_bwd_kernel`` or
+    ``trm_layer_tf32x3_bwd_kernel``) and the reduction of its per-block
     partials: (dx (B, L, D), {name: gradient}). Counts its launches in
     ``trm_layer_bwd_cuda.launches``."""
     B, L, D, I = _check("trm_layer_bwd_cuda", x, key_valid, params, seed, n_heads, act,

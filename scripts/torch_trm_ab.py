@@ -18,14 +18,19 @@ kernel table's row 5) and the fp32 one (row 6), forward and backward:
 * ``library_ms`` and ``library_bf16_ms``: nn.TransformerEncoderLayer at the
   same widths without dropout, in fp32 and under
   ``torch.autocast("cuda", dtype=torch.bfloat16)``: forward, and forward +
-  backward beside the backward kernel (which recomputes the forward).
+  backward beside the backward kernel (which recomputes the forward);
+* each instance's worst relative error per tensor (y, dx and the 16
+  gradients) against the plain version at that step, on the inputs
+  chip_smoke.py's timing uses.
 
-``--sasrec`` adds SASRec's steady train step at the ml-1m shape, the tree's
-model and trainer at their defaults on an ml-1m-shaped file written from a
-seed: after 5 steps of warm-up, the wall time of 20 steps, then 20 more under
-torch.profiler: card-busy ms, launches and the longest kernels a step. The
-timing tools are this checkout's chip_smoke.py helpers, whatever the tree.
-Exits non-zero without a card.
+``--sasrec`` adds SASRec's steady train step
+at the ml-1m shape, the tree's model and trainer at their defaults on an
+ml-1m-shaped file written from a seed, once at its default compute dtype
+(bf16: the bf16 instance) and once under ``compute_dtype: float32`` (the
+fp32 instance): after 5 steps of warm-up, the wall time of 20 steps, then 20
+more under torch.profiler: card-busy ms, launches and the longest kernels a
+step. The timing tools are this checkout's chip_smoke.py helpers, whatever
+the tree. Exits non-zero without a card.
 """
 
 import argparse
@@ -75,9 +80,14 @@ def main():
                  "blocks": blocks, "kernels": tools.kernels_per_call(torch, kernel, calls=10)}
             tools.log(f"[trm-ab] {name}_{way} B={B} L={L} D={D} H={H} I={I} causal, dropout "
                       f"0.5: {json.dumps(t)}")
+        errs = tools.trm_rel_errors(torch, tl, x, params, valid, dy, seed, H, True, 0.5, bf16)
+        tools.log(f"[trm-ab] {name} worst relative error per tensor: "
+                  f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
     if args.sasrec:
         with tempfile.TemporaryDirectory() as tmp:
-            sasrec_step(torch, tools, tmp)
+            tools.write_ml1m_shape(os.path.join(tmp, "data", "ml-1m-shape", "ml-1m-shape.inter"))
+            for cdt in ("auto", "float32"):
+                sasrec_step(torch, tools, tmp, cdt)
 
 
 def library_times(torch, tools, x, valid, dy, D, H, I, L):
@@ -111,17 +121,18 @@ def library_times(torch, tools, x, valid, dy, D, H, I, L):
     return out
 
 
-def sasrec_step(torch, tools, tmp):
-    """SASRec at its defaults on an ml-1m-shaped file: 20 steady steps timed,
-    20 under the profiler (chip_smoke.py's profile_steps)."""
+def sasrec_step(torch, tools, tmp, cdt):
+    """SASRec at its defaults on the ml-1m-shaped file under ``tmp``, at
+    compute dtype ``cdt``: 20 steady steps timed, 20 under the profiler
+    (chip_smoke.py's profile_steps)."""
     from recbole_tpu_torch.config.configurator import Config
     from recbole_tpu_torch.data.utils import create_dataset, data_preparation
     from recbole_tpu_torch.models import get_model
     from recbole_tpu_torch.trainer.trainer import get_trainer
     from recbole_tpu_torch.utils.utils import init_seed
-    tools.write_ml1m_shape(os.path.join(tmp, "data", "ml-1m-shape", "ml-1m-shape.inter"))
     config = Config("SASRec", "ml-1m-shape", config_dict={
         "data_path": os.path.join(tmp, "data"), "epochs": 1, "device": "cuda",
+        "compute_dtype": cdt,
         "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
         "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
         "log_dir": os.path.join(tmp, "log"), "show_progress": False}, _parse_cmd_line=False)
@@ -132,7 +143,7 @@ def sasrec_step(torch, tools, tmp):
     tools.log(f"[trm-ab] SASRec: fused_attention {config['fused_attention']!r}, compute dtype "
               f"{model.compute_dtype}, batch {train.batch_size}, {len(train)} steps an epoch")
     trainer.prepare(train)
-    tools.profile_steps(torch, trainer, train, "trm-ab sasrec")
+    tools.profile_steps(torch, trainer, train, f"trm-ab sasrec {cdt}")
 
 
 def load_smoke(root, name):

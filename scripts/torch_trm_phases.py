@@ -1,21 +1,23 @@
-"""Where the time of the bf16 whole-layer kernels goes, on one CUDA card.
+"""Where the time of the whole-layer kernels goes, on one CUDA card.
 
     python scripts/torch_trm_phases.py [--variants base,nog,noact,kkb2,kkb8]
 
 Builds copies of ``recbole_tpu_torch/csrc/trm_layer.cu`` into the package's
 build directory, one for each variant, each with a clock stamp after every
-block barrier of the bf16 instance: thread 0 of each block adds the cycles
-since its previous stamp to a counter kept for the stamp's source line. At
-SASRec's train step (B 2,048, L 50, D 64, H 2, I 256, causal, dropout 0.5)
-it prints for each variant the forward's and the backward's time (CUDA
-events over 10 calls), the size of each kernel's machine code (cuobjdump),
-and the phases (the work between two barriers, named by the nearest call
-above the stamp) in order of cycles a sequence. The variants other than
-``base`` are measurements, not versions of the kernel: ``nog`` skips the
-weight-gradient adds to device memory, ``noact`` takes the activation and its
-derivative as the identity (their results are wrong); ``kkb2`` and ``kkb8``
-load B fragments 2 or 8 k-steps at a time. The stamps themselves cost a
-few percent. Exits non-zero without a card.
+block barrier of the layer's body, which both instances share (the bf16
+kernels and the fp32 instance's 3xTF32 ones): thread 0 of each block adds
+the cycles since its previous stamp to a counter kept for the stamp's source
+line. At SASRec's train step (B 2,048, L 50, D 64, H 2, I 256, causal,
+dropout 0.5) it prints for each variant and both instances the forward's
+and the backward's time (CUDA events over 10 calls), the size of each
+kernel's machine code (cuobjdump), and the phases (the work between two
+barriers, named by the nearest call above the stamp) in order of cycles a
+sequence a block. The variants other than ``base`` are measurements, not versions of
+the kernel: ``nog`` skips the weight-gradient adds to device memory,
+``noact`` takes the activation and its derivative as the identity (their
+results are wrong); ``kkb2`` and ``kkb8`` load B fragments half or twice as
+many k-steps at a time (bf16 4, fp32 2). The stamps themselves cost a few
+percent. Exits non-zero without a card.
 """
 
 import argparse
@@ -44,21 +46,26 @@ extern "C" int trm_probe_reset() {
 """
 VARIANTS = {
     "base": [],
-    "nog": [("old[e] = row < M && col < N ? G[(size_t)row * ldg + col] : 0.0f;", "old[e] = 0.0f;"),
-            ("if (row < M && col < N) G[(size_t)row * ldg + col] = old[e] + acc[e];",
-             "if (row < M && col < N && acc[e] == 1.2345f) G[(size_t)row * ldg + col] = acc[e];")],
+    "nog": [("old[j][e] = row < M && col < N ? G[(size_t)row * ldg + cm[j][e & 1]] : 0.0f;",
+             "old[j][e] = 0.0f;"),
+            ("if (row < M && col < N) G[(size_t)row * ldg + cm[j][e & 1]] = old[j][e] + acc[j][e];",
+             "if (row < M && col < N && acc[j][e] == 1.2345f) G[(size_t)row * ldg + cm[j][e & 1]] = "
+             "acc[j][e];")],
     "noact": [("float tc_act(int act, float x) { return act_fn(act, x); }",
                "float tc_act(int act, float x) { return x; }"),
               ("  if (act == GELU) {\n    const float e = erff",
                "  return make_float2(x, 1.0f);\n  if (act == GELU) {\n    const float e = erff")],
-    "kkb2": [("constexpr int kKB = 4;", "constexpr int kKB = 2;")],
-    "kkb8": [("constexpr int kKB = 4;", "constexpr int kKB = 8;")],
+    "kkb2": [("kShift = 4, kKB = 4, kStrips = 1;", "kShift = 4, kKB = 2, kStrips = 1;"),
+             ("kShift = 3, kKB = 2, kStrips = 2;", "kShift = 3, kKB = 1, kStrips = 2;")],
+    "kkb8": [("kShift = 4, kKB = 4, kStrips = 1;", "kShift = 4, kKB = 8, kStrips = 1;"),
+             ("kShift = 3, kKB = 2, kStrips = 2;", "kShift = 3, kKB = 4, kStrips = 2;")],
 }
+KERNELS = {"bf16": "trm_layer_bf16_", "fp32": "trm_layer_tf32x3_"}
 
 
 def instrument(src):
-    """The source with a stamp after each barrier of the bf16 instance."""
-    a = src.index("// ============================================================ bf16 instance")
+    """The source with a stamp after each barrier of the layer's body."""
+    a = src.index("// ============================================================ the layer")
     b = src.index("// ==================================================================== shared")
     first, last = src[:a].count("\n"), src[:b].count("\n")
     lines = src.split("\n")
@@ -119,22 +126,30 @@ def main():
     B, L, D, H, I = (tools.SASREC[k] for k in "BLDHI")
     x, params, valid, dy = tools.trm_inputs(torch, B, L, D, H, I, seed=21)
     seed = torch.tensor([21], dtype=torch.int64, device="cuda")
-    kw = dict(n_heads=H, causal=True, dropout=0.5, attn_dropout=0.5, bf16=True)
     lines = src.split("\n")
     for v, name in names:
         lib_path = paths[name]
         cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
         for fn, n in sass_sizes(cuobjdump, lib_path).items():
-            if "bf16" in fn:
-                print(f"[trm-phases] {v}: {fn.split('trm_layer_bf16_')[1][:12]} {n} instructions "
-                      f"({n * 16 / 1024:.1f} KB)")
+            for inst, prefix in KERNELS.items():
+                if prefix in fn:
+                    print(f"[trm-phases] {v}: {inst} {fn.split(prefix)[1][:10]} {n} "
+                          f"instructions ({n * 16 / 1024:.1f} KB)")
         tl._LIB, tl._BLOCKS = None, {}
         lib = ctypes.CDLL(lib_path)
         cuda_build._LOADED[cuda_build.library_path("trm_layer")] = lib
         lib = tl._lib()
         lib.trm_probe_read.argtypes = [ctypes.c_void_p]
-        for way, call in (("fwd", lambda: tl.trm_layer_fwd_cuda(x, params, valid, seed, **kw)),
-                          ("bwd", lambda: tl.trm_layer_bwd_cuda(x, params, valid, dy, seed, **kw))):
+        for inst, way in ((i, w) for i in KERNELS for w in ("fwd", "bwd")):
+            kw = dict(n_heads=H, causal=True, dropout=0.5, attn_dropout=0.5, bf16=inst == "bf16")
+            if way == "fwd":
+                def call():
+                    return tl.trm_layer_fwd_cuda(x, params, valid, seed, **kw)
+            else:
+                def call():
+                    return tl.trm_layer_bwd_cuda(x, params, valid, dy, seed, **kw)
+            blocks = tl._lib().trm_layer_blocks(B, L, D, H, I, int(inst == "bf16"),
+                                                int(way == "bwd"))
             ms = tools.cuda_ms(torch, call, 10)
             lib.trm_probe_reset()
             call()
@@ -142,7 +157,8 @@ def main():
             buf = (ctypes.c_ulonglong * 8192)()
             lib.trm_probe_read(ctypes.addressof(buf))
             total = sum(buf)
-            print(f"[trm-phases] {v} {way}: {ms:.4f} ms, {total / B:.0f} cycles a sequence a block")
+            print(f"[trm-phases] {v} {inst} {way}: {ms:.4f} ms, {blocks} blocks, "
+                  f"{total / B:.0f} cycles a sequence a block")
             for c, i in sorted(((buf[i], i) for i in range(8192) if buf[i]), reverse=True)[:25]:
                 j = i - 2
                 while j > 0 and not re.search(r"mma_|for_keep|colsum|ln_|tc_|load_rows|//",

@@ -844,25 +844,32 @@ def test_trm_layer_launchers_refuse_cpu_tensors_and_dispatch_stays_plain():
     assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
-def test_trm_layer_bf16_working_set_fits_wherever_the_route_takes_the_kernel():
-    """The route to the whole-layer kernel is decided from the fp32
-    instance's working set (``smem_floats``), whatever the instance; the
-    bf16 instance's (``smem_bytes_bf16``, a copy of the library's formula)
-    fits a Hopper block, forward and backward, at every shape the route sends
-    to the kernel: D from 4 to 256 and wide ones to 6,400, inner sizes below,
-    at and past one FFN chunk, every L up to the last that the route takes;
-    and those L stay within the bf16 instance's row passes."""
-    taken = 0
+def _routed_shapes():
+    """Every (L, D, I) the route sends to the whole-layer kernel over D from
+    4 to 256 and wide ones to 6,400, inner sizes below, at and past one FFN
+    chunk of either instance, every L up to the last that the route takes."""
     for D in list(range(4, 260, 4)) + [384, 512, 1024, 4096, 6400]:
-        for I in (4, 32, 124, 128, 256, 260):
+        for I in (4, 32, 36, 60, 64, 68, 124, 128, 256, 260):
             for L in range(1, 400):
                 if port_trm.layer_route(L, D, I) != "layer":
                     break
-                taken += 1
-                assert L <= port_trm.MAX_LEN_BF16, (L, D, I)
-                for backward in (False, True):
-                    need = port_trm.smem_bytes_bf16(L, D, I, backward)
-                    assert need <= port_trm.MAX_SMEM_BYTES, (L, D, I, backward, need)
+                yield L, D, I
+
+
+def test_trm_layer_bf16_working_set_fits_wherever_the_route_takes_the_kernel():
+    """The route to the whole-layer kernel is decided by one rule for both
+    instances (``route_floats``, the working set of the fp32 instance's
+    former FMA kernels); the bf16 instance's working set
+    (``smem_bytes_bf16``, a copy of the library's formula) fits a Hopper
+    block, forward and backward, at every shape the route sends to the
+    kernel, and those L stay within the kernels' row passes."""
+    taken = 0
+    for L, D, I in _routed_shapes():
+        taken += 1
+        assert L <= port_trm.MAX_LEN, (L, D, I)
+        for backward in (False, True):
+            need = port_trm.smem_bytes_bf16(L, D, I, backward)
+            assert need <= port_trm.MAX_SMEM_BYTES, (L, D, I, backward, need)
     assert taken > 10000
     # SASRec's shape: the working sets the library reports on the card
     assert port_trm.smem_bytes_bf16(50, 64, 256, True) == 105312
@@ -870,14 +877,61 @@ def test_trm_layer_bf16_working_set_fits_wherever_the_route_takes_the_kernel():
     assert port_trm.layer_route(57, 64, 256) == "layer" != port_trm.layer_route(58, 64, 256)
 
 
+def test_trm_layer_fp32_working_set_fits_wherever_the_route_takes_the_kernel():
+    """The fp32 instance's working set (``smem_bytes_fp32``, a copy of the
+    library's ``tc_layout_f32``: fp32 copies, every buffer in the room of
+    those dead in its phase) fits a Hopper block, forward and backward, at
+    every shape the route sends to the kernel: the rule the route kept from
+    the FMA kernels admits nothing the 3xTF32 kernels refuse. At SASRec's
+    shape a forward and a backward block each leave room for a second on
+    the SM (233,472 bytes an SM, 1,024 of them reserved a block)."""
+    taken, largest = 0, 0
+    for L, D, I in _routed_shapes():
+        taken += 1
+        assert L <= port_trm.MAX_LEN, (L, D, I)
+        for backward in (False, True):
+            need = port_trm.smem_bytes_fp32(L, D, I, backward)
+            assert need <= port_trm.MAX_SMEM_BYTES, (L, D, I, backward, need)
+            largest = max(largest, need)
+    assert taken > 10000 and largest > 0.85 * port_trm.MAX_SMEM_BYTES
+    assert port_trm.smem_bytes_fp32(50, 64, 256, True) == 114112
+    assert port_trm.smem_bytes_fp32(50, 64, 256, False) == 74288
+    assert 2 * (114112 + 1024) <= 233472
+    # the route's rule is the FMA kernels' backward working set: 198,200
+    # bytes at SASRec's shape
+    assert 4 * port_trm.route_floats(50, 64, 256) == 198200
+
+
 # (B, L, D, H, I): SASRec's widths at a ragged B, and shapes at the tile edges
-# of the bf16 instance's products (16-row tiles, 8-column strips, 16-deep
-# k-steps, FFN chunks of 128): one position, 7, 16, 57; D 16, 32, 64 with 1, 2
-# and 4 heads (a head 4 wide); inner 32, 256 and 260 (a chunk's ragged end)
+# of both instances' products (16-row tiles, 8-column strips, k-steps 16
+# deep in bf16 and 8 in tf32, FFN chunks of 64 and 128): one position, 7, 13,
+# 16, 33, 57; D 16, 20, 24, 32, 64 with 1, 2, 4 and 5 heads (heads 4 and 12
+# wide: K past a tf32 k-step's end; D 20 a row of 24 floats, not 4 mod 8);
+# inner 32, 36, 44, 68 (a chunk of 64 and 4), 256 and 260
 TRM_SHAPES = {"sasrec": (257, 50, 64, 2, 256), "L1-D16-H4": (1, 1, 16, 4, 32),
               "L7-D16-H1": (3, 7, 16, 1, 32), "L16-D32-H2-I260": (3, 16, 32, 2, 260),
               "L57-D64-H4": (5, 57, 64, 4, 256), "L50-D32-H4-I32": (3, 50, 32, 4, 32),
-              "B1-L50-D64-H1": (1, 50, 64, 1, 256)}
+              "B1-L50-D64-H1": (1, 50, 64, 1, 256), "L13-D16-H4-I36": (4, 13, 16, 4, 36),
+              "L33-D24-H2-I68": (3, 33, 24, 2, 68), "L20-D20-H5-I44": (2, 20, 20, 5, 44)}
+
+
+def test_trm_shapes_are_shapes_the_kernels_take():
+    """Every TRM_SHAPES case is one the route sends to the whole-layer
+    kernel and both instances take: widths multiples of 4, at most MAX_LEN
+    positions, and both working sets within a block, both ways; together they
+    put K past the end of a tf32 k-step (8) and of a bf16 one (16) in every
+    product kind (heads 4 and 12 wide, L 7, 13, 33, 57, inner chunks ending
+    at 4 and 36)."""
+    ks = set()
+    for name, (B, L, D, H, I) in TRM_SHAPES.items():
+        hd = D // H
+        assert B >= 1 and D % H == 0 and D % 4 == hd % 4 == I % 4 == 0, name
+        assert L <= port_trm.MAX_LEN and port_trm.layer_route(L, D, I) == "layer", name
+        for backward in (False, True):
+            assert port_trm.smem_bytes_fp32(L, D, I, backward) <= port_trm.MAX_SMEM_BYTES
+            assert port_trm.smem_bytes_bf16(L, D, I, backward) <= port_trm.MAX_SMEM_BYTES
+        ks.update((hd % 8, L % 8, I % 64 % 8, D % 8))
+    assert {4, 5, 7, 1} <= ks
 
 
 @pytest.mark.cuda
@@ -887,13 +941,14 @@ TRM_SHAPES = {"sasrec": (257, 50, 64, 2, 256), "L1-D16-H4": (1, 1, 16, 4, 32),
 @pytest.mark.parametrize("rate", [0.0, 0.5])
 def test_trm_layer_kernels_match_plain_on_card(cuda_device, shape, bf16, causal, rate):
     """trm_layer_fwd and trm_layer_bwd against the plain version fed the masks
-    the kernels draw, at SASRec's widths and at the bf16 instance's tile
-    edges (TRM_SHAPES; the bidirectional cases with a sequence that has no
-    valid key): y, dx and the 16 gradients, each within 2e-4 (fp32 instance)
-    or 1e-2 (bf16 instance: one bf16 step where an fp32 sum crosses a
-    rounding boundary) of the tensor's largest value, a gradient that is 0
-    but for rounding (bk) within that of 1% of the largest gradient; one
-    launch each; two runs bit-identical."""
+    the kernels draw, at SASRec's widths and at the tile edges of both
+    instances' products (TRM_SHAPES; the bidirectional cases with a sequence
+    that has no valid key): y, dx and the 16 gradients, each within 2e-4
+    (fp32 instance: 3xTF32 products, fp32's precision) or 1e-2 (bf16
+    instance: one bf16 step where an fp32 sum crosses a rounding boundary)
+    of the tensor's largest value, a gradient that is 0 but for rounding
+    (bk) within that of 1% of the largest gradient; one launch each; two
+    runs bit-identical."""
     B, L, D, H, I = TRM_SHAPES[shape]
     x, params, valid, dy = _trm_inputs(B, L, D, I, 3, cuda_device, empty_row=not causal)
     seed = torch.tensor([99], dtype=torch.int64, device=cuda_device)
@@ -962,7 +1017,7 @@ def test_trm_layer_autograd_and_limits_on_card(cuda_device, bf16, shape):
         port_trm.trm_layer(x, params, valid, n_heads=H, causal=True, dropout=0.5)
     # the working set is the built library's own figure, held to the card's limit
     smem = port_trm._lib().trm_layer_smem_bytes
-    assert smem(50, 64, 256, 1) == 198200 <= port_trm.MAX_SMEM_BYTES < smem(200, 64, 256, 1)
+    assert smem(50, 64, 256, 1) == 114112 <= port_trm.MAX_SMEM_BYTES < smem(200, 64, 256, 1)
     smem_bf16 = port_trm._lib().trm_layer_smem_bytes_bf16
     assert smem_bf16(50, 64, 256, 1) == 105312 < port_trm.MAX_SMEM_BYTES \
         < smem_bf16(200, 64, 256, 1)
@@ -1533,14 +1588,16 @@ def test_fused_attention_route_copy_matches_library_on_card(cuda_device):
 @pytest.mark.cuda
 def test_trm_layer_smem_copy_matches_library_on_card(cuda_device):
     """The Python copies of the whole-layer kernel's shared-memory formulas,
-    the fp32 instance's (which routes a layer before any launch) and the
-    bf16 instance's, give the built library's bytes; SASRec's default shape
-    takes the kernel, L 58 / D 64, L 200 and D 128 take the attention path."""
+    the fp32 instance's (3xTF32) and the bf16 instance's, give the built
+    library's bytes, at shapes the route takes and beyond; SASRec's default
+    shape takes the kernel, L 58 / D 64, L 200 and D 128 take the attention
+    path."""
     lib = port_trm._lib()
     for L, D, I in ((50, 64, 256), (57, 64, 256), (58, 64, 256), (200, 64, 256),
-                    (50, 128, 256), (8, 16, 32), (100, 32, 64), (1, 16, 260), (147, 4, 4)):
+                    (50, 128, 256), (8, 16, 32), (100, 32, 64), (1, 16, 260), (147, 4, 4),
+                    (13, 16, 36), (33, 24, 68), (20, 20, 44), (1, 6400, 256), (21, 256, 256)):
         for backward in (0, 1):
-            assert 4 * port_trm.smem_floats(L, D, I, backward) == \
+            assert port_trm.smem_bytes_fp32(L, D, I, backward) == \
                 lib.trm_layer_smem_bytes(L, D, I, backward), (L, D, I, backward)
             assert port_trm.smem_bytes_bf16(L, D, I, backward) == \
                 lib.trm_layer_smem_bytes_bf16(L, D, I, backward), (L, D, I, backward)

@@ -764,7 +764,7 @@ def test_layer2_routes_shapes_beyond_one_block_to_the_attention_path(shape, cdt)
     Lr, Dr, Ir = shape
     Br, Hr = 2, 2
     assert tl.layer_route(Lr, Dr, Ir) == "attention"
-    assert 4 * tl.smem_floats(Lr, Dr, Ir, True) > tl.MAX_SMEM_BYTES
+    assert 4 * tl.route_floats(Lr, Dr, Ir) > tl.MAX_SMEM_BYTES
     rng = np.random.RandomState(Lr + Dr)
     layers_p = jax.tree.map(np.asarray, jax_layers.transformer_init(
         jax.random.key(Lr), 2, Hr, Dr, Ir))
