@@ -5,12 +5,14 @@
 
 Phases:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds the seven csrc/*.cu, one process per source, all at
-     once (its -Xptxas -v report is printed), and the Triton Adam kernel is
-     launched once;
+  2. build: nvcc builds the eight csrc/*.cu, one process per source, all at
+     once (its -Xptxas -v report is printed);
   3. each kernel against its plain PyTorch version, on the card, at the main
      paths' shapes and at edge shapes, and twice on the same input to
-     compare the two results bit for bit; the whole-layer transformer
+     compare the two results bit for bit; Adam over each main path's whole
+     leaf set at once (BPR's, DeepFM-Criteo's, SASRec's 36 with the [PAD]
+     row's zero head, LightGCN's) and over unaligned leaves, a leaf without
+     a gradient and a 0-d one; the whole-layer transformer
      kernels in both instances (bf16-rounded operands, and fp32 ones as
      3xTF32 products), forward and backward, with dropout off and on (the
      plain version is handed the masks the kernels draw), with the worst
@@ -29,7 +31,8 @@ Phases:
      instances, forward and backward, at RippleNet's step and at edge
      shapes;
   4. the main paths, each with every kernel's launch count set to 0 just
-     before and read just after (each kernel of the path must be > 0):
+     before and read just after (each kernel of the path must be > 0, and
+     the Adam kernel must launch exactly once a training step):
      a. run_recbole(model="BPR") for 2 epochs on an ml-1m-shaped dataset
         written from a seed;
      b. DeepFM at the full Criteo width (13 float + 26 token fields, a
@@ -73,7 +76,9 @@ Phases:
      and DeepFM's test AUC, each held to a floor;
   6. timing with CUDA events at the main paths' shapes: kernel, plain
      version, the one-call library yardstick, and the card's bound for the
-     same work; the embedding gradients also in a CUDA graph, with the
+     same work; Adam over each main path's leaf set and the embedding
+     gradients also in a CUDA graph, Adam with the host's time a call; the
+     embedding gradients with the
      kernels a call launches (the windowed path at DeepFM-Criteo's large
      fields and at a LightGCN step's two tables).
 
@@ -82,6 +87,7 @@ It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 imports nothing of JAX or of the JAX package recbole_tpu.
 """
 
+import itertools
 import json
 import logging
 import os
@@ -121,11 +127,14 @@ CRITEO_BATCH, CRITEO_DIM = 2048, 11
 # over 39 fields x 10, and the output layer
 DEEPFM_LEAF_SHAPES = [(sum(CRITEO["vocabs"]), CRITEO_DIM), (13, 10), (13,), (), (390, 128),
                       (128,), (128, 128), (128,), (128, 128), (128,), (128, 1), (1,)]
-# the distinct shapes among the 36 leaves Adam sweeps in one SASRec step at the
-# ml-1m shape: item and position embeddings, the input LayerNorm, and per layer
-# four (64, 64) projections, two FFN matrices, their biases and two LayerNorms
-SASREC_LEAF_SHAPES = [(ML1M[1] + 1, 64), (50, 64), (64, 64), (64,), (64, 256), (256,),
-                      (256, 64)]
+# the 36 leaves Adam sweeps in one SASRec step at the ml-1m shape: item and
+# position embeddings, the input LayerNorm, and per layer the four (64, 64)
+# projections, their four biases, two LayerNorms, and the FFN's two matrices
+# and biases
+SASREC_LAYER_LEAF_SHAPES = [(64, 64)] * 4 + [(64,)] * 8 + [(64, 256), (256,), (256, 64), (64,)]
+SASREC_LEAF_SHAPES = [(ML1M[1] + 1, 64), (50, 64), (64,), (64,)] + SASREC_LAYER_LEAF_SHAPES * 2
+# BPR's two tables at the ml-1m shape ([PAD] included)
+BPR_LEAF_SHAPES = [(ML1M[0] + 1, 64), (ML1M[1] + 1, 64)]
 # ml-100k under the CTR quick-start protocol (PARITY.md:72-91): DeepFM test
 # AUC of the JAX package over 3 seeds 0.7811-0.7919, of the original RecBole
 # 0.7781-0.7881
@@ -151,6 +160,16 @@ YELP = (102_046, 98_408, 2_905_370)
 # the two embedding tables Adam sweeps in a LightGCN step at that shape
 # ([PAD] included)
 LIGHTGCN_LEAF_SHAPES = [(YELP[0] + 1, 64), (YELP[1] + 1, 64)]
+# each main path's leaf set, with each leaf's zero head (the [PAD] row of a
+# pad_zero_params table: SASRec's item_embedding)
+ADAM_SETS = {"bpr": (BPR_LEAF_SHAPES, [0, 0]),
+             "deepfm_criteo": (DEEPFM_LEAF_SHAPES, [0] * len(DEEPFM_LEAF_SHAPES)),
+             "sasrec": (SASREC_LEAF_SHAPES, [64] + [0] * (len(SASREC_LEAF_SHAPES) - 1)),
+             "lightgcn": (LIGHTGCN_LEAF_SHAPES, [0, 0])}
+# an Adam timing takes copies of a smaller leaf set in turn, so that this
+# many bytes, three times the H100's 50 MB L2, pass between two calls on one
+# copy (adam_copies)
+ADAM_ROTATE_BYTES = 150 << 20
 # ml-100k LightGCN under PARITY.md's default protocol, 30 epochs (PARITY.md:45:
 # test recall@10 0.1848 for the JAX package, 0.1887 for the original
 # RecBole), with the restricted step forced on so that the bit kernels run
@@ -203,8 +222,8 @@ RIPPLE_RECALL_FLOOR = 0.155
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
 # adam_leaf: rtol 1e-6 of each element, plus 1e-6 of the tensor's largest
-# magnitude: the kernel contracts b*m + (1-b)*g into one FMA, and where the
-# two terms cancel the result keeps an absolute error of an ulp of the terms
+# magnitude (the bar of the port's Adam tests). The kernel rounds each
+# operation once in the plain version's order, so it should agree bit for bit
 ADAM_RTOL = 1e-6
 # embedding gradients: the kernels add a row's cotangents in fp32 in the
 # order of r, index_add_ in the order its atomics land, so each element may
@@ -324,16 +343,6 @@ def topk_inputs(torch, B, N, D, seed):
     dev = torch.device("cuda")
     return (torch.from_numpy(q).to(dev), torch.from_numpy(items).to(dev),
             torch.from_numpy(mask).to(dev))
-
-
-def adam_leaves(torch, shapes, seed):
-    rng = np.random.RandomState(seed)
-    out = []
-    for shape in shapes:
-        p = np.asarray(rng.standard_normal(shape) * 0.1, np.float32)
-        grads = [np.asarray(rng.standard_normal(shape) * 1e-3, np.float32) for _ in range(3)]
-        out.append((p, grads))
-    return out
 
 
 def criteo_field_spec():
@@ -481,20 +490,13 @@ def phase_device(torch):
 
 def phase_build(torch):
     from recbole_tpu_torch.ops import cuda_build
-    from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
     t0 = time.time()
-    logs = cuda_build.build(["masked_topk", "embed_grad", "trm_layer", "bit_kernels",
-                             "fused_gru", "fused_attention", "rel_apply"])
+    logs = cuda_build.build(["masked_topk", "fused_adam", "embed_grad", "trm_layer",
+                             "bit_kernels", "fused_gru", "fused_attention", "rel_apply"])
     log(f"[build] nvcc {time.time() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
             log(f"[build] {name}: {line.strip()}")
-    t0 = time.time()
-    x = torch.zeros(4096, device="cuda")
-    adam_leaf_triton(x, x.clone(), x.clone(), x.clone(), 1.0, 1.0,
-                     b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
-    torch.cuda.synchronize()
-    log(f"[build] triton adam_leaf first launch {time.time() - t0:.1f}s")
 
 
 def check_topk(torch, B, N, D, k, seed, pad_only=False):
@@ -535,28 +537,47 @@ def check_topk(torch, B, N, D, k, seed, pad_only=False):
     return err
 
 
-def check_adam(torch, shapes, seed):
-    from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton, adam_leaf_torch
+def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=None):
+    """Three steps of the kernel over a whole leaf set at once against
+    adam_multi_torch on the same inputs. ``none``: leaves without a
+    gradient; ``offset``: every p, m and v a view that many elements into
+    its buffer (off the 16-byte path); ``g_offset`` (default ``offset``):
+    the same for the gradients. Returns the largest |difference|."""
+    from recbole_tpu_torch.ops.fused_adam import AdamLeaves, adam_multi_cuda, adam_multi_torch
+    rng = np.random.RandomState(seed)
+    p0 = [np.asarray(rng.standard_normal(s) * 0.1, np.float32) for s in shapes]
+    grads = [[None if i in none else np.asarray(rng.standard_normal(s) * 1e-3, np.float32)
+              for i, s in enumerate(shapes)] for _ in range(3)]
+
+    def on_card(a, at=offset):
+        buf = torch.empty(at + a.size, device="cuda")
+        buf[at:] = torch.from_numpy(a.reshape(-1)).cuda()
+        return buf[at:].view(a.shape)
+
+    g_at = offset if g_offset is None else g_offset
+    state = {}
+    for kind, fn in (("kernel", adam_multi_cuda), ("plain", adam_multi_torch)):
+        leaves = AdamLeaves([on_card(a) for a in p0], [on_card(np.zeros_like(a)) for a in p0],
+                            [on_card(np.zeros_like(a)) for a in p0], heads)
+        for t, g in enumerate(grads, start=1):
+            c1, c2 = 1.0 / (1.0 - 0.9 ** t), 1.0 / (1.0 - 0.999 ** t)
+            fn(leaves, [None if a is None else on_card(a, g_at) for a in g], c1, c2,
+               b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
+        torch.cuda.synchronize()
+        state[kind] = leaves
     err = 0.0
-    for p0, grads in adam_leaves(torch, shapes, seed):
-        state = {}
-        for name in ("kernel", "plain"):
-            p = torch.from_numpy(p0).cuda()
-            m, v = torch.zeros_like(p), torch.zeros_like(p)
-            fn = adam_leaf_triton if name == "kernel" else adam_leaf_torch
-            for t, g in enumerate(grads, start=1):
-                c1, c2 = 1.0 / (1.0 - 0.9 ** t), 1.0 / (1.0 - 0.999 ** t)
-                fn(p, m, v, torch.from_numpy(g).cuda(), c1, c2,
-                   b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
-            torch.cuda.synchronize()
-            state[name] = (p.cpu(), m.cpu(), v.cpu())
-        for a, b in zip(state["kernel"], state["plain"]):
+    for i, shape in enumerate(shapes):
+        k, p = state["kernel"], state["plain"]
+        for a, b in ((k.p[i], p.p[i]), (k.m[i], p.m[i]), (k.v[i], p.v[i])):
             tol = ADAM_RTOL * (b.abs() + b.abs().max())
             if not bool(((a - b).abs() <= tol).all()):
-                raise AssertionError(f"adam_leaf differs at {p0.shape}: max "
+                raise AssertionError(f"adam_multi differs on {label} leaf {i} {shape}: max "
                                      f"{float((a - b).abs().max())}")
             err = max(err, float((a - b).abs().max()))
-    log(f"[check] adam_leaf {len(shapes)} leaves, {shapes[0]} to {shapes[-1]}, x3 steps: "
+    if any(h and bool(state["kernel"].m[i].reshape(-1)[:h].any()) for i, h in enumerate(heads)):
+        raise AssertionError(f"adam_multi moved the moments of a zero head on {label}")
+    log(f"[check] adam_multi {label}: {len(shapes)} leaves "
+        f"({sum(int(np.prod(s)) for s in shapes)} elements) in one launch a step, x3 steps: "
         f"max|err| {err:.3e}")
     return err
 
@@ -1329,13 +1350,13 @@ def check_result(result, keys):
 def kernel_wrappers():
     from recbole_tpu_torch.ops import embed_grad as eg
     from recbole_tpu_torch.ops import trm_layer as tl
-    from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton
+    from recbole_tpu_torch.ops.fused_adam import adam_multi_cuda
     from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda
     from recbole_tpu_torch.ops import bit_kernels as bk
     from recbole_tpu_torch.ops import fused_attention as fa
     from recbole_tpu_torch.ops import fused_gru as fg
     from recbole_tpu_torch.ops import rel_apply as ra
-    return {"masked_topk": masked_topk_cuda, "adam_leaf": adam_leaf_triton,
+    return {"masked_topk": masked_topk_cuda, "adam_leaf": adam_multi_cuda,
             "onehot_matmul_grad": eg.onehot_matmul_grad_cuda,
             "windowed_grad": eg.windowed_grad_cuda,
             "trm_layer_fwd": tl.trm_layer_fwd_cuda, "trm_layer_bwd": tl.trm_layer_bwd_cuda,
@@ -1347,7 +1368,25 @@ def kernel_wrappers():
             "rel_apply_fwd": ra.rel_apply_fwd_cuda, "rel_apply_bwd": ra.rel_apply_bwd_cuda}
 
 
+# the trainer's Adam calls, one a training step (count_adam_steps)
+ADAM_STEPS = {"n": 0}
+
+
+def count_adam_steps():
+    """Count the trainer's Adam calls, so that read_launches can hold the
+    Adam kernel to one launch a training step."""
+    from recbole_tpu_torch.trainer.trainer import Trainer
+    apply = Trainer._fused_adam_apply
+
+    def counted(self, grads):
+        ADAM_STEPS["n"] += 1
+        return apply(self, grads)
+
+    Trainer._fused_adam_apply = counted
+
+
 def reset_launches():
+    ADAM_STEPS["n"] = 0
     for fn in kernel_wrappers().values():
         fn.launches = 0
         for share in ("launches_fp32", "launches_bf16", "launches_cluster", "launches_whole",
@@ -1381,10 +1420,13 @@ def read_launches(path, must_launch):
                 launches[f"{name}_bf16"] = fn.launches_bf16
             if hasattr(fn, "launches_cluster"):
                 launches[f"{name}_cluster"] = fn.launches_cluster
-    log(f"[{path}] launches {launches}")
+    log(f"[{path}] launches {launches}; {ADAM_STEPS['n']} training steps")
     never = [name for name in must_launch if launches[name] <= 0]
     if never:
         raise AssertionError(f"kernels of the {path} path never launched: {never}")
+    if launches["adam_leaf"] != ADAM_STEPS["n"]:
+        raise AssertionError(f"the {path} path made {launches['adam_leaf']} Adam launches in "
+                             f"{ADAM_STEPS['n']} training steps: one a step expected")
     return launches
 
 
@@ -2121,30 +2163,66 @@ def phase_quality(torch, tmp):
                              f"{RIPPLE_RECALL_FLOOR}")
 
 
-def time_adam(torch, leaves, iters, graph=False):
-    """One Adam step over ``leaves`` by CUDA events; with ``graph``, also
-    in one CUDA graph (``graph_ms``, and the library's with a capturable
-    optimizer), where the host's launch rate drops out."""
-    from recbole_tpu_torch.ops.fused_adam import adam_leaf_triton, adam_leaf_torch
+def adam_copies(shapes):
+    """How many copies of a leaf set an Adam timing takes in turn: enough
+    that ADAM_ROTATE_BYTES pass between two calls on one copy, so that a
+    call's leaves come from HBM and not from the 50 MB L2 (one copy for a
+    set of that size or more)."""
+    return -(-ADAM_ROTATE_BYTES // (28 * sum(int(np.prod(s)) for s in shapes)))
+
+
+def rotating(calls):
+    """One function that makes the next of ``calls`` each time, in turn."""
+    turn = itertools.cycle(calls)
+    return lambda: next(turn)()
+
+
+def adam_library(torch, sets, **kw):
+    """``Adam(fused=True).step`` over each (p, grads) of ``sets`` in turn,
+    each optimizer stepped once so that its state exists before a timing."""
+    steps = []
+    for p, grads in sets:
+        params = [torch.nn.Parameter(x.clone()) for x in p]
+        for prm, g in zip(params, grads):
+            prm.grad = g.clone()
+        opt = torch.optim.Adam(params, lr=1e-3, fused=True, **kw)
+        opt.step()
+        steps.append(opt.step)
+    return rotating(steps)
+
+
+def time_adam(torch, shapes, heads, iters):
+    """One Adam step over a main path's leaf set (every gradient present):
+    the kernel by CUDA events (``ms``) and in one CUDA graph (``graph_ms``),
+    the host's ms to enqueue one call (``host_ms``), the plain version, and
+    ``Adam(fused=True).step`` by events (``library_ms``) and, capturable, in a
+    graph (``library_graph_ms``); the bound reads p, m, v and g and writes p,
+    m and v once (g not read in a zero head). Each timing takes
+    ``adam_copies`` copies of the leaves in turn, so that the bound holds."""
+    from recbole_tpu_torch.ops.fused_adam import AdamLeaves, adam_multi_cuda, adam_multi_torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    copies = adam_copies(shapes)
+    sets = [([torch.randn(s, device="cuda", generator=gen) * 0.1 for s in shapes],
+             [torch.randn(s, device="cuda", generator=gen) * 1e-3 for s in shapes])
+            for _ in range(copies)]
+    leaves = [AdamLeaves(p, [torch.zeros_like(x) for x in p], [torch.zeros_like(x) for x in p],
+                         heads) for p, _ in sets]
 
     def step(fn):
-        for p, m, v, g in leaves:
-            fn(p, m, v, g, 10.0, 1000.0, b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
+        return rotating([lambda lv=lv, g=g: fn(lv, g, 10.0, 1000.0, b1=0.9, b2=0.999, lr=1e-3,
+                                               eps=1e-8)
+                         for lv, (_, g) in zip(leaves, sets)])
 
-    def library(**kw):
-        params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
-        for prm, (_, _, _, g) in zip(params, leaves):
-            prm.grad = g.clone()
-        return torch.optim.Adam(params, lr=1e-3, fused=True, **kw)
-
-    n = sum(p.numel() for p, _, _, _ in leaves)
-    t = {"ms": cuda_ms(torch, lambda: step(adam_leaf_triton), iters),
-         "plain_ms": cuda_ms(torch, lambda: step(adam_leaf_torch), iters),
-         "library_ms": cuda_ms(torch, library().step, iters)}
-    if graph:
-        t["graph_ms"] = graph_ms(torch, lambda: step(adam_leaf_triton))
-        t["library_graph_ms"] = graph_ms(torch, library(capturable=True).step)
-    t["bound_ms"], t["bound_by"] = bound(14.0 * n, 28 * n)
+    n = sum(x.numel() for x in sets[0][0])
+    calls = copies * -(-20 // copies)
+    t = {"ms": cuda_ms(torch, step(adam_multi_cuda), iters),
+         "graph_ms": graph_ms(torch, step(adam_multi_cuda), calls),
+         "host_ms": host_ms(torch, step(adam_multi_cuda)),
+         "plain_ms": cuda_ms(torch, step(adam_multi_torch), max(3, iters // 10)),
+         "library_ms": cuda_ms(torch, adam_library(torch, sets), iters),
+         "library_graph_ms": graph_ms(torch, adam_library(torch, sets, capturable=True), calls),
+         "copies": copies}
+    t["bound_ms"], t["bound_by"] = bound(14.0 * n, 28 * n - 4 * sum(heads))
     return n, t
 
 
@@ -2167,24 +2245,16 @@ def phase_timing(torch):
     out["masked_topk"] = t
     log(f"[time] masked_topk B={B} N={N} D={D} k={k}: {t}")
 
-    shapes = [(ML1M[0] + 1, 64), (ML1M[1] + 1, 64)]
-    leaves = [[torch.from_numpy(p).cuda(), torch.zeros(p.shape, device="cuda"),
-               torch.zeros(p.shape, device="cuda"), torch.from_numpy(g[0]).cuda()]
-              for p, g in adam_leaves(torch, shapes, seed=2)]
-    n, t = time_adam(torch, leaves, 200)
-    out["adam_leaf"] = t
-    log(f"[time] adam_leaf one step over {shapes} ({n} elements, "
-        f"{len(shapes)} launches): {t}")
-    # the DeepFM-Criteo leaf set: the merged table and eleven small leaves
-    shapes = DEEPFM_LEAF_SHAPES
-    leaves = [[torch.randn(shape, device="cuda") * 0.1, torch.zeros(shape, device="cuda"),
-               torch.zeros(shape, device="cuda"), torch.randn(shape, device="cuda") * 1e-3]
-              for shape in shapes]
-    n, t = time_adam(torch, leaves, 20, graph=True)
-    out["adam_leaf"]["deepfm_criteo"] = t
-    log(f"[time] adam_leaf one step over the DeepFM-Criteo leaves ({n} elements, "
-        f"{len(shapes)} launches): {t}")
-    del leaves
+    # Adam over each main path's leaf set, one launch a step; BPR's is the
+    # row's own entry
+    for label, (shapes, heads) in ADAM_SETS.items():
+        n, t = time_adam(torch, shapes, heads, 20 if label == "deepfm_criteo" else 200)
+        if label == "bpr":
+            out["adam_leaf"] = t
+        else:
+            out["adam_leaf"][label] = t
+        log(f"[time] adam_leaf one step over the {label} leaves ({len(shapes)} leaves, "
+            f"{n} elements, one launch): {t}")
 
     # one step's backward at the Criteo shape: the 17 small fields through
     # the one-hot kernel, reading its column block in place (the 9 large
@@ -2697,8 +2767,9 @@ def time_rel_apply(torch):
 KERNEL_META = {
     "masked_topk": {"route": "cuda", "source": "recbole_tpu_torch/csrc/masked_topk.cu",
                     "replaces": "recbole_tpu/ops/masked_topk.py:94"},
-    "adam_leaf": {"route": "triton", "source": "recbole_tpu_torch/ops/fused_adam.py",
-                  "replaces": "recbole_tpu/ops/fused_adam.py:75"},
+    # every leaf of a step in one launch
+    "adam_leaf": {"route": "cuda", "source": "recbole_tpu_torch/csrc/fused_adam.cu",
+                  "replaces": "recbole_tpu/ops/fused_adam.py:75", "kernel": "adam_multi_kernel"},
     "onehot_matmul_grad": {"route": "cuda", "source": "recbole_tpu_torch/csrc/embed_grad.cu",
                            "replaces": "recbole_tpu/ops/embed_grad.py:78"},
     "windowed_grad": {"route": "cuda", "source": "recbole_tpu_torch/csrc/embed_grad.cu",
@@ -2766,15 +2837,20 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build(torch)
+    count_adam_steps()
     err = {"masked_topk": max(check_topk(torch, 4096, ML1M[1] + 1, 64, 10, seed=0),
                               check_topk(torch, 943, 1683, 64, 10, seed=3),
                               # SASRec's full-sort batches: 4,096, then the last 1,944
                               check_topk(torch, 4096, ML1M[1] + 1, 64, 10, seed=14, pad_only=True),
                               check_topk(torch, 1944, ML1M[1] + 1, 64, 10, seed=15, pad_only=True)),
-           "adam_leaf": max(check_adam(torch, [(ML1M[0] + 1, 64), (ML1M[1] + 1, 64)], seed=4),
-                            check_adam(torch, DEEPFM_LEAF_SHAPES, seed=9),
-                            check_adam(torch, SASREC_LEAF_SHAPES, seed=16),
-                            check_adam(torch, LIGHTGCN_LEAF_SHAPES, seed=18))}
+           "adam_leaf": max(
+               *(check_adam(torch, label, shapes, heads, seed)
+                 for seed, (label, (shapes, heads)) in enumerate(ADAM_SETS.items(), start=4)),
+               *(check_adam(torch, f"edge leaves at offset {offset}, gradients at {g_offset}",
+                            [(2053,), (3, 7), (), (4096,), (2047,), (37, 9)],
+                            [6, 0, 0, 2, 0, 9], seed=9, none=(1,), offset=offset,
+                            g_offset=g_offset)
+                 for offset, g_offset in ((0, 0), (1, 1), (0, 1))))}
     for kname, cases in embed_grad_cases(torch).items():
         err[kname] = check_embed_grad(torch, kname, cases)
     err.update(check_trm_layer(torch))

@@ -1,0 +1,259 @@
+// One-pass in-place Adam over every float32 leaf of a training step, in one
+// launch, for Hopper.
+//
+// Replaces: recbole_tpu/ops/fused_adam.py::adam_leaf_kernel (:75), the Pallas
+// read-modify-write sweep that the JAX trainer's _fused_adam_apply
+// (recbole_tpu/trainer/trainer.py:317-354) runs on one leaf at a time. It
+// computes what recbole_tpu_torch/ops/fused_adam.py::adam_leaf_torch computes,
+// in its order, each operation rounded once (no contraction into FMA; IEEE
+// division and square root), so the kernel and the plain version agree bit
+// for bit:
+//   m' = b1 m + (1 - b1) g
+//   v' = b2 v + ((1 - b2) g) g
+//   p' = p - (lr (m' c1)) / (sqrt(v' c2) + eps)
+// with c1 = 1 / (1 - b1^t) and c2 = 1 / (1 - b2^t) from the host's integer
+// step count (JAX's bias-correction arrangement, not torch.optim.Adam's).
+//
+// What bounds it on the H100: it reads p, m, v, g and writes p, m, v, 28
+// bytes an element (24 where the gradient is zero) for 14 flops, so memory
+// bandwidth bounds it: DeepFM-Criteo's 28.3M elements are 0.24 ms at 3.35
+// TB/s. Below a few MB, as in BPR's, SASRec's or RippleNet's steps, what is
+// left is the launch: one per leaf cost the host a launch each.
+//
+// Design. One launch sweeps a whole step. The leaves travel by value in the
+// kernel's parameter space, a __grid_constant__ struct read from the
+// constant bank (no host-to-device copy of a pointer table); CUDA 12.1 lifts
+// that space to 32,764 bytes, so up to kMaxLeaves leaves go in one launch,
+// and a longer list takes as many launches as it needs (the host splits
+// it). Each leaf is cut into chunks of kChunk elements; a leaf record holds
+// the prefix of the chunk counts before it, so the step's chunks are one
+// index space that DeepFM's one 28.2M-element table and its eleven tiny
+// leaves share. Block b takes chunk b and finds its leaf by a binary search
+// of the prefix (warp-uniform reads of the constant bank). The first design,
+// a grid of the card's resident blocks that walk the chunks in turn, was
+// slower at the large leaf sets (scripts/torch_adam_ab.py on an NVIDIA H100
+// 80GB HBM3 at 700 W, in a CUDA graph: DeepFM-Criteo's 0.2775 against
+// 0.2608 ms, LightGCN's 0.1284 against 0.1206), likely because a resident
+// block's stores and its next chunk's loads do not overlap. A thread issues
+// all its loads of a chunk (two 16-byte loads each of p, m, v and g) before
+// it computes. The 16-byte path is taken where a leaf's four addresses are
+// 16-byte aligned: the host decides it for p, m and v once, when it builds
+// the leaf records; g, whose address changes every step, is checked here,
+// so that a step's host work is to pass the gradients' addresses. Other
+// leaves, and the last len % 4 elements of a leaf, go element by element,
+// coalesced.
+//
+// The trainer's two per-step fix-ups are folded in: a leaf whose g is null
+// has a zero gradient (a leaf the loss does not reach), and the first
+// zero_head elements of a leaf take a zero gradient (the [PAD] row of a
+// pad_zero_params table, which the reference's Embedding(padding_idx=0)
+// never updates). Both compute with g = 0.0f, as the plain version does on
+// a zero-filled gradient, so p, m and v come out bit for bit the same as
+// with the fill; g is not read there.
+//
+// Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
+// library with a plain C interface, loaded by recbole_tpu_torch/ops/cuda_build.py.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kVecPerThread = 2;                            // float4 groups a thread, per array
+constexpr int kChunk = kThreads * kVecPerThread * 4;        // 2,048 elements
+constexpr int kElemsPerThread = kChunk / kThreads;          // the element path: 8 a thread
+constexpr int kMaxLeaves = 512;
+
+// One leaf of the launch: the layout ops/fused_adam.py's LEAF_DTYPE writes.
+struct Leaf {
+  float* p;
+  float* m;
+  float* v;
+  const float* g;       // null: a zero gradient (written per call from grads)
+  long long n;          // elements (> 0)
+  long long zero_head;  // leading elements whose gradient counts as zero
+  int chunk_start;      // chunks of the launch's leaves before this one
+  int vec;              // 1: p, m and v 16-byte aligned
+};
+static_assert(sizeof(Leaf) == 56, "Leaf must match LEAF_DTYPE");
+
+struct Scalars {
+  float c1, c2, b1, omb1, b2, omb2, lr, eps;
+  int n_leaves, total_chunks;
+};
+
+template <int CAP>
+struct Table {
+  Scalars s;
+  Leaf leaf[CAP];
+};
+static_assert(sizeof(Table<kMaxLeaves>) <= 32764, "kernel parameters are at most 32,764 bytes");
+
+__device__ __forceinline__ void adam1(float& p, float& m, float& v, float g, const Scalars& s) {
+  const float m2 = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.omb1, g));
+  const float v2 = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(__fmul_rn(s.omb2, g), g));
+  const float upd = __fdiv_rn(__fmul_rn(s.lr, __fmul_rn(m2, s.c1)),
+                              __fadd_rn(__fsqrt_rn(__fmul_rn(v2, s.c2)), s.eps));
+  p = __fsub_rn(p, upd);
+  m = m2;
+  v = v2;
+}
+
+// the element path: element i of the chunk is thread i % kThreads's
+// (i / kThreads)-th, so a warp's accesses are contiguous
+__device__ __forceinline__ void chunk_elems(const Leaf& L, long long base, int len,
+                                            const Scalars& s) {
+  float* __restrict__ p = L.p + base;
+  float* __restrict__ m = L.m + base;
+  float* __restrict__ v = L.v + base;
+  const float* __restrict__ g = L.g ? L.g + base : nullptr;
+  const long long head = L.zero_head - base;
+  float P[kElemsPerThread], M[kElemsPerThread], V[kElemsPerThread], G[kElemsPerThread];
+#pragma unroll
+  for (int k = 0; k < kElemsPerThread; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < len) {
+      P[k] = p[i];
+      M[k] = m[i];
+      V[k] = v[i];
+      G[k] = (g && i >= head) ? g[i] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kElemsPerThread; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < len) {
+      adam1(P[k], M[k], V[k], G[k], s);
+      p[i] = P[k];
+      m[i] = M[k];
+      v[i] = V[k];
+    }
+  }
+}
+
+__device__ __forceinline__ void adam4(float4& p, float4& m, float4& v, float4 g, long long head,
+                                      long long e, const Scalars& s) {
+  if (e < head) {  // the group reaches into the zero head
+    if (e + 0 < head) g.x = 0.0f;
+    if (e + 1 < head) g.y = 0.0f;
+    if (e + 2 < head) g.z = 0.0f;
+    if (e + 3 < head) g.w = 0.0f;
+  }
+  adam1(p.x, m.x, v.x, g.x, s);
+  adam1(p.y, m.y, v.y, g.y, s);
+  adam1(p.z, m.z, v.z, g.z, s);
+  adam1(p.w, m.w, v.w, g.w, s);
+}
+
+// the 16-byte path: float4 group q of the chunk is thread q % kThreads's
+__device__ __forceinline__ void chunk_vec(const Leaf& L, long long base, int len,
+                                          const Scalars& s) {
+  float4* __restrict__ p = reinterpret_cast<float4*>(L.p + base);
+  float4* __restrict__ m = reinterpret_cast<float4*>(L.m + base);
+  float4* __restrict__ v = reinterpret_cast<float4*>(L.v + base);
+  const float4* __restrict__ g = L.g ? reinterpret_cast<const float4*>(L.g + base) : nullptr;
+  const long long head = L.zero_head - base;
+  const int groups = len >> 2;
+  float4 P[kVecPerThread], M[kVecPerThread], V[kVecPerThread], G[kVecPerThread];
+#pragma unroll
+  for (int k = 0; k < kVecPerThread; ++k) {
+    const int q = threadIdx.x + k * kThreads;
+    if (q < groups) {
+      P[k] = p[q];
+      M[k] = m[q];
+      V[k] = v[q];
+      G[k] = (g && 4LL * q + 4 > head) ? g[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kVecPerThread; ++k) {
+    const int q = threadIdx.x + k * kThreads;
+    if (q < groups) {
+      adam4(P[k], M[k], V[k], G[k], head, 4LL * q, s);
+      p[q] = P[k];
+      m[q] = M[k];
+      v[q] = V[k];
+    }
+  }
+  // the leaf's last len % 4 elements (only its last chunk can be short)
+  const int i = 4 * groups + threadIdx.x;
+  if (i < len) {
+    float* pe = L.p + base;
+    float* me = L.m + base;
+    float* ve = L.v + base;
+    float pi = pe[i], mi = me[i], vi = ve[i];
+    const float gi = (L.g && i >= head) ? L.g[base + i] : 0.0f;
+    adam1(pi, mi, vi, gi, s);
+    pe[i] = pi;
+    me[i] = mi;
+    ve[i] = vi;
+  }
+}
+
+template <int CAP>
+__global__ void __launch_bounds__(kThreads)
+adam_multi_kernel(const __grid_constant__ Table<CAP> t) {
+  const Scalars& s = t.s;
+  const int c = blockIdx.x;
+  // the last leaf whose chunks start at or before c (chunk_start rises
+  // strictly: the host leaves out leaves of no element)
+  int lo = 0, hi = s.n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].chunk_start <= c)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const Leaf& L = t.leaf[lo];
+  const long long base = (long long)(c - L.chunk_start) * kChunk;
+  const long long rest = L.n - base;
+  const int len = rest < kChunk ? (int)rest : kChunk;
+  if (L.vec && !(reinterpret_cast<uintptr_t>(L.g) & 15))
+    chunk_vec(L, base, len, s);
+  else
+    chunk_elems(L, base, len, s);
+}
+
+template <int CAP>
+int launch(const Leaf* leaves, const float* const* grads, int n_leaves, int total_chunks,
+           const Scalars& s, cudaStream_t stream) {
+  Table<CAP> t;
+  t.s = s;
+  t.s.n_leaves = n_leaves;
+  t.s.total_chunks = total_chunks;
+  memcpy(t.leaf, leaves, sizeof(Leaf) * n_leaves);
+  for (int i = 0; i < n_leaves; ++i) t.leaf[i].g = grads[i];
+  adam_multi_kernel<CAP><<<total_chunks, kThreads, 0, stream>>>(t);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int adam_multi_chunk() { return kChunk; }
+
+extern "C" int adam_multi_max_leaves() { return kMaxLeaves; }
+
+// One launch over n_leaves records (each n > 0, chunk_start their chunk
+// prefix, total_chunks the sum) with the step's gradient addresses (null: a
+// zero gradient), on stream. The parameter block is the smallest instance
+// that holds the list: Table<kMaxLeaves> alone (28.7 KB of parameters) cost
+// the host 2-25 us more a call than Table<16> / <64> at BPR's, DeepFM's,
+// SASRec's and LightGCN's sets, with the same device time
+// (scripts/torch_adam_ab.py --kernels-only, both builds in turns in one call,
+// an NVIDIA H100 80GB HBM3 at 700 W).
+extern "C" int adam_multi_f32(const void* leaves, const void* grads, int n_leaves,
+                              int total_chunks, float c1, float c2, float b1, float omb1,
+                              float b2, float omb2, float lr, float eps, void* stream) {
+  if (n_leaves <= 0 || total_chunks <= 0) return (int)cudaErrorInvalidValue;
+  const Leaf* l = static_cast<const Leaf*>(leaves);
+  const float* const* g = static_cast<const float* const*>(grads);
+  const Scalars s = {c1, c2, b1, omb1, b2, omb2, lr, eps, 0, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_leaves <= 16) return launch<16>(l, g, n_leaves, total_chunks, s, st);
+  if (n_leaves <= 64) return launch<64>(l, g, n_leaves, total_chunks, s, st);
+  if (n_leaves <= kMaxLeaves) return launch<kMaxLeaves>(l, g, n_leaves, total_chunks, s, st);
+  return (int)cudaErrorInvalidValue;
+}

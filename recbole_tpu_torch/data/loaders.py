@@ -195,7 +195,7 @@ class SequentialSampledEvalLoader:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "sampled evaluation of sequential models (uni<k>/pop<k>, and "
-            "valid_full_to_uni1000) is not ported yet (ROADMAP Queue 1, item 7); "
+            "valid_full_to_uni1000) is not ported yet (ROADMAP Queue 1, item 3); "
             "use full-sort eval")
 
 

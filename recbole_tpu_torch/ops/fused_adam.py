@@ -1,34 +1,50 @@
-"""Single-pass in-place Adam sweep over one parameter leaf.
+"""Single-pass in-place Adam over every float32 leaf of a training step.
 
-Port of recbole_tpu/ops/fused_adam.py. Three things live here:
+Port of recbole_tpu/ops/fused_adam.py. What lives here:
 
 * ``adam_leaf_torch``, the plain PyTorch version of the math of
   ``trainer.py:335-337`` (and of the Pallas kernel ``adam_leaf_kernel``),
   with JAX's bias-correction arrangement
   ``p' = p - lr * (m' c1) / (sqrt(v' c2) + eps)``, c1 = 1/(1-b1^t),
   c2 = 1/(1-b2^t) — not torch.optim.Adam's;
-* ``adam_leaf_triton``, the launcher of a Triton kernel that replaces
-  ``adam_leaf_kernel`` (:75);
-* ``adam_leaf``, the dispatcher: the plain version for CPU tensors, the
-  kernel for CUDA tensors, and no fallback between them.
+* ``AdamLeaves``, a step's leaves without their gradients: p, m and v of
+  each, and its ``zero_head``, the number of leading elements whose
+  gradient counts as zero (the [PAD] row of a ``pad_zero_params`` table).
+  Built once per optimizer state; on the card it also holds the kernel's
+  leaf table, of which only the gradients' column changes from step to step;
+* ``adam_multi_torch``, the plain version over all leaves: ``adam_leaf_torch``
+  per leaf, a gradient of None read as zeros and the head as zero;
+* ``adam_multi_cuda``, the launcher of the hand-written kernel in
+  ``csrc/fused_adam.cu``, which replaces ``adam_leaf_kernel`` (:75): one
+  launch sweeps every leaf of the step;
+* ``adam_multi``, the dispatcher: the plain version for CPU tensors, the
+  kernel for CUDA tensors, and no fallback between them; ``adam_leaf``, its
+  one-leaf form.
 
-Both update ``p``, ``m`` and ``v`` in place and return them. This is where
-the port departs from JAX's functional update, which returns new arrays.
-The JAX package's gates (the RECBOLE_TPU_PALLAS_ADAM variable and
-MIN_ELEMS = 1 << 20) are TPU measurements and are dropped: the kernel runs
-for every float32 leaf.
-
-What bounds the kernel on the H100: it reads p, m, v, g and writes p, m, v,
-28 bytes an element and a handful of flops, so memory bandwidth bounds it.
-Its design: one pass, each program a 1-D block of contiguous elements with
-masked 16-byte vector loads; c1 and c2 are computed on the host from the
-integer step count and passed as scalars, so no device-to-host sync.
+All update ``p``, ``m`` and ``v`` in place. This is where the port departs
+from JAX's functional update, which returns new arrays. The JAX package's
+gates (the RECBOLE_TPU_PALLAS_ADAM variable and MIN_ELEMS = 1 << 20) are TPU
+measurements and are dropped: the kernel runs for every float32 leaf. c1 and
+c2 are computed on the host from the integer step count, so nothing waits
+on the device.
 """
 
+import contextlib
+import ctypes
+
+import numpy as np
 import torch
 
-_BLOCK = 1024
-_KERNEL = None
+from . import cuda_build
+
+# csrc/fused_adam.cu's Leaf record, and its chunk and parameter-block sizes
+LEAF_DTYPE = np.dtype([("p", "<u8"), ("m", "<u8"), ("v", "<u8"), ("g", "<u8"),
+                       ("n", "<i8"), ("zero_head", "<i8"), ("chunk_start", "<i4"),
+                       ("vec", "<i4")])
+CHUNK = 2048
+MAX_LEAVES = 512
+
+_LIB = None
 
 
 def adam_leaf_torch(p, m, v, g, c1, c2, *, b1, b2, lr, eps):
@@ -42,62 +58,169 @@ def adam_leaf_torch(p, m, v, g, c1, c2, *, b1, b2, lr, eps):
     return p, m, v
 
 
-def _kernel():
-    global _KERNEL
-    if _KERNEL is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def adam_leaf_kernel(p_ptr, m_ptr, v_ptr, g_ptr, n, c1, c2, b1, omb1,
-                             b2, omb2, lr, eps, BLOCK: tl.constexpr):
-            offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-            ok = offs < n
-            p = tl.load(p_ptr + offs, mask=ok)
-            m = tl.load(m_ptr + offs, mask=ok)
-            v = tl.load(v_ptr + offs, mask=ok)
-            g = tl.load(g_ptr + offs, mask=ok)
-            m2 = b1 * m + omb1 * g
-            v2 = b2 * v + omb2 * g * g
-            upd = tl.div_rn(lr * (m2 * c1), tl.sqrt_rn(v2 * c2) + eps)
-            tl.store(p_ptr + offs, p - upd, mask=ok)
-            tl.store(m_ptr + offs, m2, mask=ok)
-            tl.store(v_ptr + offs, v2, mask=ok)
-
-        _KERNEL = (triton, adam_leaf_kernel)
-    return _KERNEL
+def leaf_table(addresses, numels, zero_heads):
+    """The kernel's leaf records for leaves of ``numels`` elements whose p,
+    m and v lie at ``addresses`` ((p, m, v) each): leaves of no element are
+    left out. Returns (table, rows, groups): ``rows`` the leaf index of each
+    record, ``groups`` (first record, records, chunks) of each launch, at most
+    MAX_LEAVES records each, chunk_start counted from the group's first."""
+    rows = [i for i, n in enumerate(numels) if n > 0]
+    table = np.zeros(len(rows), LEAF_DTYPE)
+    groups = []
+    for first in range(0, len(rows), MAX_LEAVES):
+        chunks = 0
+        for j in range(first, min(first + MAX_LEAVES, len(rows))):
+            i = rows[j]
+            p, m, v = addresses[i]
+            table[j] = (p, m, v, 0, numels[i], zero_heads[i], chunks,
+                        int(p % 16 == 0 and m % 16 == 0 and v % 16 == 0))
+            chunks += -(-numels[i] // CHUNK)
+        groups.append((first, min(MAX_LEAVES, len(rows) - first), chunks))
+    return table, rows, groups
 
 
-def adam_leaf_triton(p, m, v, g, c1, c2, *, b1, b2, lr, eps):
-    """Launch the Triton kernel on CUDA tensors; same contract as
-    ``adam_leaf_torch``. Counts its launches in ``adam_leaf_triton.launches``."""
-    leaves = (p, m, v, g)
-    if not all(t.is_cuda for t in leaves):
-        raise ValueError("adam_leaf_triton needs CUDA tensors")
-    if not all(t.device == p.device for t in leaves):
-        raise ValueError("p, m, v and g must share a device")
-    if not all(t.dtype == torch.float32 for t in leaves):
-        raise TypeError("adam_leaf_triton takes float32 leaves")
-    if not all(t.shape == p.shape for t in leaves):
-        raise ValueError("p, m, v and g must have one shape")
-    if not all(t.is_contiguous() for t in leaves):
-        raise ValueError("p, m, v and g must be contiguous")
-    n = p.numel()
-    triton, kern = _kernel()
-    with torch.cuda.device(p.device):
-        kern[(triton.cdiv(n, _BLOCK),)](
-            p, m, v, g, n, float(c1), float(c2), float(b1), 1.0 - b1,
-            float(b2), 1.0 - b2, float(lr), float(eps), BLOCK=_BLOCK,
-            num_warps=4)
-    adam_leaf_triton.launches += 1
-    return p, m, v
+class AdamLeaves:
+    """p, m and v of each leaf (updated in place) and its ``zero_head``;
+    ``zero_heads`` defaults to 0 for every leaf. The kernel's table is built
+    at the first CUDA call and reads these tensors' addresses then: build a
+    new AdamLeaves when any of them is replaced."""
+
+    def __init__(self, params, mu, nu, zero_heads=None):
+        self.p, self.m, self.v = list(params), list(mu), list(nu)
+        self.zero_head = ([0] * len(self.p) if zero_heads is None
+                          else [int(h) for h in zero_heads])
+        if not len(self.p) == len(self.m) == len(self.v) == len(self.zero_head):
+            raise ValueError("params, mu, nu and zero_heads must have one length")
+        self._table = None
+
+    def __len__(self):
+        return len(self.p)
+
+    @property
+    def device(self):
+        return self.p[0].device if self.p else torch.device("cpu")
+
+    def cuda_table(self):
+        """The kernel's table of these leaves, after checking every p, m and
+        v: CUDA, one device, float32, contiguous, one shape a leaf, and the
+        head inside the leaf. Built once."""
+        if self._table is None:
+            dev = self.device
+            for i, (p, m, v, head) in enumerate(zip(self.p, self.m, self.v, self.zero_head)):
+                _check_leaf(f"leaf {i}", (p, m, v), dev, p.shape)
+                if not 0 <= head <= p.numel():
+                    raise ValueError(f"leaf {i}: zero_head {head} outside its "
+                                     f"{p.numel()} elements")
+            self._table = _CudaTable(dev.index, [p.shape for p in self.p], *leaf_table(
+                [(p.data_ptr(), m.data_ptr(), v.data_ptr())
+                 for p, m, v in zip(self.p, self.m, self.v)],
+                [p.numel() for p in self.p], self.zero_head))
+        return self._table
 
 
-adam_leaf_triton.launches = 0
+class _CudaTable:
+    """A leaf table on the host, with the array of gradient addresses that
+    each call writes and the kernel's launcher copies in."""
+
+    def __init__(self, dev, shapes, table, rows, groups):
+        self.dev, self.table, self.rows, self.groups = dev, table, rows, groups
+        self.shapes = [shapes[i] for i in rows]
+        self.grads = np.zeros(len(rows), np.uint64)
+        self.address, self.grads_address = table.ctypes.data, self.grads.ctypes.data
+
+
+def _check_leaf(what, tensors, dev, shape):
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"adam_multi_cuda needs CUDA tensors ({what})")
+        if t.device != dev:
+            raise ValueError(f"adam_multi_cuda: {what} is not on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"adam_multi_cuda takes float32 leaves ({what}: {t.dtype})")
+        if t.shape != shape:
+            raise ValueError(f"adam_multi_cuda: {what} has shapes {tuple(t.shape)} "
+                             f"and {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"adam_multi_cuda: {what} must be contiguous")
+
+
+def adam_multi_torch(leaves, grads, c1, c2, *, b1, b2, lr, eps):
+    """One Adam step over every leaf of ``leaves`` (an AdamLeaves), with
+    ``grads`` one gradient a leaf, None for a zero gradient."""
+    if len(grads) != len(leaves):
+        raise ValueError(f"{len(grads)} gradients for {len(leaves)} leaves")
+    for p, m, v, head, g in zip(leaves.p, leaves.m, leaves.v, leaves.zero_head, grads):
+        if g is None:
+            g = torch.zeros_like(p)
+        elif head:
+            flat = g.reshape(-1).clone()
+            flat[:head] = 0.0
+            g = flat.view(p.shape)
+        adam_leaf_torch(p, m, v, g, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+    return leaves
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("fused_adam")
+        if lib.adam_multi_chunk() != CHUNK or lib.adam_multi_max_leaves() != MAX_LEAVES:
+            raise RuntimeError("csrc/fused_adam.cu's chunk or leaf limit differs from "
+                               "ops/fused_adam.py's")
+        fn = lib.adam_multi_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
+            ctypes.c_float] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIB = fn
+    return _LIB
+
+
+def adam_multi_cuda(leaves, grads, c1, c2, *, b1, b2, lr, eps):
+    """Launch the CUDA kernel over every leaf of ``leaves``, on CUDA tensors;
+    same contract as ``adam_multi_torch``. One launch, or one for each
+    MAX_LEAVES leaves. Counts its launches in ``adam_multi_cuda.launches``."""
+    if len(grads) != len(leaves):
+        raise ValueError(f"{len(grads)} gradients for {len(leaves)} leaves")
+    tab = leaves.cuda_table()
+    if not tab.rows:
+        return leaves
+    dev, gptr = tab.dev, []
+    for i, shape in zip(tab.rows, tab.shapes):
+        g = grads[i]
+        if g is None:
+            gptr.append(0)
+            continue
+        if (g.get_device() != dev or g.dtype != torch.float32 or g.shape != shape
+                or not g.is_contiguous()):
+            _check_leaf(f"gradient {i}", (g,), leaves.p[i].device, shape)
+        gptr.append(g.data_ptr())
+    tab.grads[:] = gptr
+    fn = _lib()
+    scalars = (c1, c2, b1, 1.0 - b1, b2, 1.0 - b2, lr, eps)
+    # the launch goes to the current device: switch only when it is another
+    with (torch.cuda.device(dev) if torch.cuda.current_device() != dev
+          else contextlib.nullcontext()):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for first, count, chunks in tab.groups:
+            err = fn(tab.address + first * LEAF_DTYPE.itemsize, tab.grads_address + first * 8,
+                     count, chunks, *scalars, stream)
+            if err:
+                raise RuntimeError(f"adam_multi kernel launch failed: CUDA error {err}")
+            adam_multi_cuda.launches += 1
+    return leaves
+
+
+adam_multi_cuda.launches = 0
+
+
+def adam_multi(leaves, grads, c1, c2, *, b1, b2, lr, eps):
+    """Dispatcher: the plain version for CPU tensors, the kernel otherwise."""
+    if leaves.device.type == "cpu":
+        return adam_multi_torch(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+    return adam_multi_cuda(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
 
 
 def adam_leaf(p, m, v, g, c1, c2, *, b1, b2, lr, eps):
-    """Dispatcher: the plain version for CPU tensors, the kernel otherwise."""
-    if p.device.type == "cpu":
-        return adam_leaf_torch(p, m, v, g, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
-    return adam_leaf_triton(p, m, v, g, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+    """One leaf through the dispatcher."""
+    adam_multi(AdamLeaves([p], [m], [v]), [g], c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+    return p, m, v

@@ -24,12 +24,12 @@ model's device:
     each, ``calculate_kg_loss``), ``rskg`` (rec batches with random KG rows
     added, ``calculate_loss``) and ``rs_only_loss`` (``calculate_rs_loss``);
     ``KGTrainer`` picks one per epoch;
-  * row 0 of every ``pad_zero_params`` gradient is zeroed before Adam, so a
-    [PAD] embedding row never trains;
+  * row 0 of every ``pad_zero_params`` gradient counts as zero in Adam (the
+    kernel's ``zero_head``), so a [PAD] embedding row never trains;
   * the model is in train mode only inside the step, and draws its dropout
     masks from the trainer's generator;
-  * Adam is the single-pass in-place sweep of ops/fused_adam.py for every
-    float32 leaf (``_fused_adam_apply``);
+  * Adam is the single-pass in-place sweep of ops/fused_adam.py over every
+    float32 leaf at once, one launch a step (``_fused_adam_apply``);
   * full-sort evaluation of a model that defines ``full_sort_query`` in
     its own class, or inherits the sequential base's whole dot-product stack
     (the JAX trainer's rule), goes through
@@ -66,7 +66,7 @@ from ..utils.utils import early_stopping, calculate_valid_score, dict2str, ensur
 from ..data.loaders import RowEvalLoader
 from ..evaluator.evaluator import topk_metric_sums, TopKCollector, ValueCollector
 from ..sampler.sampler import sample_negatives, sample_negatives_unchecked
-from ..ops.fused_adam import adam_leaf
+from ..ops.fused_adam import AdamLeaves, adam_multi
 from ..ops.masked_topk import masked_topk
 
 # the score of a masked item in the non-fused full-sort step (parity:
@@ -163,6 +163,8 @@ class Trainer:
         self.start_epoch = 0
         self.cur_step = 0
         self.opt_state = None
+        # (mu, nu, AdamLeaves) of the optimizer state the leaves were built on
+        self._adam_leaves = None
         self.train_loss_dict = {}
         self._modes = {}
         self._eval_step_cache = {}
@@ -299,19 +301,37 @@ class Trainer:
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
 
     def _fused_adam_apply(self, grads):
-        """One Adam step over every parameter, in place (parity:
-        trainer.py:317-354, same defaults as optax.adam). c1 and c2 come from
-        the integer step count on the host, so nothing waits on the device."""
+        """One Adam step over every parameter, in place, in one launch on the
+        card (parity: trainer.py:317-354, same defaults as optax.adam).
+        ``grads`` holds one gradient a parameter in ``named_parameters()``
+        order, None for a leaf the loss does not reach (a zero gradient, as
+        jax.grad gives it). c1 and c2 come from the integer step count on the
+        host, so nothing waits on the device."""
         b1, b2, eps = self.ADAM_B1, self.ADAM_B2, self.ADAM_EPS
         lr = self.optimizer["lr"]
         self.opt_state["count"] += 1
         t = self.opt_state["count"]
         c1 = 1.0 / (1.0 - b1 ** t)
         c2 = 1.0 / (1.0 - b2 ** t)
-        for name, p in self.model.named_parameters():
-            adam_leaf(p.data, self.opt_state["mu"][name],
-                      self.opt_state["nu"][name], grads[name], c1, c2,
-                      b1=b1, b2=b2, lr=lr, eps=eps)
+        adam_multi(self._step_leaves(), grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+
+    def _step_leaves(self):
+        """The AdamLeaves of the parameters and the optimizer state's moments,
+        built again when those moments are replaced (``_fused_adam_init``,
+        ``resume_checkpoint``). The reference's Embedding(padding_idx=0) never
+        updates row 0: each ``pad_zero_params`` leaf's first row counts as a
+        zero gradient, so the [PAD] row and its moments stay zero."""
+        mu, nu = self.opt_state["mu"], self.opt_state["nu"]
+        built = self._adam_leaves
+        if built is None or built[0] is not mu or built[1] is not nu:
+            params = dict(self.model.named_parameters())
+            pad_zero = getattr(self.model, "pad_zero_params", ())
+            built = (mu, nu, AdamLeaves(
+                [p.data for p in params.values()], [mu[n] for n in params],
+                [nu[n] for n in params],
+                [p[0].numel() if n in pad_zero else 0 for n, p in params.items()]))
+            self._adam_leaves = built
+        return built[2]
 
     def _make_step_core(self, augment, loss_method):
         """step_core(batch, consts) -> detached loss (a vector of its parts
@@ -319,8 +339,7 @@ class Trainer:
         the fused Adam update, drawing randomness (negatives, dropout masks)
         from ``self.generator`` (parity: trainer.py:356-395). The model is in
         train mode for the loss only."""
-        params = dict(self.model.named_parameters())
-        pad_zero = [k for k in getattr(self.model, "pad_zero_params", ()) if k in params]
+        params = list(self.model.parameters())
 
         def step_core(batch, consts):
             batch = augment(batch, self.generator, consts)
@@ -331,16 +350,9 @@ class Trainer:
                 self.model.eval()
             # a tuple of loss parts: their sum is the loss, each is reported
             loss = sum(out) if isinstance(out, tuple) else out
-            # a leaf the loss does not reach (LR never reads the embedding
-            # of a float field) gets a zero gradient, as jax.grad gives it
-            grads = {name: torch.zeros_like(params[name]) if g is None else g
-                     for name, g in zip(params, torch.autograd.grad(
-                         loss, list(params.values()), allow_unused=True))}
-            # the reference's Embedding(padding_idx=0) never updates row 0:
-            # with a zero gradient the [PAD] row and its moments stay zero
-            for name in pad_zero:
-                grads[name][0] = 0.0
-            self._fused_adam_apply(grads)
+            # None for a leaf the loss does not reach (LR never reads the
+            # embedding of a float field): Adam reads it as a zero gradient
+            self._fused_adam_apply(torch.autograd.grad(loss, params, allow_unused=True))
             if isinstance(out, tuple):
                 return torch.stack([part.detach() for part in out])
             return loss.detach()

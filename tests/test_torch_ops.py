@@ -162,11 +162,125 @@ def test_adam_plain_matches_pallas_kernel_interpret():
 
 
 def test_adam_launcher_refuses_cpu_tensors():
+    """adam_multi_cuda raises on CPU leaves, and counts no launch."""
     p, m, v, g = (torch.from_numpy(a) for a in _adam_inputs((4, 4), seed=2))
-    before = fused_adam.adam_leaf_triton.launches
+    before = fused_adam.adam_multi_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
-        fused_adam.adam_leaf_triton(p, m, v, g, 1.0, 1.0, b1=B1, b2=B2, lr=LR, eps=EPS)
-    assert fused_adam.adam_leaf_triton.launches == before
+        fused_adam.adam_multi_cuda(fused_adam.AdamLeaves([p], [m], [v]), [g], 1.0, 1.0,
+                                   b1=B1, b2=B2, lr=LR, eps=EPS)
+    assert fused_adam.adam_multi_cuda.launches == before
+
+
+# a SASRec-like leaf set (two layers at width 8, inner 16): the item table
+# with its [PAD] row, the position table, LayerNorm gains and biases, and a
+# layer's matrices and biases; "bias0" is 0-d and "unused" gets no gradient
+ADAM_LEAVES = {"item_embedding": (13, 8), "position_embedding": (6, 8), "ln_g": (8,),
+               "ln_b": (8,), "unused": (5, 3), "bias0": ()}
+for _l in range(2):
+    ADAM_LEAVES.update({f"encoder.{_l}.wq": (8, 8), f"encoder.{_l}.bq": (8,),
+                        f"encoder.{_l}.ff1_w": (8, 16), f"encoder.{_l}.ff1_b": (16,),
+                        f"encoder.{_l}.ff2_w": (16, 8)})
+
+
+def test_adam_multi_plain_matches_jax_fused_adam_apply():
+    """Three steps of adam_multi_torch over ADAM_LEAVES against the JAX
+    trainer's _fused_adam_apply on the same numpy params and gradients:
+    the unused leaf's gradient is None here and zeros in JAX, and
+    item_embedding's zero_head (its [PAD] row) is given to JAX as gradients
+    with row 0 zeroed. rtol 1e-6 plus 1e-6 of the tensor's largest magnitude
+    (JAX computes c1 and c2 in fp32 from the count, the port in double)."""
+    from types import SimpleNamespace
+    from recbole_tpu.trainer.trainer import Trainer as JaxTrainer
+    rng = np.random.RandomState(7)
+    names = list(ADAM_LEAVES)
+    p0 = {n: np.asarray(rng.randn(*s) * 0.1, np.float32) for n, s in ADAM_LEAVES.items()}
+    grads = [{n: np.asarray(rng.randn(*s) * 1e-3, np.float32) for n, s in ADAM_LEAVES.items()}
+             for _ in range(3)]
+    for g in grads:
+        g["unused"] = None
+    jself = SimpleNamespace(config={"learning_rate": LR}, ADAM_B1=B1, ADAM_B2=B2, ADAM_EPS=EPS)
+    jparams = {n: jnp.asarray(a) for n, a in p0.items()}
+    jstate = JaxTrainer._fused_adam_init(jself, jparams)
+
+    tp = [torch.from_numpy(p0[n].copy()) for n in names]
+    leaves = fused_adam.AdamLeaves(tp, [torch.zeros_like(p) for p in tp],
+                                   [torch.zeros_like(p) for p in tp],
+                                   [8 if n == "item_embedding" else 0 for n in names])
+    for t, g in enumerate(grads, start=1):
+        jg = {n: jnp.zeros(ADAM_LEAVES[n], jnp.float32) if a is None else jnp.asarray(a)
+              for n, a in g.items()}
+        jg["item_embedding"] = jg["item_embedding"].at[0].set(0.0)
+        jparams, jstate = JaxTrainer._fused_adam_apply(jself, jparams, jstate, jg)
+        tg = [None if g[n] is None else torch.from_numpy(g[n]) for n in names]
+        fused_adam.adam_multi(leaves, tg, 1.0 / (1.0 - B1 ** t), 1.0 / (1.0 - B2 ** t),
+                              b1=B1, b2=B2, lr=LR, eps=EPS)
+    for i, n in enumerate(names):
+        for got, ref in ((leaves.p[i], jparams[n]), (leaves.m[i], jstate["mu"][n]),
+                         (leaves.v[i], jstate["nu"][n])):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6,
+                                       atol=1e-6 * np.abs(ref).max(), err_msg=n)
+    item = names.index("item_embedding")
+    assert not leaves.m[item][0].any() and not leaves.v[item][0].any()
+    assert torch.equal(leaves.p[item][0], torch.from_numpy(p0["item_embedding"][0]))
+
+
+def test_adam_multi_dispatch_on_cpu_runs_plain_version():
+    """On CPU leaves the dispatcher is the plain version: the same bits as
+    adam_leaf_torch on zero-filled gradients, and no launch counted."""
+    rng = np.random.RandomState(3)
+    shapes = [(7, 4), (5,), ()]
+    p0 = [np.asarray(rng.randn(*s), np.float32) for s in shapes]
+    g = [np.asarray(rng.randn(*s) * 1e-3, np.float32) for s in shapes]
+    before = fused_adam.adam_multi_cuda.launches
+    leaves = fused_adam.AdamLeaves([torch.from_numpy(a.copy()) for a in p0],
+                                   [torch.zeros(s) for s in shapes],
+                                   [torch.zeros(s) for s in shapes], [4, 0, 0])
+    fused_adam.adam_multi(leaves, [torch.from_numpy(g[0]), None, torch.from_numpy(g[2])],
+                          10.0, 1000.0, b1=B1, b2=B2, lr=LR, eps=EPS)
+    assert fused_adam.adam_multi_cuda.launches == before
+    g[0][0] = 0.0
+    g[1] = np.zeros(shapes[1], np.float32)
+    for i, s in enumerate(shapes):
+        p, m, v = torch.from_numpy(p0[i].copy()), torch.zeros(s), torch.zeros(s)
+        fused_adam.adam_leaf_torch(p, m, v, torch.from_numpy(g[i]), 10.0, 1000.0,
+                                   b1=B1, b2=B2, lr=LR, eps=EPS)
+        assert torch.equal(leaves.p[i], p) and torch.equal(leaves.m[i], m)
+        assert torch.equal(leaves.v[i], v)
+
+
+def test_adam_after_resume_checkpoint_updates_the_resumed_state(tmp_path):
+    """The trainer's leaves follow resume_checkpoint on the CPU too."""
+    _adam_resume_case(torch.device("cpu"), tmp_path)
+
+
+def test_adam_leaf_table_chunks_groups_and_alignment():
+    """The kernel's leaf records: leaves of no element left out, chunk
+    prefixes counted from each launch's first leaf, a new launch every
+    MAX_LEAVES records, and the 16-byte path only where p, m and v are all
+    16-byte aligned."""
+    C, K = fused_adam.CHUNK, fused_adam.MAX_LEAVES
+    numels = [C * 3 + 1, 0, 1, C] + [5] * (K + 2)
+    addrs = [(4096 * i, 4096 * i + 1024, 4096 * i + 2048) for i in range(len(numels))]
+    addrs[2] = (4096 * 2 + 4, 4096 * 2 + 1024, 4096 * 2 + 2048)
+    heads = [11] + [0] * (len(numels) - 1)
+    table, rows, groups = fused_adam.leaf_table(addrs, numels, heads)
+    assert rows == [0] + list(range(2, len(numels)))
+    assert table.dtype.itemsize == 56 and len(table) == len(numels) - 1
+    assert list(table["chunk_start"][:4]) == [0, 4, 5, 6]
+    assert list(table["vec"][:3]) == [1, 0, 1] and table["zero_head"][0] == 11
+    assert table["n"][0] == C * 3 + 1 and table["p"][1] == 4096 * 2 + 4
+    assert not table["g"].any()
+    assert groups == [(0, K, 4 + 1 + 1 + (K - 3)), (K, len(rows) - K, len(rows) - K)]
+    assert table["chunk_start"][K] == 0 and table["chunk_start"][K + 1] == 1
+
+
+def test_adam_multi_refuses_mismatched_lists():
+    with pytest.raises(ValueError, match="one length"):
+        fused_adam.AdamLeaves([torch.zeros(3)], [torch.zeros(3)], [])
+    leaves = fused_adam.AdamLeaves([torch.zeros(3)], [torch.zeros(3)], [torch.zeros(3)])
+    with pytest.raises(ValueError, match="gradients"):
+        fused_adam.adam_multi(leaves, [], 1.0, 1.0, b1=B1, b2=B2, lr=LR, eps=EPS)
 
 
 # ------------------------------------------------------- embedding gradients
@@ -526,10 +640,9 @@ def test_masked_topk_kernel_ties_and_wide_k_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(6041, 64), (3707, 64)])
 def test_adam_kernel_matches_plain_on_card(cuda_device, shape):
-    """Three steps of the Triton kernel against the plain version: rtol 1e-6
-    of each element plus 1e-6 of the tensor's largest magnitude (the kernel
-    contracts b*m + (1-b)*g into one FMA; where the terms cancel, the error
-    stays an ulp of the terms)."""
+    """Three steps of the kernel through the one-leaf dispatcher against the
+    plain version: rtol 1e-6 of each element plus 1e-6 of the tensor's
+    largest magnitude, the tolerance of every Adam test here."""
     p, m, v, _ = _adam_inputs(shape, seed=3)
     grads = [_adam_inputs(shape, seed=10 + t)[3] for t in range(3)]
     out = {}
@@ -541,6 +654,181 @@ def test_adam_kernel_matches_plain_on_card(cuda_device, shape):
         out[name] = (tp, tm, tv)
     for a, b in zip(out["kernel"], out["plain"]):
         assert bool(((a - b).abs() <= 1e-6 * (b.abs() + b.abs().max())).all())
+
+
+# the leaf sets Adam sweeps in a step at the main paths' shapes: BPR's two
+# tables (ml-1m), DeepFM-Criteo's merged table and eleven small leaves (the
+# 0-d first_order_bias, the (1,) output bias), SASRec's 36 (ml-1m, 2 layers
+# at hidden 64, inner 256; item_embedding's [PAD] row is its zero head) and
+# LightGCN's two tables (the Yelp shape)
+_SASREC_LAYER = [(64, 64)] * 4 + [(64,)] * 8 + [(64, 256), (256,), (256, 64), (64,)]
+ADAM_SETS = {
+    "bpr": ([(6041, 64), (3707, 64)], [0, 0]),
+    "deepfm_criteo": ([(2565692, 11), (13, 10), (13,), (), (390, 128), (128,), (128, 128),
+                       (128,), (128, 128), (128,), (128, 1), (1,)], [0] * 12),
+    "sasrec": ([(3707, 64), (50, 64), (64,), (64,)] + _SASREC_LAYER * 2, [64] + [0] * 35),
+    "lightgcn": ([(102047, 64), (98409, 64)], [0, 0]),
+}
+
+
+def _adam_multi_on_card(dev, shapes, heads, seed, steps=3, none=(), offset=0, g_offset=None):
+    """``steps`` steps of the kernel and of the plain version from the same
+    leaves; ``none``: leaves without a gradient; ``offset``: every p, m and
+    v a view that many elements into its buffer; ``g_offset`` (default
+    ``offset``): the same for every g. Asserts one launch a step (a launch
+    per MAX_LEAVES leaves) and the file's tolerance."""
+    rng = np.random.RandomState(seed)
+    p0 = [np.asarray(rng.randn(*s) * 0.1, np.float32) for s in shapes]
+    grads = [[None if i in none else np.asarray(rng.randn(*s) * 1e-3, np.float32)
+              for i, s in enumerate(shapes)] for _ in range(steps)]
+
+    def on_card(a, at=offset):
+        buf = torch.empty(at + a.size, device=dev)
+        buf[at:] = torch.from_numpy(a.reshape(-1)).to(dev)
+        return buf[at:].view(a.shape)
+
+    g_at = offset if g_offset is None else g_offset
+    out = {}
+    for name, fn in (("kernel", fused_adam.adam_multi), ("plain", fused_adam.adam_multi_torch)):
+        leaves = fused_adam.AdamLeaves([on_card(a) for a in p0],
+                                       [on_card(np.zeros_like(a)) for a in p0],
+                                       [on_card(np.zeros_like(a)) for a in p0], heads)
+        before = fused_adam.adam_multi_cuda.launches
+        for t, g in enumerate(grads, start=1):
+            fn(leaves, [None if a is None else on_card(a, g_at) for a in g],
+               1.0 / (1.0 - B1 ** t), 1.0 / (1.0 - B2 ** t), b1=B1, b2=B2, lr=LR, eps=EPS)
+        if name == "kernel":
+            per_step = -(-sum(1 for s in shapes if np.prod(s, dtype=np.int64) > 0)
+                         // fused_adam.MAX_LEAVES)
+            assert fused_adam.adam_multi_cuda.launches - before == steps * per_step
+        torch.cuda.synchronize()
+        out[name] = leaves
+    for i in range(len(shapes)):
+        for a, b in ((out["kernel"].p[i], out["plain"].p[i]),
+                     (out["kernel"].m[i], out["plain"].m[i]),
+                     (out["kernel"].v[i], out["plain"].v[i])):
+            if b.numel():
+                assert bool(((a - b).abs() <= 1e-6 * (b.abs() + b.abs().max())).all()), i
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_set", list(ADAM_SETS))
+def test_adam_multi_kernel_matches_plain_on_leaf_sets_on_card(cuda_device, leaf_set):
+    """Every leaf of a main path's step in one launch a step, three steps,
+    against adam_multi_torch; SASRec's [PAD] row stays as it was."""
+    shapes, heads = ADAM_SETS[leaf_set]
+    out = _adam_multi_on_card(cuda_device, shapes, heads, seed=31)
+    if leaf_set == "sasrec":
+        assert not out["kernel"].m[0][0].any() and not out["kernel"].v[0][0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_adam_multi_kernel_unaligned_views_and_no_gradient_on_card(cuda_device, offset):
+    """Leaves that start 1-3 elements into their buffers (not 16-byte
+    aligned: the element path), aligned p, m and v whose gradients alone
+    start there (the kernel's own check of g sends them to the element
+    path), a leaf without a gradient, a 0-d leaf, a head that ends inside a
+    16-byte group, and lengths around the chunk."""
+    C = fused_adam.CHUNK
+    shapes = [(C + 5,), (3, 7), (), (C * 2,), (C - 1,), (37, 9)]
+    _adam_multi_on_card(cuda_device, shapes, [6, 0, 0, 2, 0, 9], seed=32, none=(1,),
+                        offset=offset)
+    _adam_multi_on_card(cuda_device, shapes, [6, 0, 0, 2, 0, 9], seed=36, none=(1,),
+                        g_offset=offset)
+    _adam_multi_on_card(cuda_device, shapes, [6, 0, 0, 2, 0, 9], seed=33, none=(1,))
+
+
+@pytest.mark.cuda
+def test_adam_multi_kernel_more_leaves_than_a_launch_holds_on_card(cuda_device):
+    """MAX_LEAVES + 90 leaves, among them empty ones: two launches a step."""
+    rng = np.random.RandomState(34)
+    shapes = [tuple(int(d) for d in rng.randint(0, 40, rng.randint(1, 3)))
+              for _ in range(fused_adam.MAX_LEAVES + 90)]
+    shapes[5] = (3 * fused_adam.CHUNK + 7,)
+    _adam_multi_on_card(cuda_device, shapes, [0] * len(shapes), seed=35)
+
+
+def _adam_resume_case(dev, tmp_path):
+    """A BPR trainer: two steps, a checkpoint, two more steps; a second
+    trainer takes a step on its own fresh moments, resumes the checkpoint
+    and takes the same two steps. Adam must update the resumed moments (the
+    trainer builds its leaves again): they move off the checkpoint's values,
+    and both trainers end on the same parameters and moments, one Adam
+    launch a step. Bit for bit on the CPU; on the card the embedding
+    gradients' sums may land in another order from run to run, so the
+    moments agree within 1e-5 of their largest value, and the parameters
+    within 4 lr (an element whose gradient is a cancelling sum may step
+    either way) and, for 99% of each leaf, within 1e-5 of their value."""
+    import importlib.util
+    import os
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import Trainer
+    # by path: on some machines another ``tests`` package shadows this one
+    spec = importlib.util.spec_from_file_location(
+        "synth_data", os.path.join(os.path.dirname(__file__), "synth_data.py"))
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    synth.make_synthetic_dataset(str(tmp_path / "data"), name="synth")
+    cfg = {"data_path": str(tmp_path / "data"), "train_batch_size": 256,
+           "checkpoint_dir": str(tmp_path / "saved"), "log_dir": str(tmp_path / "log"),
+           "state": "ERROR", "valid_full_to_uni1000": False, "device": dev.type}
+    config = Config("BPR", "synth", config_dict=cfg, _parse_cmd_line=False)
+    train = data_preparation(config, create_dataset(config))[0]
+    rng = np.random.RandomState(0)
+    batches = [{k: torch.from_numpy(rng.randint(1, hi, 256)).to(dev)
+                for k, hi in (("user_id", 60), ("item_id", 80), ("neg_item_id", 80))}
+               for _ in range(4)]
+
+    def trainer():
+        model = get_model("BPR")(config, train.dataset)
+        tr = Trainer(config, model)
+        tr.opt_state = tr._fused_adam_init()
+        return tr, tr._make_step_core(lambda b, gen, consts: b, model.calculate_loss)
+
+    first, step = trainer()
+    for b in batches[:2]:
+        step(b, {})
+    os.makedirs(first.checkpoint_dir, exist_ok=True)
+    first._save_checkpoint(0)
+    saved_mu = {n: t.clone() for n, t in first.opt_state["mu"].items()}
+    for b in batches[2:]:
+        step(b, {})
+    second, step2 = trainer()
+    step2(batches[0], {})
+    stale = second._step_leaves()
+    second.resume_checkpoint(first.saved_model_file)
+    before = fused_adam.adam_multi_cuda.launches
+    for b in batches[2:]:
+        step2(b, {})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        assert fused_adam.adam_multi_cuda.launches == before + 2
+    assert second._step_leaves() is not stale
+    assert second.opt_state["count"] == first.opt_state["count"] == 4
+    params2 = dict(second.model.named_parameters())
+    for n, p in first.model.named_parameters():
+        assert not torch.equal(second.opt_state["mu"][n], saved_mu[n]), n
+        pairs = ((p.detach(), params2[n].detach()),
+                 (first.opt_state["mu"][n], second.opt_state["mu"][n]),
+                 (first.opt_state["nu"][n], second.opt_state["nu"][n]))
+        if dev.type == "cpu":
+            assert all(torch.equal(a, b) for a, b in pairs), n
+            continue
+        (pa, pb), *moments = pairs
+        for a, b in moments:
+            assert bool(((a - b).abs() <= 1e-5 * b.abs().max()).all()), n
+        diff = (pa - pb).abs()
+        assert float(diff.max()) <= 4 * config["learning_rate"], n
+        assert float((diff <= 1e-5 * pb.abs()).float().mean()) >= 0.99, n
+
+
+@pytest.mark.cuda
+def test_adam_after_resume_checkpoint_updates_the_resumed_state_on_card(cuda_device, tmp_path):
+    _adam_resume_case(cuda_device, tmp_path)
 
 
 # cotangents are summed in fp32 in the order of r by the kernels and in any

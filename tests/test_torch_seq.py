@@ -676,6 +676,63 @@ def test_sasrec_five_steps_and_full_sort_metrics_match_jax(synth_dataset_dir, tm
             assert abs(jres[k] - pres[k]) <= 1e-6, (k, jres[k], pres[k])
 
 
+def test_sasrec_one_adam_call_matches_the_per_leaf_step_with_the_pad_fill(synth_dataset_dir,
+                                                                          tmp_path):
+    """Five steps of SASRec, whose item_embedding is a pad_zero_params leaf,
+    through the trainer's step (one adam_multi call over every leaf, the
+    [PAD] row as the leaf's zero head) against the step it replaced, run by
+    hand on a second copy of the model: the gradients with zeros_like for an
+    unused leaf, row 0 of each pad_zero_params gradient set to 0, then
+    adam_leaf_torch leaf by leaf. Same rows, dropout off: parameters and both
+    moments bit for bit, and the [PAD] row and its moments untouched."""
+    from recbole_tpu_torch.ops.fused_adam import adam_leaf_torch
+    _, pc, _, ploaders, _, params, pmodel = _sasrec_pair(
+        synth_dataset_dir, tmp_path, hidden_dropout_prob=0.0, attn_dropout_prob=0.0)
+    assert pmodel.pad_zero_params == ("item_embedding",)
+    ref_model = get_model("SASRec")(pc, ploaders[0].dataset)
+    load_jax_params(ref_model, jax.tree.map(np.asarray, params))
+    pad_row = ref_model.item_embedding[0].detach().clone()
+    trainer = Trainer(pc, pmodel)
+    trainer.opt_state = trainer._fused_adam_init()
+    step = trainer._make_step_core(lambda batch, gen, consts: batch, pmodel.calculate_loss)
+    ref_params = dict(ref_model.named_parameters())
+    mu = {n: torch.zeros_like(p) for n, p in ref_params.items()}
+    nu = {n: torch.zeros_like(p) for n, p in ref_params.items()}
+    b1, b2 = Trainer.ADAM_B1, Trainer.ADAM_B2
+    for t in range(1, 6):
+        batch = _train_batch(ploaders[0], np.arange((t - 1) * 128, t * 128), pmodel.n_items,
+                             seed=t)
+        tbatch = {k: torch.as_tensor(v).long() for k, v in batch.items()}
+        step(dict(tbatch), {})
+        ref_model.train()
+        loss = ref_model.calculate_loss(dict(tbatch), generator=torch.Generator())
+        ref_model.eval()
+        grads = torch.autograd.grad(loss, list(ref_params.values()), allow_unused=True)
+        grads = {n: torch.zeros_like(ref_params[n]) if g is None else g
+                 for n, g in zip(ref_params, grads)}
+        grads["item_embedding"][0] = 0.0
+        for n, p in ref_params.items():
+            adam_leaf_torch(p.data, mu[n], nu[n], grads[n], 1.0 / (1.0 - b1 ** t),
+                            1.0 / (1.0 - b2 ** t), b1=b1, b2=b2, lr=pc["learning_rate"],
+                            eps=Trainer.ADAM_EPS)
+    got = dict(pmodel.named_parameters())
+    for n, p in ref_params.items():
+        assert torch.equal(got[n], p), n
+        assert torch.equal(trainer.opt_state["mu"][n], mu[n]), n
+        assert torch.equal(trainer.opt_state["nu"][n], nu[n]), n
+    assert torch.equal(got["item_embedding"][0], pad_row)
+    assert not trainer.opt_state["mu"]["item_embedding"][0].any()
+    assert not trainer.opt_state["nu"]["item_embedding"][0].any()
+
+
+def test_sequential_sampled_eval_refusal_cites_its_roadmap_item():
+    """Sampled sequential evaluation is ROADMAP Queue 1 item 3's work, and
+    the refusal says so."""
+    from recbole_tpu_torch.data.loaders import SequentialSampledEvalLoader
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP Queue 1, item 3\)"):
+        SequentialSampledEvalLoader()
+
+
 def test_eval_mask_of_a_sequential_split_holds_only_pad(synth_dataset_dir, tmp_path):
     """With mask_history False only [PAD] is masked, as the JAX fused eval
     step does (trainer.py:984-985); a general split still masks history."""
