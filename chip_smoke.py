@@ -20,11 +20,13 @@ Phases:
      kernels' last; the packed-bit row and column kernels on the
      Yelp shape's packed rows and on random bytes; the GRU recurrence
      kernels in both instances, forward and backward, at GRU4Rec's and
-     NARM's step, ragged and eval batches, with zero and nonzero h0, and a
-     two-layer stack, and at H 132, 256 and the cluster limit (the bf16
+     NARM's step (the bf16 instance on the one-block tensor-core route, the
+     fp32 one on the FMA kernels), ragged and eval batches, with zero and
+     nonzero h0, and a two-layer stack, and at H 132, 256 and the cluster limit (the bf16
      instance's cluster kernels, the fp32 instance's wh in device memory),
      the limit + 4, H 704 (the global route at 8 sequences a block) and H 10
-     (zero-padded); the attention-only kernels on both routes (the whole
+     (zero-padded; the tensor-core route's dead units past H); the
+     attention-only kernels on both routes (the whole
      sequence at L 50, the key tiles at L 200), causal and bidirectional,
      dropout off and on, with a sequence that has no valid key, and at head
      width 132 on each route; the rel_apply kernels in both
@@ -53,13 +55,15 @@ Phases:
         step, 1 epoch, then 20 steps under torch.profiler;
      e. GRU4Rec at its defaults (embedding 64, hidden 128, 1 layer, dropout
         0.3, CE, batch 2048, bf16) on the ml-1m-shaped file under TO_LS,full,
-        2 epochs, then 20 steps under torch.profiler;
+        2 epochs, then 20 steps under torch.profiler; every GRU launch on
+        the one-block tensor-core route;
      f. NARM at its defaults (embedding 64, hidden 128, dropouts 0.25 and
         0.5, CE; its GRU in fp32) on the same file, 1 epoch;
      g. SASRec at its default widths with fused_attention True (the
         attention-only kernel) on the same file, 1 epoch;
      h. a few steps and a valid pass at widths the kernels took only after
-        their limits were lifted: GRU4Rec at hidden 10, 256 (the bf16
+        their limits were lifted: GRU4Rec at hidden 10 (the tensor-core
+        route's dead units), 256 (the bf16
         instance's cluster kernels, which must launch) and 704 (the global
         route), SASRec at hidden 128 (the attention kernels' whole-sequence
         route) and at 200 positions (their key tiles) under the default
@@ -191,6 +195,9 @@ GRU_RECALL_FLOOR = 0.11
 # same places, but an fp32 sum that lands on the other side of a rounding
 # boundary moves a stored h_t (or dxi) by one bf16 step, 2^-8 of its value
 GRU_TOL = {False: 1e-4, True: 1e-2}
+# the GRU's routes by fused_gru_route's number
+GRU_ROUTES = ("shared memory", "cluster", "device memory", "device memory, rows in device memory",
+              "tensor cores, one block")
 # fused_attention against its plain version: fp32 sums and exp in another
 # order
 ATTN_TOL = 1e-4
@@ -1015,6 +1022,14 @@ def gru_stack(torch, gru, x, cdt, plain):
     return x
 
 
+def gru_counts(fg):
+    """The GRU wrappers' launches: all, the cluster route's, the one-block
+    tensor-core route's, forward and backward each."""
+    f, b = fg.fused_gru_fwd_cuda, fg.fused_gru_bwd_cuda
+    return (f.launches, b.launches, f.launches_cluster, b.launches_cluster, f.launches_tc,
+            b.launches_tc)
+
+
 def check_gru(torch):
     """fused_gru_fwd / fused_gru_bwd against the plain version on the card:
     out, dxi, dh0, dwh, dbh, both instances (bf16 = GRU4Rec's default, fp32 =
@@ -1030,9 +1045,11 @@ def check_gru(torch):
     from recbole_tpu_torch.ops import fused_gru as fg
     L, E, H = GRU4REC["L"], GRU4REC["E"], GRU4REC["H"]
     worst = {"fused_gru_fwd": 0.0, "fused_gru_bwd": 0.0}
-    log(f"[check] fused_gru shared memory a block: forward "
-        f"{fg._lib().fused_gru_smem_bytes(H, 0, 1)}, backward "
-        f"{fg._lib().fused_gru_smem_bytes(H, 1, 1)} bytes at H={H} (bf16)")
+    for bf16 in (1, 0):
+        log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} H={H}: wh in "
+            f"{GRU_ROUTES[fg._lib().fused_gru_route(H, bf16)]}, shared memory a block: forward "
+            f"{fg._lib().fused_gru_smem_bytes(H, 0, bf16)}, backward "
+            f"{fg._lib().fused_gru_smem_bytes(H, 1, bf16)} bytes")
     n = 0
     for bf16 in (True, False):
         for label, B in (("step", GRU4REC["B"]), ("last train batch", 1097),
@@ -1047,7 +1064,12 @@ def check_gru(torch):
                     torch.cuda.synchronize()
                     return (out, *grads)
 
+                before = gru_counts(fg)
                 got, again = run(), run()
+                tc = 2 * int(bf16)  # bf16 at H 128: the one-block tensor-core kernels
+                if tuple(a - b for a, b in zip(gru_counts(fg), before)) != (2, 2, 0, 0, tc, tc):
+                    raise AssertionError(f"fused_gru ({label}) took another route than "
+                                         f"{GRU_ROUTES[4 if bf16 else 0]}")
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
                 ref = (fg.fused_gru_torch_fwd(xi, hinit, wh, bh, bf16),
                        *fg.fused_gru_torch_bwd(xi, hinit, wh, bh, got[0], dout, bf16))
@@ -1107,8 +1129,7 @@ def check_gru(torch):
     for H2, B2, L2 in widths:
         Hp = fg.padded_hidden(H2)
         for bf16 in (True, False):
-            route = ("shared memory", "cluster", "device memory",
-                     "device memory, rows in device memory")[lib.fused_gru_route(Hp, bf16)]
+            route = GRU_ROUTES[lib.fused_gru_route(Hp, bf16)]
             plan = ""
             if route == "cluster":
                 plan = "; plan forward {}, backward {}".format(
@@ -1126,15 +1147,10 @@ def check_gru(torch):
                 torch.cuda.synchronize()
                 return [out.detach()] + [a.grad for a in args]
 
-            before = (fg.fused_gru_fwd_cuda.launches, fg.fused_gru_bwd_cuda.launches,
-                      fg.fused_gru_fwd_cuda.launches_cluster,
-                      fg.fused_gru_bwd_cuda.launches_cluster)
+            before = gru_counts(fg)
             got = run(fg.fused_gru)
-            cl = int(route == "cluster")
-            if (fg.fused_gru_fwd_cuda.launches - before[0],
-                    fg.fused_gru_bwd_cuda.launches - before[1],
-                    fg.fused_gru_fwd_cuda.launches_cluster - before[2],
-                    fg.fused_gru_bwd_cuda.launches_cluster - before[3]) != (1, 1, cl, cl):
+            cl, tc = int(route == "cluster"), int(route == GRU_ROUTES[4])
+            if tuple(a - b for a, b in zip(gru_counts(fg), before)) != (1, 1, cl, cl, tc, tc):
                 raise AssertionError(f"fused_gru H={H2} did not launch the {route} kernels once "
                                      "each way")
             same = all(torch.equal(a, b) for a, b in zip(got, run(fg.fused_gru)))
@@ -1389,8 +1405,8 @@ def reset_launches():
     ADAM_STEPS["n"] = 0
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        for share in ("launches_fp32", "launches_bf16", "launches_cluster", "launches_whole",
-                      "launches_tiled"):
+        for share in ("launches_fp32", "launches_bf16", "launches_cluster", "launches_tc",
+                      "launches_whole", "launches_tiled"):
             if hasattr(fn, share):
                 setattr(fn, share, 0)
 
@@ -1399,8 +1415,9 @@ def read_launches(path, must_launch):
     """The wrappers' counts; the transformer wrappers count both instances,
     told apart here: trm_layer_* is the bf16 instance's share,
     fused_transformer_layer_* the fp32 instance's. fused_gru_* count both of
-    theirs (one TPU kernel), fused_gru_*_fp32 is the fp32 share and
-    fused_gru_*_cluster the cluster route's; rel_apply_* count both of
+    theirs (one TPU kernel), fused_gru_*_fp32 is the fp32 share,
+    fused_gru_*_cluster the cluster route's and fused_gru_*_tc the one-block
+    tensor-core route's (bf16 up to H 128); rel_apply_* count both of
     theirs, rel_apply_*_bf16 the bf16 share; fused_attention_* count both
     routes' launches, told apart here: fused_attention_* is the key-tiled
     route's share, fused_attention_whole_* the whole-sequence route's."""
@@ -1420,6 +1437,8 @@ def read_launches(path, must_launch):
                 launches[f"{name}_bf16"] = fn.launches_bf16
             if hasattr(fn, "launches_cluster"):
                 launches[f"{name}_cluster"] = fn.launches_cluster
+            if hasattr(fn, "launches_tc"):
+                launches[f"{name}_tc"] = fn.launches_tc
     log(f"[{path}] launches {launches}; {ADAM_STEPS['n']} training steps")
     never = [name for name in must_launch if launches[name] <= 0]
     if never:
@@ -1750,17 +1769,24 @@ def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, mu
 
 def phase_gru4rec(torch, tmp):
     """GRU4Rec at its defaults, 2 epochs: the bf16 instance of the GRU
-    kernels, the one-hot gradient, Adam and the masked top-k."""
+    kernels (H 128: every launch on the one-block tensor-core route), the
+    one-hot gradient, Adam and the masked top-k."""
     launches, model, widths = seq_phase(
         torch, tmp, "gru4rec", "GRU4Rec", {}, 2,
         ("embedding_size", "hidden_size", "num_layers", "dropout_prob", "loss_type",
          "MAX_ITEM_LIST_LENGTH", "train_batch_size"),
-        ("fused_gru_fwd", "fused_gru_bwd", "onehot_matmul_grad", "adam_leaf", "masked_topk"),
+        ("fused_gru_fwd", "fused_gru_bwd", "fused_gru_fwd_tc", "fused_gru_bwd_tc",
+         "onehot_matmul_grad", "adam_leaf", "masked_topk"),
         ("fused_gru_fwd_fp32", "fused_gru_bwd_fp32", "fused_gru_fwd_cluster", "trm_layer_fwd",
          "windowed_grad"))
     if tuple(widths.values()) != (64, 128, 1, 0.3, "CE", 50, 2048) \
             or model.cdt != torch.bfloat16:
         raise AssertionError(f"GRU4Rec was not built at its defaults: {widths}, {model.cdt}")
+    for way in ("fwd", "bwd"):
+        if launches[f"fused_gru_{way}_tc"] != launches[f"fused_gru_{way}"]:
+            raise AssertionError(f"GRU4Rec's GRU {way} ran off the tensor-core route: "
+                                 f"{launches[f'fused_gru_{way}_tc']} of "
+                                 f"{launches[f'fused_gru_{way}']} launches")
     return launches
 
 
@@ -1772,7 +1798,8 @@ def phase_narm(torch, tmp):
         ("embedding_size", "hidden_size", "n_layers", "dropout_probs", "loss_type",
          "MAX_ITEM_LIST_LENGTH", "train_batch_size"),
         ("fused_gru_fwd_fp32", "fused_gru_bwd_fp32", "onehot_matmul_grad", "adam_leaf"),
-        ("masked_topk", "trm_layer_fwd", "windowed_grad"))
+        ("masked_topk", "trm_layer_fwd", "windowed_grad", "fused_gru_fwd_tc",
+         "fused_gru_bwd_tc"))
     if (widths["embedding_size"], widths["hidden_size"], widths["n_layers"],
             list(widths["dropout_probs"]), widths["train_batch_size"]) != (64, 128, 1,
                                                                          [0.25, 0.5], 2048):
@@ -1881,13 +1908,14 @@ def phase_wide(torch, tmp):
     tiled = ("fused_attention_fwd", "fused_attention_bwd")
     out = {}
     loaders = seq_loaders(torch, tmp, "GRU4Rec", {})
+    cluster, tc = ("fused_gru_fwd_cluster", "fused_gru_bwd_cluster"), ("fused_gru_fwd_tc",
+                                                                       "fused_gru_bwd_tc")
     for hidden in (10, 256, 704):
-        cluster = 128 < hidden <= 384
+        on = tc if hidden <= 128 else cluster if hidden <= 384 else ()
         out[f"gru4rec_h{hidden}"] = short_run(
             torch, tmp, f"gru4rec_h{hidden}", "GRU4Rec", {"hidden_size": hidden}, loaders, 5,
-            ("fused_gru_fwd", "fused_gru_bwd")
-            + (("fused_gru_fwd_cluster", "fused_gru_bwd_cluster") if cluster else ()),
-            off_gru + (() if cluster else ("fused_gru_fwd_cluster", "fused_gru_bwd_cluster")))
+            ("fused_gru_fwd", "fused_gru_bwd") + on,
+            off_gru + tuple(k for k in cluster + tc if k not in on))
     for fused in ("layer2", True):
         out[f"sasrec_d128_{fused}"] = short_run(
             torch, tmp, f"sasrec_d128_{fused}", "SASRec",

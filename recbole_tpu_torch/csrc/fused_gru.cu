@@ -32,50 +32,59 @@
 //
 // What bounds it on the H100 (GRU4Rec's step: B = 2048, L = 50, H = 128):
 // the recurrent products are 10.07 GFLOP forward and 30.2 GFLOP backward, the
-// bytes 105 MB forward and 210 MB backward in the bf16 instance; as fp32 FMAs
-// (the shared-memory route does not use the tensor cores) the fp32 rate
-// bounds them at 0.150 and 0.451 ms. The recurrence is serial in t, so a step's
-// latency matters as much: each block owns kRows = 16 sequences for the whole
-// loop (128 blocks at B = 2048 on 132 SMs), keeps wh (rounded in the bf16
-// instance) in shared memory, padded so that both the column reads of the
-// forward product and the row reads of dhh wh^T are free of bank conflicts,
-// and never sends h through device memory: a thread owns one hidden unit j
-// and 8 rows, carries their h (forward) or dh (backward) in registers, and
-// exchanges only the rounded h rows (forward: one barrier a step, double
-// buffered) or the dhh rows (backward: two barriers a step) through shared
-// memory. Blocks run in no order, so the parameter gradients are not summed
-// across blocks in place: the recurrent backward writes each step's dhh
-// (fp32) and a per-block dbh partial; gru_dwh_kernel then forms
-// [h_{t-1}]^T dhh over chunks of the B L rows, one partial per chunk, and
-// reduce_partials_kernel sums the partials in chunk (block) order. No float
-// atomics: two runs give the same bits.
+// bytes 105 MB forward and 210 MB backward in the bf16 instance (0.032 and
+// 0.063 ms at 3.35 TB/s; the fp32 instance's products as FMAs at the fp32
+// rate 0.150 and 0.451 ms). The recurrence is serial in t, so a step's
+// latency rules: on every route a block (or cluster) owns a set of sequences
+// for the whole loop, keeps wh out of the step's device-memory traffic where
+// it can, carries h (forward) or dh (backward) in registers or shared memory
+// and never sends h through device memory. Blocks run in no order, so the
+// parameter gradients are not summed across blocks in place: the recurrent
+// backward writes each step's dhh (fp32) and a per-block (per-cluster) dbh
+// partial; the dwh kernel then forms [h_{t-1}]^T dhh over chunks of the B L
+// rows, one partial per chunk, and reduce_partials_kernel sums the partials
+// in chunk (block) order. No float atomics: two runs give the same bits.
 //
-// Three routes for the recurrent kernels, chosen from H and the instance
-// before launch (route_of): up to kMaxH = 128 (two threads a hidden unit,
-// 256 threads; fp32 wh and the step's rows take 231,424 bytes of shared
-// memory at H = 128 in the backward) wh sits in one block's shared memory as
-// above. Above it, the bf16 instance splits wh over a thread-block cluster
-// (fused_gru_{fwd,bwd}_cluster_kernel, up to cluster_max_hidden() = 384; the
-// design is at the cluster kernels below): 4 blocks up to H = 256, 8 above,
-// each holding its units' gate columns of wh in bf16, the recurrent
-// products on the tensor cores (mma.sync m16n8k16), h exchanged through
-// distributed shared memory. The fp32 instance above 128, and the bf16 one
-// above the cluster limit, take the *_global kernels, which keep wh in
-// device memory, where at GRU widths it stays resident in the 50 MB L2:
-// gru_prep_wh_kernel writes wh rounded as the product reads it, and its
-// transpose for the backward's dhh wh^T, into scratch once a call; each step
-// a thread owns hidden units j, j + 256, ... for all 16 rows of the block,
-// reads its columns of wh in k-tiles of 4 rows (neighbouring threads on
-// neighbouring columns) against the block's h rows in shared memory, and
-// keeps the fp32 carry h (dh) in shared memory beside them. Determinism is
-// the same on every route: dwh by chunk partials (gru_dwh_tc_kernel on the
-// tensor cores in the bf16 instance, dhh entering as two bf16 terms;
-// gru_dwh_kernel in fp32 in the fp32 instance), dbh by per-block (per-
-// cluster) partials, both summed in order. The global route's block owns R
-// sequences, R a template parameter of its kernels (16, 8, 4, 2 or 1, the
-// largest whose shared memory fits, chosen before launch by global_rows): the
-// backward keeps R rows of h, dh and dhh ((5 R + 3) H floats), so R 16 runs
-// up to H 700, R 8 up to 1,348 and R 1 up to fused_gru_max_hidden() (7,264).
+// Four routes for the recurrent kernels, chosen from H and the instance
+// before launch (route_of; the numbers are fused_gru_route's):
+//  4  bf16, H <= kMaxH = 128 (GRU4Rec's default): fused_gru_{fwd,bwd}_tc_kernel,
+//     tensor cores in one block (the design is at the kernels below): a
+//     block owns 16 sequences and all of wh in bf16 (98,304 bytes at H 128),
+//     a warp 8 (forward) or 16 (backward) units in all three gates, the
+//     recurrent products on mma.sync m16n8k16, fast gates, the next steps'
+//     rows by cp.async during the product, one barrier a forward step and two
+//     a backward step; units past H up to a multiple of 16 are dead.
+//  0  fp32, H <= 128 (NARM's path): fused_gru_{fwd,bwd}_kernel<false>, wh in
+//     fp32 in one block's shared memory (231,424 bytes with the backward's
+//     rows at H 128, so one block of 256 threads an SM, kRows = 16 sequences
+//     a block), padded so that both the column reads of the forward product
+//     and the row reads of dhh wh^T are free of bank conflicts; a thread owns
+//     one hidden unit j and 8 rows, the products are fp32 FMAs, and the
+//     rounded h rows (forward: one barrier a step, double buffered) or the
+//     dhh rows (backward: two barriers a step) pass through shared memory.
+//  1  bf16, 128 < H <= cluster_max_hidden() = 384: wh split over a
+//     thread-block cluster (fused_gru_{fwd,bwd}_cluster_kernel; the design
+//     is at the cluster kernels below): 4 blocks up to H = 256, 8 above,
+//     each holding its units' gate columns of wh in bf16, the recurrent
+//     products on the tensor cores, h exchanged through distributed shared
+//     memory.
+//  2  fp32 above 128, bf16 above the cluster limit: the *_global kernels,
+//     which keep wh in device memory, where at GRU widths it stays resident
+//     in the 50 MB L2: gru_prep_wh_kernel writes wh rounded as the product
+//     reads it, and its transpose for the backward's dhh wh^T, into scratch
+//     once a call; each step a thread owns hidden units j, j + 256, ... for
+//     all R rows of the block, reads its columns of wh in k-tiles of 4 rows
+//     (neighbouring threads on neighbouring columns) against the block's h
+//     rows in shared memory, and keeps the fp32 carry h (dh) in shared memory
+//     beside them. The block owns R sequences, R a template parameter of its
+//     kernels (16, 8, 4, 2 or 1, the largest whose shared memory fits,
+//     chosen before launch by global_rows): the backward keeps R rows of h,
+//     dh and dhh ((5 R + 3) H floats), so R 16 runs up to H 700, R 8 up to
+//     1,348 and R 1 up to fused_gru_max_hidden() (7,264).
+//  3  past that, route 2 at one sequence a block with its rows in device
+//     memory.
+// dwh is gru_dwh_tc_kernel (tensor cores, dhh entering as two bf16 terms) in
+// the bf16 instance and gru_dwh_kernel (fp32) in the fp32 instance.
 // H must be a multiple of 4 (the wrapper
 // zero-pads any other H, which is exact: recbole_tpu_torch/ops/fused_gru.py).
 // Any B and L.
@@ -98,7 +107,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = 16;   // sequences a block owns
 constexpr int kRT = 8;      // rows of a thread (two row groups of 8)
-constexpr int kMaxH = 128;  // two threads a hidden unit
+constexpr int kMaxH = 128;  // routes 0 (two threads a hidden unit) and 4
 constexpr int kPad = 4;     // floats added to every row of wh in shared memory
 // gru_dwh_kernel tiles
 constexpr int kTK = 64, kTC = 64, kTN = 32;
@@ -713,6 +722,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// close the thread's group of copies, then wait for all but the newest group
+__device__ __forceinline__ void cp_async_commit_wait_prior() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;\n" ::: "memory");
 }
 
 // ------------------------- wh in a thread-block cluster (bf16, 128 < H)
@@ -1421,13 +1437,454 @@ gru_dwh_tc_kernel(const bf16* __restrict__ out, const float* __restrict__ h0,
       }
 }
 
+// ------------------- tensor cores in one block (bf16 instance, H <= 128)
+//
+// A block owns kTcRows = 16 sequences for the whole loop and holds all of wh,
+// rounded to bf16, in shared memory as the cluster kernels' whs with one
+// block: whs[3 Hp][Ks] (row g Hp + u holds wh[k][g H + u] over k; Hp = H
+// rounded up to 16, Ks = Hp rounded up to 64, chunks swizzled). Units past H
+// are dead: zero wh, bh, xi and h0, so their h and dh stay exactly 0 and their
+// zero rows of wh add exact zeros (tests/test_torch_gru.py checks the padding
+// on the plain version). Warp w owns the units 8 NT w + [0, 8 NT) in all three
+// gates, NT n8 tiles a gate, so Hp / (8 NT) warps a block: its r, z and n
+// accumulator tiles are the same (row, unit) pairs, and the gate math and the
+// fp32 carry h (dh) stay in registers. The recurrent product h wh (M 16, N
+// 3 Hp, K Hp) runs on mma.sync m16n8k16, A by ldmatrix from the block's bf16
+// copy of h, B by ldmatrix from whs. Each step the new h slice goes into the
+// other of two h buffers (16-byte stores), then one __syncthreads. xi is
+// staged two steps ahead (cp.async into three buffers, one group of copies a
+// step, each waited for a step after it was issued), so no device-memory
+// latency sits on the serial chain, and out leaves as 16-byte stores.
+//
+// The backward's recompute is the same product on h_{t-1}, staged with xi_t
+// and dout_t a step ahead by cp.async from the forward's output (round(h0)
+// at t = 0). dhh wh^T (M 16, N Hp, K 3 Hp) runs on the tensor cores from the
+// same whs (B by ldmatrix.trans): the block's dhh goes through shared memory
+// as two bf16 terms, hi = bf16(dhh) and lo = bf16(dhh - hi), two mma a tile
+// and k-step, the sum rounded to bf16 once, then dh = dh z + round(sum). Two
+// barriers a step: dhh's terms complete, then their reads done and the next
+// step's staging landed. dxi (bf16) and dhh (fp32, for gru_dwh_tc_kernel)
+// leave through shared memory too: the gates write the step's rows there
+// beside dhh's terms, and after the first barrier a warp stores a (row,
+// gate) at a time, H contiguous elements (stores from the gates' own (row,
+// unit) layout touch 16 rows each: 0.35 ms for the recurrent backward
+// against 0.31). The dbh partial is the block's, over its rows in a fixed
+// tree.
+//
+// What bounds it at GRU4Rec's step (B 2,048, L 50, H 128): 128 blocks, one
+// an SM, each 50 serial steps, so a step's latency and the SM's shared-memory
+// bandwidth, not device memory (0.032 / 0.063 ms at 3.35 TB/s) or the tensor
+// cores. A forward step at 16 warps reads 64 KB of h and 96 KB of wh by
+// ldmatrix for 384 mma; a backward step at 8 warps 32 + 96 KB for the
+// recompute and 192 + 96 KB for dhh wh^T (every warp reads all of dhh's hi
+// and lo rows), 1,152 mma. scripts/torch_gru_probe.py reads a step's clocks
+// by phase (H100, block 0): forward 2,237 product, 1,014 gates and exchange,
+// 7 at the barrier; backward 1,667 issuing the next step's copies, 1,519
+// recompute, 2,369 gates, 2,767 dhh wh^T, 1,857 storing the rows (every
+// block stores in the same burst), 46 at the barriers. Measured choices
+// (scripts/torch_gru_ab.py on copies of this source that differ in one
+// choice, each set in one call): the forward at 16 warps (8 units a warp),
+// 0.108 ms against 0.128 at 8; the backward at 8 warps, 0.348 against 0.383
+// at 16 (the recurrent kernel); wh's B fragments loaded once into registers
+// lost to ldmatrix every step (forward 0.122 and 0.136 at 16 and 8 warps,
+// backward 0.359); four mma chains in dhh wh^T in place of one lost (0.383
+// against 0.350); xi two steps ahead in place of one gained 5% forward;
+// issuing the copies after the product in place of before lost 13% forward.
+
+constexpr int kTcRows = 16;           // sequences a block
+constexpr int kTcMaxKs = kMaxH / 16;  // k16 steps of the recurrent product at most
+// n8 tiles a gate a warp (8 NT units a warp): the forward 1 (16 warps at H
+// 128), the backward 2 (8 warps)
+constexpr int kTcFwdNT = 1, kTcBwdNT = 2;
+constexpr int kTcXiStages = 3;        // the forward's xi buffers: two steps ahead
+
+__host__ __device__ inline int tc_hp(int H) { return round_up(H, 16); }
+__host__ __device__ inline int tc_ks(int H) { return round_up(tc_hp(H), 64); }
+// 32-bit words of a staged xi row (3H bf16) and dout row (H bf16), padded to
+// 4 mod 8 words: a warp's reads (8 rows x 4 unit pairs) hit 32 distinct banks
+__host__ __device__ inline int tc_xw(int H) { return round_up(3 * H / 2, 8) + 4; }
+__host__ __device__ inline int tc_dw(int H) { return round_up(H / 2, 8) + 4; }
+
+inline int tc_threads(int H, int nt) { return 32 * tc_hp(H) / (8 * nt); }
+__host__ __device__ inline size_t tc_wh_bytes(int H) {
+  return (size_t)2 * 3 * tc_hp(H) * tc_ks(H);
+}
+// one backward staging buffer: h_{t-1} rows [16][Ks] bf16, xi_t [16][xw] and
+// dout_t [16][dw] words
+__host__ __device__ inline size_t tc_stage_bytes(int H) {
+  return (size_t)2 * kTcRows * tc_ks(H) + (size_t)4 * kTcRows * (tc_xw(H) + tc_dw(H));
+}
+
+inline size_t tc_smem(int H, bool backward) {
+  if (!backward)  // wh, two h buffers, the xi buffers
+    return tc_wh_bytes(H) + (size_t)2 * 2 * kTcRows * tc_ks(H) +
+           (size_t)kTcXiStages * 4 * kTcRows * tc_xw(H);
+  // wh, two staging buffers, dhh's hi and lo rows, the step's dxi (bf16) and
+  // dhh (fp32) rows on their way out
+  const int s3 = cluster_s3(tc_hp(H));
+  return tc_wh_bytes(H) + 2 * tc_stage_bytes(H) + (size_t)(2 * 2 + 2 + 4) * kTcRows * s3;
+}
+
+// the B fragments of k16 step kk for the warp's gate tiles (units u0 + [0, 8 NT))
+template <int NT>
+__device__ __forceinline__ void tc_load_b(const bf16* whs, int kk, int hp, int ks, int u0,
+                                          int lane, uint32_t b[3][NT][2]) {
+  const int k0 = kk * 16 + ((lane >> 3) & 1) * 8;
+  if constexpr (NT == 2) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      ldsm_x4(whs + swz(g * hp + u0 + (lane & 7) + (lane >> 4) * 8, k0, ks), b[g][0][0],
+              b[g][0][1], b[g][1][0], b[g][1][1]);
+  } else {
+    ldsm_x4(whs + swz((lane >> 4) * hp + u0 + (lane & 7), k0, ks), b[0][0][0], b[0][0][1],
+            b[1][0][0], b[1][0][1]);
+    ldsm_x2(whs + swz(2 * hp + u0 + (lane & 7), k0, ks), b[2][0][0], b[2][0][1]);
+  }
+}
+
+// acc[g][nt] = the 16 rows of hs times the warp's gate tiles of wh
+template <int NT>
+__device__ __forceinline__ void tc_product(const bf16* hs, const bf16* whs, int nks, int hp,
+                                           int ks, int u0, int lane, float acc[3][NT][4]) {
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][nt][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < kTcMaxKs; ++kk) {
+    if (kk < nks) {
+      uint32_t a[4];
+      ldsm_x4(hs + swz(lane & 15, kk * 16 + (lane >> 4) * 8, ks), a[0], a[1], a[2], a[3]);
+      uint32_t b[3][NT][2];
+      tc_load_b<NT>(whs, kk, hp, ks, u0, lane, b);
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma16816(acc[g][nt], a, b[g][nt][0], b[g][nt][1]);
+    }
+  }
+}
+
+// dst[r][.] <- the 3H (xi) or H (dout) bf16 of row (b0 + r, t) of src, rows
+// past B left alone, by cp.async in 16-byte pieces (8-byte when H % 8)
+__device__ __forceinline__ void tc_stage_rows(uint32_t* dst, int dwords, const bf16* src, int w,
+                                              int b0, int B, int L, int t, int H) {
+  const int piece = H % 8 ? 4 : 8, per = w / piece;
+  for (int i = threadIdx.x; i < kTcRows * per; i += blockDim.x) {
+    const int r = i / per, p = i - r * per, b = b0 + r;
+    if (b >= B) continue;
+    uint32_t* d = dst + (size_t)r * dwords + p * (piece / 2);
+    const bf16* s = src + ((size_t)b * L + t) * w + p * piece;
+    if (piece == 8)
+      cp_async16(d, s);
+    else
+      cp_async8(d, s);
+  }
+}
+
+// hs[16][ks] <- h_{tp} of the block's rows (the forward's output at tp, bf16),
+// zero past B and past H (Hp columns)
+__device__ __forceinline__ void tc_stage_h(bf16* hs, const bf16* out, int b0, int B, int L, int tp,
+                                           int H, int ks) {
+  const int piece = H % 8 ? 4 : 8, kn = tc_hp(H) / piece;
+  for (int i = threadIdx.x; i < kTcRows * kn; i += blockDim.x) {
+    const int r = i / kn, k = piece * (i - r * kn), b = b0 + r;
+    bf16* d = hs + swz(r, k, ks);
+    const bf16* s = out + ((size_t)b * L + tp) * H + k;
+    if (piece == 8) {
+      if (b >= B || k >= H)
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      else
+        cp_async16(d, s);
+    } else if (b >= B || k >= H) {
+      *reinterpret_cast<uint2*>(d) = make_uint2(0u, 0u);
+    } else {
+      cp_async8(d, s);
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(32 * kMaxH / (8 * NT))
+fused_gru_fwd_tc_kernel(const bf16* __restrict__ xi, const float* __restrict__ h0,
+                        const float* __restrict__ wh, const float* __restrict__ bh, int B, int L,
+                        int H, bf16* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hp = tc_hp(H), ks = tc_ks(H), nks = hp / 16, xw = tc_xw(H), C3 = 3 * H;
+  bf16* whs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* hb = whs + (size_t)3 * hp * ks;                                  // [2][16][ks]
+  uint32_t* xs = reinterpret_cast<uint32_t*>(hb + (size_t)2 * kTcRows * ks);  // [3][16][xw]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int b0 = blockIdx.x * kTcRows, u0 = warp * 8 * NT;
+
+  load_wh_slice(whs, wh, H, 0, hp, ks);
+  load_h0_rows(hb, h0, b0, B, H, kTcRows, hp, ks);
+  // xi_t goes into buffer t % 3, two steps ahead, one group of copies a step
+  tc_stage_rows(xs, xw, xi, C3, b0, B, L, 0, H);
+  cp_async_commit();
+  if (L > 1) tc_stage_rows(xs + kTcRows * xw, xw, xi, C3, b0, B, L, 1, H);
+  // the fp32 carry of the thread's (row, unit) pairs, in accumulator order:
+  // [nt][0] (row gr, uu), [1] (gr, uu + 1), [2] (gr + 8, uu), [3] (gr + 8, uu + 1)
+  float h[NT][4], bias[3][NT][2];
+  bool alive[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int uu = u0 + nt * 8 + 2 * q;
+    alive[nt] = uu < H;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int b = b0 + gr + 8 * (e >> 1);
+      h[nt][e] = (alive[nt] && b < B) ? h0[(size_t)b * H + uu + (e & 1)] : 0.0f;
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) bias[g][nt][j] = alive[nt] ? bh[g * H + uu + j] : 0.0f;
+  }
+  cp_async_commit_wait_prior();  // xi_0 has landed
+  __syncthreads();
+
+  int cur = 0, xb = 0;  // xb = t % 3
+  for (int t = 0; t < L; ++t) {
+    const int xn = xb ? xb - 1 : 2;  // (t + 2) % 3
+    if (t + 2 < L) tc_stage_rows(xs + xn * kTcRows * xw, xw, xi, C3, b0, B, L, t + 2, H);
+    float acc[3][NT][4];
+    tc_product<NT>(hb + (size_t)cur * kTcRows * ks, whs, nks, hp, ks, u0, lane, acc);
+    const uint32_t* x = xs + xb * kTcRows * xw;
+    bf16* nxt = hb + (size_t)(cur ^ 1) * kTcRows * ks;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int uu = u0 + nt * 8 + 2 * q;
+      uint32_t hv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = gr + 8 * i;
+        const bool ok = alive[nt] && b0 + r < B;
+        float2 xv[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          xv[g] = ok ? unpack2(x[r * xw + (g * H + uu) / 2]) : make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j;
+          const float rr = sigm_fast((j ? xv[0].y : xv[0].x) + (acc[0][nt][e] + bias[0][nt][j]));
+          const float z = sigm_fast((j ? xv[1].y : xv[1].x) + (acc[1][nt][e] + bias[1][nt][j]));
+          const float n =
+              tanh_fast((j ? xv[2].y : xv[2].x) + rr * (acc[2][nt][e] + bias[2][nt][j]));
+          h[nt][e] = (1.0f - z) * n + z * h[nt][e];
+        }
+        hv[i] = pack2(h[nt][2 * i], h[nt][2 * i + 1]);
+      }
+      // lanes q = 0, 1 hold the tile's eight units of rows gr, gr + 8
+      const uint4 v = quad_gather(hv[0], hv[1], lane);
+      if (q < 2) {
+        const int r = gr + 8 * q;
+        *reinterpret_cast<uint4*>(nxt + swz(r, u0 + nt * 8, ks)) = v;
+        if (b0 + r < B) store_units8(out + ((size_t)(b0 + r) * L + t) * H, u0 + nt * 8, H, v);
+      }
+    }
+    cp_async_commit_wait_prior();  // xi_{t+1} has landed
+    __syncthreads();
+    cur ^= 1;
+    xb = xb == 2 ? 0 : xb + 1;
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(32 * kMaxH / (8 * NT))
+fused_gru_bwd_tc_kernel(const bf16* __restrict__ xi, const float* __restrict__ h0,
+                        const float* __restrict__ wh, const float* __restrict__ bh,
+                        const bf16* __restrict__ out, const bf16* __restrict__ dout, int B, int L,
+                        int H, bf16* __restrict__ dxi, float* __restrict__ dh0,
+                        float* __restrict__ dhh, float* __restrict__ dbh_part) {
+  static_assert(NT == 2, "dhh wh^T reads a warp's two n8 tiles of wh^T by one ldmatrix.x4");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hp = tc_hp(H), ks = tc_ks(H), nks = hp / 16, xw = tc_xw(H), dw = tc_dw(H);
+  const int s3 = cluster_s3(hp), C3 = 3 * H;
+  bf16* whs = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* stages = smem_raw + tc_wh_bytes(H);
+  const size_t sb = tc_stage_bytes(H);
+  // staging buffer s: h_{t-1} [16][ks] bf16, then xi_t [16][xw] and dout_t [16][dw] words
+  auto hrows = [&](int s) { return reinterpret_cast<bf16*>(stages + s * sb); };
+  auto xrows = [&](int s) {
+    return reinterpret_cast<uint32_t*>(stages + s * sb + (size_t)2 * kTcRows * ks);
+  };
+  bf16* dsc = reinterpret_cast<bf16*>(stages + 2 * sb);  // [hi, lo][16][s3]: dhh
+  bf16* dxs = dsc + (size_t)2 * kTcRows * s3;              // [16][s3]: dxi
+  float* dhs = reinterpret_cast<float*>(dxs + (size_t)kTcRows * s3);  // [16][s3]: dhh
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int b0 = blockIdx.x * kTcRows, u0 = warp * 8 * NT, nwarps = blockDim.x >> 5;
+
+  // step t's h_{t-1} (round(h0) at t = 0), xi_t and dout_t into buffer t & 1
+  auto stage = [&](int t) {
+    const int s = t & 1;
+    if (t == 0)
+      load_h0_rows(hrows(s), h0, b0, B, H, kTcRows, hp, ks);
+    else
+      tc_stage_h(hrows(s), out, b0, B, L, t - 1, H, ks);
+    tc_stage_rows(xrows(s), xw, xi, C3, b0, B, L, t, H);
+    tc_stage_rows(xrows(s) + kTcRows * xw, dw, dout, H, b0, B, L, t, H);
+  };
+
+  load_wh_slice(whs, wh, H, 0, hp, ks);
+  stage(L - 1);
+  float dh[NT][4], bias[3][NT][2], dbs[3][NT][2];
+  bool alive[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int uu = u0 + nt * 8 + 2 * q;
+    alive[nt] = uu < H;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dh[nt][e] = 0.0f;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        bias[g][nt][j] = alive[nt] ? bh[g * H + uu + j] : 0.0f;
+        dbs[g][nt][j] = 0.0f;
+      }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int t = L - 1; t >= 0; --t) {
+    const int s = t & 1;
+    if (t > 0) stage(t - 1);  // in flight during this step
+    float acc[3][NT][4];
+    tc_product<NT>(hrows(s), whs, nks, hp, ks, u0, lane, acc);
+    const uint32_t* x = xrows(s);
+    const uint32_t* dy = x + kTcRows * xw;
+    // gates; dhh into dsc as hi and lo, and with dxi into the rows that leave
+    // for device memory; acc[1] keeps z for the dh update
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int uu = u0 + nt * 8 + 2 * q;
+      float d[3][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = gr + 8 * i, b = b0 + r;
+        const bool ok = alive[nt] && b < B;
+        float2 xv[3], dyv = make_float2(0.0f, 0.0f), hpv = make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          xv[g] = ok ? unpack2(x[r * xw + (g * H + uu) / 2]) : make_float2(0.0f, 0.0f);
+        if (ok) {
+          dyv = unpack2(dy[r * dw + uu / 2]);
+          hpv = t > 0 ? unpack2(*reinterpret_cast<const uint32_t*>(hrows(s) + swz(r, uu, ks)))
+                      : *reinterpret_cast<const float2*>(h0 + (size_t)b * H + uu);
+        }
+        float dn[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j;
+          const float hr = acc[0][nt][e] + bias[0][nt][j], hz = acc[1][nt][e] + bias[1][nt][j],
+                      hn = acc[2][nt][e] + bias[2][nt][j];
+          const float rr = sigm_fast((j ? xv[0].y : xv[0].x) + hr);
+          const float z = sigm_fast((j ? xv[1].y : xv[1].x) + hz);
+          const float n = tanh_fast((j ? xv[2].y : xv[2].x) + rr * hn);
+          dh[nt][e] += j ? dyv.y : dyv.x;
+          const float dpre_n = dh[nt][e] * (1.0f - z) * (1.0f - n * n);
+          d[0][e] = dpre_n * hn * rr * (1.0f - rr);
+          d[1][e] = dh[nt][e] * ((j ? hpv.y : hpv.x) - n) * z * (1.0f - z);
+          d[2][e] = dpre_n * rr;
+          dn[j] = dpre_n;
+          acc[1][nt][e] = z;
+        }
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float v0 = d[g][2 * i], v1 = d[g][2 * i + 1];
+          uint32_t hi, lo;
+          split2(v0, v1, hi, lo);
+          const size_t o = (size_t)r * s3 + g * hp + uu;
+          *reinterpret_cast<uint32_t*>(dsc + o) = hi;
+          *reinterpret_cast<uint32_t*>(dsc + (size_t)kTcRows * s3 + o) = lo;
+          *reinterpret_cast<uint32_t*>(dxs + o) = g == 2 ? pack2(dn[0], dn[1]) : pack2(v0, v1);
+          *reinterpret_cast<float2*>(dhs + o) = make_float2(v0, v1);
+          if (ok) {
+            dbs[g][nt][0] += v0;
+            dbs[g][nt][1] += v1;
+          }
+        }
+      }
+    }
+    __syncthreads();  // dsc is complete
+    // P = (hi + lo) wh^T for the warp's units
+    float p[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nt][e] = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < 3 * hp; c += 16) {
+      uint32_t bw[NT][2];
+      ldsm_x4_t(whs + swz(c + (lane & 15), u0 + (lane >> 4) * 8, ks), bw[0][0], bw[0][1],
+                bw[1][0], bw[1][1]);
+      uint32_t ah[4], al[4];
+      const size_t arow = (size_t)(lane & 15) * s3 + c + (lane >> 4) * 8;
+      ldsm_x4(dsc + arow, ah[0], ah[1], ah[2], ah[3]);
+      ldsm_x4(dsc + (size_t)kTcRows * s3 + arow, al[0], al[1], al[2], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma16816(p[nt], ah, bw[nt][0], bw[nt][1]);
+        mma16816(p[nt], al, bw[nt][0], bw[nt][1]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dh[nt][e] = dh[nt][e] * acc[1][nt][e] + rnd<true>(p[nt][e]);
+    // the step's dxi and dhh rows to device memory, a warp a (row, gate) at a
+    // time: H contiguous elements a store (four units a lane)
+    for (int it = warp; it < 3 * kTcRows; it += nwarps) {
+      const int r = it / 3, g = it - 3 * r, b = b0 + r;
+      if (b >= B) continue;
+      const size_t row = (size_t)b * L + t, o = (size_t)r * s3 + g * hp;
+      for (int c = 4 * lane; c < H; c += 128) {
+        *reinterpret_cast<uint2*>(dxi + row * C3 + g * H + c) =
+            *reinterpret_cast<const uint2*>(dxs + o + c);
+        *reinterpret_cast<float4*>(dhh + row * C3 + g * H + c) =
+            *reinterpret_cast<const float4*>(dhs + o + c);
+      }
+    }
+    cp_async_wait_all();  // the next step's staging has landed
+    __syncthreads();      // and nobody reads dsc any more
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int uu = u0 + nt * 8 + 2 * q;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = b0 + gr + 8 * i;
+      if (alive[nt] && b < B)
+        *reinterpret_cast<float2*>(dh0 + (size_t)b * H + uu) =
+            make_float2(dh[nt][2 * i], dh[nt][2 * i + 1]);
+    }
+    // the block's dbh over its rows: the eight lanes of a unit pair, in a fixed tree
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v = dbs[g][nt][j];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gr == 0 && alive[nt]) dbh_part[(size_t)blockIdx.x * C3 + g * H + uu + j] = v;
+      }
+  }
+}
+
 // ------------------------------------------------------------------- launch
 
-// The route of a call, chosen from H and the instance before launch: wh in
-// one block's shared memory (H <= kMaxH), wh split over a thread-block
-// cluster (bf16 instance, kMaxH < H <= cluster_max_hidden()), or wh in device
-// memory (the *_global kernels: fp32 above kMaxH, bf16 above the cluster limit).
-enum Route { kRouteShared = 0, kRouteCluster = 1, kRouteGlobal = 2 };
+// The route of a call, chosen from H and the instance before launch: H <=
+// kMaxH wh in one block's shared memory, fp32 in the FMA kernels
+// (fused_gru_{fwd,bwd}_kernel<false>) and bf16 on the tensor cores
+// (fused_gru_{fwd,bwd}_tc_kernel); wh split over a thread-block cluster (bf16
+// instance, kMaxH < H <= cluster_max_hidden()); or wh in device memory (the
+// *_global kernels: fp32 above kMaxH, bf16 above the cluster limit). Route 3
+// of fused_gru_route is the global route with its rows in device memory.
+enum Route { kRouteShared = 0, kRouteCluster = 1, kRouteGlobal = 2, kRouteTc = 4 };
 
 // shared-memory floats of the global-memory instance at R sequences a block
 inline size_t smem_floats_global(int H, bool backward, int R) {
@@ -1477,7 +1934,7 @@ inline int cluster_max_hidden() {
 }
 
 inline Route route_of(int H, bool bf16) {
-  if (H <= kMaxH) return kRouteShared;
+  if (H <= kMaxH) return bf16 ? kRouteTc : kRouteShared;
   return bf16 && H <= cluster_max_hidden() ? kRouteCluster : kRouteGlobal;
 }
 
@@ -1492,6 +1949,7 @@ inline long long rows_floats(int B, int H, bool backward, bool bf16) {
 inline size_t smem_bytes(int H, bool backward, bool bf16) {
   switch (route_of(H, bf16)) {
     case kRouteShared: return sizeof(float) * smem_floats(H, backward);
+    case kRouteTc: return tc_smem(H, backward);
     case kRouteGlobal: {  // 0 when the rows lie in device memory
       const int R = global_rows(H, backward);
       return R ? sizeof(float) * smem_floats_global(H, backward, R) : 0;
@@ -1745,10 +2203,18 @@ int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh
     }
     return (int)cudaErrorInvalidValue;
   }
-  int err = allow_smem(fused_gru_fwd_kernel<BF, XT>, smem);
-  if (err) return err;
-  fused_gru_fwd_kernel<BF, XT><<<blocks_of(B), kThreads, smem, s>>>(
-      static_cast<const XT*>(xi), h0, wh, bh, B, L, H, static_cast<XT*>(out));
+  if constexpr (BF) {  // route kRouteTc
+    auto kernel = fused_gru_fwd_tc_kernel<kTcFwdNT>;
+    const int err = allow_smem(kernel, smem);
+    if (err) return err;
+    kernel<<<blocks_of(B), tc_threads(H, kTcFwdNT), smem, s>>>(
+        static_cast<const bf16*>(xi), h0, wh, bh, B, L, H, static_cast<bf16*>(out));
+  } else {
+    const int err = allow_smem(fused_gru_fwd_kernel<BF, XT>, smem);
+    if (err) return err;
+    fused_gru_fwd_kernel<BF, XT><<<blocks_of(B), kThreads, smem, s>>>(
+        static_cast<const XT*>(xi), h0, wh, bh, B, L, H, static_cast<XT*>(out));
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1827,6 +2293,14 @@ int launch_bwd(const void* xi, const float* h0, const float* wh, const float* bh
 #undef GRU_BWD_GLOBAL
       default: err = (int)cudaErrorInvalidValue;
     }
+  } else if constexpr (BF) {  // route kRouteTc
+    auto kernel = fused_gru_bwd_tc_kernel<kTcBwdNT>;
+    err = allow_smem(kernel, smem);
+    if (err) return err;
+    kernel<<<parts, tc_threads(H, kTcBwdNT), smem, s>>>(
+        static_cast<const bf16*>(xi), h0, wh, bh, static_cast<const bf16*>(out),
+        static_cast<const bf16*>(dout), B, L, H, static_cast<bf16*>(dxi), dh0, dhh, dbh_part);
+    err = (int)cudaGetLastError();
   } else {
     err = allow_smem(fused_gru_bwd_kernel<BF, XT>, smem);
     if (err) return err;
@@ -1853,8 +2327,9 @@ extern "C" int fused_gru_max_hidden() { return max_hidden(); }
 extern "C" int fused_gru_max_shared_hidden() { return kMaxH; }
 extern "C" int fused_gru_max_cluster_hidden() { return cluster_max_hidden(); }
 
-// The route a call of hidden size H takes: 0 shared memory, 1 cluster, 2
-// wh in device memory, 3 wh and the backward's rows in device memory.
+// The route a call of hidden size H takes: 0 shared memory (fp32), 1
+// cluster, 2 wh in device memory, 3 wh and the backward's rows in device
+// memory, 4 tensor cores in one block (bf16, H <= 128).
 extern "C" int fused_gru_route(int H, int bf16) {
   const Route r = route_of(H, bf16 != 0);
   return r == kRouteGlobal && !global_rows(H, true) ? 3 : (int)r;

@@ -41,19 +41,33 @@ H a multiple of 4; the dispatcher zero-pads any other H up to one (``pad_hidden`
 which is exact: a padded unit sees zero xi, bh, wh and h0, so r = z = 1/2,
 n = tanh(0) = 0 and its h stays exactly 0 at every step, and the zero rows
 of wh that it would feed the real units add exact zeros. The library
-chooses the route from H and the instance before launch
-(``fused_gru_route``): up to H = 128 wh lives in one block's shared memory;
-above it the bf16 instance splits wh over a thread-block cluster's shared
-memory up to ``fused_gru_max_cluster_hidden`` (384), with the recurrent
-products on the tensor cores; the fp32 instance above 128, and the bf16
-one above the cluster limit, read wh from device memory (L2), each block
-owning 16, 8, 4, 2 or 1 sequences (the most whose rows fit its shared
-memory: 16 up to H 700, 1 above 4,468); above ``fused_gru_max_hidden``
-(7,264), where not even one sequence's backward rows of h, dh and dhh fit a
-block, a block owns one sequence and keeps its rows in a device-memory
-scratch that the launcher allocates (``fused_gru_rows_floats``; the forward's
-rows go there too above 19,368; route 3 of ``fused_gru_route``). The bf16
-instance's dwh is a tensor-core product at every H.
+chooses one of four routes from H and the instance before launch
+(``fused_gru_route``):
+
+* up to H = 128, bf16 (GRU4Rec's default; route 4, counted in
+  ``launches_tc``): tensor cores in one block. A block owns 16 sequences
+  and all of wh in bf16; the recurrent products (forward, the backward's
+  recompute and ``dhh @ wh^T``, dhh as two bf16 terms) run on ``mma.sync``,
+  a warp owns 8 (forward) or 16 (backward) units in all three gates, so
+  the gates and the carry stay in registers; one barrier a forward step and
+  two a backward step, the next steps' rows prefetched by ``cp.async``;
+  units past H up to the next multiple of 16 are dead units inside the
+  kernel (exact, as above);
+* up to H = 128, fp32 (NARM's path; route 0): wh in fp32 in one block's
+  shared memory, the products as fp32 FMAs;
+* above 128 the bf16 instance splits wh over a thread-block cluster's
+  shared memory up to ``fused_gru_max_cluster_hidden`` (384; route 1,
+  ``launches_cluster``), with the recurrent products on the tensor cores;
+* the fp32 instance above 128, and the bf16 one above the cluster limit,
+  read wh from device memory (L2; route 2), each block owning 16, 8, 4, 2
+  or 1 sequences (the most whose rows fit its shared memory: 16 up to H
+  700, 1 above 4,468); above ``fused_gru_max_hidden`` (7,264), where not
+  even one sequence's backward rows of h, dh and dhh fit a block, a block
+  owns one sequence and keeps its rows in a device-memory scratch that the
+  launcher allocates (``fused_gru_rows_floats``; the forward's rows go
+  there too above 19,368; route 3).
+
+The bf16 instance's dwh is a tensor-core product at every H.
 """
 
 import ctypes
@@ -241,6 +255,18 @@ def cluster_route(H, bf16):
     return _lib().fused_gru_route(H, int(bf16)) == 1
 
 
+def tc_route(H, bf16):
+    """Whether hidden size H (a multiple of 4) takes the one-block
+    tensor-core kernels (the bf16 instance up to 128)."""
+    return _lib().fused_gru_route(H, int(bf16)) == 4
+
+
+def _aligned(t):
+    """t, or a copy of it when its address is not 16-byte aligned (the
+    kernels copy rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_gru_cluster_plan(B, H, backward):
     """The cluster route's geometry on the current card for B sequences at
     hidden size H: cluster size, rows a block, clusters in the grid,
@@ -269,14 +295,16 @@ def fused_gru_cluster_floor_cuda(B, L, H, device, product=False):
 
 
 def fused_gru_fwd_cuda(xi, h0, wh, bh):
-    """Launch the forward kernel of the route (``fused_gru_fwd_kernel``,
-    ``fused_gru_fwd_cluster_kernel`` or ``fused_gru_fwd_global_kernel``):
-    out (B, L, H) in xi's dtype, which chooses the instance (bfloat16:
-    bf16). Counts its launches in ``fused_gru_fwd_cuda.launches``
-    (``launches_fp32``: the fp32 instance's among them;
-    ``launches_cluster``: the cluster route's)."""
+    """Launch the forward kernel of the route (``fused_gru_fwd_tc_kernel``,
+    ``fused_gru_fwd_kernel``, ``fused_gru_fwd_cluster_kernel`` or
+    ``fused_gru_fwd_global_kernel``): out (B, L, H) in xi's dtype, which
+    chooses the instance (bfloat16: bf16). Counts its launches in
+    ``fused_gru_fwd_cuda.launches`` (``launches_fp32``: the fp32 instance's
+    among them; ``launches_cluster``: the cluster route's; ``launches_tc``:
+    the one-block tensor-core route's)."""
     bf16 = xi.dtype == torch.bfloat16
     B, L, H = _check("fused_gru_fwd_cuda", xi, h0, wh, bh, bf16, False)
+    xi, h0, wh, bh = (_aligned(t) for t in (xi, h0, wh, bh))
     out = torch.empty((B, L, H), dtype=xi.dtype, device=xi.device)
     scratch = _scratch(H, bf16, xi.device)
     rows = _rows(B, H, bf16, False, xi.device)
@@ -288,12 +316,14 @@ def fused_gru_fwd_cuda(xi, h0, wh, bh):
     fused_gru_fwd_cuda.launches += 1
     fused_gru_fwd_cuda.launches_fp32 += not bf16
     fused_gru_fwd_cuda.launches_cluster += cluster_route(H, bf16)
+    fused_gru_fwd_cuda.launches_tc += tc_route(H, bf16)
     return out
 
 
 fused_gru_fwd_cuda.launches = 0
 fused_gru_fwd_cuda.launches_fp32 = 0
 fused_gru_fwd_cuda.launches_cluster = 0
+fused_gru_fwd_cuda.launches_tc = 0
 
 
 def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
@@ -301,14 +331,15 @@ def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
     (``gru_dwh_tc_kernel`` in the bf16 instance, ``gru_dwh_kernel`` in the
     fp32 one) and the reductions of their partials: (dxi, dh0, dwh, dbh).
     Counts its launches in ``fused_gru_bwd_cuda.launches`` (and
-    ``launches_fp32``, ``launches_cluster`` as the forward)."""
+    ``launches_fp32``, ``launches_cluster``, ``launches_tc`` as the
+    forward)."""
     bf16 = xi.dtype == torch.bfloat16
     B, L, H = _check("fused_gru_bwd_cuda", xi, h0, wh, bh, bf16, True)
     for what, t in (("out", out), ("dout", dout)):
         if tuple(t.shape) != (B, L, H) or t.dtype != xi.dtype or t.device != xi.device:
             raise ValueError(f"fused_gru_bwd_cuda: {what} must be {xi.dtype} (B, L, H) on "
                              f"xi's device")
-    out, dout = out.contiguous(), dout.contiguous()
+    xi, h0, wh, bh, out, dout = (_aligned(t.contiguous()) for t in (xi, h0, wh, bh, out, dout))
     lib = _lib()
     rec_blocks = lib.fused_gru_bwd_blocks(B, L, H, int(bf16))
     dw_chunks = lib.fused_gru_dwh_chunks(B, L, H, int(bf16))
@@ -335,12 +366,14 @@ def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
     fused_gru_bwd_cuda.launches += 1
     fused_gru_bwd_cuda.launches_fp32 += not bf16
     fused_gru_bwd_cuda.launches_cluster += cluster_route(H, bf16)
+    fused_gru_bwd_cuda.launches_tc += tc_route(H, bf16)
     return dxi, dh0, dwh, dbh
 
 
 fused_gru_bwd_cuda.launches = 0
 fused_gru_bwd_cuda.launches_fp32 = 0
 fused_gru_bwd_cuda.launches_cluster = 0
+fused_gru_bwd_cuda.launches_tc = 0
 
 
 def fused_gru_dwh_cuda(out, h0, dhh):

@@ -498,6 +498,52 @@ def test_padding_to_a_multiple_of_four_leaves_the_result(bf16, hidden):
         _close(a.float().numpy(), b.float().numpy(), 2e-6, name)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("hidden", [4, 12, 100])
+def test_padding_to_the_tensor_core_unit_tile_leaves_the_result(bf16, hidden):
+    """The bf16 kernels up to H 128 run H rounded up to 16 units inside the
+    kernel, the units past H dead: zero xi, bh, h0 and zero rows and columns
+    of wh. Zero-padding the plain version the same way: every dead unit's
+    output and every gradient entry of a dead unit (its xi, h0 and bh
+    entries, its row and columns of wh) is exactly 0, and the real units'
+    outputs equal the unpadded run's bit for bit, in both instances. The
+    real gradients agree within 2e-6 of each tensor's largest value, not bit
+    for bit: the CPU library sums dbh's columns and forms dwh's product in
+    another order at the padded width (up to 3e-6 absolute measured), while
+    every term that a dead unit adds is an exact zero."""
+    rng = np.random.RandomState(100 + hidden + bf16)
+    xi = torch.tensor(rng.randn(B, L, 3 * hidden).astype(np.float32))
+    if bf16:
+        xi = xi.to(torch.bfloat16)
+    h0 = torch.tensor((0.5 * rng.randn(B, hidden)).astype(np.float32))
+    wh = torch.tensor((0.3 * rng.randn(hidden, 3 * hidden)).astype(np.float32))
+    bh = torch.tensor((0.1 * rng.randn(3 * hidden)).astype(np.float32))
+    dy = torch.tensor(rng.randn(B, L, hidden).astype(np.float32))
+    Hp = -(-hidden // 16) * 16
+    args = [t.clone().requires_grad_(True) for t in (xi, h0, wh, bh)]
+    padded = [t.detach().requires_grad_(True) for t in fg.pad_hidden(*args, Hp)]
+    full = fg.fused_gru_torch(*padded, bf16=bf16)
+    (full[..., :hidden].float() * dy).sum().backward()
+    plain = [t.clone().requires_grad_(True) for t in (xi, h0, wh, bh)]
+    out = fg.fused_gru_torch(*plain, bf16=bf16)
+    (out.float() * dy).sum().backward()
+    assert full.shape[-1] == Hp and torch.equal(full[..., hidden:].float(),
+                                                torch.zeros_like(full[..., hidden:].float()))
+    assert torch.equal(full[..., :hidden], out)
+    dead = torch.arange(Hp) >= hidden
+    gate_dead = dead.repeat(3)
+    dxi, dh0, dwh, dbh = (t.grad for t in padded)
+    for name, g in (("dxi", dxi[..., gate_dead]), ("dh0", dh0[:, dead]), ("dwh rows", dwh[dead]),
+                    ("dwh columns", dwh[:, gate_dead]), ("dbh", dbh[gate_dead])):
+        assert float(g.float().abs().max()) == 0.0, name
+    live = [dxi.reshape(B, L, 3, Hp)[..., :hidden].reshape(B, L, 3 * hidden), dh0[:, :hidden],
+            dwh.reshape(Hp, 3, Hp)[:hidden, :, :hidden].reshape(hidden, 3 * hidden),
+            dbh.reshape(3, Hp)[:, :hidden].reshape(3 * hidden)]
+    for name, a, b in zip(("dxi", "dh0", "dwh", "dbh"), live, (t.grad for t in plain)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _close(a.float().numpy(), b.float().numpy(), 2e-6, name)
+
+
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
 def test_gru4rec_odd_hidden_size_matches_jax(synth_dataset_dir, tmp_path, cdt):
     """GRU4Rec at hidden_size 10 (not a multiple of 4: the kernels' path

@@ -1436,11 +1436,13 @@ def test_fused_gru_kernels_match_plain_on_card(cuda_device, bf16, B, L, H):
     moves a stored h_t or dxi by one bf16 step) of the tensor's largest
     value; one launch each; two runs bit-identical."""
     xi, h0, wh, bh, dout = _gru_inputs(B, L, H, 2 + bf16, cuda_device, bf16)
-    before = (port_gru.fused_gru_fwd_cuda.launches, port_gru.fused_gru_bwd_cuda.launches)
+    fwd, bwd = port_gru.fused_gru_fwd_cuda, port_gru.fused_gru_bwd_cuda
+    before = (fwd.launches, bwd.launches, fwd.launches_tc, bwd.launches_tc)
     out = port_gru.fused_gru_fwd_cuda(xi, h0, wh, bh)
     grads = port_gru.fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout)
-    assert (port_gru.fused_gru_fwd_cuda.launches,
-            port_gru.fused_gru_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    # the bf16 instance on the one-block tensor-core route, the fp32 one not
+    assert (fwd.launches, bwd.launches, fwd.launches_tc, bwd.launches_tc) == (
+        before[0] + 1, before[1] + 1, before[2] + bf16, before[3] + bf16)
     torch.cuda.synchronize()
     assert torch.equal(out, port_gru.fused_gru_fwd_cuda(xi, h0, wh, bh))
     again = port_gru.fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout)
@@ -1454,6 +1456,45 @@ def test_fused_gru_kernels_match_plain_on_card(cuda_device, bf16, B, L, H):
     for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), (out, *grads), (ref_out, *ref)):
         assert torch.isfinite(a.float()).all(), name
         assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("L", [1, 50])
+@pytest.mark.parametrize("B", [1, 17, 2048])
+@pytest.mark.parametrize("H", [4, 12, 64, 100, 128])
+def test_fused_gru_tc_route_matches_plain_on_card(cuda_device, H, B, L, h0):
+    """The bf16 instance up to H 128 runs the one-block tensor-core kernels
+    (route 4, units padded to 16 inside the kernel): out, dxi, dh0, dwh and
+    dbh against the plain version within 1e-2 of each tensor's largest value
+    (as test_fused_gru_kernels_match_plain_on_card), h0 zero and not; each
+    call counted once in ``launches_tc``; two runs bit-identical. The fp32
+    instance at the same H keeps the FMA kernels (route 0)."""
+    lib = port_gru._lib()
+    assert lib.fused_gru_route(H, 1) == 4 and port_gru.tc_route(H, True)
+    assert lib.fused_gru_route(H, 0) == 0 and not port_gru.tc_route(H, False)
+    xi, hinit, wh, bh, dout = _gru_inputs(B, L, H, 40 + H + B + L, cuda_device, True, h0)
+    fwd, bwd = port_gru.fused_gru_fwd_cuda, port_gru.fused_gru_bwd_cuda
+    before = (fwd.launches, bwd.launches, fwd.launches_tc, bwd.launches_tc)
+    out = fwd(xi, hinit, wh, bh)
+    grads = bwd(xi, hinit, wh, bh, out, dout)
+    assert (fwd.launches, bwd.launches, fwd.launches_tc, bwd.launches_tc) == tuple(
+        n + 1 for n in before)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fwd(xi, hinit, wh, bh))
+    assert all(torch.equal(a, b) for a, b in zip(grads, bwd(xi, hinit, wh, bh, out, dout)))
+    ref = (port_gru.fused_gru_torch_fwd(xi, hinit, wh, bh, True),
+           *port_gru.fused_gru_torch_bwd(xi, hinit, wh, bh, out, dout, True))
+    for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), (out, *grads), ref):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all(), name
+        assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
+    # the fp32 instance does not take the route
+    x32 = xi.float()
+    before = (fwd.launches_tc, bwd.launches_tc, fwd.launches_fp32)
+    y32 = fwd(x32, hinit, wh, bh)
+    bwd(x32, hinit, wh, bh, y32, dout.float())
+    assert (fwd.launches_tc, bwd.launches_tc, fwd.launches_fp32) == (before[0], before[1],
+                                                                    before[2] + 1)
 
 
 @pytest.mark.cuda
