@@ -21,11 +21,11 @@ Phases:
      Yelp shape's packed rows and on random bytes; the GRU recurrence
      kernels in both instances, forward and backward, at GRU4Rec's and
      NARM's step (the bf16 instance on the one-block tensor-core route, the
-     fp32 one on the FMA kernels), ragged and eval batches, with zero and
+     fp32 one on the one-block 3xTF32 route), ragged and eval batches, with zero and
      nonzero h0, and a two-layer stack, and at H 132, 256 and the cluster limit (the bf16
      instance's cluster kernels, the fp32 instance's wh in device memory),
      the limit + 4, H 704 (the global route at 8 sequences a block) and H 10
-     (zero-padded; the tensor-core route's dead units past H); the
+     (zero-padded; the one-block routes' dead units past H); the
      attention-only kernels on both routes (the whole
      sequence at L 50, the key tiles at L 200), causal and bidirectional,
      dropout off and on, with a sequence that has no valid key, and at head
@@ -58,7 +58,8 @@ Phases:
         2 epochs, then 20 steps under torch.profiler; every GRU launch on
         the one-block tensor-core route;
      f. NARM at its defaults (embedding 64, hidden 128, dropouts 0.25 and
-        0.5, CE; its GRU in fp32) on the same file, 1 epoch;
+        0.5, CE; its GRU in fp32) on the same file, 1 epoch; every GRU
+        launch on the one-block 3xTF32 route;
      g. SASRec at its default widths with fused_attention True (the
         attention-only kernel) on the same file, 1 epoch;
      h. a few steps and a valid pass at widths the kernels took only after
@@ -195,9 +196,10 @@ GRU_RECALL_FLOOR = 0.11
 # same places, but an fp32 sum that lands on the other side of a rounding
 # boundary moves a stored h_t (or dxi) by one bf16 step, 2^-8 of its value
 GRU_TOL = {False: 1e-4, True: 1e-2}
-# the GRU's routes by fused_gru_route's number
-GRU_ROUTES = ("shared memory", "cluster", "device memory", "device memory, rows in device memory",
-              "tensor cores, one block")
+# the GRU's routes by fused_gru_route's number (0, the fp32 FMA kernels, is
+# no longer taken)
+GRU_ROUTES = {1: "cluster", 2: "device memory", 3: "device memory, rows in device memory",
+              4: "tensor cores, one block", 5: "3xTF32 tensor cores, one block"}
 # fused_attention against its plain version: fp32 sums and exp in another
 # order
 ATTN_TOL = 1e-4
@@ -1024,16 +1026,19 @@ def gru_stack(torch, gru, x, cdt, plain):
 
 def gru_counts(fg):
     """The GRU wrappers' launches: all, the cluster route's, the one-block
-    tensor-core route's, forward and backward each."""
+    tensor-core route's (bf16), the one-block 3xTF32 route's (fp32),
+    forward and backward each."""
     f, b = fg.fused_gru_fwd_cuda, fg.fused_gru_bwd_cuda
     return (f.launches, b.launches, f.launches_cluster, b.launches_cluster, f.launches_tc,
-            b.launches_tc)
+            b.launches_tc, f.launches_tf32, b.launches_tf32)
 
 
 def check_gru(torch):
     """fused_gru_fwd / fused_gru_bwd against the plain version on the card:
     out, dxi, dh0, dwh, dbh, both instances (bf16 = GRU4Rec's default, fp32 =
-    NARM's GRU and GRU4Rec under float32), at the step (2,048), the ragged
+    NARM's GRU and GRU4Rec under float32; at H 128 the one-block
+    tensor-core route and the one-block 3xTF32 route, each asserted), at
+    the step (2,048), the ragged
     last train batch of the ml-1m-shaped file (1,097), a full-sort batch
     (4,096) and its last (1,944), h0 zero and not; two runs compared bit for
     bit; then a two-layer GRU4Rec stack at full width through
@@ -1066,10 +1071,12 @@ def check_gru(torch):
 
                 before = gru_counts(fg)
                 got, again = run(), run()
-                tc = 2 * int(bf16)  # bf16 at H 128: the one-block tensor-core kernels
-                if tuple(a - b for a, b in zip(gru_counts(fg), before)) != (2, 2, 0, 0, tc, tc):
+                # H 128: bf16 on the one-block tensor-core kernels, fp32 on the 3xTF32 ones
+                tc, tf = 2 * int(bf16), 2 * int(not bf16)
+                if tuple(a - b for a, b in zip(gru_counts(fg), before)) != (2, 2, 0, 0, tc, tc,
+                                                                           tf, tf):
                     raise AssertionError(f"fused_gru ({label}) took another route than "
-                                         f"{GRU_ROUTES[4 if bf16 else 0]}")
+                                         f"{GRU_ROUTES[4 if bf16 else 5]}")
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
                 ref = (fg.fused_gru_torch_fwd(xi, hinit, wh, bh, bf16),
                        *fg.fused_gru_torch_bwd(xi, hinit, wh, bh, got[0], dout, bf16))
@@ -1149,8 +1156,9 @@ def check_gru(torch):
 
             before = gru_counts(fg)
             got = run(fg.fused_gru)
-            cl, tc = int(route == "cluster"), int(route == GRU_ROUTES[4])
-            if tuple(a - b for a, b in zip(gru_counts(fg), before)) != (1, 1, cl, cl, tc, tc):
+            cl, tc, tf = (int(route == GRU_ROUTES[n]) for n in (1, 4, 5))
+            if tuple(a - b for a, b in zip(gru_counts(fg), before)) != (1, 1, cl, cl, tc, tc,
+                                                                       tf, tf):
                 raise AssertionError(f"fused_gru H={H2} did not launch the {route} kernels once "
                                      "each way")
             same = all(torch.equal(a, b) for a, b in zip(got, run(fg.fused_gru)))
@@ -1406,7 +1414,7 @@ def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
         for share in ("launches_fp32", "launches_bf16", "launches_cluster", "launches_tc",
-                      "launches_whole", "launches_tiled"):
+                      "launches_tf32", "launches_whole", "launches_tiled"):
             if hasattr(fn, share):
                 setattr(fn, share, 0)
 
@@ -1416,8 +1424,9 @@ def read_launches(path, must_launch):
     told apart here: trm_layer_* is the bf16 instance's share,
     fused_transformer_layer_* the fp32 instance's. fused_gru_* count both of
     theirs (one TPU kernel), fused_gru_*_fp32 is the fp32 share,
-    fused_gru_*_cluster the cluster route's and fused_gru_*_tc the one-block
-    tensor-core route's (bf16 up to H 128); rel_apply_* count both of
+    fused_gru_*_cluster the cluster route's, fused_gru_*_tc the one-block
+    tensor-core route's (bf16 up to H 128) and fused_gru_*_tf32 the one-block
+    3xTF32 route's (fp32 up to H 128); rel_apply_* count both of
     theirs, rel_apply_*_bf16 the bf16 share; fused_attention_* count both
     routes' launches, told apart here: fused_attention_* is the key-tiled
     route's share, fused_attention_whole_* the whole-sequence route's."""
@@ -1439,6 +1448,8 @@ def read_launches(path, must_launch):
                 launches[f"{name}_cluster"] = fn.launches_cluster
             if hasattr(fn, "launches_tc"):
                 launches[f"{name}_tc"] = fn.launches_tc
+            if hasattr(fn, "launches_tf32"):
+                launches[f"{name}_tf32"] = fn.launches_tf32
     log(f"[{path}] launches {launches}; {ADAM_STEPS['n']} training steps")
     never = [name for name in must_launch if launches[name] <= 0]
     if never:
@@ -1792,20 +1803,26 @@ def phase_gru4rec(torch, tmp):
 
 def phase_narm(torch, tmp):
     """NARM at its defaults, 1 epoch (cut): the fp32 instance of the GRU
-    kernels; its full-sort eval is the non-fused route (no masked top-k)."""
+    kernels, every launch on the one-block 3xTF32 route (H 128); its
+    full-sort eval is the non-fused route (no masked top-k)."""
     launches, model, widths = seq_phase(
         torch, tmp, "narm", "NARM", {}, 1,
         ("embedding_size", "hidden_size", "n_layers", "dropout_probs", "loss_type",
          "MAX_ITEM_LIST_LENGTH", "train_batch_size"),
-        ("fused_gru_fwd_fp32", "fused_gru_bwd_fp32", "onehot_matmul_grad", "adam_leaf"),
+        ("fused_gru_fwd_tf32", "fused_gru_bwd_tf32", "onehot_matmul_grad", "adam_leaf"),
         ("masked_topk", "trm_layer_fwd", "windowed_grad", "fused_gru_fwd_tc",
-         "fused_gru_bwd_tc"))
+         "fused_gru_bwd_tc", "fused_gru_fwd_cluster", "fused_gru_bwd_cluster"))
     if (widths["embedding_size"], widths["hidden_size"], widths["n_layers"],
             list(widths["dropout_probs"]), widths["train_batch_size"]) != (64, 128, 1,
                                                                          [0.25, 0.5], 2048):
         raise AssertionError(f"NARM was not built at its defaults: {widths}")
     if launches["fused_gru_fwd"] != launches["fused_gru_fwd_fp32"]:
         raise AssertionError("NARM's GRU ran the bf16 instance")
+    for way in ("fwd", "bwd"):
+        if launches[f"fused_gru_{way}_tf32"] != launches[f"fused_gru_{way}"]:
+            raise AssertionError(f"NARM's GRU {way} ran off the 3xTF32 route: "
+                                 f"{launches[f'fused_gru_{way}_tf32']} of "
+                                 f"{launches[f'fused_gru_{way}']} launches")
     return launches
 
 
@@ -2571,9 +2588,11 @@ def time_gru(torch):
     forward; the backward's recompute, dhh wh^T and h^T dhh, three times
     that) at the fp32 rate (fp32 instance) or the bf16 tensor-core rate
     (bf16 instance), and xi, out (dout, dxi) moved once in the instance's
-    type. The bf16 entries also give the time in a CUDA graph, the
-    kernels a call launches (torch.profiler) and, for the backward, the
-    dwh product alone (``dwh_ms``, CUDA events); the "h256" entry also the
+    type; the fp32 entry also gives it at the 3xTF32 rate its kernels run
+    at, a third of dense TF32 (``bound_3xtf32_ms``). Every entry also
+    gives the time in a CUDA graph, the kernels a call launches
+    (torch.profiler) and, for the backward, the dwh product alone
+    (``dwh_ms``, CUDA events); the "h256" entry also the
     cluster geometry (cluster size, rows a block, clusters and the clusters
     the card holds) and the per-step floor: the forward's L - 1 steps of
     the h exchange and the cluster barrier alone, and with the recurrent
@@ -2628,15 +2647,16 @@ def time_gru(torch):
                  "library_ms": library[way]}
             t["bound_ms"], t["bound_by"] = bound(flops, nbytes,
                                                  PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
-            if bf16:
-                t["graph_ms"] = graph_ms(torch, kernel, calls=5, replays=10)
-                t["kernels"] = kernels_per_call(torch, kernel)
-                if way == "bwd":
-                    # the backward's last product alone, by events (the profiler
-                    # can drop launches late in a long process)
-                    dhh = torch.randn(B, L, 3 * H, device="cuda")
-                    t["dwh_ms"] = cuda_ms(torch, lambda: fg.fused_gru_dwh_cuda(y, hinit, dhh),
-                                          20)
+            if not bf16:
+                t["bound_3xtf32_ms"], _ = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
+            t["graph_ms"] = graph_ms(torch, kernel, calls=5, replays=10)
+            t["kernels"] = kernels_per_call(torch, kernel)
+            if way == "bwd":
+                # the backward's last product alone, by events (the profiler
+                # can drop launches late in a long process)
+                dhh = torch.randn(B, L, 3 * H, device="cuda")
+                t["dwh_ms"] = cuda_ms(torch, lambda: fg.fused_gru_dwh_cuda(y, hinit, dhh),
+                                      20)
             if bf16 and fg.cluster_route(H, True):
                 t["plan"] = fg.fused_gru_cluster_plan(B, H, way == "bwd")
                 if way == "fwd":

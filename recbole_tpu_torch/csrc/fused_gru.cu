@@ -33,8 +33,9 @@
 // What bounds it on the H100 (GRU4Rec's step: B = 2048, L = 50, H = 128):
 // the recurrent products are 10.07 GFLOP forward and 30.2 GFLOP backward, the
 // bytes 105 MB forward and 210 MB backward in the bf16 instance (0.032 and
-// 0.063 ms at 3.35 TB/s; the fp32 instance's products as FMAs at the fp32
-// rate 0.150 and 0.451 ms). The recurrence is serial in t, so a step's
+// 0.063 ms at 3.35 TB/s; the fp32 instance's products as 3xTF32 at a third
+// of the TF32 rate 0.061 and 0.183 ms, its bytes 0.063 forward). The
+// recurrence is serial in t, so a step's
 // latency rules: on every route a block (or cluster) owns a set of sequences
 // for the whole loop, keeps wh out of the step's device-memory traffic where
 // it can, carries h (forward) or dh (backward) in registers or shared memory
@@ -45,7 +46,7 @@
 // rows, one partial per chunk, and reduce_partials_kernel sums the partials
 // in chunk (block) order. No float atomics: two runs give the same bits.
 //
-// Four routes for the recurrent kernels, chosen from H and the instance
+// Five routes for the recurrent kernels, chosen from H and the instance
 // before launch (route_of; the numbers are fused_gru_route's):
 //  4  bf16, H <= kMaxH = 128 (GRU4Rec's default): fused_gru_{fwd,bwd}_tc_kernel,
 //     tensor cores in one block (the design is at the kernels below): a
@@ -54,14 +55,11 @@
 //     recurrent products on mma.sync m16n8k16, fast gates, the next steps'
 //     rows by cp.async during the product, one barrier a forward step and two
 //     a backward step; units past H up to a multiple of 16 are dead.
-//  0  fp32, H <= 128 (NARM's path): fused_gru_{fwd,bwd}_kernel<false>, wh in
-//     fp32 in one block's shared memory (231,424 bytes with the backward's
-//     rows at H 128, so one block of 256 threads an SM, kRows = 16 sequences
-//     a block), padded so that both the column reads of the forward product
-//     and the row reads of dhh wh^T are free of bank conflicts; a thread owns
-//     one hidden unit j and 8 rows, the products are fp32 FMAs, and the
-//     rounded h rows (forward: one barrier a step, double buffered) or the
-//     dhh rows (backward: two barriers a step) pass through shared memory.
+//  5  fp32, H <= 128 (NARM's path): fused_gru_{fwd,bwd}_tf32_kernel, route
+//     4's structure with every product as 3xTF32 on mma.sync m16n8k8 (the
+//     design is at the kernels below): all of wh in fp32 once in the block's
+//     shared memory (196,608 bytes at H 128), each operand split into hi and
+//     lo as it is loaded; xi and dout come into registers a step ahead.
 //  1  bf16, 128 < H <= cluster_max_hidden() = 384: wh split over a
 //     thread-block cluster (fused_gru_{fwd,bwd}_cluster_kernel; the design
 //     is at the cluster kernels below): 4 blocks up to H = 256, 8 above,
@@ -84,7 +82,8 @@
 //  3  past that, route 2 at one sequence a block with its rows in device
 //     memory.
 // dwh is gru_dwh_tc_kernel (tensor cores, dhh entering as two bf16 terms) in
-// the bf16 instance and gru_dwh_kernel (fp32) in the fp32 instance.
+// the bf16 instance and gru_dwh_tf32_kernel (3xTF32) in the fp32 instance,
+// at every H.
 // H must be a multiple of 4 (the wrapper
 // zero-pads any other H, which is exact: recbole_tpu_torch/ops/fused_gru.py).
 // Any B and L.
@@ -104,25 +103,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;   // sequences a block owns
-constexpr int kRT = 8;      // rows of a thread (two row groups of 8)
-constexpr int kMaxH = 128;  // routes 0 (two threads a hidden unit) and 4
-constexpr int kPad = 4;     // floats added to every row of wh in shared memory
-// gru_dwh_kernel tiles
-constexpr int kTK = 64, kTC = 64, kTN = 32;
-constexpr int kDwhBlocks = 528;  // about four blocks an SM
+constexpr int kThreads = 256;  // the global route's blocks
+constexpr int kRows = 16;      // sequences a block owns on the one-block routes (4 and 5)
+constexpr int kMaxH = 128;     // the one-block routes' largest H
 constexpr size_t kSmemOptin = 232448;  // opt-in shared memory of a Hopper block
-
-__host__ __device__ inline int wh_stride(int H) { return 3 * H + kPad; }
-
-// shared-memory floats: wh (H rows of 3H + kPad) and, forward, two buffers of
-// the block's rounded h rows, or, backward, one buffer of h_{t-1} rows and one
-// of dhh rows
-inline size_t smem_floats(int H, bool backward) {
-  const size_t w = (size_t)H * wh_stride(H);
-  return backward ? w + (size_t)kRows * H + (size_t)kRows * 3 * H : w + 2 * (size_t)kRows * H;
-}
 
 template <bool BF>
 __device__ __forceinline__ float rnd(float v) {
@@ -147,221 +131,6 @@ __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x))
 // (row, unit) pairs a thread is on every step's critical path).
 __device__ __forceinline__ float sigm_fast(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 __device__ __forceinline__ float tanh_fast(float x) { return 2.0f * sigm_fast(2.0f * x) - 1.0f; }
-
-// wh (H, 3H) into shared memory, rounded in the bf16 instance
-template <bool BF>
-__device__ void load_wh(float* whs, const float* __restrict__ wh, int H) {
-  const int C = 3 * H, WS = wh_stride(H);
-  for (int i = threadIdx.x; i < H * C; i += blockDim.x) {
-    const int k = i / C, c = i - k * C;
-    whs[k * WS + c] = rnd<BF>(wh[i]);
-  }
-}
-
-// acc[r][g] = sum_k hs[row r][k] * whs[k][j + g H] for the thread's 8 rows
-__device__ __forceinline__ void recurrent_product(const float* hs, const float* whs, int H,
-                                                  int j, int r0, float acc[kRT][3]) {
-  const int WS = wh_stride(H);
-#pragma unroll
-  for (int r = 0; r < kRT; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
-  for (int k = 0; k < H; k += 4) {
-    float w[3][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int g = 0; g < 3; ++g) w[g][kk] = whs[(k + kk) * WS + j + g * H];
-#pragma unroll
-    for (int r = 0; r < kRT; ++r) {
-      const float4 h = *reinterpret_cast<const float4*>(hs + (r0 + r) * H + k);
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        float a = acc[r][g];
-        a = fmaf(h.x, w[g][0], a);
-        a = fmaf(h.y, w[g][1], a);
-        a = fmaf(h.z, w[g][2], a);
-        a = fmaf(h.w, w[g][3], a);
-        acc[r][g] = a;
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------------ forward
-
-// XT: the type of xi and out (float, or __nv_bfloat16 in the bf16 instance)
-template <bool BF, typename XT>
-__global__ void __launch_bounds__(kThreads)
-fused_gru_fwd_kernel(const XT* __restrict__ xi, const float* __restrict__ h0,
-                     const float* __restrict__ wh, const float* __restrict__ bh, int B, int L,
-                     int H, XT* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* whs = reinterpret_cast<float*>(smem4);
-  float* hbuf = whs + (size_t)H * wh_stride(H);  // [2][kRows][H], h as the product reads it
-  const int tid = threadIdx.x;
-  const bool active = tid < 2 * H;
-  const int j = active ? tid % H : 0, r0 = active ? (tid / H) * kRT : 0;
-  const int b0 = blockIdx.x * kRows;
-  const size_t C = 3 * (size_t)H;
-
-  load_wh<BF>(whs, wh, H);
-  float h[kRT], bias[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int r = 0; r < kRT; ++r) {
-    const int b = b0 + r0 + r;
-    h[r] = (active && b < B) ? h0[(size_t)b * H + j] : 0.0f;
-    if (active) hbuf[(r0 + r) * H + j] = rnd<BF>(h[r]);
-  }
-  if (active)
-    for (int g = 0; g < 3; ++g) bias[g] = bh[g * H + j];
-  __syncthreads();
-
-  int cur = 0;
-  for (int t = 0; t < L; ++t) {
-    float x[kRT][3];
-#pragma unroll
-    for (int r = 0; r < kRT; ++r) {
-      const int b = b0 + r0 + r;
-      const size_t base = ((size_t)b * L + t) * C + j;
-#pragma unroll
-      for (int g = 0; g < 3; ++g) x[r][g] = (active && b < B) ? ld(xi, base + g * H) : 0.0f;
-    }
-    float acc[kRT][3];
-    recurrent_product(hbuf + cur * kRows * H, whs, H, j, r0, acc);
-    float* nxt = hbuf + (cur ^ 1) * kRows * H;
-#pragma unroll
-    for (int r = 0; r < kRT; ++r) {
-      const float rr = sigm(x[r][0] + (acc[r][0] + bias[0]));
-      const float z = sigm(x[r][1] + (acc[r][1] + bias[1]));
-      const float n = tanhf(x[r][2] + rr * (acc[r][2] + bias[2]));
-      h[r] = (1.0f - z) * n + z * h[r];
-      const int b = b0 + r0 + r;
-      if (active) {
-        nxt[(r0 + r) * H + j] = rnd<BF>(h[r]);
-        if (b < B) st(out, ((size_t)b * L + t) * H + j, h[r]);
-      }
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-}
-
-// ----------------------------------------------------------------- backward
-
-template <bool BF, typename XT>
-__global__ void __launch_bounds__(kThreads)
-fused_gru_bwd_kernel(const XT* __restrict__ xi, const float* __restrict__ h0,
-                     const float* __restrict__ wh, const float* __restrict__ bh,
-                     const XT* __restrict__ out, const XT* __restrict__ dout, int B, int L, int H,
-                     XT* __restrict__ dxi, float* __restrict__ dh0, float* __restrict__ dhh,
-                     float* __restrict__ dbh_part) {
-  extern __shared__ float4 smem4[];
-  float* whs = reinterpret_cast<float*>(smem4);
-  const int WS = wh_stride(H);
-  float* hs = whs + (size_t)H * WS;  // [kRows][H]: h_{t-1} as the product reads it
-  float* ds = hs + kRows * H;        // [kRows][3H]: this step's dhh rows
-  const int tid = threadIdx.x;
-  const bool active = tid < 2 * H;
-  const int j = active ? tid % H : 0, r0 = active ? (tid / H) * kRT : 0;
-  const int b0 = blockIdx.x * kRows;
-  const int C = 3 * H;
-
-  // h_{t-1} of row b: the forward's output at t - 1, h0 at t = 0
-  auto h_prev = [&](int b, int t, int k) -> float {
-    return t == 0 ? h0[(size_t)b * H + k] : ld(out, ((size_t)b * L + t - 1) * H + k);
-  };
-  auto load_hs = [&](int t) {
-    for (int i = tid; i < kRows * H; i += blockDim.x) {
-      const int rr = i / H, k = i - rr * H, b = b0 + rr;
-      hs[i] = b < B ? rnd<BF>(h_prev(b, t, k)) : 0.0f;
-    }
-  };
-
-  load_wh<BF>(whs, wh, H);
-  load_hs(L - 1);
-  float dh[kRT], bias[3] = {0.0f, 0.0f, 0.0f}, dbh_acc[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int r = 0; r < kRT; ++r) dh[r] = 0.0f;
-  if (active)
-    for (int g = 0; g < 3; ++g) bias[g] = bh[g * H + j];
-  __syncthreads();
-
-  for (int t = L - 1; t >= 0; --t) {
-    float x[kRT][3], hp[kRT], dy[kRT];
-#pragma unroll
-    for (int r = 0; r < kRT; ++r) {
-      const int b = b0 + r0 + r;
-      const bool ok = active && b < B;
-      const size_t base = ((size_t)b * L + t) * C + j;
-#pragma unroll
-      for (int g = 0; g < 3; ++g) x[r][g] = ok ? ld(xi, base + g * H) : 0.0f;
-      hp[r] = ok ? h_prev(b, t, j) : 0.0f;
-      dy[r] = ok ? ld(dout, ((size_t)b * L + t) * H + j) : 0.0f;
-    }
-    float acc[kRT][3], z[kRT];
-    recurrent_product(hs, whs, H, j, r0, acc);
-#pragma unroll
-    for (int r = 0; r < kRT; ++r) {
-      const float hr = acc[r][0] + bias[0], hz = acc[r][1] + bias[1], hn = acc[r][2] + bias[2];
-      const float rr = sigm(x[r][0] + hr);
-      z[r] = sigm(x[r][1] + hz);
-      const float n = tanhf(x[r][2] + rr * hn);
-      dh[r] += dy[r];
-      const float dpre_n = dh[r] * (1.0f - z[r]) * (1.0f - n * n);
-      const float dpre_r = dpre_n * hn * rr * (1.0f - rr);
-      const float dpre_z = dh[r] * (hp[r] - n) * z[r] * (1.0f - z[r]);
-      const float d[3] = {dpre_r, dpre_z, dpre_n * rr};
-      const int b = b0 + r0 + r;
-      if (active) {
-#pragma unroll
-        for (int g = 0; g < 3; ++g) ds[(r0 + r) * C + g * H + j] = d[g];
-        if (b < B) {
-          const size_t base = ((size_t)b * L + t) * C + j;
-          st(dxi, base, dpre_r);
-          st(dxi, base + H, dpre_z);
-          st(dxi, base + 2 * H, dpre_n);
-#pragma unroll
-          for (int g = 0; g < 3; ++g) {
-            dhh[base + g * H] = d[g];
-            dbh_acc[g] += d[g];
-          }
-        }
-      }
-    }
-    __syncthreads();  // ds is complete, and nobody reads hs any more this step
-    if (t > 0) load_hs(t - 1);
-    // dh = dh z + round(dhh wh^T): row j of wh against the block's dhh rows
-    float p[kRT];
-#pragma unroll
-    for (int r = 0; r < kRT; ++r) p[r] = 0.0f;
-    for (int c = 0; c < C; c += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(whs + j * WS + c);
-#pragma unroll
-      for (int r = 0; r < kRT; ++r) {
-        const float4 d = *reinterpret_cast<const float4*>(ds + (r0 + r) * C + c);
-        float a = p[r];
-        a = fmaf(d.x, w.x, a);
-        a = fmaf(d.y, w.y, a);
-        a = fmaf(d.z, w.z, a);
-        a = fmaf(d.w, w.w, a);
-        p[r] = a;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRT; ++r) dh[r] = dh[r] * z[r] + rnd<BF>(p[r]);
-    __syncthreads();  // hs holds the next step's rows; ds may be written again
-  }
-#pragma unroll
-  for (int r = 0; r < kRT; ++r) {
-    const int b = b0 + r0 + r;
-    if (active && b < B) dh0[(size_t)b * H + j] = dh[r];
-  }
-  // the block's dbh: row group 0's sum, then row group 1's, in shared memory
-  if (active)
-    for (int g = 0; g < 3; ++g) ds[(r0 / kRT) * C + g * H + j] = dbh_acc[g];
-  __syncthreads();
-  for (int c = tid; c < C; c += blockDim.x)
-    dbh_part[(size_t)blockIdx.x * C + c] = ds[c] + ds[C + c];
-}
 
 // -------------------------------------------- wh in device memory (H > 128)
 
@@ -576,61 +345,6 @@ fused_gru_bwd_global_kernel(const XT* __restrict__ xi, const float* __restrict__
     if (b < B) dh0[(size_t)b * H + j] = dhc[i];
   }
   for (int c = tid; c < C; c += blockDim.x) dbh_part[(size_t)blockIdx.x * C + c] = dbs[c];
-}
-
-// partial[chunk] = sum over the chunk's rows n = (b, t) of h_{t-1}[b]^T dhh[n]
-// ((H, 3H), h rounded as the product read it). Grid (3H / kTC, H / kTK,
-// chunks), 256 threads, each a 4 x 4 tile of the block's kTK x kTC outputs.
-template <bool BF, typename XT>
-__global__ void __launch_bounds__(kThreads)
-gru_dwh_kernel(const XT* __restrict__ out, const float* __restrict__ h0,
-               const float* __restrict__ dhh, int B, int L, int H, int chunk_rows,
-               float* __restrict__ partials) {
-  __shared__ __align__(16) float As[kTN][kTK];
-  __shared__ __align__(16) float Bs[kTN][kTC];
-  const int C = 3 * H, N = B * L;
-  const int c0 = blockIdx.x * kTC, k0 = blockIdx.y * kTK;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int n_begin = blockIdx.z * chunk_rows;
-  const int n_end = min(N, n_begin + chunk_rows);
-  float acc[4][4] = {};
-  for (int n0 = n_begin; n0 < n_end; n0 += kTN) {
-    for (int i = threadIdx.x; i < kTN * kTK; i += blockDim.x) {
-      const int nn = i / kTK, kk = i - nn * kTK, n = n0 + nn, k = k0 + kk;
-      float v = 0.0f;
-      if (n < n_end && k < H) {
-        const int b = n / L, t = n - b * L;
-        v = rnd<BF>(t == 0 ? h0[(size_t)b * H + k] : ld(out, ((size_t)n - 1) * H + k));
-      }
-      As[nn][kk] = v;
-    }
-    for (int i = threadIdx.x; i < kTN * kTC; i += blockDim.x) {
-      const int nn = i / kTC, cc = i - nn * kTC, n = n0 + nn, c = c0 + cc;
-      Bs[nn][cc] = (n < n_end && c < C) ? dhh[(size_t)n * C + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int nn = 0; nn < kTN; ++nn) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[nn][ty * 4]);
-      const float4 d = *reinterpret_cast<const float4*>(&Bs[nn][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, dv[4] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], dv[q], acc[i][q]);
-    }
-    __syncthreads();
-  }
-  float* part = partials + (size_t)blockIdx.z * H * C;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + tx * 4 + q;
-      if (k < H && c < C) part[(size_t)k * C + c] = acc[i][q];
-    }
-  }
 }
 
 // out[p] = sum of the n partials, in their order
@@ -1875,16 +1589,618 @@ fused_gru_bwd_tc_kernel(const bf16* __restrict__ xi, const float* __restrict__ h
   }
 }
 
+// ------------- 3xTF32 tensor cores in one block (fp32 instance, H <= 128)
+//
+// The fp32 instance (NARM's GRU, GRU4Rec under compute_dtype float32) in
+// route 4's structure, its products fp32-exact on the tensor cores as
+// 3xTF32: x = hi + lo with hi = x's top 19 bits (a tf32 value, x cut toward
+// 0) and lo = x - hi exact, whose low bits the tensor cores drop; a k-step
+// of 8 is a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo, about 2^-20 of the
+// product, is dropped), three mma.sync.m16n8k8 into one accumulator, the
+// small terms first (trm_layer.cu's 3xTF32 products, whose split this file
+// copies). The carry h (dh) and the gate math stay fp32, the gates from the
+// hardware exp2 and reciprocal (sigm_fast, tanh_fast).
+//
+// A block owns kRows = 16 sequences for the whole loop and holds all of wh
+// in fp32, once, in shared memory: whs[3 Hp][Ks] (row g Hp + u holds
+// wh[k][g H + u] over k; Hp = H rounded up to 16, Ks = Hp rounded up to 32),
+// 196,608 bytes at H 128. Pre-split hi and lo copies would take twice that,
+// more than a block's 232,448, so each operand is split as it is loaded (two
+// ALU operations an element). Rows of whs and of the h rows are XOR-swizzled
+// by 16-byte chunk (tf_swz), so that the three ways they are read are free of
+// bank conflicts: the forward product reads a lane's B fragments of two
+// k-steps as one 16-byte load (the k of a k-step permuted, which a sum does
+// not see: lane q takes k 4q .. 4q + 3 of a 16-wide slab, the first k-step
+// 4q, 4q + 1 and the second 4q + 2, 4q + 3), and the h rows' A fragments the
+// same way; the backward's dhh wh^T reads wh along its other index, which
+// ldmatrix cannot transpose for 32-bit elements, as scalar loads (lane (gr,
+// q) at rows c0 + 2q, c0 + 2q + 1, column n0 + gr). Units past H are dead:
+// zero wh, bh, xi and h0, so their h and dh stay exactly 0.
+//
+// Forward: warp w owns units 8w + [0, 8) in all three gates (Hp / 8 warps, 16
+// at H 128), so a thread holds r, z and n of its (row, unit) pairs and the
+// gates and the fp32 carry stay in registers. Each step the new h slice goes
+// into the other of two fp32 h buffers, then one __syncthreads. No room is
+// left to stage xi in shared memory (a step's rows are 24,576 bytes), so
+// each thread loads its own twelve xi values of step t + 1 into registers at
+// the start of step t, where the product hides their latency; out leaves as
+// 8-byte stores from the registers (a quad of lanes writes one 32-byte
+// sector of a row).
+//
+// Backward: warp w owns units 16w + [0, 16) (8 warps at H 128, route 4's
+// measured choice). The recompute is the forward's product on h_{t-1},
+// whose rows lie in one fp32 buffer; xi_t and dout_t come into registers a
+// step ahead as in the forward. The gates write the step's dhh rows (fp32,
+// stride 8 mod 32 floats) into shared memory and store dxi and dhh to device
+// memory from registers; after the first barrier the next step's h_{t-2} rows
+// are copied into the h buffer by cp.async (its readers are done) while dhh
+// wh^T (M 16, N Hp, K 3 Hp) runs from the dhh rows and whs, dhh split as it
+// is loaded; then dh = dh z + dhh wh^T, the copies waited for, and the second
+// barrier. The block's dbh partial is summed over its rows in a fixed tree.
+// At H 128 a block takes 212,992 bytes forward and 229,888 backward.
+//
+// dwh is gru_dwh_tf32_kernel (below): [h_{t-1}]^T dhh over chunks of the B L
+// rows as 3xTF32, both operands split as loaded, one partial a chunk.
+//
+// What bounds it at NARM's step (B 2,048, L 50, H 128): the recurrent
+// products are 10.07 GFLOP forward and 30.2 backward, 0.061 and 0.183 ms at
+// the 3xTF32 rate (a third of dense TF32's 494.7 TFLOP/s); the fp32 bytes
+// (xi, out; xi, out, dout, dxi, dhh) 209.7 MB forward, 0.063 ms at 3.35 TB/s.
+// But the loop is 50 serial steps of 128 blocks, one an SM, so what a step
+// costs is one SM's 2,304 mma (forward; 4,608 backward) with their fragment
+// loads and splits, the gates and the barrier. scripts/torch_gru_probe.py
+// --fp32 reads a step's clocks by phase (H100, block 0): forward 7,878 the
+// product, 773 the gates and stores, 2 at the barrier; backward 10,230 the
+// recompute, 2,636 the gates, 860 issuing the copies, 9,648 dhh wh^T and the
+// dh update, 47 at the barriers. Measured choices (scripts/torch_gru_ab.py
+// --rows 8b on copies of this source that differ in one choice, each set in
+// one call; graph ms forward, the recurrent backward kernel in brackets):
+// fast gates 0.251 (0.645) against expf / tanhf 0.270 (0.687), the error
+// the same (1.8e-6 against 1.7e-6 of out's largest value); the forward at
+// 16 warps 0.251 against 0.260 at 8; the backward at 8 warps (0.645)
+// against (0.659) at 16; h kept split (hi and lo rows written by the gates,
+// 229,376 bytes) 0.293, the forward's 128 registers spilling; the product's
+// depth fixed at H 128 (fully unrolled) 0.288, spilling; dhh wh^T with one
+// accumulator a term (0.648) and unrolled 8 deep (0.668): no gain.
+
+// n8 tiles a gate a warp (8 NT units a warp): the forward 1 (16 warps at H
+// 128), the backward 2 (8 warps)
+constexpr int kTfFwdNT = 1, kTfBwdNT = 2;
+constexpr int kTfMaxKb = kMaxH / 16;  // 16-wide k slabs of the recurrent product at most
+
+__host__ __device__ inline int tf_hp(int H) { return round_up(H, 16); }
+__host__ __device__ inline int tf_ks(int H) { return round_up(tf_hp(H), 32); }
+// the backward's dhh row stride: 8 mod 32 floats, so that a quad's 8-byte
+// reads and writes of four rows hit distinct banks
+__host__ __device__ inline int tf_sd(int H) { return round_up(3 * tf_hp(H), 32) + 8; }
+inline int tf_threads(int H, int nt) { return 32 * tf_hp(H) / (8 * nt); }
+
+inline size_t tf_smem(int H, bool backward) {
+  const size_t wh = (size_t)4 * 3 * tf_hp(H) * tf_ks(H), rows = (size_t)4 * kRows * tf_ks(H);
+  return wh + (backward ? rows + (size_t)4 * kRows * tf_sd(H) : 2 * rows);
+}
+
+// Element (row, k) of an fp32 tile whose rows hold ks floats (a multiple of
+// 32): the 16-byte chunks of a row are XOR-swizzled by (row & 6) ^ ((row & 1)
+// << 2). Rows 2p and 2p + 1 then differ in bit 2 of the swizzle (a lane's
+// 16-byte fragment loads, eight lanes a phase), and rows c, c + 2, c + 4,
+// c + 6 (c even), as c + 1, c + 3, c + 5, c + 7, in bits 1 and 2 (the scalar
+// reads of dhh wh^T).
+__device__ __forceinline__ int tf_swz(int row, int k, int ks) {
+  const int f = (row & 6) ^ ((row & 1) << 2);
+  return row * ks + (((k >> 2) ^ f) << 2) + (k & 3);
+}
+
+// x = hi + lo for 3xTF32: hi is x's top 19 bits (|x - hi| < 2^-10 |x|), lo
+// the exact remainder, whose low bits the tensor cores drop (< 2^-20 |x|);
+// a copy of trm_layer.cu's split_tf32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b: one m16n8k8 tile, tf32 operands, fp32 sums
+__device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b as 3xTF32, the small terms first; b = (b0, b1) split into bh, bl
+__device__ __forceinline__ void mma_3x(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                       const uint32_t bh[2], const uint32_t bl[2]) {
+  mma1688(c, al, bh[0], bh[1]);
+  mma1688(c, ah, bl[0], bl[1]);
+  mma1688(c, ah, bh[0], bh[1]);
+}
+
+// the four A elements of a k-step (rows gr, gr + 8 by slots q, q + 4) split
+__device__ __forceinline__ void split_a(float a0, float a1, float a2, float a3, uint32_t ah[4],
+                                        uint32_t al[4]) {
+  split_tf32(a0, ah[0], al[0]);
+  split_tf32(a1, ah[1], al[1]);
+  split_tf32(a2, ah[2], al[2]);
+  split_tf32(a3, ah[3], al[3]);
+}
+
+// whs[3 hp][ks] <- wh's gate columns, zero past H (an item: rows k .. k + 3
+// of one column, read down the column, neighbouring threads on neighbouring
+// columns; H is a multiple of 4, so the four rows are all live or all dead)
+__device__ void tf_load_wh(float* whs, const float* __restrict__ wh, int H, int hp, int ks) {
+  const int n3 = 3 * hp, items = n3 * (hp / 4);
+  for (int i0 = threadIdx.x; i0 < items; i0 += kStage * blockDim.x) {
+    float4 v[kStage];
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = i0 + s * blockDim.x, n = i % n3, k = 4 * (i / n3), g = n / hp, u = n - g * hp;
+      v[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < items && u < H && k < H) {
+        const float* src = wh + (size_t)k * 3 * H + g * H + u;
+        v[s] = make_float4(src[0], src[3 * H], src[6 * H], src[9 * H]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = i0 + s * blockDim.x, n = i % n3, k = 4 * (i / n3);
+      if (i < items) *reinterpret_cast<float4*>(whs + tf_swz(n, k, ks)) = v[s];
+    }
+  }
+}
+
+// hs[16][ks] <- h_{t-1} of the block's rows (the forward's output at t - 1,
+// h0 at t = 0) by cp.async, zero past B and past H (hp columns)
+__device__ __forceinline__ void tf_stage_h(float* hs, const float* __restrict__ h0,
+                                           const float* __restrict__ out, int b0, int B, int L,
+                                           int t, int H, int hp, int ks) {
+  const int k4 = hp / 4;
+  for (int i = threadIdx.x; i < kRows * k4; i += blockDim.x) {
+    const int r = i / k4, k = 4 * (i - r * k4), b = b0 + r;
+    float* d = hs + tf_swz(r, k, ks);
+    if (b >= B || k >= H)
+      *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    else
+      cp_async16(d, t == 0 ? h0 + (size_t)b * H + k : out + ((size_t)b * L + t - 1) * H + k);
+  }
+}
+
+// acc[g][nt] = the 16 rows of hs (fp32) times the warp's unit tile nt (units
+// u0 + 8 nt + [0, 8)) of gate g, 3xTF32: per 16-wide k slab a lane loads k
+// 4q .. 4q + 3 of rows gr and gr + 8 and of its B column, two k-steps
+template <int NT>
+__device__ __forceinline__ void tf_product(const float* hs, const float* whs, int hp, int ks,
+                                           int u0, int lane, float acc[3][NT][4]) {
+  const int gr = lane >> 2, q = lane & 3, nkb = hp / 16;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][nt][e] = 0.0f;
+#pragma unroll
+  for (int kb = 0; kb < kTfMaxKb; ++kb) {
+    if (kb < nkb) {
+      const int k = kb * 16 + 4 * q;
+      const float4 x0 = *reinterpret_cast<const float4*>(hs + tf_swz(gr, k, ks));
+      const float4 x1 = *reinterpret_cast<const float4*>(hs + tf_swz(gr + 8, k, ks));
+      uint32_t ah[2][4], al[2][4];
+      split_a(x0.x, x1.x, x0.y, x1.y, ah[0], al[0]);
+      split_a(x0.z, x1.z, x0.w, x1.w, ah[1], al[1]);
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4 w =
+              *reinterpret_cast<const float4*>(whs + tf_swz(g * hp + u0 + nt * 8 + gr, k, ks));
+          uint32_t bh[2][2], bl[2][2];
+          split_tf32(w.x, bh[0][0], bl[0][0]);
+          split_tf32(w.y, bh[0][1], bl[0][1]);
+          split_tf32(w.z, bh[1][0], bl[1][0]);
+          split_tf32(w.w, bh[1][1], bl[1][1]);
+          mma_3x(acc[g][nt], ah[0], al[0], bh[0], bl[0]);
+          mma_3x(acc[g][nt], ah[1], al[1], bh[1], bl[1]);
+        }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * kMaxH / (8 * kTfFwdNT))
+fused_gru_fwd_tf32_kernel(const float* __restrict__ xi, const float* __restrict__ h0,
+                          const float* __restrict__ wh, const float* __restrict__ bh, int B,
+                          int L, int H, float* __restrict__ out) {
+  constexpr int NT = kTfFwdNT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hp = tf_hp(H), ks = tf_ks(H), C3 = 3 * H;
+  float* whs = reinterpret_cast<float*>(smem_raw);
+  float* hb = whs + (size_t)3 * hp * ks;  // [2][16][ks]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int b0 = blockIdx.x * kRows, u0 = warp * 8 * NT;
+  // the thread's (row, unit) pairs: rows gr + 8 i (i = 0, 1) by units
+  // uu[nt], uu[nt] + 1, in accumulator order e = 2 i + j
+  int uu[NT];
+  bool ok[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    uu[nt] = u0 + nt * 8 + 2 * q;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) ok[nt][i] = uu[nt] < H && b0 + gr + 8 * i < B;
+  }
+
+  tf_load_wh(whs, wh, H, hp, ks);
+  for (int i = threadIdx.x; i < kRows * (hp / 4); i += blockDim.x) {
+    const int r = i / (hp / 4), k = 4 * (i - r * (hp / 4)), b = b0 + r;
+    *reinterpret_cast<float4*>(hb + tf_swz(r, k, ks)) =
+        b < B && k < H ? *reinterpret_cast<const float4*>(h0 + (size_t)b * H + k)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float h[NT][4], bias[3][NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      h[nt][e] = ok[nt][e >> 1] ? h0[(size_t)(b0 + gr + 8 * (e >> 1)) * H + uu[nt] + (e & 1)]
+                                : 0.0f;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) bias[g][nt][j] = uu[nt] < H ? bh[g * H + uu[nt] + j] : 0.0f;
+  }
+  // xi_t of the thread's pairs, [nt][i][g]: loaded a step ahead into registers
+  float2 xc[NT][2][3], xn[NT][2][3];
+  auto load_x = [&](int t, float2 x[NT][2][3]) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          x[nt][i][g] = ok[nt][i] ? *reinterpret_cast<const float2*>(
+                                        xi + ((size_t)(b0 + gr + 8 * i) * L + t) * C3 + g * H +
+                                        uu[nt])
+                                  : make_float2(0.0f, 0.0f);
+  };
+  load_x(0, xc);
+  __syncthreads();
+
+  int cur = 0;
+  for (int t = 0; t < L; ++t) {
+    if (t + 1 < L) load_x(t + 1, xn);
+    float acc[3][NT][4];
+    tf_product<NT>(hb + (size_t)cur * kRows * ks, whs, hp, ks, u0, lane, acc);
+    float* nxt = hb + (size_t)(cur ^ 1) * kRows * ks;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j;
+          const float2* x = xc[nt][i];
+          const float rr = sigm_fast((j ? x[0].y : x[0].x) + (acc[0][nt][e] + bias[0][nt][j]));
+          const float z = sigm_fast((j ? x[1].y : x[1].x) + (acc[1][nt][e] + bias[1][nt][j]));
+          const float n = tanh_fast((j ? x[2].y : x[2].x) + rr * (acc[2][nt][e] + bias[2][nt][j]));
+          h[nt][e] = (1.0f - z) * n + z * h[nt][e];
+        }
+        const int r = gr + 8 * i;
+        const float2 v = make_float2(h[nt][2 * i], h[nt][2 * i + 1]);
+        *reinterpret_cast<float2*>(nxt + tf_swz(r, uu[nt], ks)) = v;
+        if (ok[nt][i])
+          *reinterpret_cast<float2*>(out + ((size_t)(b0 + r) * L + t) * H + uu[nt]) = v;
+      }
+    __syncthreads();
+    cur ^= 1;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) xc[nt][i][g] = xn[nt][i][g];
+  }
+}
+
+__global__ void __launch_bounds__(32 * kMaxH / (8 * kTfBwdNT))
+fused_gru_bwd_tf32_kernel(const float* __restrict__ xi, const float* __restrict__ h0,
+                          const float* __restrict__ wh, const float* __restrict__ bh,
+                          const float* __restrict__ out, const float* __restrict__ dout, int B,
+                          int L, int H, float* __restrict__ dxi, float* __restrict__ dh0,
+                          float* __restrict__ dhh, float* __restrict__ dbh_part) {
+  constexpr int NT = kTfBwdNT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hp = tf_hp(H), ks = tf_ks(H), sd = tf_sd(H), C3 = 3 * H;
+  float* whs = reinterpret_cast<float*>(smem_raw);
+  float* hs = whs + (size_t)3 * hp * ks;  // [16][ks]: h_{t-1}
+  float* ds = hs + (size_t)kRows * ks;    // [16][sd]: this step's dhh
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int b0 = blockIdx.x * kRows, u0 = warp * 8 * NT;
+  int uu[NT];
+  bool ok[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    uu[nt] = u0 + nt * 8 + 2 * q;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) ok[nt][i] = uu[nt] < H && b0 + gr + 8 * i < B;
+  }
+  // xi_t [nt][i][g] and dout_t [nt][i] of the thread's pairs, a step ahead
+  float2 xc[NT][2][3], xn[NT][2][3], yc[NT][2], yn[NT][2];
+  auto load_xy = [&](int t, float2 x[NT][2][3], float2 y[NT][2]) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const size_t row = (size_t)(b0 + gr + 8 * i) * L + t;
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          x[nt][i][g] = ok[nt][i]
+                            ? *reinterpret_cast<const float2*>(xi + row * C3 + g * H + uu[nt])
+                            : make_float2(0.0f, 0.0f);
+        y[nt][i] = ok[nt][i] ? *reinterpret_cast<const float2*>(dout + row * H + uu[nt])
+                             : make_float2(0.0f, 0.0f);
+      }
+  };
+
+  tf_load_wh(whs, wh, H, hp, ks);
+  tf_stage_h(hs, h0, out, b0, B, L, L - 1, H, hp, ks);
+  load_xy(L - 1, xc, yc);
+  float dh[NT][4], bias[3][NT][2], dbs[3][NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dh[nt][e] = 0.0f;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        bias[g][nt][j] = uu[nt] < H ? bh[g * H + uu[nt] + j] : 0.0f;
+        dbs[g][nt][j] = 0.0f;
+      }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int t = L - 1; t >= 0; --t) {
+    if (t > 0) load_xy(t - 1, xn, yn);
+    float acc[3][NT][4];
+    tf_product<NT>(hs, whs, hp, ks, u0, lane, acc);
+    // gates; dhh into ds and, with dxi, to device memory; acc[1] keeps z
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = gr + 8 * i;
+        const float2 hpv = *reinterpret_cast<const float2*>(hs + tf_swz(r, uu[nt], ks));
+        float d[3][2], dn[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j;
+          const float hr = acc[0][nt][e] + bias[0][nt][j], hz = acc[1][nt][e] + bias[1][nt][j],
+                      hn = acc[2][nt][e] + bias[2][nt][j];
+          const float rr = sigm_fast((j ? xc[nt][i][0].y : xc[nt][i][0].x) + hr);
+          const float z = sigm_fast((j ? xc[nt][i][1].y : xc[nt][i][1].x) + hz);
+          const float n = tanh_fast((j ? xc[nt][i][2].y : xc[nt][i][2].x) + rr * hn);
+          dh[nt][e] += j ? yc[nt][i].y : yc[nt][i].x;
+          const float dpre_n = dh[nt][e] * (1.0f - z) * (1.0f - n * n);
+          d[0][j] = dpre_n * hn * rr * (1.0f - rr);
+          d[1][j] = dh[nt][e] * ((j ? hpv.y : hpv.x) - n) * z * (1.0f - z);
+          d[2][j] = dpre_n * rr;
+          dn[j] = dpre_n;
+          acc[1][nt][e] = z;
+        }
+        const size_t row = (size_t)(b0 + r) * L + t;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float2 v = make_float2(d[g][0], d[g][1]);
+          *reinterpret_cast<float2*>(ds + (size_t)r * sd + g * hp + uu[nt]) = v;
+          if (ok[nt][i]) {
+            *reinterpret_cast<float2*>(dxi + row * C3 + g * H + uu[nt]) =
+                g == 2 ? make_float2(dn[0], dn[1]) : v;
+            *reinterpret_cast<float2*>(dhh + row * C3 + g * H + uu[nt]) = v;
+            dbs[g][nt][0] += v.x;
+            dbs[g][nt][1] += v.y;
+          }
+        }
+      }
+    __syncthreads();  // ds is complete, and nobody reads hs any more this step
+    if (t > 0) tf_stage_h(hs, h0, out, b0, B, L, t - 1, H, hp, ks);
+    // P = dhh wh^T for the warp's units: k-step slots q, q + 4 are the dhh
+    // columns c0 + 2q, c0 + 2q + 1
+    float p[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nt][e] = 0.0f;
+#pragma unroll 4
+    for (int c0 = 0; c0 < 3 * hp; c0 += 8) {
+      const int c = c0 + 2 * q;
+      const float2 a0 = *reinterpret_cast<const float2*>(ds + (size_t)gr * sd + c);
+      const float2 a1 = *reinterpret_cast<const float2*>(ds + (size_t)(gr + 8) * sd + c);
+      uint32_t ah[4], al[4];
+      split_a(a0.x, a1.x, a0.y, a1.y, ah, al);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = u0 + nt * 8 + gr;
+        uint32_t bhi[2], blo[2];
+        split_tf32(whs[tf_swz(c, n, ks)], bhi[0], blo[0]);
+        split_tf32(whs[tf_swz(c + 1, n, ks)], bhi[1], blo[1]);
+        mma_3x(p[nt], ah, al, bhi, blo);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dh[nt][e] = dh[nt][e] * acc[1][nt][e] + p[nt][e];
+    cp_async_wait_all();  // the next step's h_{t-2} rows have landed
+    __syncthreads();      // and nobody reads ds any more
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        yc[nt][i] = yn[nt][i];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) xc[nt][i][g] = xn[nt][i][g];
+      }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (ok[nt][i])
+        *reinterpret_cast<float2*>(dh0 + (size_t)(b0 + gr + 8 * i) * H + uu[nt]) =
+            make_float2(dh[nt][2 * i], dh[nt][2 * i + 1]);
+    // the block's dbh over its rows: the eight lanes of a unit pair, in a fixed tree
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v = dbs[g][nt][j];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gr == 0 && uu[nt] < H) dbh_part[(size_t)blockIdx.x * C3 + g * H + uu[nt] + j] = v;
+      }
+  }
+}
+
+// partial[chunk] = sum over the chunk's rows n = (b, t) of h_{t-1}[b]^T dhh[n]
+// ((H, 3H)) as 3xTF32, the fp32 instance's dwh at every H. Grid (3H / 128,
+// H / 128, chunks), 8 warps, a block tile 128 (k) x 128 (c), a warp 64 x 32
+// (4 x 4 m16n8 tiles); each pass of 32 rows is copied by cp.async into one
+// of two buffers (rows 8 mod 32 floats long, so the fragments' scalar reads,
+// four rows by eight columns, hit 32 banks) while the other is multiplied,
+// both operands split as they are loaded. A pass's products are summed by
+// the tensor cores from zero and then added to the chunk's sum by ordinary
+// fp32 adds: the tensor cores' own fp32 accumulation drifts down a long
+// chain (summing a whole chunk in the mma accumulators gave 1.0e-4 of dwh's
+// largest value at H 388, 25,600 rows a chunk, where the fp32 library
+// product gives 1.6e-6 and this kernel 9.0e-7). The sum doubles the
+// accumulator registers, so one block an SM; a warp tile of 32 x 32 at two
+// blocks an SM (kTfDwhMT 2) took the same time at NARM's step (H100: 0.189,
+// 0.191 against 0.193, 0.188 ms; dwh 0.166 ms before the sum).
+constexpr int kTfDwhMT = 4;  // m16 tiles a warp along k
+// tile rows (k) and columns (c), rows a pass
+constexpr int kTfDM = 32 * kTfDwhMT, kTfDN = 128, kTfDR = 32;
+// a staged row's floats, 8 mod 32
+constexpr int kTfSA = kTfDM + 8, kTfSB = kTfDN + 8;
+
+inline size_t tf_dwh_smem() { return sizeof(float) * 2 * kTfDR * (kTfSA + kTfSB); }
+
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__global__ void __launch_bounds__(256, 4 / kTfDwhMT)
+gru_dwh_tf32_kernel(const float* __restrict__ out, const float* __restrict__ h0,
+                    const float* __restrict__ dhh, int B, int L, int H, int chunk_rows,
+                    float* __restrict__ partials) {
+  constexpr int MT = kTfDwhMT, BUF = kTfDR * (kTfSA + kTfSB);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [buffer]: the h rows [kTfDR][kTfSA], then the dhh rows [kTfDR][kTfSB]
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const int C = 3 * H, N = B * L;
+  const int c0 = blockIdx.x * kTfDN, k0 = blockIdx.y * kTfDM;
+  const int n_begin = blockIdx.z * chunk_rows, n_end = min(N, n_begin + chunk_rows);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int wm = (warp >> 2) * 16 * MT, wn = (warp & 3) * 32;  // the warp's k and c offsets
+  float sum[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sum[i][j][0] = sum[i][j][1] = sum[i][j][2] = sum[i][j][3] = 0.0f;
+  // rows n0 .. n0 + 31 of h_{t-1} (columns k0 ..) and dhh (columns c0 ..)
+  // into buffer buf, zero past the chunk, H and 3H, in 16-byte pieces
+  auto issue = [&](int n0, int buf) {
+    float* As = sm + (size_t)buf * BUF;
+    float* Bs = As + kTfDR * kTfSA;
+#pragma unroll
+    for (int s = 0; s < MT; ++s) {
+      const int i = threadIdx.x + s * 256, rr = i / (kTfDM / 4), cc = 4 * (i % (kTfDM / 4));
+      const int n = n0 + rr, k = k0 + cc;
+      const float* src = h0;
+      const bool hv = n < n_end && k < H;
+      if (hv) {
+        const int b = n / L, t = n - b * L;
+        src = t == 0 ? h0 + (size_t)b * H + k : out + ((size_t)n - 1) * H + k;
+      }
+      cp_async16_zfill(As + rr * kTfSA + cc, src, hv);
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int i = threadIdx.x + s * 256, rr = i >> 5, cc = 4 * (i & 31), n = n0 + rr;
+      const int c = c0 + cc;
+      const bool dv = n < n_end && c < C;
+      cp_async16_zfill(Bs + rr * kTfSB + cc, dv ? dhh + (size_t)n * C + c : dhh, dv);
+    }
+  };
+  if (n_begin < n_end) issue(n_begin, 0);
+  cp_async_commit();
+  int buf = 0;
+  for (int n0 = n_begin; n0 < n_end; n0 += kTfDR) {
+    if (n0 + kTfDR < n_end) issue(n0 + kTfDR, buf ^ 1);
+    cp_async_commit_wait_prior();  // this pass's rows have landed
+    __syncthreads();
+    const float* As = sm + (size_t)buf * BUF;
+    const float* Bs = As + kTfDR * kTfSA;
+    float acc[MT][4][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kTfDR; kk += 8) {
+      // A = h^T (k x n) from As[n][k], B = dhh (n x c) from Bs[n][c]: slot q
+      // is row kk + q, slot q + 4 row kk + q + 4
+      const float* aq = As + (kk + q) * kTfSA + wm + gr;  // slot q
+      const float* aq4 = aq + 4 * kTfSA;                  // slot q + 4
+      uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = wn + nt * 8 + gr;
+        split_tf32(Bs[(kk + q) * kTfSB + col], bhi[nt][0], blo[nt][0]);
+        split_tf32(Bs[(kk + q + 4) * kTfSB + col], bhi[nt][1], blo[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t ah[4], al[4];
+        split_a(aq[mt * 16], aq[mt * 16 + 8], aq4[mt * 16], aq4[mt * 16 + 8], ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_3x(acc[mt][nt], ah, al, bhi[nt], blo[nt]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[i][j][e] += acc[i][j][e];
+    __syncthreads();
+    buf ^= 1;
+  }
+  float* part = partials + (size_t)blockIdx.z * H * C;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int k = k0 + wm + mt * 16 + gr + 8 * i, cl = c0 + wn + nt * 8 + 2 * q;
+        if (k < H && cl < C)
+          *reinterpret_cast<float2*>(part + (size_t)k * C + cl) =
+              make_float2(sum[mt][nt][2 * i], sum[mt][nt][2 * i + 1]);
+      }
+}
+
 // ------------------------------------------------------------------- launch
 
 // The route of a call, chosen from H and the instance before launch: H <=
-// kMaxH wh in one block's shared memory, fp32 in the FMA kernels
-// (fused_gru_{fwd,bwd}_kernel<false>) and bf16 on the tensor cores
-// (fused_gru_{fwd,bwd}_tc_kernel); wh split over a thread-block cluster (bf16
-// instance, kMaxH < H <= cluster_max_hidden()); or wh in device memory (the
-// *_global kernels: fp32 above kMaxH, bf16 above the cluster limit). Route 3
-// of fused_gru_route is the global route with its rows in device memory.
-enum Route { kRouteShared = 0, kRouteCluster = 1, kRouteGlobal = 2, kRouteTc = 4 };
+// kMaxH wh in one block's shared memory on the tensor cores, bf16
+// (fused_gru_{fwd,bwd}_tc_kernel) or fp32 as 3xTF32
+// (fused_gru_{fwd,bwd}_tf32_kernel); wh split over a thread-block cluster
+// (bf16 instance, kMaxH < H <= cluster_max_hidden()); or wh in device memory
+// (the *_global kernels: fp32 above kMaxH, bf16 above the cluster limit).
+// Route 3 of fused_gru_route is the global route with its rows in device
+// memory; 0 was the fp32 FMA kernels that route 5 replaced.
+enum Route { kRouteCluster = 1, kRouteGlobal = 2, kRouteTc = 4, kRouteTf32 = 5 };
 
 // shared-memory floats of the global-memory instance at R sequences a block
 inline size_t smem_floats_global(int H, bool backward, int R) {
@@ -1934,7 +2250,7 @@ inline int cluster_max_hidden() {
 }
 
 inline Route route_of(int H, bool bf16) {
-  if (H <= kMaxH) return bf16 ? kRouteTc : kRouteShared;
+  if (H <= kMaxH) return bf16 ? kRouteTc : kRouteTf32;
   return bf16 && H <= cluster_max_hidden() ? kRouteCluster : kRouteGlobal;
 }
 
@@ -1948,8 +2264,8 @@ inline long long rows_floats(int B, int H, bool backward, bool bf16) {
 // the most bytes a block of the route takes (the cluster route: its most rows)
 inline size_t smem_bytes(int H, bool backward, bool bf16) {
   switch (route_of(H, bf16)) {
-    case kRouteShared: return sizeof(float) * smem_floats(H, backward);
     case kRouteTc: return tc_smem(H, backward);
+    case kRouteTf32: return tf_smem(H, backward);
     case kRouteGlobal: {  // 0 when the rows lie in device memory
       const int R = global_rows(H, backward);
       return R ? sizeof(float) * smem_floats_global(H, backward, R) : 0;
@@ -2004,16 +2320,15 @@ int bwd_global(const XT* xi, const float* h0, const float* wr, const float* wt, 
   return (int)cudaGetLastError();
 }
 
-// dwh's chunks of the B L rows: about kDwhBlocks blocks of gru_dwh_kernel
-// (fp32), or a wave of gru_dwh_tc_kernel (bf16: 4 / KW blocks an SM)
-constexpr int kDwhTcWave = 132;
+// dwh's chunks of the B L rows: a wave of gru_dwh_tc_kernel (bf16: 4 / KW
+// blocks an SM) or of gru_dwh_tf32_kernel (fp32: 4 / kTfDwhMT)
+constexpr int kDwhWave = 132;
 
 int dwh_chunks(int B, int L, int H, bool bf16) {
-  const int bm = 64 * dwh_tc_kw(H);
-  const int tiles = bf16 ? ((3 * H + kDT - 1) / kDT) * ((H + bm - 1) / bm)
-                         : ((3 * H + kTC - 1) / kTC) * ((H + kTK - 1) / kTK);
-  const int most = (B * L + kTN - 1) / kTN;
-  const int blocks = bf16 ? kDwhTcWave * 4 / dwh_tc_kw(H) : kDwhBlocks;
+  const int bm = bf16 ? 64 * dwh_tc_kw(H) : kTfDM, bn = bf16 ? kDT : kTfDN;
+  const int tiles = ((3 * H + bn - 1) / bn) * ((H + bm - 1) / bm);
+  const int most = (B * L + kDN - 1) / kDN;
+  const int blocks = kDwhWave * 4 / (bf16 ? dwh_tc_kw(H) : kTfDwhMT);
   const int want = (blocks + tiles - 1) / tiles;
   return want < most ? want : most;
 }
@@ -2021,7 +2336,7 @@ int dwh_chunks(int B, int L, int H, bool bf16) {
 int chunk_rows(int B, int L, int H, bool bf16) {
   const int n = dwh_chunks(B, L, H, bf16), N = B * L;
   const int rows = (N + n - 1) / n;
-  return (rows + kTN - 1) / kTN * kTN;
+  return (rows + kDN - 1) / kDN * kDN;
 }
 
 // wr and wt in scratch (global-memory instance)
@@ -2209,11 +2524,11 @@ int launch_fwd(const void* xi, const float* h0, const float* wh, const float* bh
     if (err) return err;
     kernel<<<blocks_of(B), tc_threads(H, kTcFwdNT), smem, s>>>(
         static_cast<const bf16*>(xi), h0, wh, bh, B, L, H, static_cast<bf16*>(out));
-  } else {
-    const int err = allow_smem(fused_gru_fwd_kernel<BF, XT>, smem);
+  } else {  // route kRouteTf32
+    const int err = allow_smem(fused_gru_fwd_tf32_kernel, smem);
     if (err) return err;
-    fused_gru_fwd_kernel<BF, XT><<<blocks_of(B), kThreads, smem, s>>>(
-        static_cast<const XT*>(xi), h0, wh, bh, B, L, H, static_cast<XT*>(out));
+    fused_gru_fwd_tf32_kernel<<<blocks_of(B), tf_threads(H, kTfFwdNT), smem, s>>>(
+        static_cast<const float*>(xi), h0, wh, bh, B, L, H, static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
 }
@@ -2243,9 +2558,11 @@ int launch_dwh(const void* out, const float* h0, const float* dhh, int B, int L,
       gru_dwh_tc_kernel<2><<<grid, 256, 0, s>>>(static_cast<const bf16*>(out), h0, dhh, B, L, H,
                                                 rows, dwh_part);
   } else {
-    const dim3 grid((C + kTC - 1) / kTC, (H + kTK - 1) / kTK, chunks);
-    gru_dwh_kernel<BF, XT><<<grid, kThreads, 0, s>>>(static_cast<const XT*>(out), h0, dhh, B, L,
-                                                     H, rows, dwh_part);
+    const dim3 grid((C + kTfDN - 1) / kTfDN, (H + kTfDM - 1) / kTfDM, chunks);
+    const int err = allow_smem(gru_dwh_tf32_kernel, tf_dwh_smem());
+    if (err) return err;
+    gru_dwh_tf32_kernel<<<grid, 256, tf_dwh_smem(), s>>>(static_cast<const float*>(out), h0, dhh,
+                                                         B, L, H, rows, dwh_part);
   }
   const int err = (int)cudaGetLastError();
   if (err) return err;
@@ -2301,12 +2618,12 @@ int launch_bwd(const void* xi, const float* h0, const float* wh, const float* bh
         static_cast<const bf16*>(xi), h0, wh, bh, static_cast<const bf16*>(out),
         static_cast<const bf16*>(dout), B, L, H, static_cast<bf16*>(dxi), dh0, dhh, dbh_part);
     err = (int)cudaGetLastError();
-  } else {
-    err = allow_smem(fused_gru_bwd_kernel<BF, XT>, smem);
+  } else {  // route kRouteTf32
+    err = allow_smem(fused_gru_bwd_tf32_kernel, smem);
     if (err) return err;
-    fused_gru_bwd_kernel<BF, XT><<<parts, kThreads, smem, s>>>(
-        static_cast<const XT*>(xi), h0, wh, bh, static_cast<const XT*>(out),
-        static_cast<const XT*>(dout), B, L, H, static_cast<XT*>(dxi), dh0, dhh, dbh_part);
+    fused_gru_bwd_tf32_kernel<<<parts, tf_threads(H, kTfBwdNT), smem, s>>>(
+        static_cast<const float*>(xi), h0, wh, bh, static_cast<const float*>(out),
+        static_cast<const float*>(dout), B, L, H, static_cast<float*>(dxi), dh0, dhh, dbh_part);
     err = (int)cudaGetLastError();
   }
   if (err) return err;
@@ -2327,9 +2644,10 @@ extern "C" int fused_gru_max_hidden() { return max_hidden(); }
 extern "C" int fused_gru_max_shared_hidden() { return kMaxH; }
 extern "C" int fused_gru_max_cluster_hidden() { return cluster_max_hidden(); }
 
-// The route a call of hidden size H takes: 0 shared memory (fp32), 1
-// cluster, 2 wh in device memory, 3 wh and the backward's rows in device
-// memory, 4 tensor cores in one block (bf16, H <= 128).
+// The route a call of hidden size H takes: 1 cluster, 2 wh in device
+// memory, 3 wh and the backward's rows in device memory, 4 tensor cores in
+// one block (bf16, H <= 128), 5 3xTF32 on the tensor cores in one block
+// (fp32, H <= 128).
 extern "C" int fused_gru_route(int H, int bf16) {
   const Route r = route_of(H, bf16 != 0);
   return r == kRouteGlobal && !global_rows(H, true) ? 3 : (int)r;
@@ -2356,7 +2674,7 @@ extern "C" long long fused_gru_scratch_floats(int H, int bf16) {
 }
 
 // The rows of the recurrent backward's (rows, 3H) dbh partials (its blocks,
-// or its clusters), and of gru_dwh_kernel's / gru_dwh_tc_kernel's (chunks,
+// or its clusters), and of gru_dwh_tf32_kernel's / gru_dwh_tc_kernel's (chunks,
 // H * 3H) dwh partials. A negative value is a CUDA error.
 extern "C" int fused_gru_bwd_blocks(int B, int L, int H, int bf16) {
   if (!valid_shape(B, L, H)) return -(int)cudaErrorInvalidValue;

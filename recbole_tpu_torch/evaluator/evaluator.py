@@ -44,7 +44,7 @@ class TopKCollector:
         if unported:
             raise NotImplementedError(
                 f"metrics {unported} are not ported yet (ROADMAP Queue 1, "
-                "item 6)")
+                "item 5)")
         self.topk_metrics = list(self.metrics)
         self.topk = list(config["topk"])
         if any(k <= 0 for k in self.topk):

@@ -291,11 +291,13 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
       dtype (JAX :361), and any truthy ``fused`` then reaches its
       attention-kernel branch (:390-394).
 
-      For both, a shape whose whole layer does not fit one block
-      (``trm_layer.layer_route`` from L, D and the inner size, decided
-      before any launch) takes the ``True`` path below instead, at the same
-      compute dtype, as the JAX package takes XLA when its kernel's support
-      check fails (JAX :335-345).
+      For both, a shape whose whole layer does not fit one block, or whose
+      hidden size, head width or inner size is not a multiple of 4
+      (``trm_layer.layer_route`` from L, D, the inner size and the heads,
+      decided before any launch), and an activation outside the kernel's
+      five (``trm_layer.ACTS``) take the ``True`` path below instead, at
+      the same compute dtype, as the JAX package takes another path when its
+      kernel's support check fails (JAX :335-345, :384-394).
     * ``True``: the plain path below with its attention (mask, softmax,
       attention dropout, ``@ v``) through the attention-only kernel
       (ops/fused_attention.py, JAX :390-423): q, k, v are float32
@@ -314,10 +316,11 @@ def transformer_apply(params, x, attn_mask, n_heads, act="gelu", dropout=0.0,
         if mask_spec is None or callable(act):
             raise ValueError(f"fused_attention: {fused!r} needs mask_spec=(key_valid, "
                              "causal) and a named activation")
-        from ..ops.trm_layer import draw_seed, layer_route, trm_layer
+        from ..ops.trm_layer import ACTS, draw_seed, layer_route, trm_layer
         B, L, D = x.shape
-        if (fused == "layer" and bf16) or (
-                params and layer_route(L, D, params[0]["ff1_w"].shape[1]) == "attention"):
+        if (fused == "layer" and bf16) or str(act).lower() not in ACTS or (
+                params and layer_route(L, D, params[0]["ff1_w"].shape[1],
+                                       n_heads) == "attention"):
             fused = True
     if fused in ("layer2", "layer"):
         key_valid, causal = mask_spec

@@ -15,7 +15,7 @@ from ..base import SequentialRecommender
 from ..layers import (TransformerEncoder, transformer_apply, layer_norm, dropout_apply,
                       normal_init, dot_c)
 from ..losses import bpr_loss, ce_loss
-from ...ops.trm_layer import MAX_SMEM_BYTES, layer_route, route_floats
+from ...ops.trm_layer import ACTS, MAX_SMEM_BYTES, layer_route, route_floats, widths_fit
 from ...utils.enums import InputType
 from ...utils.logger import get_logger
 from .. import register_model
@@ -70,8 +70,21 @@ class SASRec(SequentialRecommender):
                               "fused_attention: True path), as the JAX package does",
                               self.cdt)
             return
+        if str(self.hidden_act).lower() not in ACTS:
+            get_logger().info("fused_attention %r with hidden_act %r: the whole-layer kernel "
+                              "has %s; the layers take the attention kernel inside plain "
+                              "projections and FFN (the fused_attention: True path), as the "
+                              "JAX package does", fused, self.hidden_act, ", ".join(ACTS))
+            return
+        if not widths_fit(D, I, self.n_heads):
+            get_logger().info("fused_attention %r at D=%d, %d heads, inner=%d: the whole-layer "
+                              "kernel takes a hidden size, head width and inner size that are "
+                              "multiples of 4; the layers take the attention kernel inside "
+                              "plain projections and FFN (the fused_attention: True path)",
+                              fused, D, self.n_heads, I)
+            return
         need = 4 * route_floats(L, D, I)
-        if layer_route(L, D, I) == "layer":
+        if layer_route(L, D, I, self.n_heads) == "layer":
             get_logger().info("fused_attention %r at L=%d, D=%d, inner=%d: the whole-layer "
                               "kernel (the route's rule: %d bytes of shared memory a block)",
                               fused, L, D, I, need)

@@ -53,8 +53,11 @@ chooses one of four routes from H and the instance before launch
   two a backward step, the next steps' rows prefetched by ``cp.async``;
   units past H up to the next multiple of 16 are dead units inside the
   kernel (exact, as above);
-* up to H = 128, fp32 (NARM's path; route 0): wh in fp32 in one block's
-  shared memory, the products as fp32 FMAs;
+* up to H = 128, fp32 (NARM's path; route 5, counted in
+  ``launches_tf32``): route 4's structure with every product fp32-exact on
+  the tensor cores as 3xTF32 (each operand split into a tf32 hi and its
+  exact remainder, three ``mma.sync`` a k-step), wh in fp32 once in the
+  block's shared memory, xi and dout coming into registers a step ahead;
 * above 128 the bf16 instance splits wh over a thread-block cluster's
   shared memory up to ``fused_gru_max_cluster_hidden`` (384; route 1,
   ``launches_cluster``), with the recurrent products on the tensor cores;
@@ -67,7 +70,8 @@ chooses one of four routes from H and the instance before launch
   launcher allocates (``fused_gru_rows_floats``; the forward's rows go
   there too above 19,368; route 3).
 
-The bf16 instance's dwh is a tensor-core product at every H.
+dwh is a tensor-core product at every H: dhh as two bf16 terms in the bf16
+instance, 3xTF32 in the fp32 one.
 """
 
 import ctypes
@@ -261,6 +265,12 @@ def tc_route(H, bf16):
     return _lib().fused_gru_route(H, int(bf16)) == 4
 
 
+def tf32_route(H, bf16):
+    """Whether hidden size H (a multiple of 4) takes the one-block 3xTF32
+    kernels (the fp32 instance up to 128)."""
+    return _lib().fused_gru_route(H, int(bf16)) == 5
+
+
 def _aligned(t):
     """t, or a copy of it when its address is not 16-byte aligned (the
     kernels copy rows in 16-byte pieces)."""
@@ -296,12 +306,13 @@ def fused_gru_cluster_floor_cuda(B, L, H, device, product=False):
 
 def fused_gru_fwd_cuda(xi, h0, wh, bh):
     """Launch the forward kernel of the route (``fused_gru_fwd_tc_kernel``,
-    ``fused_gru_fwd_kernel``, ``fused_gru_fwd_cluster_kernel`` or
+    ``fused_gru_fwd_tf32_kernel``, ``fused_gru_fwd_cluster_kernel`` or
     ``fused_gru_fwd_global_kernel``): out (B, L, H) in xi's dtype, which
     chooses the instance (bfloat16: bf16). Counts its launches in
     ``fused_gru_fwd_cuda.launches`` (``launches_fp32``: the fp32 instance's
     among them; ``launches_cluster``: the cluster route's; ``launches_tc``:
-    the one-block tensor-core route's)."""
+    the one-block tensor-core route's; ``launches_tf32``: the one-block
+    3xTF32 route's)."""
     bf16 = xi.dtype == torch.bfloat16
     B, L, H = _check("fused_gru_fwd_cuda", xi, h0, wh, bh, bf16, False)
     xi, h0, wh, bh = (_aligned(t) for t in (xi, h0, wh, bh))
@@ -317,6 +328,7 @@ def fused_gru_fwd_cuda(xi, h0, wh, bh):
     fused_gru_fwd_cuda.launches_fp32 += not bf16
     fused_gru_fwd_cuda.launches_cluster += cluster_route(H, bf16)
     fused_gru_fwd_cuda.launches_tc += tc_route(H, bf16)
+    fused_gru_fwd_cuda.launches_tf32 += tf32_route(H, bf16)
     return out
 
 
@@ -324,15 +336,16 @@ fused_gru_fwd_cuda.launches = 0
 fused_gru_fwd_cuda.launches_fp32 = 0
 fused_gru_fwd_cuda.launches_cluster = 0
 fused_gru_fwd_cuda.launches_tc = 0
+fused_gru_fwd_cuda.launches_tf32 = 0
 
 
 def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
     """Launch the backward kernel of the route, the ``dwh`` kernel
-    (``gru_dwh_tc_kernel`` in the bf16 instance, ``gru_dwh_kernel`` in the
-    fp32 one) and the reductions of their partials: (dxi, dh0, dwh, dbh).
+    (``gru_dwh_tc_kernel`` in the bf16 instance, ``gru_dwh_tf32_kernel`` in
+    the fp32 one) and the reductions of their partials: (dxi, dh0, dwh, dbh).
     Counts its launches in ``fused_gru_bwd_cuda.launches`` (and
-    ``launches_fp32``, ``launches_cluster``, ``launches_tc`` as the
-    forward)."""
+    ``launches_fp32``, ``launches_cluster``, ``launches_tc``,
+    ``launches_tf32`` as the forward)."""
     bf16 = xi.dtype == torch.bfloat16
     B, L, H = _check("fused_gru_bwd_cuda", xi, h0, wh, bh, bf16, True)
     for what, t in (("out", out), ("dout", dout)):
@@ -367,6 +380,7 @@ def fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout):
     fused_gru_bwd_cuda.launches_fp32 += not bf16
     fused_gru_bwd_cuda.launches_cluster += cluster_route(H, bf16)
     fused_gru_bwd_cuda.launches_tc += tc_route(H, bf16)
+    fused_gru_bwd_cuda.launches_tf32 += tf32_route(H, bf16)
     return dxi, dh0, dwh, dbh
 
 
@@ -374,15 +388,16 @@ fused_gru_bwd_cuda.launches = 0
 fused_gru_bwd_cuda.launches_fp32 = 0
 fused_gru_bwd_cuda.launches_cluster = 0
 fused_gru_bwd_cuda.launches_tc = 0
+fused_gru_bwd_cuda.launches_tf32 = 0
 
 
 def fused_gru_dwh_cuda(out, h0, dhh):
     """The backward's dwh product alone, as ``fused_gru_bwd_cuda`` runs it:
     sum over the rows (b, t) of h_{t-1}^T dhh (h_{t-1} read from ``out``,
     h0 at t = 0), by ``gru_dwh_tc_kernel`` for a bfloat16 ``out`` (dhh
-    enters the tensor cores as two bf16 terms) or ``gru_dwh_kernel`` for a
-    float32 one, chunk partials summed in order. For the tests: it counts no
-    launch of its own."""
+    enters the tensor cores as two bf16 terms) or ``gru_dwh_tf32_kernel``
+    for a float32 one (3xTF32), chunk partials summed in order. For the
+    tests: it counts no launch of its own."""
     bf16 = out.dtype == torch.bfloat16
     B, L, H = out.shape
     if not out.is_cuda or tuple(dhh.shape) != (B, L, 3 * H) or dhh.dtype != torch.float32 \

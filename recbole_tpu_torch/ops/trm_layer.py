@@ -141,11 +141,20 @@ def smem_bytes_bf16(L, D, I, backward):
     return persistent + max(attn, ffn) + 64
 
 
-def layer_route(L, D, I):
+def widths_fit(D, I, n_heads):
+    """Whether the hidden size D, the head width D / n_heads and the inner
+    size I are multiples of 4, as the kernels' 16-byte rows need
+    (``_check``)."""
+    return not (D % 4 or I % 4 or D % n_heads or (D // n_heads) % 4)
+
+
+def layer_route(L, D, I, n_heads=1):
     """The path a fused layer of this shape takes: ``"layer"``, the
-    whole-layer kernel, when the route's rule (``route_floats``) fits a
-    block, else ``"attention"``, the layer built around the attention
-    kernel."""
+    whole-layer kernel, when its widths fit (``widths_fit``) and the route's
+    rule (``route_floats``) fits a block, else ``"attention"``, the layer
+    built around the attention kernel, which takes any head width."""
+    if not widths_fit(D, I, n_heads):
+        return "attention"
     return "layer" if 4 * route_floats(L, D, I) <= MAX_SMEM_BYTES else "attention"
 
 

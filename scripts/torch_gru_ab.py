@@ -20,6 +20,8 @@ bf16 instance at 256 (the cluster route), it prints:
 * ``library_ms``: ``torch.nn.GRU`` in the instance's type (cuDNN) on
   inputs of the same shape: forward, and forward + backward beside the
   backward;
+* ``err``: the largest |difference| from the plain version over the
+  tensor's largest |value| (out; the worst of dxi, dh0, dwh and dbh);
 
 and, where the tree has the cluster route, its geometry on this card
 (cluster size, rows a block, clusters, the clusters the card holds at once)
@@ -28,7 +30,8 @@ cluster barrier alone, then with the recurrent product. ``--untimed``
 prints only the geometry and the floor, and times no kernel of the tree.
 ``--phases`` then runs GRU4Rec's training phases of the tree's own
 chip_smoke.py (this checkout's where the tree has none; ``gru4rec``: its
-defaults, 2 epochs and 20 steps under the profiler; ``wide``: 5 steps each
+defaults, 2 epochs and 20 steps under the profiler; ``narm``: NARM's
+defaults, 1 epoch and 20 steps under the profiler; ``wide``: 5 steps each
 at hidden 10 and 256, and SASRec's wide shapes). The kernel timings use this
 checkout's chip_smoke.py helpers, whatever the tree. Exits non-zero without
 a card.
@@ -103,10 +106,15 @@ def main():
                        "bwd": tools.cuda_ms(torch, lib_fwd_bwd, 20)}
             calls = {"fwd": lambda: fg.fused_gru_fwd_cuda(xi, hinit, wh, bh),
                      "bwd": lambda: fg.fused_gru_bwd_cuda(xi, hinit, wh, bh, y, dout)}
+            ref = {"fwd": [fg.fused_gru_torch_fwd(xi, hinit, wh, bh, bf16)],
+                   "bwd": fg.fused_gru_torch_bwd(xi, hinit, wh, bh, y, dout, bf16)}
             for way, kernel in calls.items():
+                got = kernel()
+                got = [got] if way == "fwd" else got
                 t = {"ms": tools.cuda_ms(torch, kernel, 20),
                      "graph_ms": tools.graph_ms(torch, kernel, calls=5, replays=10),
                      "library_ms": library[way],
+                     "err": max(tools.rel_err(a, b) for a, b in zip(got, ref[way])),
                      "kernels": tools.kernels_per_call(torch, kernel, calls=5)}
                 tools.log(f"[gru-ab] row {row} {way} {'bf16' if bf16 else 'fp32'} B={B} L={L} "
                           f"H={H}: {json.dumps(t)}")

@@ -2,7 +2,7 @@
 card: the clocks of each phase of a recurrence step, read by ``clock64`` in
 thread 0 of block 0 and averaged over the L steps.
 
-    python scripts/torch_gru_probe.py [TREE] [--no-copies]
+    python scripts/torch_gru_probe.py [TREE] [--no-copies] [--fp32]
 
 TREE (default: the checkout this script lies in) is a checkout whose
 ``recbole_tpu_torch/csrc/fused_gru.cu`` has the tensor-core route. The
@@ -19,7 +19,11 @@ port's own launchers, and prints, a step:
 
 A probe reads the clock once the values of the phase before it are in
 registers, so a phase's time includes the latency of what it waits for.
-``--no-copies`` also builds a copy that issues no staging copies after the
+``--fp32`` probes the fp32 instance's 3xTF32 kernels instead (forward: the
+product, the gates and the stores, the barrier; backward: the recompute,
+the gates, the first barrier, issuing the copies, dhh wh^T with the dh
+update, the wait and the second barrier). ``--no-copies`` (bf16 only) also
+builds a copy that issues no staging copies after the
 first step (its results are wrong: a timing only) and prints both copies'
 times by CUDA events, so the difference is what the copies cost. Exits
 non-zero without a card.
@@ -75,6 +79,52 @@ PROBES = [
      "  if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
      "    for (int i = 0; i < 7; ++i) g_probe[8 + i] = ps[i];\n    g_probe[15] = sink;\n  }\n"),
 ]
+# the fp32 instance's 3xTF32 kernels (``--fp32``)
+PROBES_TF32 = [
+    ("constexpr int kTfFwdNT = 1, kTfBwdNT = 2;",
+     "__device__ unsigned long long g_probe[16];\n"
+     "#define PCLK(v) asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(v) :: \"memory\")\n"
+     "constexpr int kTfFwdNT = 1, kTfBwdNT = 2;"),
+    ("  int cur = 0;\n  for (int t = 0; t < L; ++t) {\n    if (t + 1 < L) load_x(t + 1, xn);\n",
+     "  int cur = 0;\n  unsigned long long ps[3] = {0, 0, 0}, pc[4];\n  int sink = 0;\n"
+     "  for (int t = 0; t < L; ++t) {\n    PCLK(pc[0]);\n    if (t + 1 < L) load_x(t + 1, xn);\n"),
+    ("    tf_product<NT>(hb + (size_t)cur * kRows * ks, whs, hp, ks, u0, lane, acc);\n",
+     "    tf_product<NT>(hb + (size_t)cur * kRows * ks, whs, hp, ks, u0, lane, acc);\n"
+     "    sink += acc[2][NT - 1][3] == 1234.5f;\n    PCLK(pc[1]);\n"),
+    ("    __syncthreads();\n    cur ^= 1;\n#pragma unroll\n",
+     "    PCLK(pc[2]);\n    __syncthreads();\n    PCLK(pc[3]);\n"
+     "    for (int i = 0; i < 3; ++i) ps[i] += pc[i + 1] - pc[i];\n"
+     "    cur ^= 1;\n#pragma unroll\n"),
+    ("        for (int g = 0; g < 3; ++g) xc[nt][i][g] = xn[nt][i][g];\n  }\n}\n",
+     "        for (int g = 0; g < 3; ++g) xc[nt][i][g] = xn[nt][i][g];\n  }\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
+     "    for (int i = 0; i < 3; ++i) g_probe[i] = ps[i];\n    g_probe[3] = sink;\n  }\n}\n"),
+    ("  for (int t = L - 1; t >= 0; --t) {\n    if (t > 0) load_xy(t - 1, xn, yn);\n",
+     "  unsigned long long ps[6] = {0, 0, 0, 0, 0, 0}, pc[7];\n  int sink = 0;\n"
+     "  for (int t = L - 1; t >= 0; --t) {\n    PCLK(pc[0]);\n"
+     "    if (t > 0) load_xy(t - 1, xn, yn);\n"),
+    ("    tf_product<NT>(hs, whs, hp, ks, u0, lane, acc);\n",
+     "    tf_product<NT>(hs, whs, hp, ks, u0, lane, acc);\n"
+     "    sink += acc[2][NT - 1][3] == 1234.5f;\n    PCLK(pc[1]);\n"),
+    ("    __syncthreads();  // ds is complete, and nobody reads hs any more this step\n"
+     "    if (t > 0) tf_stage_h(hs, h0, out, b0, B, L, t - 1, H, hp, ks);\n",
+     "    PCLK(pc[2]);\n"
+     "    __syncthreads();  // ds is complete, and nobody reads hs any more this step\n"
+     "    PCLK(pc[3]);\n    if (t > 0) tf_stage_h(hs, h0, out, b0, B, L, t - 1, H, hp, ks);\n"
+     "    PCLK(pc[4]);\n"),
+    ("      for (int e = 0; e < 4; ++e) dh[nt][e] = dh[nt][e] * acc[1][nt][e] + p[nt][e];\n",
+     "      for (int e = 0; e < 4; ++e) dh[nt][e] = dh[nt][e] * acc[1][nt][e] + p[nt][e];\n"
+     "    sink += dh[NT - 1][3] == 1234.5f;\n    PCLK(pc[5]);\n"),
+    ("    __syncthreads();      // and nobody reads ds any more\n",
+     "    __syncthreads();      // and nobody reads ds any more\n    PCLK(pc[6]);\n"
+     "    for (int i = 0; i < 6; ++i) ps[i] += pc[i + 1] - pc[i];\n"),
+    ("            make_float2(dh[nt][2 * i], dh[nt][2 * i + 1]);\n"
+     "    // the block's dbh over its rows",
+     "            make_float2(dh[nt][2 * i], dh[nt][2 * i + 1]);\n"
+     "    if (nt == 0 && blockIdx.x == 0 && threadIdx.x == 0) {\n"
+     "      for (int i = 0; i < 6; ++i) g_probe[8 + i] = ps[i];\n      g_probe[15] = sink;\n    }\n"
+     "    // the block's dbh over its rows"),
+]
 NO_COPIES = [
     ("    if (t + 2 < L) tc_stage_rows(", "    if (t + 2 < 2) tc_stage_rows("),
     ("    if (t > 0) stage(t - 1);  // in flight during this step\n",
@@ -117,6 +167,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("tree", nargs="?", default=here)
     ap.add_argument("--no-copies", action="store_true")
+    ap.add_argument("--fp32", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -136,9 +187,10 @@ def main():
         source = fh.read()
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     B, L, H = tools.GRU4REC["B"], tools.GRU4REC["L"], tools.GRU4REC["H"]
-    xi, hinit, wh, bh, dout = tools.gru_inputs(torch, B, L, H, 41, True, False)
+    xi, hinit, wh, bh, dout = tools.gru_inputs(torch, B, L, H, 41, not args.fp32, False)
 
-    lib = use(fg, cuda_build, stamped(source, PROBES, cuda_build.BUILD_DIR, "probe", cuda_build))
+    lib = use(fg, cuda_build, stamped(source, PROBES_TF32 if args.fp32 else PROBES,
+                                      cuda_build.BUILD_DIR, "probe", cuda_build))
     lib.fused_gru_probe.argtypes = [ctypes.c_void_p]
     buf = (ctypes.c_ulonglong * 16)()
     for _ in range(3):
@@ -149,6 +201,13 @@ def main():
     if err:
         raise RuntimeError(f"torch_gru_probe: reading the probes failed: CUDA error {err}")
     v = [x / L for x in buf]
+    if args.fp32:
+        tools.log(f"[gru-probe] fp32 (3xTF32) forward clocks a step (B={B} L={L} H={H}): "
+                  f"product {v[0]:.0f}, gates and stores {v[1]:.0f}, barrier {v[2]:.0f}")
+        tools.log(f"[gru-probe] fp32 backward clocks a step: recompute {v[8]:.0f}, gates "
+                  f"{v[9]:.0f}, first barrier {v[10]:.0f}, copies issued {v[11]:.0f}, dhh wh^T "
+                  f"and the dh update {v[12]:.0f}, wait and second barrier {v[13]:.0f}")
+        return
     tools.log(f"[gru-probe] forward clocks a step (B={B} L={L} H={H}): product "
               f"{v[0]:.0f}, gates and exchange {v[1]:.0f}, wait and barrier {v[2]:.0f}")
     tools.log(f"[gru-probe] backward clocks a step: copies issued {v[8]:.0f}, recompute "

@@ -191,6 +191,93 @@ def test_plain_backward_is_the_gradient_of_the_forward():
         _close(a.numpy(), b.grad.numpy(), 2e-4, name)
 
 
+# the fp32 instance's bound on the card, chip_smoke.GRU_TOL[False]: largest
+# |difference| over the tensor's largest |value|
+FP32_KERNEL_TOL = 1e-4
+
+
+def _tf32_parts(x):
+    """x = hi + lo as the fp32 instance's 3xTF32 kernels split it: hi keeps
+    x's top 19 bits (a mask on the int32 view), lo is the exact remainder,
+    of which the tensor cores read the top 19 bits too."""
+    mask = torch.tensor(-8192, dtype=torch.int32)  # 0xffffe000
+    hi = (x.contiguous().view(torch.int32) & mask).view(torch.float32)
+    lo = ((x - hi).contiguous().view(torch.int32) & mask).view(torch.float32)
+    return hi, lo
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as three tf32 products in fp32 sums, the small terms first
+    (a_lo b_lo dropped): each product of two tf32 values is exact in fp32."""
+    ah, al = _tf32_parts(a)
+    bh, bl = _tf32_parts(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32_recurrence(xi, hinit, wh, bh, dy):
+    """The fp32 recurrence and its hand-written backward (the plain
+    version's, fused_gru_torch_bwd) with every product of the kernels (h
+    wh, dhh wh^T and the dwh sum) on the emulated 3xTF32 split."""
+    xi, h, wh, bh, dy = (torch.as_tensor(a) for a in (xi, hinit, wh, bh, dy))
+    hid, steps = wh.shape[0], xi.shape[1]
+
+    def gates(h_prev, t):
+        hh = _mm_3xtf32(h_prev, wh) + bh
+        r = torch.sigmoid(xi[:, t, :hid] + hh[:, :hid])
+        z = torch.sigmoid(xi[:, t, hid:2 * hid] + hh[:, hid:2 * hid])
+        n = torch.tanh(xi[:, t, 2 * hid:] + r * hh[:, 2 * hid:])
+        return r, z, n, hh[:, 2 * hid:]
+
+    outs, h0 = [], h
+    for t in range(steps):
+        _, z, n, _ = gates(h, t)
+        h = (1.0 - z) * n + z * h
+        outs.append(h)
+    out = torch.stack(outs, dim=1)
+    dh = torch.zeros_like(h0)
+    dxi = torch.empty_like(xi)
+    dwh, dbh = torch.zeros_like(wh), torch.zeros_like(bh)
+    for t in range(steps - 1, -1, -1):
+        h_prev = h0 if t == 0 else out[:, t - 1]
+        r, z, n, hn = gates(h_prev, t)
+        dh = dh + dy[:, t]
+        dpre_n = dh * (1.0 - z) * (1.0 - n * n)
+        dpre_r = dpre_n * hn * r * (1.0 - r)
+        dpre_z = dh * (h_prev - n) * z * (1.0 - z)
+        dhh = torch.cat([dpre_r, dpre_z, dpre_n * r], dim=1)
+        dxi[:, t] = torch.cat([dpre_r, dpre_z, dpre_n], dim=1)
+        dwh += _mm_3xtf32(h_prev.T.contiguous(), dhh)
+        dbh += dhh.sum(dim=0)
+        dh = dh * z + _mm_3xtf32(dhh, wh.T.contiguous())
+    return [a.numpy() for a in (out, dxi, dh, dwh, dbh)]
+
+
+@pytest.mark.parametrize("hidden,steps", [(128, 50), (12, 50), (100, 50)])
+def test_tf32_split_recurrence_matches_gru_apply(hidden, steps):
+    """The fp32 instance's kernels at H <= 128 run every product as 3xTF32
+    (hi = the top 19 bits, lo = the exact remainder, three mma a k-step).
+    That arithmetic, emulated here with bit masks on int32 views, against
+    jax.vjp of gru_apply's fp32 scan at NARM's widths (H 128, L 50) and at
+    H 12 and 100, B 4, nonzero h0: out, dxi, dh0, dwh and dbh within
+    FP32_KERNEL_TOL of each tensor's largest value, the bound the card's
+    kernels are held to against the plain version."""
+    rng = np.random.RandomState(hidden + steps)
+    xi = rng.randn(4, steps, 3 * hidden).astype(np.float32)
+    lim = np.sqrt(6.0 / (4 * hidden))
+    wh = rng.uniform(-lim, lim, (hidden, 3 * hidden)).astype(np.float32)
+    bh = (0.1 * rng.randn(3 * hidden)).astype(np.float32)
+    hinit = (0.5 * rng.randn(4, hidden)).astype(np.float32)
+    dy = rng.randn(4, steps, hidden).astype(np.float32)
+    hi, lo = _tf32_parts(torch.as_tensor(wh))
+    assert not (hi.view(torch.int32) & 8191).any() and not (lo.view(torch.int32) & 8191).any()
+    assert float((hi + lo - torch.as_tensor(wh)).abs().max()) <= 2.0 ** -20 * lim
+    ref = _op_grads_jax(xi, hinit, wh, bh, dy, None)
+    got = _tf32_recurrence(xi, hinit, wh, bh, dy)
+    for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), got, ref):
+        assert a.shape == b.shape, name
+        _close(a, b, FP32_KERNEL_TOL, name)
+
+
 @pytest.mark.parametrize("n_layers", [1, 2])
 @pytest.mark.parametrize("cdt", [None, "bfloat16"])
 def test_gru_apply_matches_jax(n_layers, cdt):

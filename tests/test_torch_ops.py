@@ -750,6 +750,19 @@ def test_adam_multi_kernel_more_leaves_than_a_launch_holds_on_card(cuda_device):
     _adam_multi_on_card(cuda_device, shapes, [0] * len(shapes), seed=35)
 
 
+def _make_synth(tmp_path):
+    """The synthetic dataset under tmp_path / "data" / "synth", its module
+    loaded by path: on some machines another ``tests`` package shadows this
+    one."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "synth_data", os.path.join(os.path.dirname(__file__), "synth_data.py"))
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    synth.make_synthetic_dataset(str(tmp_path / "data"), name="synth")
+
+
 def _adam_resume_case(dev, tmp_path):
     """A BPR trainer: two steps, a checkpoint, two more steps; a second
     trainer takes a step on its own fresh moments, resumes the checkpoint
@@ -761,18 +774,12 @@ def _adam_resume_case(dev, tmp_path):
     moments agree within 1e-5 of their largest value, and the parameters
     within 4 lr (an element whose gradient is a cancelling sum may step
     either way) and, for 99% of each leaf, within 1e-5 of their value."""
-    import importlib.util
     import os
     from recbole_tpu_torch.config.configurator import Config
     from recbole_tpu_torch.data.utils import create_dataset, data_preparation
     from recbole_tpu_torch.models import get_model
     from recbole_tpu_torch.trainer.trainer import Trainer
-    # by path: on some machines another ``tests`` package shadows this one
-    spec = importlib.util.spec_from_file_location(
-        "synth_data", os.path.join(os.path.dirname(__file__), "synth_data.py"))
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
-    synth.make_synthetic_dataset(str(tmp_path / "data"), name="synth")
+    _make_synth(tmp_path)
     cfg = {"data_path": str(tmp_path / "data"), "train_batch_size": 256,
            "checkpoint_dir": str(tmp_path / "saved"), "log_dir": str(tmp_path / "log"),
            "state": "ERROR", "valid_full_to_uni1000": False, "device": dev.type}
@@ -1437,12 +1444,18 @@ def test_fused_gru_kernels_match_plain_on_card(cuda_device, bf16, B, L, H):
     value; one launch each; two runs bit-identical."""
     xi, h0, wh, bh, dout = _gru_inputs(B, L, H, 2 + bf16, cuda_device, bf16)
     fwd, bwd = port_gru.fused_gru_fwd_cuda, port_gru.fused_gru_bwd_cuda
-    before = (fwd.launches, bwd.launches, fwd.launches_tc, bwd.launches_tc)
+
+    def counts():
+        return (fwd.launches, bwd.launches, fwd.launches_tc, bwd.launches_tc,
+                fwd.launches_tf32, bwd.launches_tf32)
+
+    before = counts()
     out = port_gru.fused_gru_fwd_cuda(xi, h0, wh, bh)
     grads = port_gru.fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout)
-    # the bf16 instance on the one-block tensor-core route, the fp32 one not
-    assert (fwd.launches, bwd.launches, fwd.launches_tc, bwd.launches_tc) == (
-        before[0] + 1, before[1] + 1, before[2] + bf16, before[3] + bf16)
+    # the bf16 instance on the one-block tensor-core route, the fp32 one on
+    # the one-block 3xTF32 route
+    assert counts() == tuple(n + d for n, d in zip(
+        before, (1, 1, bf16, bf16, not bf16, not bf16)))
     torch.cuda.synchronize()
     assert torch.equal(out, port_gru.fused_gru_fwd_cuda(xi, h0, wh, bh))
     again = port_gru.fused_gru_bwd_cuda(xi, h0, wh, bh, out, dout)
@@ -1469,10 +1482,10 @@ def test_fused_gru_tc_route_matches_plain_on_card(cuda_device, H, B, L, h0):
     dbh against the plain version within 1e-2 of each tensor's largest value
     (as test_fused_gru_kernels_match_plain_on_card), h0 zero and not; each
     call counted once in ``launches_tc``; two runs bit-identical. The fp32
-    instance at the same H keeps the FMA kernels (route 0)."""
+    instance at the same H takes the 3xTF32 kernels (route 5) instead."""
     lib = port_gru._lib()
     assert lib.fused_gru_route(H, 1) == 4 and port_gru.tc_route(H, True)
-    assert lib.fused_gru_route(H, 0) == 0 and not port_gru.tc_route(H, False)
+    assert lib.fused_gru_route(H, 0) == 5 and not port_gru.tc_route(H, False)
     xi, hinit, wh, bh, dout = _gru_inputs(B, L, H, 40 + H + B + L, cuda_device, True, h0)
     fwd, bwd = port_gru.fused_gru_fwd_cuda, port_gru.fused_gru_bwd_cuda
     before = (fwd.launches, bwd.launches, fwd.launches_tc, bwd.launches_tc)
@@ -1490,11 +1503,48 @@ def test_fused_gru_tc_route_matches_plain_on_card(cuda_device, H, B, L, h0):
         assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
     # the fp32 instance does not take the route
     x32 = xi.float()
-    before = (fwd.launches_tc, bwd.launches_tc, fwd.launches_fp32)
+    before = (fwd.launches_tc, bwd.launches_tc, fwd.launches_fp32, fwd.launches_tf32)
     y32 = fwd(x32, hinit, wh, bh)
     bwd(x32, hinit, wh, bh, y32, dout.float())
-    assert (fwd.launches_tc, bwd.launches_tc, fwd.launches_fp32) == (before[0], before[1],
-                                                                    before[2] + 1)
+    assert (fwd.launches_tc, bwd.launches_tc, fwd.launches_fp32, fwd.launches_tf32) == (
+        before[0], before[1], before[2] + 1, before[3] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("L", [1, 50])
+@pytest.mark.parametrize("B", [1, 17, 2048])
+@pytest.mark.parametrize("H", [4, 12, 64, 100, 128])
+def test_fused_gru_tf32_route_matches_plain_on_card(cuda_device, H, B, L, h0):
+    """The fp32 instance up to H 128 runs the one-block 3xTF32 kernels
+    (route 5, units padded to 16 inside the kernel, the products on mma.sync
+    tf32 as hi + lo): out, dxi, dh0, dwh and dbh against the plain version
+    within 1e-4 of each tensor's largest value (GRU_TOL[False], the fp32
+    instance's bound), h0 zero and not; each call counted once in
+    ``launches_tf32`` and not in ``launches_tc``; two runs bit-identical."""
+    lib = port_gru._lib()
+    assert lib.fused_gru_route(H, 0) == 5 and port_gru.tf32_route(H, False)
+    assert not port_gru.tf32_route(H, True)
+    xi, hinit, wh, bh, dout = _gru_inputs(B, L, H, 70 + H + B + L, cuda_device, False, h0)
+    fwd, bwd = port_gru.fused_gru_fwd_cuda, port_gru.fused_gru_bwd_cuda
+
+    def counts():
+        return (fwd.launches, bwd.launches, fwd.launches_tf32, bwd.launches_tf32,
+                fwd.launches_tc, bwd.launches_tc)
+
+    before = counts()
+    out = fwd(xi, hinit, wh, bh)
+    grads = bwd(xi, hinit, wh, bh, out, dout)
+    assert counts() == tuple(n + d for n, d in zip(before, (1, 1, 1, 1, 0, 0)))
+    torch.cuda.synchronize()
+    assert torch.equal(out, fwd(xi, hinit, wh, bh))
+    assert all(torch.equal(a, b) for a, b in zip(grads, bwd(xi, hinit, wh, bh, out, dout)))
+    ref = (port_gru.fused_gru_torch_fwd(xi, hinit, wh, bh, False),
+           *port_gru.fused_gru_torch_bwd(xi, hinit, wh, bh, out, dout, False))
+    for name, a, b in zip(("out", "dxi", "dh0", "dwh", "dbh"), (out, *grads), ref):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
 
 
 @pytest.mark.cuda
@@ -1516,6 +1566,12 @@ def test_fused_gru_autograd_and_limits_on_card(cuda_device):
     lib = port_gru._lib()
     assert lib.fused_gru_max_shared_hidden() == 128 and lib.fused_gru_max_hidden() == 7264
     assert lib.fused_gru_max_cluster_hidden() == 384
+    # the fp32 instance: the one-block 3xTF32 route (5) up to 128, wh in fp32
+    # once (196,608 bytes at 128) beside two h buffers forward, one h buffer
+    # and the dhh rows backward; device memory above
+    assert [lib.fused_gru_route(H, 0) for H in (4, 128, 132)] == [5, 5, 2]
+    assert (lib.fused_gru_smem_bytes(128, 0, 0), lib.fused_gru_smem_bytes(128, 1, 0)) == (
+        212992, 229888)
     for H in (128, 132, 384, 388, 700, 704, 1348, 1352, 7264):
         for bf16 in (0, 1):
             assert lib.fused_gru_smem_bytes(H, 1, bf16) <= port_gru.MAX_SMEM_BYTES
@@ -1674,6 +1730,33 @@ def test_fused_gru_bf16_dwh_matches_plain_on_card(cuda_device, B, L, H):
     ref = torch.einsum("blk,blc->kc", hp, dhh.double())
     assert got.shape == (H, 3 * H) and torch.isfinite(got).all()
     assert _rel(got.double(), ref) <= 1e-4, _rel(got.double(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H", [(2048, 50, 128), (1001, 50, 256), (7, 13, 132), (5, 1, 12),
+                                   (2048, 50, 388)])
+def test_fused_gru_fp32_dwh_matches_plain_on_card(cuda_device, B, L, H):
+    """The fp32 instance's dwh alone (``gru_dwh_tf32_kernel``: h_{t-1} and
+    dhh both split into a tf32 hi and its exact remainder, three mma a
+    k-step) against the sum over (b, t) of h_{t-1}^T dhh in float64 on the
+    same fp32 out, h0 and dhh: within 1e-5 of the largest value. 3xTF32
+    keeps a product to about 2^-19 of itself, and each pass of 32 rows is
+    added to the chunk's sum by fp32 adds, since the tensor cores' own fp32
+    accumulation drifts down a chunk (summed in the mma accumulators: 1.6e-5
+    at H 256, 1.0e-4 at H 388 on an H100; an fp32 library product 1e-6 and
+    1.6e-6). H 388 takes the longest chunks (4 of 25,600 rows). Two runs
+    bit-identical."""
+    rng = np.random.RandomState(B + H + 1)
+    out = torch.from_numpy(rng.randn(B, L, H).astype(np.float32)).to(cuda_device)
+    h0 = torch.from_numpy((0.5 * rng.randn(B, H)).astype(np.float32)).to(cuda_device)
+    dhh = torch.from_numpy(rng.randn(B, L, 3 * H).astype(np.float32)).to(cuda_device)
+    got = port_gru.fused_gru_dwh_cuda(out, h0, dhh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, port_gru.fused_gru_dwh_cuda(out, h0, dhh))
+    hp = torch.cat([h0[:, None], out[:, :-1]], dim=1).double()
+    ref = torch.einsum("blk,blc->kc", hp, dhh.double())
+    assert got.shape == (H, 3 * H) and torch.isfinite(got).all()
+    assert _rel(got.double(), ref) <= 1e-5, _rel(got.double(), ref)
 
 
 # ------------------------------------------------- the attention-only kernels
@@ -1933,6 +2016,55 @@ def test_trm_layer_smem_copy_matches_library_on_card(cuda_device):
     assert port_trm.layer_route(50, 64, 256) == "layer"
     assert {port_trm.layer_route(*s) for s in ((58, 64, 256), (200, 64, 256),
                                                 (50, 128, 256))} == {"attention"}
+
+
+@pytest.mark.cuda
+def test_sasrec_at_head_width_25_takes_the_attention_path_on_card(cuda_device, tmp_path):
+    """SASRec at hidden 50 with 2 heads (head width 25, inner 200) under
+    fused_attention "layer2" on the card: layer_route sends the widths that
+    are not multiples of 4 to the attention path before any launch, so a
+    training step launches the attention kernels and no whole-layer kernel;
+    the loss agrees with the same model on the CPU (plain versions) at rtol
+    2e-4 in fp32, and every gradient is finite."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.models import get_model
+    assert port_trm.layer_route(20, 50, 200, 2) == "attention"
+    _make_synth(tmp_path)
+    cfg = {"data_path": str(tmp_path / "data"), "state": "ERROR",
+           "checkpoint_dir": str(tmp_path / "saved"), "log_dir": str(tmp_path / "log"),
+           "valid_full_to_uni1000": False, "MAX_ITEM_LIST_LENGTH": 20, "hidden_size": 50,
+           "n_heads": 2, "inner_size": 200, "fused_attention": "layer2",
+           "compute_dtype": "float32", "hidden_dropout_prob": 0.0, "attn_dropout_prob": 0.0}
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        config = Config("SASRec", "synth", config_dict={**cfg, "device": dev},
+                        _parse_cmd_line=False)
+        train = data_preparation(config, create_dataset(config))[0]
+        torch.manual_seed(0)
+        model = get_model("SASRec")(config, train.dataset)
+        if dev == "cpu":
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        cols = train.columns()
+        batch = {f: torch.as_tensor(v[:128]).long().to(dev) for f, v in cols.items()}
+        before = (port_attn.fused_attention_fwd_cuda.launches,
+                  port_attn.fused_attention_bwd_cuda.launches,
+                  port_trm.trm_layer_fwd_cuda.launches)
+        loss = model.calculate_loss(batch)
+        loss.backward()
+        losses[dev] = loss.item()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = model.n_layers
+            assert (port_attn.fused_attention_fwd_cuda.launches,
+                    port_attn.fused_attention_bwd_cuda.launches,
+                    port_trm.trm_layer_fwd_cuda.launches) == (before[0] + n, before[1] + n,
+                                                              before[2])
+            assert all(torch.isfinite(p.grad).all() for p in model.parameters()
+                       if p.grad is not None)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-4)
 
 
 # ------------------------------------------------------- the rel_apply kernels

@@ -733,6 +733,15 @@ def test_sequential_sampled_eval_refusal_cites_its_roadmap_item():
         SequentialSampledEvalLoader()
 
 
+def test_gauc_refusal_cites_its_roadmap_item():
+    """GAUC is ROADMAP Queue 1 item 5's work (trainer and evaluator
+    leftovers), and the refusal says so."""
+    from recbole_tpu_torch.evaluator.evaluator import TopKCollector
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP Queue 1, item 5\)"):
+        TopKCollector({"metrics": ["Recall", "GAUC"], "topk": [10],
+                       "metric_decimal_place": 4})
+
+
 def test_eval_mask_of_a_sequential_split_holds_only_pad(synth_dataset_dir, tmp_path):
     """With mask_history False only [PAD] is masked, as the JAX fused eval
     step does (trainer.py:984-985); a general split still masks history."""
@@ -899,3 +908,82 @@ def test_sasrec_logs_its_layer_route(synth_dataset_dir, tmp_path):
             logger.setLevel(level)
         said = [m for m in said if "fused_attention" in m]
         assert len(said) == 1 and path in said[0] and f"L={max_len}" in said[0], said
+
+
+def _count_calls(monkeypatch, module, name):
+    """Wrap module.name so that each call adds one to the returned list's
+    first element."""
+    calls, fn = [0], getattr(module, name)
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return fn(*a, **k)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_sasrec_activation_outside_the_kernel_takes_the_attention_path(
+        synth_dataset_dir, tmp_path, monkeypatch):
+    """SASRec with hidden_act leakyrelu under fused_attention "layer2": the
+    whole-layer kernel has five activations (trm_layer.ACTS), so the layers
+    take the fused_attention True path, as the JAX package's support check
+    sends such a layer off its kernel; loss and every leaf's gradient
+    against the JAX model in fp32 at rtol 2e-4 of the leaf's largest value,
+    dropout off. The whole-layer function is never called."""
+    extra = {"loss_type": "CE", "training_neg_sample_num": 0, "hidden_act": "leakyrelu",
+             "hidden_dropout_prob": 0.0, "attn_dropout_prob": 0.0}
+    _, _, _, ploaders, jmodel, params, pmodel = _sasrec_pair(
+        synth_dataset_dir, tmp_path, fused_attention="layer2", compute_dtype="float32", **extra)
+    assert pmodel.config["fused_attention"] == "layer2" and pmodel.cdt is None
+    assert "leakyrelu" not in tl.ACTS
+    whole = _count_calls(monkeypatch, tl, "trm_layer")
+    attn = _count_calls(monkeypatch, fa, "fused_attention")
+    batch = _train_batch(ploaders[0], np.arange(96), pmodel.n_items)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, jgrads = jax.value_and_grad(lambda p: jmodel.calculate_loss(p, jbatch))(params)
+    loss = pmodel.calculate_loss({k: torch.as_tensor(v).long() for k, v in batch.items()})
+    loss.backward()
+    assert whole[0] == 0 and attn[0] == pmodel.n_layers
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-4)
+    ref = flatten_tree(jax.tree.map(np.asarray, jgrads))
+    gscale = max(float(np.abs(v).max()) for v in ref.values())
+    for name, p in pmodel.named_parameters():
+        denom = max(float(np.abs(ref[name]).max()), 1e-2 * gscale)
+        err = float(np.abs(p.grad.numpy() - ref[name]).max()) / denom
+        assert err <= 2e-4, (name, err)
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((50, 50, 200, 2), "attention"),     # D 50: head width 25
+    ((50, 52, 208, 2), "attention"),     # head width 26
+    ((50, 48, 30, 2), "attention"),      # inner 30
+    ((50, 64, 256, 2), "layer"),         # SASRec's default widths
+    ((8, 16, 32, 2), "layer"),
+    ((8, 12, 32, 3), "layer"),           # three heads of width 4
+], ids=["D50", "hd26", "I30", "sasrec", "small", "hd4x3"])
+def test_layer_route_sends_widths_off_multiples_of_4_to_the_attention_path(shape, route,
+                                                                           monkeypatch):
+    """layer_route walks the widths before the working set: a hidden size,
+    head width or inner size that is not a multiple of 4 takes the
+    attention path (the kernels' rows are 16-byte pieces; ``_check`` still
+    refuses such widths). Under "layer2", transformer_apply at such a shape
+    gives the True path's output bit for bit and never calls the
+    whole-layer function."""
+    Lr, Dr, Ir, Hr = shape
+    assert tl.layer_route(Lr, Dr, Ir, Hr) == route
+    assert tl.widths_fit(Dr, Ir, Hr) == (route == "layer")
+    if route == "layer":
+        return
+    rng = np.random.RandomState(Dr)
+    p = jax.tree.map(np.asarray, jax_layers.transformer_init(jax.random.key(Dr), 1, Hr, Dr,
+                                                             Ir))
+    tp = [{k: torch.as_tensor(v) for k, v in layer.items()} for layer in p]
+    x = torch.as_tensor((0.5 * rng.randn(2, Lr, Dr)).astype(np.float32))
+    valid = torch.as_tensor((np.arange(Lr)[None, :] < np.array([Lr, Lr // 3])[:, None])
+                            .astype(np.int32))
+    whole = _count_calls(monkeypatch, tl, "trm_layer")
+    outs = [layers.transformer_apply(tp, x, None, Hr, act="gelu", mask_spec=(valid, True),
+                                     fused=fused) for fused in ("layer2", True)]
+    assert whole[0] == 0
+    assert torch.equal(outs[0], outs[1])
