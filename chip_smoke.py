@@ -757,7 +757,10 @@ def embed_grad_cases(torch):
 def bit_cases(torch, images):
     """(label, bits, rows, n_cols): both Yelp sides at a train batch's R, a
     ragged batch and R = 1, on the Yelp-shaped packed rows (about 28 set bits
-    a row) and on random bytes of the same shapes."""
+    a row) and on random bytes of the same shapes; and the user image's hot
+    strip alone (its first 32 bytes: the most popular items' columns; at this
+    draw 4,056 of the batch's 60,285 set bits, 1,557 of them in one 4-byte
+    word)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = []
     for kind in ("packed rows", "random bytes"):
@@ -774,6 +777,9 @@ def bit_cases(torch, images):
                       n_cols))
         bits, rows, n_cols = sides["user"]
         cases.append((f"user side, {kind}, R=1", bits, rows[:1].contiguous(), n_cols))
+    bits, rows, _ = images["user"]
+    cases.append(("user side, packed rows, the hot strip (bytes 0-31) alone",
+                  bits[:, :32].contiguous(), rows, 256))
     return cases
 
 
@@ -2379,8 +2385,23 @@ def time_bit_kernels(torch):
                  "library_ms": cuda_ms(torch, lib, 10)}
             t["bound_ms"], t["bound_by"] = bound(float(set_bits * D),
                                                  distinct * nbytes + R * 8 + io_bytes)
+            waves = ""
+            if name == "bit_cols_matmul":
+                # the device's time without the host's launch rate; the launches
+                # of 20 calls by the wrapper's count; the grid the last call
+                # launched, and the blocks the card holds at once (the runtime's
+                # occupancy: SMs x blocks an SM)
+                t["graph_ms"] = graph_ms(torch, lambda: kernel(bits, rows, x))
+                before = kernel.launches
+                for _ in range(20):
+                    kernel(bits, rows, x)
+                t["launches_a_call"] = (kernel.launches - before) / 20
+                sms, per_sm, _ = bk.cols_occupancy(x.device, D)
+                t["grid"] = {**kernel.last_grid, "slots": sms * per_sm}
+                waves = (f"; {-(-t['grid']['blocks'] // (sms * per_sm))} wave(s) of "
+                         f"{sms * per_sm} blocks")
             log(f"[time] {name} {side} side R={R} nbytes={nbytes} D={D} ({distinct} distinct "
-                f"rows, {set_bits} set bits, {touched} columns touched): {t}")
+                f"rows, {set_bits} set bits, {touched} columns touched): {t}{waves}")
             if side == "user":
                 out[name] = t
             else:

@@ -20,7 +20,8 @@ float32 product), the launcher of a hand-written Hopper kernel from
 ``csrc/bit_kernels.cu`` with a launch counter, and a dispatcher: the plain
 version for CPU tensors, the kernel for CUDA tensors, no fallback between
 them. The kernels sum in fp32 in an order fixed by the data; the column
-kernel is deterministic (no float atomics).
+kernel is deterministic (no float atomics). ``bit_cols_plan`` chooses the
+column kernel's grid on the host.
 """
 
 import ctypes
@@ -35,7 +36,7 @@ def unpack_bits(packed):
     being bit s of byte b."""
     shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
     bits = (packed[:, :, None] >> shifts) & 1
-    return bits.reshape(packed.shape[0], -1)
+    return bits.reshape(packed.shape[0], packed.shape[1] * 8)
 
 
 def pad_k(v, k_pad):
@@ -60,9 +61,63 @@ def bit_cols_matmul_torch(bits, rows, g):
     return unpacked.T @ g.to(torch.float32)
 
 
+# ------------------------------------------------------ the column kernel's grid
+
+# csrc/bit_kernels.cu's column kernel: a strip is 32 bytes of every row (256
+# output rows), a block stages 128 picked rows at a time, a thread-block
+# cluster of 1 to 16 blocks owns a strip; checked against the library's own
+# limits when it is loaded
+STRIP_BYTES = 32
+TILE_ROWS = 128
+MAX_CLUSTER = 16
+MAX_D = 128
+# a block's fixed cost (zeroing its sums, filling its pipeline, the cluster's
+# sum and the stores) in picked rows of work; with it the plan picks the
+# cluster size that timed fastest at the Yelp sides and ml-100k's on an H100
+# (scripts/torch_bit_ab.py --clusters)
+BLOCK_COST_ROWS = 512
+
+
+def bit_cols_plan(R, nbytes, D, sms, blocks_per_sm, max_cluster=MAX_CLUSTER):
+    """The column kernel's grid for R picked rows of nbytes bytes at D, on a
+    card of ``sms`` SMs holding ``blocks_per_sm`` of its blocks at once.
+
+    A cluster of C blocks owns each 32-byte strip; block k sums the k-th of C
+    equal slices of the picked rows (the kernel splits them itself). C is the
+    power of two up to ``max_cluster``, with at least a tile of rows a block,
+    that gives the least
+    ``waves * (rows a block + BLOCK_COST_ROWS)``, a wave being the blocks the
+    card holds at once; the smallest such C on a tie. Splitting the rows
+    shortens the warps that own popular columns and fills the card when there
+    are few strips; every extra block pays the fixed cost. Raises on a shape
+    the kernel does not take."""
+    if not 2 <= D <= MAX_D or D % 2:
+        raise ValueError(f"the column kernel takes an even D <= {MAX_D}, got {D}")
+    if nbytes < STRIP_BYTES or nbytes % STRIP_BYTES:
+        raise ValueError(f"the column kernel takes rows of a multiple of {STRIP_BYTES} bytes, "
+                         f"got {nbytes}")
+    if R < 0 or sms < 1 or blocks_per_sm < 1 or not 1 <= max_cluster <= MAX_CLUSTER:
+        raise ValueError(f"no grid for R={R} on {sms} SMs x {blocks_per_sm} blocks, clusters "
+                         f"up to {max_cluster}")
+    strips = nbytes // STRIP_BYTES
+    slots = sms * blocks_per_sm
+    best = None
+    C = 1
+    while C <= max_cluster and (C == 1 or -(-R // C) >= TILE_ROWS):
+        waves = -(-strips * C // slots)
+        cost = waves * (-(-R // C) + BLOCK_COST_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, C, waves)
+        C *= 2
+    _, C, waves = best
+    return {"strips": strips, "cluster": C, "blocks": strips * C, "slots": slots,
+            "waves": waves}
+
+
 # ----------------------------------------------------------------- launchers
 
 _LIB = None
+_OCCUPANCY = {}
 
 
 def _lib():
@@ -76,17 +131,38 @@ def _lib():
         lib.bit_kernels_limits.restype = None
         lib.bit_cols_smem_bytes.argtypes = [i]
         lib.bit_cols_smem_bytes.restype = ll
+        lib.bit_cols_occupancy.argtypes = [i, ip, ip, ip]
+        lib.bit_cols_occupancy.restype = i
         lib.bit_rows_launch.argtypes = [p, ll, i, p, i, p, ll, i, p, p]
         lib.bit_rows_launch.restype = i
-        lib.bit_cols_launch.argtypes = [p, ll, i, p, i, p, i, p, p]
+        lib.bit_cols_launch.argtypes = [p, ll, i, p, i, p, i, i, p, p, ip]
         lib.bit_cols_launch.restype = i
         max_d, d_multiple, multiple = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         lib.bit_kernels_limits(ctypes.byref(max_d), ctypes.byref(d_multiple),
                                ctypes.byref(multiple))
         lib.limits = {"max_d": max_d.value, "d_multiple": d_multiple.value,
                       "nbytes_multiple": multiple.value}
+        if (max_d.value, multiple.value) != (MAX_D, STRIP_BYTES):
+            raise RuntimeError(f"csrc/bit_kernels.cu's limits {lib.limits} do not match "
+                               f"ops/bit_kernels.py's (D <= {MAX_D}, {STRIP_BYTES}-byte strips)")
         _LIB = lib
     return _LIB
+
+
+def cols_occupancy(device, D):
+    """(SMs, blocks an SM holds at once, the largest cluster) of the column
+    kernel at D on the CUDA device ``device``, asked of the runtime once per
+    device and D."""
+    key = (device.index, D)
+    if key not in _OCCUPANCY:
+        sms, per_sm, most = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            err = _lib().bit_cols_occupancy(D, ctypes.byref(sms), ctypes.byref(per_sm),
+                                            ctypes.byref(most))
+        if err:
+            raise RuntimeError(f"bit_cols occupancy query failed: CUDA error {err}")
+        _OCCUPANCY[key] = (sms.value, per_sm.value, most.value)
+    return _OCCUPANCY[key]
 
 
 def _check(name, bits, rows, x):
@@ -140,24 +216,32 @@ bit_rows_matmul_cuda.launches = 0
 
 
 def bit_cols_matmul_cuda(bits, rows, g):
-    """Launch ``bit_cols_kernel``; same contract as ``bit_cols_matmul_torch``.
-    Counts its launches in ``bit_cols_matmul_cuda.launches``."""
+    """Launch ``bit_cols_kernel`` on the grid of ``bit_cols_plan``; same
+    contract as ``bit_cols_matmul_torch``. Counts its launches in
+    ``bit_cols_matmul_cuda.launches`` and keeps the grid it launched (blocks,
+    cluster size, as the launcher reports them) in
+    ``bit_cols_matmul_cuda.last_grid``."""
     name = "bit_cols_matmul_cuda"
     n_major, nbytes, R, D = _check(name, bits, rows, g)
     if g.shape[0] != R:
         raise ValueError(f"{name}: g has {g.shape[0]} rows for {R} picked rows")
+    plan = bit_cols_plan(R, nbytes, D, *cols_occupancy(g.device, D))
     out = torch.empty((nbytes * 8, D), dtype=torch.float32, device=g.device)
+    grid = (ctypes.c_int * 2)()
     err = _lib().bit_cols_launch(bits.data_ptr(), n_major, nbytes, rows.data_ptr(), R,
-                                 g.data_ptr(), D, out.data_ptr(),
-                                 torch.cuda.current_stream(g.device).cuda_stream)
+                                 g.data_ptr(), D, plan["cluster"], out.data_ptr(),
+                                 torch.cuda.current_stream(g.device).cuda_stream, grid)
     if err:
         raise RuntimeError(f"bit_cols kernel launch failed: CUDA error {err} (shared memory "
-                           f"{_lib().bit_cols_smem_bytes(D)} bytes at D={D})")
+                           f"{_lib().bit_cols_smem_bytes(D)} bytes at D={D}, clusters of "
+                           f"{plan['cluster']})")
     bit_cols_matmul_cuda.launches += 1
+    bit_cols_matmul_cuda.last_grid = {"blocks": grid[0], "cluster": grid[1]}
     return out
 
 
 bit_cols_matmul_cuda.launches = 0
+bit_cols_matmul_cuda.last_grid = None
 
 
 # --------------------------------------------------------------- dispatchers

@@ -114,6 +114,100 @@ def test_bit_cols_plain_matches_pallas_interpret():
     _within_terms(got, want, mag)
 
 
+def test_bit_cols_plain_matches_pallas_interpret_power_law():
+    """The column product on a power-law image (columns drawn toward 0) with
+    a hot 32-column word set in most picked rows and picked rows repeated, as
+    a user batch holds popular items: R 512, nbytes 512 (multiples of the
+    Pallas kernel's 256)."""
+    rng = np.random.RandomState(4)
+    n_major, nbytes, R, D = 700, 512, 512, 64
+    cols = np.floor(nbytes * 8 * rng.random_sample((n_major, 28)) ** 3).astype(np.int64)
+    image = np.zeros((n_major, nbytes), np.uint8)
+    np.bitwise_or.at(image, (np.repeat(np.arange(n_major), 28), cols.ravel() // 8),
+                     (1 << (cols.ravel() % 8)).astype(np.uint8))
+    hot = (rng.random_sample((n_major, 1)) < 0.9) & (rng.random_sample((n_major, 4)) < 0.7)
+    image[:, 4:8] |= (hot * rng.randint(1, 256, (n_major, 4))).astype(np.uint8)
+    rows = rng.randint(0, n_major, R).astype(np.int64)
+    rows[rng.random_sample(R) < 0.2] = rows[0]
+    g = np.asarray(jnp.asarray(rng.randn(R, D).astype(np.float32))
+                   .astype(jnp.bfloat16).astype(jnp.float32))
+    assert np.unpackbits(image[rows][:, 4:8], axis=1).sum() > 8 * R
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(unperm_planes(bit_cols_matmul(
+            jnp.asarray(image[rows]), jnp.asarray(g).astype(jnp.bfloat16))))
+    gb = _t(g).to(torch.bfloat16)
+    got = port_bits.bit_cols_matmul(_t(image), _t(rows), gb).numpy()
+    mag = port_bits.bit_cols_matmul(_t(image), _t(rows), gb.abs()).numpy()
+    _within_terms(got, want, mag)
+
+
+# an H100: 132 SMs; the column kernel holds 2 blocks an SM at D 64 (its
+# 112 KB of shared memory), 1 at D 128
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("R,nbytes,D,per_sm", [
+    (2048, 12544, 64, 2), (4096, 12800, 64, 2), (2048, 256, 64, 2), (4096, 256, 64, 2),
+    (0, 12800, 64, 2), (1, 12544, 64, 2), (37, 256, 16, 5), (1864, 12800, 128, 1),
+    (100_000, 32, 2, 8)])
+def test_bit_cols_plan_covers_every_strip_and_row_once(R, nbytes, D, per_sm):
+    """Every strip is one cluster of C blocks; a split leaves each block at
+    least a tile of the picked rows (the kernel splits them: the on-card
+    tests hold its sums to the plain version's)."""
+    plan = port_bits.bit_cols_plan(R, nbytes, D, H100_SMS, per_sm)
+    C = plan["cluster"]
+    assert plan["strips"] * port_bits.STRIP_BYTES == nbytes
+    assert plan["blocks"] == plan["strips"] * C and 1 <= C <= port_bits.MAX_CLUSTER
+    assert C & (C - 1) == 0 and plan["slots"] == H100_SMS * per_sm
+    assert plan["waves"] == -(-plan["blocks"] // plan["slots"])
+    assert C == 1 or R // C >= port_bits.TILE_ROWS
+
+
+def test_bit_cols_plan_fills_the_card():
+    """On an H100 at D 64: the Yelp user side (392 strips) splits its rows in
+    two and takes 3 waves, the last at least 90% full; ml-100k's 8 strips take
+    clusters of 16, a block on at least 90% of the SMs. The Yelp item side's
+    400 strips fill no last wave at any cluster size on 264 slots (an open
+    shortfall of the strip-a-cluster grid, not a goal); there the plan takes
+    the cluster size of least cost."""
+    slots = H100_SMS * 2
+    user = port_bits.bit_cols_plan(2048, 12544, 64, H100_SMS, 2)
+    assert (user["cluster"], user["waves"]) == (2, 3)
+    assert user["blocks"] >= 0.9 * user["waves"] * slots
+    for R in (2048, 4096):
+        small = port_bits.bit_cols_plan(R, 256, 64, H100_SMS, 2)
+        assert small["cluster"] == 16 and 0.9 * H100_SMS <= small["blocks"] <= H100_SMS
+    item = port_bits.bit_cols_plan(4096, 12800, 64, H100_SMS, 2)
+
+    def cost(C):
+        return -(-400 * C // slots) * (-(-4096 // C) + port_bits.BLOCK_COST_ROWS)
+
+    sizes = [C for C in (1, 2, 4, 8, 16) if C == 1 or 4096 // C >= port_bits.TILE_ROWS]
+    assert cost(item["cluster"]) == min(cost(C) for C in sizes)
+    assert item["waves"] == -(-400 * item["cluster"] // slots)
+    # fewer cluster sizes on a card that holds no cluster of 16
+    assert port_bits.bit_cols_plan(2048, 256, 64, H100_SMS, 2, max_cluster=8)["cluster"] == 8
+
+
+@pytest.mark.parametrize("R,nbytes,D,sms,per_sm,most", [
+    (10, 12800, 130, 132, 2, 16), (10, 12800, 3, 132, 2, 16), (10, 12800, 0, 132, 2, 16),
+    (10, 48, 64, 132, 2, 16), (10, 16, 64, 132, 2, 16), (-1, 32, 64, 132, 2, 16),
+    (10, 32, 64, 0, 2, 16), (10, 32, 64, 132, 0, 16), (10, 32, 64, 132, 2, 32)])
+def test_bit_cols_plan_refuses_shapes_beyond_the_kernel(R, nbytes, D, sms, per_sm, most):
+    with pytest.raises(ValueError):
+        port_bits.bit_cols_plan(R, nbytes, D, sms, per_sm, max_cluster=most)
+
+
+def test_bit_products_plain_at_no_rows():
+    """R = 0: the column product is all zeros, the row product empty."""
+    packed, _, v, _ = _bit_operands(5, R=8, nbytes=32, D=16)
+    rows = torch.zeros(0, dtype=torch.int64)
+    g = torch.zeros((0, 16), dtype=torch.bfloat16)
+    cols = port_bits.bit_cols_matmul(_t(packed), rows, g)
+    assert cols.shape == (256, 16) and not bool(cols.any())
+    assert port_bits.bit_rows_matmul(_t(packed), rows, _t(v).bfloat16()).shape == (0, 16)
+
+
 def test_unpack_bits_matches_jax_and_pad_k():
     packed = np.random.RandomState(2).randint(0, 256, (5, 32)).astype(np.uint8)
     want = np.asarray(jax_bg._unpack_bits(jnp.asarray(packed))).astype(np.float32)

@@ -1326,20 +1326,32 @@ def test_trm_layer_autograd_and_limits_on_card(cuda_device, bf16, shape):
 
 # ------------------------------------------------- the packed-bit row and column kernels
 
-def _bit_inputs(n_major, nbytes, R, D, seed, device, dense=True):
-    """Packed rows (random bytes, or about 28 set bits a row as at the Yelp
-    shape), picked rows with repeats, and bf16 operands for both products."""
+def _bit_inputs(n_major, nbytes, R, D, seed, device, kind="random"):
+    """Packed rows, picked rows with repeats, and bf16 operands for both
+    products. ``kind``: "random" bytes; "sparse", about 28 set bits a row as
+    at the Yelp shape; "power", power-law columns with a hot 32-column word
+    (columns 32-63) set in most rows, as popular items are in a user batch;
+    "repeat", sparse rows with one picked row repeated through the batch."""
     rng = np.random.RandomState(seed)
-    if dense:
+    if kind == "random":
         bits = rng.randint(0, 256, (n_major, nbytes)).astype(np.uint8)
     else:
+        n_cols = nbytes * 8 - 100
+        if kind == "power":
+            cols = np.floor(n_cols * rng.random_sample((n_major, 28)) ** 3).astype(np.int64)
+        else:
+            cols = rng.randint(0, n_cols, (n_major, 28))
         bits = np.zeros((n_major, nbytes), np.uint8)
-        cols = rng.randint(0, nbytes * 8 - 100, (n_major, 28))
         np.bitwise_or.at(bits, (np.repeat(np.arange(n_major), 28), cols.ravel() // 8),
                          (1 << (cols.ravel() % 8)).astype(np.uint8))
+        if kind == "power":
+            hot = (rng.random_sample((n_major, 1)) < 0.9) & (rng.random_sample((n_major, 4)) < 0.7)
+            bits[:, 4:8] |= (hot * rng.randint(1, 256, (n_major, 4))).astype(np.uint8)
     rows = rng.randint(0, n_major, R).astype(np.int64)
     if R > 2:
         rows[1] = rows[0]
+    if kind == "repeat":
+        rows[rng.random_sample(R) < 0.5] = rows[0]
     v = rng.randn(nbytes * 8 - 100, D).astype(np.float32)
     g = rng.randn(R, D).astype(np.float32)
 
@@ -1372,28 +1384,53 @@ def test_bit_launchers_refuse_cpu_tensors_and_dispatch_stays_plain():
     np.testing.assert_allclose(cols.numpy(), dense.T @ g.float().numpy(), rtol=1e-5, atol=1e-4)
 
 
+# (R, kind, D, nbytes): the Yelp sides' batch sizes, a ragged batch and R = 1
+# on random bytes and sparse rows; power-law images with a hot word, one row
+# repeated through the batch, R = 0 and a small ragged R, D 16 and 128, D 6
+# (g copied in 4-byte pieces, the sums stored in pairs) and ml-100k's 256
+# bytes a row (8 strips: the widest clusters)
+BIT_CASES = ([(R, kind, 64, 12544 if R == 2048 else 12800)
+              for kind in ("sparse", "random") for R in (2048, 4096, 1864, 1)]
+             + [(2048, "power", 64, 12544), (4096, "power", 64, 12800),
+                (4096, "repeat", 64, 12800), (0, "sparse", 64, 12800), (37, "power", 64, 12800),
+                (2048, "power", 16, 12544), (2048, "power", 128, 12544),
+                (1864, "random", 128, 12800), (1, "sparse", 16, 12800),
+                (1864, "power", 6, 12800), (2048, "power", 64, 256), (4096, "repeat", 128, 256)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [2048, 4096, 1864, 1])
-@pytest.mark.parametrize("dense", [False, True])
-def test_bit_kernels_match_plain_on_card(cuda_device, R, dense):
-    """Both kernels against their plain versions at the Yelp sides' batch
-    sizes, a ragged batch and R = 1, on random bytes and on sparse rows:
-    within 1e-5 of the sum of the terms' magnitudes plus 1e-7; one launch
-    each; two runs bit-identical."""
-    bits, rows, v, g = _bit_inputs(3000, 12800 if R != 2048 else 12544, R, 64, R, cuda_device,
-                                   dense)
+@pytest.mark.parametrize("R,kind,D,nbytes", BIT_CASES)
+def test_bit_kernels_match_plain_on_card(cuda_device, R, kind, D, nbytes):
+    """Both kernels against their plain versions: within 1e-5 of the sum of
+    the terms' magnitudes plus 1e-7; one launch each (the row kernel makes
+    none at R = 0); two runs bit-identical."""
+    bits, rows, v, g = _bit_inputs(3000, nbytes, R, D, R + D, cuda_device, kind)
     before = (port_bits.bit_rows_matmul_cuda.launches, port_bits.bit_cols_matmul_cuda.launches)
     out = port_bits.bit_rows_matmul_cuda(bits, rows, v)
     cols = port_bits.bit_cols_matmul_cuda(bits, rows, g)
     assert (port_bits.bit_rows_matmul_cuda.launches,
-            port_bits.bit_cols_matmul_cuda.launches) == (before[0] + 1, before[1] + 1)
+            port_bits.bit_cols_matmul_cuda.launches) == (before[0] + (R > 0), before[1] + 1)
     torch.cuda.synchronize()
+    assert out.shape == (R, D) and cols.shape == (nbytes * 8, D)
     assert torch.equal(out, port_bits.bit_rows_matmul_cuda(bits, rows, v))
     assert torch.equal(cols, port_bits.bit_cols_matmul_cuda(bits, rows, g))
+    plan = port_bits.bit_cols_plan(R, nbytes, D, *port_bits.cols_occupancy(cols.device, D))
+    assert port_bits.bit_cols_matmul_cuda.last_grid == {"blocks": plan["blocks"],
+                                                        "cluster": plan["cluster"]}
     assert _bit_close(out, port_bits.bit_rows_matmul_torch(bits, rows, v),
                       port_bits.bit_rows_matmul_torch(bits, rows, v.abs()))
     assert _bit_close(cols, port_bits.bit_cols_matmul_torch(bits, rows, g),
                       port_bits.bit_cols_matmul_torch(bits, rows, g.abs()))
+
+
+@pytest.mark.cuda
+def test_bit_cols_nan_for_ids_outside_on_card(cuda_device):
+    """A picked id outside the matrix makes every output row NaN, at every
+    cluster size the plan takes (the Yelp sides' and ml-100k's widths)."""
+    for nbytes, R in ((12800, 4096), (12544, 2048), (256, 2048)):
+        bits, rows, _, g = _bit_inputs(500, nbytes, R, 64, 5, cuda_device, "sparse")
+        rows[R // 3] = 500
+        assert bool(torch.isnan(port_bits.bit_cols_matmul_cuda(bits, rows, g)).all())
 
 
 @pytest.mark.cuda
