@@ -465,20 +465,39 @@ def write_yelp_shape(path, seed=42):
 
 def yelp_bit_inputs(torch, seed=42):
     """The two packed images of the Yelp-shaped draw on the card (raw ids,
-    [PAD] row 0 empty), and a train batch's rows: 2,048 users, and 4,096
-    items (2,048 positives drawn from the interactions, 2,048 uniform
-    negatives)."""
+    [PAD] row 0 empty), each image's set bits a row (int32, as
+    ``BitRestrictedGraph`` keeps them; counted on the card), and a train
+    batch's rows: 2,048 users, and 4,096 items (2,048 positives drawn from
+    the interactions, 2,048 uniform negatives)."""
     from recbole_tpu_torch.ops.bitgraph import _pack_side
     uids, iids = yelp_draw(seed)
     n_u, n_i = YELP[0] + 1, YELP[1] + 1
     user_bits = torch.from_numpy(_pack_side(uids, iids, n_u, n_i)).cuda()
     item_bits = torch.from_numpy(_pack_side(iids, uids, n_i, n_u)).cuda()
+    user_counts, item_counts = row_popcounts(torch, user_bits), row_popcounts(torch, item_bits)
     rng = np.random.RandomState(seed + 1)
     pick = rng.randint(0, len(uids), 2048)
     rows_u = torch.from_numpy(uids[pick].astype(np.int64)).cuda()
     rows_i = torch.from_numpy(np.concatenate(
         [iids[pick], rng.randint(1, n_i, 2048)]).astype(np.int64)).cuda()
-    return {"user": (user_bits, rows_u, n_i), "item": (item_bits, rows_i, n_u)}
+    return {"user": (user_bits, rows_u, n_i, user_counts),
+            "item": (item_bits, rows_i, n_u, item_counts)}
+
+
+def row_popcounts(torch, bits):
+    """(n_major,) int32 set bits of each row of a packed image on the card,
+    8,192 rows at a time."""
+    table = torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.int32,
+                         device=bits.device)
+    return torch.cat([table[bits[i:i + 8192].int()].sum(1, dtype=torch.int32)
+                      for i in range(0, bits.shape[0], 8192)])
+
+
+def distinct_set_bits(torch, bits, rows):
+    """(all picked rows' set bits, the distinct picked rows' set bits)."""
+    from recbole_tpu_torch.ops import bit_kernels as bk
+    return (int(bk.unpack_bits(bits[rows]).sum()),
+            int(bk.unpack_bits(bits[torch.unique(rows)]).sum()))
 
 
 # ----------------------------------------------------------------- phases
@@ -755,57 +774,85 @@ def embed_grad_cases(torch):
 
 
 def bit_cases(torch, images):
-    """(label, bits, rows, n_cols): both Yelp sides at a train batch's R, a
-    ragged batch and R = 1, on the Yelp-shaped packed rows (about 28 set bits
-    a row) and on random bytes of the same shapes; and the user image's hot
-    strip alone (its first 32 bytes: the most popular items' columns; at this
-    draw 4,056 of the batch's 60,285 set bits, 1,557 of them in one 4-byte
-    word)."""
+    """(label, bits, rows, n_cols, counts): both Yelp sides at a train
+    batch's R, a ragged batch and R = 1, on the Yelp-shaped packed rows
+    (about 28 set bits a row) and on random bytes of the same shapes; the
+    item image's most popular row picked 10 times among the uniform
+    negatives (each pick a copy of one walk, the row cut into pieces); and
+    the user image's hot strip alone (its first 32 bytes: the most popular
+    items' columns; at this draw 4,056 of the batch's 60,285 set bits, 1,557
+    of them in one 4-byte word). counts: the image's set bits a row."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = []
     for kind in ("packed rows", "random bytes"):
         sides = {}
         for side in ("user", "item"):
-            bits, rows, n_cols = images[side]
+            bits, rows, n_cols, counts = images[side]
             if kind == "random bytes":
                 bits = torch.randint(0, 256, tuple(bits.shape), dtype=torch.uint8, device="cuda",
                                      generator=gen)
-            sides[side] = (bits, rows, n_cols)
-            cases.append((f"{side} side, {kind}", bits, rows, n_cols))
-        bits, rows, n_cols = sides["item"]
+                counts = row_popcounts(torch, bits)
+            sides[side] = (bits, rows, n_cols, counts)
+            cases.append((f"{side} side, {kind}", bits, rows, n_cols, counts))
+        bits, rows, n_cols, counts = sides["item"]
         cases.append((f"item side, {kind}, ragged R=1864", bits, rows[:1864].contiguous(),
-                      n_cols))
-        bits, rows, n_cols = sides["user"]
-        cases.append((f"user side, {kind}, R=1", bits, rows[:1].contiguous(), n_cols))
-    bits, rows, _ = images["user"]
-    cases.append(("user side, packed rows, the hot strip (bytes 0-31) alone",
-                  bits[:, :32].contiguous(), rows, 256))
+                      n_cols, counts))
+        bits, rows, n_cols, counts = sides["user"]
+        cases.append((f"user side, {kind}, R=1", bits, rows[:1].contiguous(), n_cols, counts))
+    bits, rows, n_cols, counts = images["item"]
+    top = int(torch.argmax(counts))
+    hot = rows[2048:].clone()
+    hot[torch.arange(0, 2000, 200, device="cuda")] = top
+    cases.append((f"item side, packed rows, the top row (id {top}, {int(counts[top])} set "
+                  "bits) picked 10 times among the 2,048 negatives", bits, hot, n_cols, counts))
+    bits, rows, _, _ = images["user"]
+    strip = bits[:, :32].contiguous()
+    cases.append(("user side, packed rows, the hot strip (bytes 0-31) alone", strip, rows, 256,
+                  row_popcounts(torch, strip)))
     return cases
 
 
 def check_bit_kernels(torch, images):
     """Both packed-bit kernels against their plain versions on each case:
     within GRAD_RTOL of the sum of the terms' magnitudes plus GRAD_ATOL, and
-    a second run compared bit for bit."""
+    a second run compared bit for bit; the row kernel's picks of one id give
+    identical rows, and its calls launch 2 kernels each."""
     from recbole_tpu_torch.ops import bit_kernels as bk
     worst = {"bit_rows_matmul": 0.0, "bit_cols_matmul": 0.0}
     rng = np.random.RandomState(19)
-    for label, bits, rows, n_cols in bit_cases(torch, images):
+    for label, bits, rows, n_cols, counts in bit_cases(torch, images):
         R = rows.numel()
         v = torch.from_numpy(rng.randn(n_cols, 64).astype(np.float32) * 0.1).cuda().bfloat16()
         g = torch.from_numpy(rng.randn(R, 64).astype(np.float32) * 1e-3).cuda().bfloat16()
+        set_bits, distinct_bits = distinct_set_bits(torch, bits, rows)
         for name, x in (("bit_rows_matmul", v), ("bit_cols_matmul", g)):
             kernel, plain = getattr(bk, f"{name}_cuda"), getattr(bk, f"{name}_torch")
-            out = kernel(bits, rows, x)
+            extra = (counts,) if name == "bit_rows_matmul" else ()
+            before = getattr(kernel, "kernel_launches", 0)
+            out = kernel(bits, rows, x, *extra)
             torch.cuda.synchronize()
-            same = bool(torch.equal(out, kernel(bits, rows, x)))
+            same = bool(torch.equal(out, kernel(bits, rows, x, *extra)))
             ref = plain(bits, rows, x)
             scale = plain(bits, rows, x.abs())
             diff = (out - ref).abs()
             err = float(diff.max())
+            more = ""
+            if name == "bit_rows_matmul":
+                # every pick of an id gets its walker's row, bit for bit
+                ids, inv = torch.unique(rows, return_inverse=True)
+                first = torch.full((ids.numel(),), R, device="cuda").scatter_reduce(
+                    0, inv, torch.arange(R, device="cuda"), "amin")
+                copies_same = bool(torch.equal(out, out[first[inv]]))
+                plan = bk.rows_counters()
+                more = (f"; {ids.numel()} distinct ids, picks of one id identical: "
+                        f"{copies_same}; kernels a call {(kernel.kernel_launches - before) / 2}, "
+                        f"walk grid {kernel.last_grid}, counters {plan}")
+                if not copies_same or kernel.kernel_launches - before != 4:
+                    raise AssertionError(f"{name} {label}: picks of one id differ, or not 2 "
+                                         "kernels a call")
             log(f"[check] {name} {label}: R={R} nbytes={bits.shape[1]} D=64 max|err| {err:.3e} "
-                f"(tolerance {GRAD_RTOL} * sum|terms| + {GRAD_ATOL}); set bits "
-                f"{int(bk.unpack_bits(bits[rows]).sum())}; two runs bit-identical: {same}")
+                f"(tolerance {GRAD_RTOL} * sum|terms| + {GRAD_ATOL}); set bits {set_bits}, "
+                f"distinct rows' {distinct_bits}; two runs bit-identical: {same}{more}")
             if not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"{name} {label}: non-finite output")
             if not bool((diff <= GRAD_RTOL * scale + GRAD_ATOL).all()):
@@ -1420,7 +1467,7 @@ def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
         for share in ("launches_fp32", "launches_bf16", "launches_cluster", "launches_tc",
-                      "launches_tf32", "launches_whole", "launches_tiled"):
+                      "launches_tf32", "launches_whole", "launches_tiled", "kernel_launches"):
             if hasattr(fn, share):
                 setattr(fn, share, 0)
 
@@ -1435,7 +1482,9 @@ def read_launches(path, must_launch):
     3xTF32 route's (fp32 up to H 128); rel_apply_* count both of
     theirs, rel_apply_*_bf16 the bf16 share; fused_attention_* count both
     routes' launches, told apart here: fused_attention_* is the key-tiled
-    route's share, fused_attention_whole_* the whole-sequence route's."""
+    route's share, fused_attention_whole_* the whole-sequence route's;
+    bit_rows_matmul counts calls, bit_rows_matmul_kernels the kernels they
+    launched (2 a call)."""
     launches = {}
     for name, fn in kernel_wrappers().items():
         if name.startswith("trm_layer"):
@@ -1456,6 +1505,8 @@ def read_launches(path, must_launch):
                 launches[f"{name}_tc"] = fn.launches_tc
             if hasattr(fn, "launches_tf32"):
                 launches[f"{name}_tf32"] = fn.launches_tf32
+            if hasattr(fn, "kernel_launches"):
+                launches[f"{name}_kernels"] = fn.kernel_launches
     log(f"[{path}] launches {launches}; {ADAM_STEPS['n']} training steps")
     never = [name for name in must_launch if launches[name] <= 0]
     if never:
@@ -1707,13 +1758,17 @@ def phase_lightgcn(torch, tmp):
         if launches[name] != 2 * steps:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} steps, "
                                  "not 2 a step")
+    if launches["bit_rows_matmul_kernels"] != 2 * launches["bit_rows_matmul"]:
+        raise AssertionError(f"bit_rows_matmul's {launches['bit_rows_matmul']} calls launched "
+                             f"{launches['bit_rows_matmul_kernels']} kernels, not 2 a call")
     result = {"best_valid_result": best_valid, "test_result": test_result}
     log(f"[lightgcn] fit (1 epoch, validation) + test: {wall:.2f}s wall")
     log(f"[lightgcn] result {json.dumps(result)}")
     check_result(result, JAX_ML100K)
     log(f"[lightgcn] {steps} steps; launches per step: " + ", ".join(
-        f"{k} {launches[k] / steps:.2f}" for k in ("bit_rows_matmul", "bit_cols_matmul",
-                                                   "windowed_grad", "adam_leaf")))
+        f"{k} {launches[k] / steps:.2f}" for k in ("bit_rows_matmul", "bit_rows_matmul_kernels",
+                                                   "bit_cols_matmul", "windowed_grad",
+                                                   "adam_leaf")))
     log(f"[lightgcn] epoch seconds {times['train']} (includes the upload); train examples/s: "
         f"{train.n / times['train'][-1]:.1f}; ms/step: "
         f"{1e3 * times['train'][-1] / steps:.3f}")
@@ -2349,17 +2404,20 @@ def phase_timing(torch):
 def time_bit_kernels(torch):
     """Both packed-bit kernels at the Yelp shape's two sides as a train step
     calls them (rows 2,048 users into the user image; rows 4,096 items into
-    the item image), beside the plain version, the library's unpack + bf16
-    product with fp32 results, and the bound: the distinct picked rows'
-    packed bytes, the ids, the rows of v that a set bit touches (columns:
-    g) and the output, each moved once; one fp32 add per set bit and
-    column."""
+    the item image; the row kernel with the images' counts), beside the
+    plain version, the library's unpack + bf16 product with fp32 results,
+    and the bound: the distinct picked rows' packed bytes, the ids, the rows
+    of v that a set bit touches (columns: g) and the output, each moved once;
+    one fp32 add per set bit and column. Each kernel's time in a CUDA graph,
+    the host's enqueue a call, its calls and kernel launches over 20 calls by
+    the wrapper's counters, and the grid (and, for the row kernel, the
+    counters) its last call reports."""
     from recbole_tpu_torch.ops import bit_kernels as bk
     images = yelp_bit_inputs(torch, seed=7)
     out = {}
     rng = np.random.RandomState(23)
     for side, key in (("user", "user_side"), ("item", "item_side")):
-        bits, rows, n_cols = images[side]
+        bits, rows, n_cols, counts = images[side]
         R, nbytes, D = rows.numel(), bits.shape[1], 64
         v = torch.from_numpy(rng.randn(n_cols, D).astype(np.float32) * 0.1).cuda().bfloat16()
         g = torch.from_numpy(rng.randn(R, D).astype(np.float32) * 1e-3).cuda().bfloat16()
@@ -2368,6 +2426,7 @@ def time_bit_kernels(torch):
         touched = int(unpacked.any(dim=0).sum())
         distinct = int(torch.unique(rows).numel())
         del unpacked
+        _, distinct_bits = distinct_set_bits(torch, bits, rows)
         v_pad = bk.pad_k(v, nbytes * 8)
 
         def lib_rows():
@@ -2376,46 +2435,60 @@ def time_bit_kernels(torch):
         def lib_cols():
             return torch.mm(bk.unpack_bits(bits[rows]).bfloat16().T, g, out_dtype=torch.float32)
 
-        work = {"bit_rows_matmul": (v, lib_rows, touched * D * 2 + R * D * 4),
-                "bit_cols_matmul": (g, lib_cols, R * D * 2 + nbytes * 8 * D * 4)}
-        for name, (x, lib, io_bytes) in work.items():
+        work = {"bit_rows_matmul": (v, (counts,), lib_rows, touched * D * 2 + R * D * 4),
+                "bit_cols_matmul": (g, (), lib_cols, R * D * 2 + nbytes * 8 * D * 4)}
+        for name, (x, extra, lib, io_bytes) in work.items():
             kernel, plain = getattr(bk, f"{name}_cuda"), getattr(bk, f"{name}_torch")
-            t = {"ms": cuda_ms(torch, lambda: kernel(bits, rows, x), 50),
+            t = {"ms": cuda_ms(torch, lambda: kernel(bits, rows, x, *extra), 50),
                  "plain_ms": cuda_ms(torch, lambda: plain(bits, rows, x), 10),
                  "library_ms": cuda_ms(torch, lib, 10)}
             t["bound_ms"], t["bound_by"] = bound(float(set_bits * D),
                                                  distinct * nbytes + R * 8 + io_bytes)
-            waves = ""
+            # the device's time without the host's launch rate; the calls and
+            # kernel launches of 20 calls by the wrapper's counts; the grid the
+            # last call launched
+            t["graph_ms"] = graph_ms(torch, lambda: kernel(bits, rows, x, *extra))
+            t["host_ms"] = host_ms(torch, lambda: kernel(bits, rows, x, *extra))
+            before = (kernel.launches, getattr(kernel, "kernel_launches", 0))
+            for _ in range(20):
+                kernel(bits, rows, x, *extra)
+            torch.cuda.synchronize()
+            t["launches_a_call"] = (kernel.launches - before[0]) / 20
+            more = ""
             if name == "bit_cols_matmul":
-                # the device's time without the host's launch rate; the launches
-                # of 20 calls by the wrapper's count; the grid the last call
-                # launched, and the blocks the card holds at once (the runtime's
-                # occupancy: SMs x blocks an SM)
-                t["graph_ms"] = graph_ms(torch, lambda: kernel(bits, rows, x))
-                before = kernel.launches
-                for _ in range(20):
-                    kernel(bits, rows, x)
-                t["launches_a_call"] = (kernel.launches - before) / 20
+                # the blocks the card holds at once (the runtime's occupancy:
+                # SMs x blocks an SM)
                 sms, per_sm, _ = bk.cols_occupancy(x.device, D)
                 t["grid"] = {**kernel.last_grid, "slots": sms * per_sm}
-                waves = (f"; {-(-t['grid']['blocks'] // (sms * per_sm))} wave(s) of "
-                         f"{sms * per_sm} blocks")
+                more = (f"; {-(-t['grid']['blocks'] // (sms * per_sm))} wave(s) of "
+                        f"{sms * per_sm} blocks")
+            else:
+                t["kernels_a_call"] = (kernel.kernel_launches - before[1]) / 20
+                t["grid"] = dict(kernel.last_grid)
+                t["counters"] = bk.rows_counters()
             log(f"[time] {name} {side} side R={R} nbytes={nbytes} D={D} ({distinct} distinct "
-                f"rows, {set_bits} set bits, {touched} columns touched): {t}{waves}")
+                f"rows, {set_bits} set bits, {distinct_bits} of them in the distinct rows, "
+                f"{touched} columns touched): {t}{more}")
             if side == "user":
                 out[name] = t
             else:
                 out[name][key] = t
         if side == "item":
             # where the row kernel's time goes: the positives are drawn by
-            # popularity (the top item's row holds ~15,600 set bits), the
+            # popularity (the top item's row holds ~14,500 set bits), the
             # negatives uniformly
             for half, sl in (("positives", slice(0, R // 2)), ("negatives", slice(R // 2, R))):
                 sub = rows[sl].contiguous()
-                ms = cuda_ms(torch, lambda: bk.bit_rows_matmul_cuda(bits, sub, v), 50)
+
+                def call():
+                    return bk.bit_rows_matmul_cuda(bits, sub, v, counts)
+
+                ms, gms = cuda_ms(torch, call, 50), graph_ms(torch, call)
                 out["bit_rows_matmul"][f"item_side_{half}_ms"] = ms
+                out["bit_rows_matmul"][f"item_side_{half}_graph_ms"] = gms
                 log(f"[time] bit_rows_matmul item side, the {R // 2} {half} alone: {ms:.4f} ms, "
-                    f"{int(bk.unpack_bits(bits[sub]).sum())} set bits")
+                    f"graph {gms:.4f} ms; set bits, all and distinct rows': "
+                    f"{distinct_set_bits(torch, bits, sub)}")
     return out
 
 

@@ -5,9 +5,11 @@ uint8 in natural column order: column c of a row is bit (c % 8) of byte
 c // 8 (the layout of ops/bitgraph.py's ``_pack_side``); ``rows`` (R,)
 int64 picks rows of it, repeats allowed. Two functions:
 
-* ``bit_rows_matmul(bits, rows, v)`` replaces ``bit_rows_matmul`` (:56):
-  ``B[rows] @ v`` for v (n_v, D) bfloat16, n_v <= nbytes * 8, an (R, D)
-  float32 result;
+* ``bit_rows_matmul(bits, rows, v, counts=None)`` replaces
+  ``bit_rows_matmul`` (:56): ``B[rows] @ v`` for v (n_v, D) bfloat16, n_v <=
+  nbytes * 8, an (R, D) float32 result; ``counts`` (n_major,) int32, the
+  image's set bits a row, lets the kernel cut popular rows into pieces (it
+  moves the work's balance, never the result);
 * ``bit_cols_matmul(bits, rows, g)`` replaces ``bit_cols_matmul`` (:95):
   ``B[rows]^T @ g`` for g (R, D) bfloat16, an (nbytes * 8, D) float32
   result, duplicate rows summed.
@@ -19,9 +21,9 @@ function this module holds a plain PyTorch version (unpack to {0, 1}, then a
 float32 product), the launcher of a hand-written Hopper kernel from
 ``csrc/bit_kernels.cu`` with a launch counter, and a dispatcher: the plain
 version for CPU tensors, the kernel for CUDA tensors, no fallback between
-them. The kernels sum in fp32 in an order fixed by the data; the column
-kernel is deterministic (no float atomics). ``bit_cols_plan`` chooses the
-column kernel's grid on the host.
+them. The kernels sum in fp32 in an order fixed by the data, deterministic
+(no float atomics). ``bit_cols_plan`` chooses the column kernel's grid on
+the host; the row kernel plans its work on the card (two launches a call).
 """
 
 import ctypes
@@ -118,6 +120,18 @@ def bit_cols_plan(R, nbytes, D, sms, blocks_per_sm, max_cluster=MAX_CLUSTER):
 
 _LIB = None
 _OCCUPANCY = {}
+_ROWS_OCCUPANCY = {}
+# the row kernel's counters a call (csrc/bit_kernels.cu's enum, in order), the
+# first words of its scratch (``rows_counters``)
+ROWS_COUNTERS = ("slots taken", "walk blocks done", "picks resolved", "unsplit walkers",
+                 "split walkers", "copies", "picks outside")
+
+# the row kernel's state between calls, one per (device, stream): owner words
+# of the largest image called on and the epoch; a grown state replaces the
+# old one, which stays alive (a captured CUDA graph may still use it)
+_ROWS_STATE = {}
+_ROWS_STATES_KEPT = []
+_ROWS_SIZES = {}
 
 
 def _lib():
@@ -133,7 +147,12 @@ def _lib():
         lib.bit_cols_smem_bytes.restype = ll
         lib.bit_cols_occupancy.argtypes = [i, ip, ip, ip]
         lib.bit_cols_occupancy.restype = i
-        lib.bit_rows_launch.argtypes = [p, ll, i, p, i, p, ll, i, p, p]
+        llp = ctypes.POINTER(ctypes.c_longlong)
+        lib.bit_rows_sizes.argtypes = [i, i, llp, llp, ip]
+        lib.bit_rows_sizes.restype = i
+        lib.bit_rows_occupancy.argtypes = [i, ip, ip]
+        lib.bit_rows_occupancy.restype = i
+        lib.bit_rows_launch.argtypes = [p, ll, i, p, i, p, ll, i, p, p, p, p, p, i, p, p, ip]
         lib.bit_rows_launch.restype = i
         lib.bit_cols_launch.argtypes = [p, ll, i, p, i, p, i, i, p, p, ip]
         lib.bit_cols_launch.restype = i
@@ -145,6 +164,11 @@ def _lib():
         if (max_d.value, multiple.value) != (MAX_D, STRIP_BYTES):
             raise RuntimeError(f"csrc/bit_kernels.cu's limits {lib.limits} do not match "
                                f"ops/bit_kernels.py's (D <= {MAX_D}, {STRIP_BYTES}-byte strips)")
+        words, pairs, ctr = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+        lib.bit_rows_sizes(1, 2, ctypes.byref(words), ctypes.byref(pairs), ctypes.byref(ctr))
+        if ctr.value != len(ROWS_COUNTERS):
+            raise RuntimeError(f"csrc/bit_kernels.cu keeps {ctr.value} row-kernel counters, "
+                               f"ops/bit_kernels.py names {len(ROWS_COUNTERS)}")
         _LIB = lib
     return _LIB
 
@@ -163,6 +187,50 @@ def cols_occupancy(device, D):
             raise RuntimeError(f"bit_cols occupancy query failed: CUDA error {err}")
         _OCCUPANCY[key] = (sms.value, per_sm.value, most.value)
     return _OCCUPANCY[key]
+
+
+def rows_occupancy(device, D):
+    """(SMs, blocks an SM holds at once) of the row kernel's walk at D on the
+    CUDA device ``device``, asked of the runtime once per device and D."""
+    key = (device.index, D)
+    if key not in _ROWS_OCCUPANCY:
+        sms, per_sm = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            err = _lib().bit_rows_occupancy(D, ctypes.byref(sms), ctypes.byref(per_sm))
+        if err:
+            raise RuntimeError(f"bit_rows occupancy query failed: CUDA error {err}")
+        _ROWS_OCCUPANCY[key] = (sms.value, per_sm.value)
+    return _ROWS_OCCUPANCY[key]
+
+
+def rows_scratch_sizes(R, D):
+    """(int32 words, float pairs) of a row-kernel call's scratch at R and D,
+    asked of the library once per (R, D); the words rounded up to even so
+    that the pairs that follow them are 8-byte aligned."""
+    key = (R, D)
+    if key not in _ROWS_SIZES:
+        words, pairs, ctr = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+        err = _lib().bit_rows_sizes(R, D, ctypes.byref(words), ctypes.byref(pairs),
+                                    ctypes.byref(ctr))
+        if err:
+            raise RuntimeError(f"bit_rows scratch sizes failed: CUDA error {err}")
+        _ROWS_SIZES[key] = (words.value + words.value % 2, pairs.value)
+    return _ROWS_SIZES[key]
+
+
+def rows_state(device, stream, n_major):
+    """The row kernel's (owner words, epoch) on ``device`` for calls on
+    ``stream``, with at least ``n_major`` owner words: zeros when made, then
+    kept by the kernels (each call tags the words it claims with its epoch,
+    the next call's epoch is one more)."""
+    key = (device.index, stream)
+    state = _ROWS_STATE.get(key)
+    if state is None or state[0].numel() < n_major:
+        state = (torch.zeros(max(n_major, 1), dtype=torch.int64, device=device),
+                 torch.zeros(1, dtype=torch.int64, device=device))
+        _ROWS_STATE[key] = state
+        _ROWS_STATES_KEPT.append(state)
+    return state
 
 
 def _check(name, bits, rows, x):
@@ -193,26 +261,60 @@ def _check(name, bits, rows, x):
     return n_major, nbytes, rows.numel(), D
 
 
-def bit_rows_matmul_cuda(bits, rows, v):
-    """Launch ``bit_rows_kernel``; same contract as ``bit_rows_matmul_torch``.
-    Counts its launches in ``bit_rows_matmul_cuda.launches``."""
+def bit_rows_matmul_cuda(bits, rows, v, counts=None):
+    """Launch ``bit_rows_claim_kernel`` and ``bit_rows_kernel``; same
+    contract as ``bit_rows_matmul_torch``. ``counts`` (n_major,) int32 on the
+    same device, the image's set bits a row (None: every row walked whole),
+    only balances the work. Counts its calls in
+    ``bit_rows_matmul_cuda.launches`` and the kernels they launch in
+    ``.kernel_launches``; keeps the walk's grid as the launcher reports it in
+    ``.last_grid`` and the call's scratch in ``.last_scratch`` (its counters:
+    ``rows_counters``)."""
     name = "bit_rows_matmul_cuda"
     n_major, nbytes, R, D = _check(name, bits, rows, v)
     if v.shape[0] > nbytes * 8:
         raise ValueError(f"{name}: v has {v.shape[0]} rows, the bits {nbytes * 8} columns")
+    if counts is not None and (counts.dtype != torch.int32 or counts.shape != (n_major,)
+                               or not counts.is_contiguous() or counts.device != v.device):
+        raise TypeError(f"{name} takes contiguous ({n_major},) int32 counts on {v.device}, got "
+                        f"{counts.dtype} {tuple(counts.shape)} on {counts.device}")
     out = torch.empty((R, D), dtype=torch.float32, device=v.device)
     if R == 0:
         return out
+    words, pairs = rows_scratch_sizes(R, D)
+    # the plan's int32 words, then the partial sums' float pairs (8-byte aligned)
+    scratch = torch.empty(words + 2 * pairs, dtype=torch.int32, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    owner, epoch = rows_state(v.device, stream, n_major)
+    sms, per_sm = rows_occupancy(v.device, D)
+    report = (ctypes.c_int * 4)()
     err = _lib().bit_rows_launch(bits.data_ptr(), n_major, nbytes, rows.data_ptr(), R,
-                                 v.data_ptr(), v.shape[0], D, out.data_ptr(),
-                                 torch.cuda.current_stream(v.device).cuda_stream)
+                                 v.data_ptr(), v.shape[0], D,
+                                 None if counts is None else counts.data_ptr(),
+                                 owner.data_ptr(), epoch.data_ptr(), scratch.data_ptr(),
+                                 scratch.data_ptr() + 4 * words, sms * per_sm, out.data_ptr(),
+                                 stream, report)
     if err:
         raise RuntimeError(f"bit_rows kernel launch failed: CUDA error {err}")
     bit_rows_matmul_cuda.launches += 1
+    bit_rows_matmul_cuda.kernel_launches += report[0]
+    bit_rows_matmul_cuda.last_grid = {"blocks": report[1], "warps": report[2],
+                                      "slots": report[3]}
+    bit_rows_matmul_cuda.last_scratch = scratch
     return out
 
 
+def rows_counters():
+    """The last row-kernel call's counters by name (``ROWS_COUNTERS``): the
+    first words of its scratch, read from the card (a synchronize)."""
+    scratch = bit_rows_matmul_cuda.last_scratch
+    return dict(zip(ROWS_COUNTERS, scratch[:len(ROWS_COUNTERS)].tolist()))
+
+
 bit_rows_matmul_cuda.launches = 0
+bit_rows_matmul_cuda.kernel_launches = 0
+bit_rows_matmul_cuda.last_grid = None
+bit_rows_matmul_cuda.last_scratch = None
 
 
 def bit_cols_matmul_cuda(bits, rows, g):
@@ -246,12 +348,12 @@ bit_cols_matmul_cuda.last_grid = None
 
 # --------------------------------------------------------------- dispatchers
 
-def bit_rows_matmul(bits, rows, v):
-    """``B[rows] @ v`` -> (R, D) float32. The plain version for CPU tensors,
-    the kernel otherwise."""
+def bit_rows_matmul(bits, rows, v, counts=None):
+    """``B[rows] @ v`` -> (R, D) float32. The plain version for CPU tensors
+    (``counts`` unused), the kernel otherwise."""
     if v.device.type == "cpu":
         return bit_rows_matmul_torch(bits, rows, v)
-    return bit_rows_matmul_cuda(bits, rows, v)
+    return bit_rows_matmul_cuda(bits, rows, v, counts)
 
 
 def bit_cols_matmul(bits, rows, g):

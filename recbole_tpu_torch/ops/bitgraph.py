@@ -43,6 +43,13 @@ def bitgraph_bytes(n_users, n_items):
     return n_users * ubytes + n_items * ibytes
 
 
+def side_counts(major, minor, n_major, n_minor):
+    """The set bits of each row of ``_pack_side``'s image, (n_major,) int32:
+    the distinct minor ids of each major id."""
+    pairs = np.unique(major.astype(np.int64) * n_minor + minor)
+    return np.bincount(pairs // n_minor, minlength=n_major).astype(np.int32)
+
+
 def _pack_side(major, minor, n_major, n_minor):
     """Packed-bit matrix (n_major, nbytes) uint8 with bit (minor % 8) of byte
     (major, minor // 8) set for each edge; nbytes is ceil(n_minor / 8)
@@ -56,9 +63,10 @@ def _pack_side(major, minor, n_major, n_minor):
 
 class BitRestrictedGraph(nn.Module):
     """Packed-bit images of B, one per major axis (``bg_user_bits``
-    (n_users, ~n_items / 8), ``bg_item_bits`` (n_items, ~n_users / 8)), and
-    the D^-1/2 vectors ``bg_unorm``/``bg_inorm``, as non-persistent
-    buffers."""
+    (n_users, ~n_items / 8), ``bg_item_bits`` (n_items, ~n_users / 8)), the
+    D^-1/2 vectors ``bg_unorm``/``bg_inorm``, and each image's set bits a row
+    (``bg_user_counts``, ``bg_item_counts``, int32: the row kernel's split),
+    as non-persistent buffers."""
 
     def __init__(self, inter_matrix, n_users, n_items, device=None):
         super().__init__()
@@ -74,6 +82,8 @@ class BitRestrictedGraph(nn.Module):
             "bg_item_bits": _pack_side(i, u, n_items, n_users),
             "bg_unorm": 1.0 / np.sqrt(np.maximum(du, 1.0)),
             "bg_inorm": 1.0 / np.sqrt(np.maximum(di, 1.0)),
+            "bg_user_counts": side_counts(u, i, n_users, n_items),
+            "bg_item_counts": side_counts(i, u, n_items, n_users),
         }
         t1 = time.time()
         for name, value in consts.items():
@@ -82,11 +92,12 @@ class BitRestrictedGraph(nn.Module):
         self.build_seconds = {"packed": t1 - t0, "upload": time.time() - t1}
 
 
-def restricted_rows_apply(bits, rows, row_norm, col_norm, v):
+def restricted_rows_apply(bits, rows, row_norm, col_norm, v, counts=None):
     """(A_hat v)[rows] for one bipartite direction: diag(row_norm)[rows] @
-    B[rows, :] @ diag(col_norm) @ v, (R, D) float32."""
+    B[rows, :] @ diag(col_norm) @ v, (R, D) float32. ``counts``, the image's
+    set bits a row, balances the row kernel's work."""
     vv = (v * col_norm[:, None]).to(torch.bfloat16)
-    return bit_rows_matmul(bits, rows, vv) * row_norm[rows][:, None]
+    return bit_rows_matmul(bits, rows, vv, counts) * row_norm[rows][:, None]
 
 
 def restricted_cols_apply(bits, rows, row_norm, col_norm, g, n_cols):
@@ -118,8 +129,10 @@ class LinearPropBatch:
         """(A_hat t)[rows_u] on the user side, [rows_i] on the item side."""
         bg = self.bitgraph
         tu, ti = t[:self.n_users], t[self.n_users:]
-        out_u = restricted_rows_apply(bg.bg_user_bits, rows_u, bg.bg_unorm, bg.bg_inorm, ti)
-        out_i = restricted_rows_apply(bg.bg_item_bits, rows_i, bg.bg_inorm, bg.bg_unorm, tu)
+        out_u = restricted_rows_apply(bg.bg_user_bits, rows_u, bg.bg_unorm, bg.bg_inorm, ti,
+                                      bg.bg_user_counts)
+        out_i = restricted_rows_apply(bg.bg_item_bits, rows_i, bg.bg_inorm, bg.bg_unorm, tu,
+                                      bg.bg_item_counts)
         return out_u, out_i
 
     def restricted_first_bwd(self, g_u, g_i, rows_u, rows_i):

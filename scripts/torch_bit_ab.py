@@ -18,13 +18,18 @@ machine. It prints, for ``bit_rows_matmul_cuda`` and
 * ``bound_ms`` (``chip_smoke.time_bit_kernels``' count of the bytes) and
   ``library_ms``: the unpacked rows in bf16 through ``torch.mm``;
 * ``launches``: the kernels one call launches, with their device time
-  (torch.profiler); for the column kernel, the grid its last call launched
-  where the tree's wrapper keeps it (blocks, cluster size) and the waves
-  that makes at the runtime's occupancy;
+  (torch.profiler), and ``wrapper``: the calls and kernel launches of 20
+  calls by the wrapper's own counters where it keeps them; the grid its
+  last call launched where the tree's wrapper keeps it (the column kernel:
+  blocks, cluster size, and the waves that makes at the runtime's
+  occupancy; the row kernel: the walk's blocks, warps and split slots, and
+  its counters);
 
-then both kernels on the item side's 2,048 positives and 2,048 negatives
-alone, the column kernel at ml-100k's two sides (a draw of its counts:
-943 users, 1,682 items, 100,000 interactions; 256 bytes a row), the two
+the row kernel gets each image's set bits a row where the tree's wrapper
+takes them. Then both kernels on the item side's 2,048 positives and 2,048
+negatives alone (events and graph), both kernels at ml-100k's two sides (a
+draw of its counts: 943 users, 1,682 items, 100,000 interactions; 256 bytes
+a row), the two
 other kernels of LightGCN's step at the Yelp shape as ``chip_smoke.py`` times
 them (``windowed_grad`` into the user and item tables, ``time_windowed``;
 Adam over the two tables, ``time_adam``), and LightGCN-Yelp's steady step
@@ -37,6 +42,7 @@ non-zero without a card.
 
 import argparse
 import importlib.util
+import inspect
 import os
 import subprocess
 import sys
@@ -61,8 +67,13 @@ def ml100k_bit_inputs(torch, tools, seed=11):
     rows_u = torch.from_numpy(uids[pick].astype(np.int64)).cuda()
     rows_i = torch.from_numpy(np.concatenate([iids[pick], rng.randint(1, n_i, 2048)])
                               .astype(np.int64)).cuda()
-    return {"user": (torch.from_numpy(_pack_side(uids, iids, n_u, n_i)).cuda(), rows_u, n_i),
-            "item": (torch.from_numpy(_pack_side(iids, uids, n_i, n_u)).cuda(), rows_i, n_u)}
+    out = {}
+    for side, image, rows, n_cols in (("user", _pack_side(uids, iids, n_u, n_i), rows_u, n_i),
+                                      ("item", _pack_side(iids, uids, n_i, n_u), rows_i, n_u)):
+        counts = np.unpackbits(image, axis=1).sum(axis=1).astype(np.int32)
+        out[side] = (torch.from_numpy(image).cuda(), rows, n_cols,
+                     torch.from_numpy(counts).cuda())
+    return out
 
 
 def grid(bk, device, D):
@@ -75,12 +86,35 @@ def grid(bk, device, D):
     return {**last, "slots": sms * per_sm, "waves": -(-last["blocks"] // (sms * per_sm))}
 
 
+def row_call(bk, bits, rows, v, counts):
+    """A call of the tree's row kernel, with the counts where it takes them."""
+    if "counts" in inspect.signature(bk.bit_rows_matmul_cuda).parameters:
+        return lambda: bk.bit_rows_matmul_cuda(bits, rows, v, counts)
+    return lambda: bk.bit_rows_matmul_cuda(bits, rows, v)
+
+
+def wrapper_counts(torch, bk, kernel, call):
+    """Calls and kernel launches of 20 calls by the wrapper's counters, and
+    what its last call reports (grid, counters), where the wrapper keeps them."""
+    before = (kernel.launches, getattr(kernel, "kernel_launches", None))
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    out = {"calls": (kernel.launches - before[0]) / 20}
+    if before[1] is not None:
+        out["kernels"] = (kernel.kernel_launches - before[1]) / 20
+    if hasattr(bk, "rows_counters") and kernel is bk.bit_rows_matmul_cuda:
+        out["grid"] = kernel.last_grid
+        out["counters"] = bk.rows_counters()
+    return out
+
+
 def time_kernels(torch, tools, bk, clusters):
     rng = np.random.RandomState(23)
     images = tools.yelp_bit_inputs(torch, seed=7)
     D = 64
     for side in ("user", "item"):
-        bits, rows, n_cols = images[side]
+        bits, rows, n_cols, counts = images[side]
         R, nbytes = rows.numel(), bits.shape[1]
         v = torch.from_numpy(rng.randn(n_cols, D).astype(np.float32) * 0.1).cuda().bfloat16()
         g = torch.from_numpy(rng.randn(R, D).astype(np.float32) * 1e-3).cuda().bfloat16()
@@ -90,23 +124,21 @@ def time_kernels(torch, tools, bk, clusters):
         distinct = int(torch.unique(rows).numel())
         del unpacked
         v_pad = bk.pad_k(v, nbytes * 8)
-        work = {"bit_rows_matmul": (v, lambda: torch.mm(bk.unpack_bits(bits[rows]).bfloat16(),
-                                                        v_pad, out_dtype=torch.float32),
+        work = {"bit_rows_matmul": (row_call(bk, bits, rows, v, counts),
+                                    lambda: torch.mm(bk.unpack_bits(bits[rows]).bfloat16(),
+                                                     v_pad, out_dtype=torch.float32),
                                     touched * D * 2 + R * D * 4),
-                "bit_cols_matmul": (g, lambda: torch.mm(bk.unpack_bits(bits[rows]).bfloat16().T,
-                                                        g, out_dtype=torch.float32),
+                "bit_cols_matmul": (lambda: bk.bit_cols_matmul_cuda(bits, rows, g),
+                                    lambda: torch.mm(bk.unpack_bits(bits[rows]).bfloat16().T,
+                                                     g, out_dtype=torch.float32),
                                     R * D * 2 + nbytes * 8 * D * 4)}
-        for name, (x, lib, io_bytes) in work.items():
-            kernel = getattr(bk, f"{name}_cuda")
-
-            def call():
-                return kernel(bits, rows, x)
-
+        for name, (call, lib, io_bytes) in work.items():
             t = {"ms": tools.cuda_ms(torch, call, 50), "graph_ms": tools.graph_ms(torch, call),
                  "library_ms": tools.cuda_ms(torch, lib, 10)}
             t["bound_ms"], t["bound_by"] = tools.bound(float(set_bits * D),
                                                        distinct * nbytes + R * 8 + io_bytes)
             t["launches"] = tools.kernels_per_call(torch, call)
+            t["wrapper"] = wrapper_counts(torch, bk, getattr(bk, f"{name}_cuda"), call)
             if name == "bit_cols_matmul":
                 t["grid"] = grid(bk, bits.device, D)
             tools.log(f"[bit-ab] {name} {side} side R={R} nbytes={nbytes} D={D} ({set_bits} set "
@@ -115,27 +147,31 @@ def time_kernels(torch, tools, bk, clusters):
             for half, sl in (("positives", slice(0, R // 2)), ("negatives", slice(R // 2, R))):
                 sub = rows[sl].contiguous()
                 gs = g[sl].contiguous()
-                ms = {"bit_rows_matmul": tools.cuda_ms(
-                          torch, lambda: bk.bit_rows_matmul_cuda(bits, sub, v), 50),
-                      "bit_cols_matmul": tools.cuda_ms(
-                          torch, lambda: bk.bit_cols_matmul_cuda(bits, sub, gs), 50)}
+                calls = {"bit_rows_matmul": row_call(bk, bits, sub, v, counts),
+                         "bit_cols_matmul": lambda: bk.bit_cols_matmul_cuda(bits, sub, gs)}
+                ms = {k: (round(tools.cuda_ms(torch, c, 50), 4),
+                          round(tools.graph_ms(torch, c), 4)) for k, c in calls.items()}
                 tools.log(f"[bit-ab] item side, the {R // 2} {half} alone "
-                          f"({int(bk.unpack_bits(bits[sub]).sum())} set bits): ms {ms}")
+                          f"({int(bk.unpack_bits(bits[sub]).sum())} set bits): (ms, graph ms) "
+                          f"{ms}")
         if clusters:
             sweep(torch, tools, bk, f"Yelp {side} side", bits, rows, g, clusters)
     small = ml100k_bit_inputs(torch, tools)
     for side in ("user", "item"):
-        bits, rows, _ = small[side]
+        bits, rows, n_cols, counts = small[side]
         g = torch.from_numpy(rng.randn(rows.numel(), D).astype(np.float32) * 1e-3).cuda()
         g = g.bfloat16()
-
-        def call():
-            return bk.bit_cols_matmul_cuda(bits, rows, g)
-
-        t = {"ms": tools.cuda_ms(torch, call, 50), "graph_ms": tools.graph_ms(torch, call),
-             "grid": grid(bk, bits.device, D)}
-        tools.log(f"[bit-ab] bit_cols_matmul ml-100k {side} side R={rows.numel()} "
-                  f"nbytes={bits.shape[1]} D={D}: {t}")
+        v = torch.from_numpy(rng.randn(n_cols, D).astype(np.float32) * 0.1).cuda().bfloat16()
+        calls = {"bit_rows_matmul": row_call(bk, bits, rows, v, counts),
+                 "bit_cols_matmul": lambda: bk.bit_cols_matmul_cuda(bits, rows, g)}
+        for name, call in calls.items():
+            t = {"ms": tools.cuda_ms(torch, call, 50), "graph_ms": tools.graph_ms(torch, call)}
+            if name == "bit_cols_matmul":
+                t["grid"] = grid(bk, bits.device, D)
+            else:
+                t["wrapper"] = wrapper_counts(torch, bk, bk.bit_rows_matmul_cuda, call)
+            tools.log(f"[bit-ab] {name} ml-100k {side} side R={rows.numel()} "
+                      f"nbytes={bits.shape[1]} D={D}: {t}")
         if clusters:
             sweep(torch, tools, bk, f"ml-100k {side} side", bits, rows, g, clusters)
 

@@ -1,45 +1,51 @@
-"""Where the packed-bit column kernel's time goes, on one CUDA card: clocks
-of every warp of every block, read by ``clock64`` and ``%globaltimer`` in a
+"""Where the packed-bit kernels' time goes, on one CUDA card: clocks of
+every warp of every block, read by ``clock64`` and ``%globaltimer`` in a
 probed copy of the source.
 
-    python scripts/torch_bit_probe.py [TREE]
+    python scripts/torch_bit_probe.py [TREE] [--kernel cols|rows]
 
 TREE (default: the checkout this script lies in) is a checkout whose
-``recbole_tpu_torch/csrc/bit_kernels.cu`` holds one of the column kernels
-the probe sets below know (the earlier ``bit_cols_kernel`` of a block a
-strip, in a checkout of a commit before the split kernel, or the split kernel
-that replaced it). The script writes a copy of
-that source with the probes put in, builds it with the port's nvcc flags into
-``recbole_tpu_torch/_build/``, runs ``bit_cols_matmul_cuda`` through the
-tree's own launcher at both Yelp sides as ``chip_smoke.time_bit_kernels``
-draws them (seed 7: 2,048 users into the user image, 4,096 items into the
-item image, D 64), and prints for each side:
+``recbole_tpu_torch/csrc/bit_kernels.cu`` holds the kernels the probe sets
+below know: the column kernel of a cluster a strip (``--kernel cols``, the
+default) and the row kernel's walk of a persistent grid (``--kernel
+rows``). The script writes a copy of that source with the probes put in,
+builds it with the port's nvcc flags into ``recbole_tpu_torch/_build/``, runs
+``bit_cols_matmul_cuda`` or ``bit_rows_matmul_cuda`` through the tree's own
+launcher at both Yelp sides as ``chip_smoke.time_bit_kernels`` draws them
+(seed 7: 2,048 users into the user image, 4,096 items into the item image,
+D 64; the row kernel with the images' counts), and prints, beside ptxas'
+registers and the kernel's blocks an SM (the launcher's occupancy query),
+for each side:
 
 * the grid: blocks, the SMs they ran on, the most blocks an SM held at
   once, and the waves (an SM's blocks over that);
 * each block's time from its first warp's start to its last warp's end
   (least, median, most, in clocks and microseconds), and the kernel's span;
   the median time of the blocks that started before any block ended (the
-  first wave) and of those that started later: whether a block that shares
-  its SM with fewer others runs faster;
-* the warp of the slowest block that was slowest, and the warp with the most
-  set bits: its set bits, its groups of 32 rows with a set bit, and its
-  clocks in three phases (the earlier kernel: waiting for g, adding, at the tile
-  barriers; the split kernel: waiting for a tile, adding, the cluster's sum
-  and the stores), and the rest;
+  first wave) and of those that started later;
+* the slowest warp of the slowest block, the warp with the most set bits
+  and the 5 slowest warps: set bits, groups (the column kernel: groups of
+  32 rows with a set bit; the row kernel: rows and pieces walked), and
+  clocks by phase (the column kernel: waiting for a tile, adding, the
+  cluster's sum and the stores; the row kernel: waiting for the claims, for
+  bits, numbering and queueing, the rounds of v, resolving the picks), and
+  the rest;
 * the same clocks summed over all warps, so the shares of the whole;
 * the kernel's time by CUDA events, probed and as built.
 
-``--cluster C`` runs the split kernel with clusters of C blocks in place of
-those ``bit_cols_plan`` picks. ``--variants`` (some of no-adds, no-g, stream,
-stream-no-out, warp-cols-32) also builds copies of the split kernel with one
-part taken out or changed and prints their CUDA-graph times beside the
-kernel's, in turns: what each part costs (the copies' results are wrong).
+``--cluster C`` runs the column kernel with clusters of C blocks in place
+of those ``bit_cols_plan`` picks. ``--variants`` also builds copies of the
+kernel with one part taken out or changed and prints their CUDA-graph times
+beside the kernel's, in turns: for the column kernel no-adds, no-g, stream,
+stream-no-out, warp-cols-32 (what each part costs; wrong results); for the
+row kernel split-64, split-256, pieces-64, ring-2, no-hints (other split
+sizes, a shorter ring, no L2 priorities; right results), no-rounds and
+stream-only (what the rounds of v, and the queueing, cost; wrong results).
 ``--widths`` also times a kernel that only streams the picked rows' bytes,
 a block a strip of 32, 64 or 128 bytes: what reading them costs at all.
 
 A probe reads the clock once the values it waits for are in registers, so
-"waiting for g" is from issuing a batch of g loads to the last one landing;
+"waiting for g" is from issuing a batch of loads to the last one landing;
 clock reads beside a barrier may be moved by the compiler, so time at the
 barriers can show as "the rest". Exits non-zero without a card.
 """
@@ -53,9 +59,9 @@ import sys
 
 import numpy as np
 
-# a record a warp: start ns, end ns, clocks, the probe set's three phases,
-# set bits, groups with a set bit, SM, 1
-FIELDS = 10
+# a record a warp: start ns, end ns, clocks, the probe set's five phases,
+# set bits, groups, SM, 1
+FIELDS = 12
 MAX_WARPS = 32
 
 HEADER = (
@@ -76,55 +82,15 @@ RECORD = (
     "    if ((threadIdx.x & 31) == 0) {\n"
     f"      unsigned long long* q = g_probe + ((size_t)blockIdx.x * {MAX_WARPS} + "
     f"(threadIdx.x >> 5)) * {FIELDS};\n"
-    "      q[0] = pg0; q[1] = pg1; q[2] = pt1 - pt0; q[3] = pw; q[4] = pa; q[5] = pb;\n"
-    "      q[6] = pbits; q[7] = pgroups; q[8] = smid; q[9] = 1;\n"
+    "      q[0] = pg0; q[1] = pg1; q[2] = pt1 - pt0;\n"
+    "      q[3] = p0; q[4] = p1; q[5] = p2; q[6] = p3; q[7] = p4;\n"
+    "      q[8] = pbits; q[9] = pgroups; q[10] = smid; q[11] = 1;\n"
     "    }\n"
     "  }\n")
 
-START = ("  unsigned long long pt0, pg0, pw = 0, pa = 0, pb = 0, pc_a, pc_b;\n"
+START = ("  unsigned long long pt0, pg0, p0 = 0, p1 = 0, p2 = 0, p3 = 0, p4 = 0, pc_a, pc_b;\n"
          "  unsigned pbits = 0, pgroups = 0;\n"
          "  PCLK(pt0);\n  PGT(pg0);\n")
-
-
-def barrier(line):
-    """``line`` (a ``__syncthreads()`` with its indentation) with its clocks
-    counted in pb."""
-    pad = line[:len(line) - len(line.lstrip())]
-    return f"{pad}PCLK(pc_a);\n{line}{pad}PCLK(pc_b);\n{pad}pb += pc_b - pc_a;\n"
-
-
-# (anchor, replacement, count) for the earlier kernel: a block a 32-byte strip,
-# a warp a 4-byte word, g rows loaded in batches by add_g_rows
-PARENT = [
-    ("constexpr unsigned kFull = 0xffffffffu;\n",
-     HEADER + "constexpr unsigned kFull = 0xffffffffu;\n", 1),
-    ("float2* acc2, int warp, int lane) {\n  int src[NB];\n",
-     "float2* acc2, int warp, int lane, unsigned long long& pw,\n"
-     "                                           unsigned long long& pa) {\n"
-     "  unsigned long long pc0, pc1, pc2;\n  int src[NB];\n", 1),
-    ("  float2 gv[NB][P];\n", "  PCLK(pc0);\n  float2 gv[NB][P];\n", 1),
-    ("#pragma unroll\n  for (int b = 0; b < NB; ++b) {\n    if (src[b] < 0) break;",
-     "  {\n    float sk = 0.0f;\n#pragma unroll\n    for (int b = 0; b < NB; ++b)\n"
-     "#pragma unroll\n      for (int p = 0; p < P; ++p) sk += gv[b][p].x;\n"
-     "    PSINK(sk);\n  }\n  PCLK(pc1);\n"
-     "#pragma unroll\n  for (int b = 0; b < NB; ++b) {\n    if (src[b] < 0) break;", 1),
-    ("          a[d2].y += gv[b][p].y;\n        }\n      }\n    }\n  }\n}\n",
-     "          a[d2].y += gv[b][p].y;\n        }\n      }\n    }\n  }\n"
-     "  PCLK(pc2);\n  pw += pc1 - pc0;\n  pa += pc2 - pc1;\n}\n", 1),
-    ("np, acc2, warp, lane);", "np, acc2, warp, lane, pw, pa);", 4),
-    ("  const int byte0 = blockIdx.x * kStripBytes;\n",
-     "  const int byte0 = blockIdx.x * kStripBytes;\n" + START, 1),
-    ("    __syncthreads();  // the previous tile has been read (and acc zeroed, any_bad set)\n",
-     barrier("    __syncthreads();  // the previous tile has been read (and acc zeroed, any_bad "
-             "set)\n"), 1),
-    ("    __syncthreads();\n    if (r0 + kTileRows < R)\n",
-     barrier("    __syncthreads();\n") + "    if (r0 + kTileRows < R)\n", 1),
-    ("      unsigned lanes = __ballot_sync(kFull, word != 0u);\n",
-     "      unsigned lanes = __ballot_sync(kFull, word != 0u);\n"
-     "      pbits += __popc(word);\n      pgroups += lanes != 0u;\n", 1),
-    ("    dst[i] = any_bad ? fill : acc[i];\n}\n",
-     "    dst[i] = any_bad ? fill : acc[i];\n" + RECORD + "}\n", 1),
-]
 
 # the split kernel: a cluster of C blocks a strip, a block a slice of the
 # rows, bits and g staged by cp.async, a warp 16 columns of the strip
@@ -138,24 +104,66 @@ SPLIT = [
      "landed\n", 1),
     ("      __syncthreads();     // for every thread; and tile i - 1 has been read\n",
      "      __syncthreads();     // for every thread; and tile i - 1 has been read\n"
-     "      PCLK(pc_b);\n      pw += pc_b - pc_a;\n", 1),
+     "      PCLK(pc_b);\n      p0 += pc_b - pc_a;\n", 1),
     ("    if (i >= 0) {\n", "    PCLK(pc_a);\n    if (i >= 0) {\n", 1),
     ("        unsigned m = __ballot_sync(kFull, cols != 0u);\n",
      "        unsigned m = __ballot_sync(kFull, cols != 0u);\n"
      "        pbits += __popc(cols);\n        pgroups += m != 0u;\n", 1),
     ("          } while (set);\n        }\n      }\n    }\n  }\n  if (bad) any_bad = 1;\n",
      "          } while (set);\n        }\n      }\n    }\n    PCLK(pc_b);\n"
-     "    pa += pc_b - pc_a;\n  }\n  if (bad) any_bad = 1;\n  PCLK(pc_a);\n", 1),
+     "    p1 += pc_b - pc_a;\n  }\n  if (bad) any_bad = 1;\n  PCLK(pc_a);\n", 1),
     ("  cluster.sync();  // no block leaves while another reads its sums\n}\n",
      "  cluster.sync();  // no block leaves while another reads its sums\n"
-     "  PCLK(pc_b);\n  pb += pc_b - pc_a;\n" + RECORD + "}\n", 1),
+     "  PCLK(pc_b);\n  p2 += pc_b - pc_a;\n" + RECORD + "}\n", 1),
 ]
 
-# copies of the split kernel with one part taken out, timed beside it (their
-# results are wrong: timings only)
+# the row kernel's walk (bit_rows_kernel): a persistent grid of independent
+# warps, each resolving its picks, walking split pieces and unsplit rows,
+# and filling its copies. Phases: p0 waiting for the claims (griddep_wait),
+# p1 waiting for a super-chunk's bytes, p2 numbering and queueing (the walks
+# less p1 and p3), p3 the rounds of v (loads and adds), p4 resolving the
+# picks; the rest (waiting for slots and walkers, the partial sums, the
+# ticket, the stores) is "other". Set bits: those queued; groups: walks
+_WALK_ARGS = ", p1, pn, p3, pbits);\n"
+ROWS_WALK = [
+    ("constexpr unsigned kFull = 0xffffffffu;\n",
+     HEADER + "constexpr unsigned kFull = 0xffffffffu;\n", 1),
+    ("                                         int np, WarpSmem& ws, int lane, "
+     "float2 (&acc)[P]) {\n",
+     "                                         int np, WarpSmem& ws, int lane, float2 (&acc)[P],\n"
+     "                                         unsigned long long& pw, unsigned long long& pn,\n"
+     "                                         unsigned long long& pr, unsigned& pbits) {\n"
+     "  unsigned long long pc_a, pc_b, pc_w0;\n  PCLK(pc_w0);\n", 1),
+    ("    cp_async_wait<kStages - 1>();\n",
+     "    PCLK(pc_a);\n    cp_async_wait<kStages - 1>();\n    PCLK(pc_b);\n"
+     "    pw += pc_b - pc_a;\n", 1),
+    ("      q += take;\n      a += take;\n",
+     "      pbits += lane == 0 ? take : 0;\n      q += take;\n      a += take;\n", 1),
+    ("      for (int i = 0; i < full; i += 32)\n        add_queued<P, VEC>(",
+     "      PCLK(pc_a);\n      for (int i = 0; i < full; i += 32)\n        add_queued<P, VEC>(", 1),
+    ("                           piece);\n",
+     "                           piece);\n      PCLK(pc_b);\n      pr += pc_b - pc_a;\n", 1),
+    ("  cp_async_wait<0>();  // the copies in flight land before the ring is reused\n}\n",
+     "  cp_async_wait<0>();  // the copies in flight land before the ring is reused\n"
+     "  PCLK(pc_b);\n  pn += pc_b - pc_w0;\n}\n", 1),
+    ("  griddep_wait();  // the claims\n  const RowsScratch p = rows_scratch(scratch, R);\n",
+     START + "  unsigned long long pn = 0;\n  griddep_wait();  // the claims\n"
+     "  const RowsScratch p = rows_scratch(scratch, R);\n  PCLK(pc_b);\n  p0 = pc_b - pt0;\n", 1),
+    ("  // 2. this warp's slots,",
+     "  PCLK(pc_a);\n  p4 = pc_a - pc_b;\n  // 2. this warp's slots,", 1),
+    ("                     n_v, np, ws, lane, acc);\n",
+     "                     n_v, np, ws, lane, acc" + _WALK_ARGS + "    ++pgroups;\n", 1),
+    ("  // the last block to finish advances the epoch\n",
+     "  p2 = pn - p1 - p3;\n" + RECORD + "  // the last block to finish advances the epoch\n", 1),
+]
+
+# copies of the kernels with one part taken out or changed, timed beside
+# them (the column kernel's copies give wrong results: timings only)
 _NO_ADDS = ("    if (i >= 0) {\n", "    if (i >= 0 && i < -9) {\n")
 _NO_G = ("      if (any) {  // row gr holds a set bit in the strip\n",
          "      if (any && i < -9) {\n")
+_NO_ROUNDS = ("  for (int h = 0; h < n; h += kRows) {\n",
+              "  for (int h = 0; h < n && n < 0; h += kRows) {\n")
 VARIANTS = {
     "no-adds": [_NO_ADDS],
     "no-g": [_NO_G],
@@ -166,12 +174,32 @@ VARIANTS = {
                        "      if (sum.x == 1234.5f) dst4[e] = sum;\n")],
     # a warp a whole 4-byte word (8 warps) in place of half a word (16 warps)
     "warp-cols-32": [("constexpr int kWarpCols = 16;", "constexpr int kWarpCols = 32;")],
+    # the row kernel cut at 64 or 256 set bits a piece in place of 128, or
+    # into at most 64 pieces in place of 128 (right results, other balance);
+    # with a shorter ring; without its L2 priorities; without the rounds of
+    # v; without them or the queueing (the stream and the numbering alone)
+    "split-64": [("constexpr int kSplitBits = 128;", "constexpr int kSplitBits = 64;")],
+    "split-256": [("constexpr int kSplitBits = 128;", "constexpr int kSplitBits = 256;")],
+    "pieces-64": [("constexpr int kMaxPieces = 128;", "constexpr int kMaxPieces = 64;")],
+    # no L2 eviction priorities (bits evict first, rows of v evict last)
+    "no-hints": [("L2::evict_first.b64", "L2::evict_normal.b64"),
+                 ("L2::evict_last.b64", "L2::evict_normal.b64")],
+    # a ring of 2 super-chunks a warp in place of 4 (one in flight, not 3)
+    "ring-2": [("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
+    "no-rounds": [_NO_ROUNDS],
+    "stream-only": [_NO_ROUNDS,
+                    ("      if (take && cnt > 0 && g0 < a + take && g0 + cnt > a)\n",
+                     "      if (take && cnt > 0 && g0 < a + take && g0 + cnt > a && s < -9)\n")],
 }
 
 # name: (anchors, what fields 3, 4 and 5 of a record count)
+# name: (the kernel it probes, anchors, what fields 3-7 of a record count)
 PROBE_SETS = {
-    "the block-a-strip bit_cols_kernel": (PARENT, ("wait g", "add", "barriers")),
-    "the split bit_cols_kernel": (SPLIT, ("wait for the tile", "adds", "cluster sum and stores")),
+    "the split bit_cols_kernel": (
+        "cols", SPLIT, ("wait for the tile", "adds", "cluster sum and stores")),
+    "the row kernel's walk": (
+        "rows", ROWS_WALK, ("wait for the claims", "wait for bits", "number and queue",
+                            "rounds of v", "resolve the picks")),
 }
 
 # --widths: a kernel that only streams the picked rows' bytes, a block a strip
@@ -237,7 +265,7 @@ def stream_widths(torch, tools, images, cuda_build):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.stream_launch.argtypes = [i, p, i, p, i, p, p]
     for side in ("user", "item"):
-        bits, rows, _ = images[side]
+        bits, rows = images[side][:2]
         out = torch.zeros(bits.shape[1], dtype=torch.int32, device="cuda")
         ms = {}
         for S in (32, 64, 128):
@@ -257,12 +285,14 @@ READ = ('\nextern "C" int bit_probe_set(void* p) {\n'
         "  return (int)cudaMemcpyToSymbol(g_probe, &p, sizeof(p));\n}\n")
 
 
-def probe_set(source):
-    """The name of the first probe set whose anchors ``source`` holds."""
-    for name, (pairs, _) in PROBE_SETS.items():
-        if all(source.count(anchor) == n for anchor, _, n in pairs):
+def probe_set(source, kernel):
+    """The name of the first probe set of ``kernel`` whose anchors ``source``
+    holds."""
+    for name, (of, pairs, _) in PROBE_SETS.items():
+        if of == kernel and all(source.count(anchor) == n for anchor, _, n in pairs):
             return name
-    raise SystemExit("torch_bit_probe: bit_kernels.cu matches no probe set; its anchors have moved")
+    raise SystemExit(f"torch_bit_probe: bit_kernels.cu matches no probe set of the {kernel} "
+                     "kernel; its anchors have moved")
 
 
 def stamped(source, pairs, out_dir, tag, cuda_build):
@@ -296,14 +326,15 @@ def use(bk, cuda_build, so):
 
 def summarize(log, side, rec, clock_ghz, names):
     """Print the grid, the blocks' times and the slowest warps of one run."""
-    warps = rec[:, :, 9] == 1
+    phase = range(3, 3 + len(names))
+    warps = rec[:, :, 11] == 1
     blocks = np.flatnonzero(warps.any(axis=1))
     rec = rec[blocks]
     warps = warps[blocks]
     start = np.where(warps, rec[:, :, 0], np.iinfo(np.int64).max).min(axis=1)
     end = np.where(warps, rec[:, :, 1], 0).max(axis=1)
     clocks = np.where(warps, rec[:, :, 2], 0)
-    smid = rec[:, 0, 8]
+    smid = rec[:, 0, 10]
     held, waves = 0, 0
     for sm in np.unique(smid):
         on = np.flatnonzero(smid == sm)
@@ -329,29 +360,34 @@ def summarize(log, side, rec, clock_ghz, names):
 
     def warp_line(label, b, w):
         r = rec[b, w]
-        other = int(r[2] - r[3] - r[4] - r[5])
+        other = int(r[2] - sum(r[k] for k in phase))
         log(f"[bit-probe] {side}: {label}: block {int(blocks[b])} warp {w}: {int(r[2])} clocks; "
-            f"set bits {int(r[6])}, groups with a set bit {int(r[7])}; "
-            + ", ".join(f"{n} {int(r[k])}" for n, k in zip(names, (3, 4, 5)))
+            f"set bits {int(r[8])}, groups {int(r[9])}; "
+            + ", ".join(f"{n} {int(r[k])}" for n, k in zip(names, phase))
             + f", other {other}")
 
     b = int(np.argmax(bc))
     warp_line("slowest warp of the slowest block", b, int(np.argmax(clocks[b])))
     flat = int(np.argmax(clocks))
     warp_line("the warp with the most set bits",
-              *np.unravel_index(int(np.argmax(np.where(warps, rec[:, :, 6], -1))), warps.shape))
-    tot = {n: int(np.where(warps, rec[:, :, k], 0).sum()) for n, k in zip(names, (3, 4, 5))}
+              *np.unravel_index(int(np.argmax(np.where(warps, rec[:, :, 8], -1))), warps.shape))
+    tot = {n: int(np.where(warps, rec[:, :, k], 0).sum()) for n, k in zip(names, phase)}
     all_clk = int(clocks.sum())
     log(f"[bit-probe] {side}: all warps: {all_clk} clocks, set bits "
-        f"{int(np.where(warps, rec[:, :, 6], 0).sum())}; "
+        f"{int(np.where(warps, rec[:, :, 8], 0).sum())}; "
         + ", ".join(f"{n} {v} ({100 * v / all_clk:.1f}%)" for n, v in tot.items())
         + f"; slowest warp of all: block {int(blocks[flat // warps.shape[1]])}")
+    order = np.argsort(np.where(warps, clocks, -1), axis=None)[::-1][:5]
+    for b, w in zip(*np.unravel_index(order, warps.shape)):
+        warp_line("one of the 5 slowest warps", int(b), int(w))
 
 
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
     ap.add_argument("tree", nargs="?", default=here)
+    ap.add_argument("--kernel", choices=("cols", "rows"), default="cols",
+                    help="the column kernel (bit_cols_matmul) or the row kernel")
     ap.add_argument("--cluster", type=int, help="blocks a strip in place of bit_cols_plan's")
     ap.add_argument("--variants", default="", help=f"some of {','.join(VARIANTS)}")
     ap.add_argument("--widths", action="store_true",
@@ -381,22 +417,33 @@ def main():
     logs = cuda_build.build(["bit_kernels"])
     for line in logs["bit_kernels"].splitlines():
         tools.log(f"[bit-probe] ptxas: {line.strip()}")
-    name = probe_set(source)
-    so = stamped(source, PROBE_SETS[name][0], cuda_build.BUILD_DIR, "probe", cuda_build)
+    name = probe_set(source, args.kernel)
+    _, pairs, names = PROBE_SETS[name]
+    so = stamped(source, pairs, cuda_build.BUILD_DIR, "probe", cuda_build)
     tools.log(f"[bit-probe] probe set: {name}")
+    occupancy = bk.rows_occupancy if args.kernel == "rows" else bk.cols_occupancy
+    tools.log(f"[bit-probe] the kernel as built at D 64: (SMs, blocks an SM"
+              f"{'' if args.kernel == 'rows' else ', largest cluster'}) "
+              f"{occupancy(torch.device('cuda', 0), 64)} (the launcher's query)")
     variants = {v: stamped(source, [(a, b, 1) for a, b in VARIANTS[v]], cuda_build.BUILD_DIR, v,
                            cuda_build) for v in args.variants.split(",") if v}
     images = tools.yelp_bit_inputs(torch, seed=7)
     if args.widths:
         stream_widths(torch, tools, images, cuda_build)
     rng = np.random.RandomState(23)
+    kernel = getattr(bk, f"bit_{args.kernel}_matmul_cuda")
     for side in ("user", "item"):
-        bits, rows, _ = images[side]
+        bits, rows, n_cols, counts = images[side]
         R, nbytes = rows.numel(), bits.shape[1]
-        g = torch.from_numpy(rng.randn(R, 64).astype(np.float32) * 1e-3).cuda().bfloat16()
+        if args.kernel == "cols":
+            x = torch.from_numpy(rng.randn(R, 64).astype(np.float32) * 1e-3).cuda().bfloat16()
+            extra = ()
+        else:
+            x = torch.from_numpy(rng.randn(n_cols, 64).astype(np.float32) * 0.1).cuda().bfloat16()
+            extra = (counts,)
         use(bk, cuda_build, cuda_build.library_path("bit_kernels"))
-        built_ms = tools.cuda_ms(torch, lambda: bk.bit_cols_matmul_cuda(bits, rows, g), 50)
-        want = bk.bit_cols_matmul_cuda(bits, rows, g)
+        built_ms = tools.cuda_ms(torch, lambda: kernel(bits, rows, x, *extra), 50)
+        want = kernel(bits, rows, x, *extra)
         lib = use(bk, cuda_build, so)
         lib.bit_probe_set.argtypes = [ctypes.c_void_p]
         buf = torch.zeros((8192, MAX_WARPS, FIELDS), dtype=torch.int64, device="cuda")
@@ -404,23 +451,22 @@ def main():
         if err:
             raise RuntimeError(f"torch_bit_probe: setting the probe buffer failed: CUDA error "
                                f"{err}")
-        probed_ms = tools.cuda_ms(torch, lambda: bk.bit_cols_matmul_cuda(bits, rows, g), 50)
+        probed_ms = tools.cuda_ms(torch, lambda: kernel(bits, rows, x, *extra), 50)
         buf.zero_()
-        got = bk.bit_cols_matmul_cuda(bits, rows, g)
+        got = kernel(bits, rows, x, *extra)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError("torch_bit_probe: the probed kernel's result differs")
         tools.log(f"[bit-probe] {side} side R={R} nbytes={nbytes} D=64: events {built_ms:.4f} ms "
                   f"as built, {probed_ms:.4f} ms probed")
-        summarize(tools.log, side, buf.cpu().numpy(), clock_ghz, PROBE_SETS[name][1])
+        summarize(tools.log, side, buf.cpu().numpy(), clock_ghz, names)
         del buf
         if variants:
             order = ["as built", *variants, "as built"]
             ms = []
             for tag in order:
                 use(bk, cuda_build, variants.get(tag, cuda_build.library_path("bit_kernels")))
-                ms.append(round(tools.graph_ms(
-                    torch, lambda: bk.bit_cols_matmul_cuda(bits, rows, g)), 4))
+                ms.append(round(tools.graph_ms(torch, lambda: kernel(bits, rows, x, *extra)), 4))
             tools.log(f"[bit-probe] {side} side, graph ms of copies with a part taken out: "
                       + ", ".join(f"{t} {m}" for t, m in zip(order, ms)))
 

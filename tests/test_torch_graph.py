@@ -141,6 +141,37 @@ def test_bit_cols_plain_matches_pallas_interpret_power_law():
     _within_terms(got, want, mag)
 
 
+def test_bit_rows_plain_matches_pallas_interpret_power_law():
+    """The row product on a power-law image with a hot word set in most
+    rows and one dense row (1,500 set bits, the item side's popular rows)
+    picked many times among repeated picks: the rows a walk of each distinct
+    id gives its copies, held against the Pallas kernel on the gathered rows:
+    R 512, nbytes 512 (multiples of the Pallas kernel's 256)."""
+    rng = np.random.RandomState(6)
+    n_major, nbytes, R, D = 700, 512, 512, 64
+    cols = np.floor(nbytes * 8 * rng.random_sample((n_major, 28)) ** 3).astype(np.int64)
+    image = np.zeros((n_major, nbytes), np.uint8)
+    np.bitwise_or.at(image, (np.repeat(np.arange(n_major), 28), cols.ravel() // 8),
+                     (1 << (cols.ravel() % 8)).astype(np.uint8))
+    hot = (rng.random_sample((n_major, 1)) < 0.9) & (rng.random_sample((n_major, 4)) < 0.7)
+    image[:, 4:8] |= (hot * rng.randint(1, 256, (n_major, 4))).astype(np.uint8)
+    dense = rng.choice(nbytes * 8, 1500, replace=False)
+    np.bitwise_or.at(image[3], dense // 8, (1 << (dense % 8)).astype(np.uint8))
+    rows = rng.randint(0, n_major, R).astype(np.int64)
+    rows[rng.random_sample(R) < 0.2] = rows[0]
+    rows[rng.random_sample(R) < 0.05] = 3
+    v = np.asarray(jnp.asarray(rng.randn(nbytes * 8, D).astype(np.float32))
+                   .astype(jnp.bfloat16).astype(jnp.float32))
+    assert np.unpackbits(image[rows], axis=1).sum() > 40 * R
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(bit_rows_matmul(jnp.asarray(image[rows]),
+                                          perm_planes(jnp.asarray(v).astype(jnp.bfloat16))))
+    vb = _t(v).to(torch.bfloat16)
+    got = port_bits.bit_rows_matmul(_t(image), _t(rows), vb).numpy()
+    mag = port_bits.bit_rows_matmul(_t(image), _t(rows), vb.abs()).numpy()
+    _within_terms(got, want, mag)
+
+
 # an H100: 132 SMs; the column kernel holds 2 blocks an SM at D 64 (its
 # 112 KB of shared memory), 1 at D 128
 H100_SMS = 132
@@ -231,10 +262,35 @@ def test_pack_side_and_bitgraph_bytes_exact():
         assert port_bg.bitgraph_bytes(*shape) == jax_bg.bitgraph_bytes(*shape)
     port = port_bg.BitRestrictedGraph(mat, n_u, n_i)
     jax_consts = jax_bg.BitRestrictedGraph(mat, n_u, n_i).init_consts()
-    assert {n for n, _ in port.named_buffers()} == set(jax_consts)
-    for name, buf in port.named_buffers():
-        np.testing.assert_array_equal(buf.numpy(), np.asarray(jax_consts[name]))
+    # the port's images also keep their set bits a row (the row kernel's split)
+    assert {n for n, _ in port.named_buffers()} - {"bg_user_counts", "bg_item_counts"} \
+        == set(jax_consts)
+    for name in jax_consts:
+        np.testing.assert_array_equal(getattr(port, name).numpy(), np.asarray(jax_consts[name]))
     assert not list(port.parameters()) and not port.state_dict()
+
+
+@pytest.mark.parametrize("dup", [True, False])
+def test_bitgraph_counts_are_the_images_popcounts_and_jax_degrees(dup):
+    """bg_user_counts and bg_item_counts (int32) are each image row's set
+    bits and the JAX package's degrees (the D^-1/2 vectors' counts), also
+    where the interactions repeat (each repeat sets one bit); side_counts
+    gives the same for the raw ids with their repeats."""
+    mat, n_u, n_i = power_law_graph(dup=dup)
+    port = port_bg.BitRestrictedGraph(mat, n_u, n_i)
+    c = jax_bg.BitRestrictedGraph(mat, n_u, n_i).init_consts()
+    for counts, image, norm in ((port.bg_user_counts, c["bg_user_bits"], c["bg_unorm"]),
+                                (port.bg_item_counts, c["bg_item_bits"], c["bg_inorm"])):
+        assert counts.dtype == torch.int32
+        np.testing.assert_array_equal(counts.numpy(),
+                                      np.unpackbits(np.asarray(image), axis=1).sum(axis=1))
+        degree = np.rint(np.asarray(norm, np.float64) ** -2)
+        np.testing.assert_array_equal(np.maximum(counts.numpy(), 1), degree)
+    rng = np.random.RandomState(dup)
+    u, i = rng.randint(0, 30, 400), rng.randint(0, 50, 400)
+    image = port_bg._pack_side(u, i, 30, 50)
+    np.testing.assert_array_equal(port_bg.side_counts(u, i, 30, 50),
+                                  np.unpackbits(image, axis=1).sum(axis=1))
 
 
 # ------------------------------------------------------------------------ ELL

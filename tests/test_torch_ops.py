@@ -1331,7 +1331,11 @@ def _bit_inputs(n_major, nbytes, R, D, seed, device, kind="random"):
     products. ``kind``: "random" bytes; "sparse", about 28 set bits a row as
     at the Yelp shape; "power", power-law columns with a hot 32-column word
     (columns 32-63) set in most rows, as popular items are in a user batch;
-    "repeat", sparse rows with one picked row repeated through the batch."""
+    "repeat", sparse rows with one picked row repeated through the batch;
+    "hot10", sparse rows picked once each but one row of 14,000 set bits (the
+    Yelp item side's top row) picked 10 times; "same", every pick that row;
+    "heavy", sparse rows and a row of 60,000 set bits (far more than the row
+    kernel's pieces can share at 256 a piece) picked 3 times."""
     rng = np.random.RandomState(seed)
     if kind == "random":
         bits = rng.randint(0, 256, (n_major, nbytes)).astype(np.uint8)
@@ -1347,11 +1351,20 @@ def _bit_inputs(n_major, nbytes, R, D, seed, device, kind="random"):
         if kind == "power":
             hot = (rng.random_sample((n_major, 1)) < 0.9) & (rng.random_sample((n_major, 4)) < 0.7)
             bits[:, 4:8] |= (hot * rng.randint(1, 256, (n_major, 4))).astype(np.uint8)
+        dense = {"hot10": 14_000, "same": 14_000, "heavy": 60_000}.get(kind)
+        if dense:
+            on = rng.choice(n_cols, min(dense, n_cols), replace=False)
+            np.bitwise_or.at(bits[7], on // 8, (1 << (on % 8)).astype(np.uint8))
     rows = rng.randint(0, n_major, R).astype(np.int64)
     if R > 2:
         rows[1] = rows[0]
     if kind == "repeat":
         rows[rng.random_sample(R) < 0.5] = rows[0]
+    if kind in ("hot10", "heavy"):
+        rows = rng.choice(np.delete(np.arange(n_major), 7), R, replace=R > n_major - 1)
+        rows[rng.choice(R, min(R, 10 if kind == "hot10" else 3), replace=False)] = 7
+    if kind == "same":
+        rows[:] = 7
     v = rng.randn(nbytes * 8 - 100, D).astype(np.float32)
     g = rng.randn(R, D).astype(np.float32)
 
@@ -1360,6 +1373,12 @@ def _bit_inputs(n_major, nbytes, R, D, seed, device, kind="random"):
         return t if dtype is None else t.to(dtype)
 
     return dev(bits), dev(rows), dev(v, torch.bfloat16), dev(g, torch.bfloat16)
+
+
+def _bit_counts(bits):
+    """Each packed row's set bits, (n_major,) int32 on the rows' device."""
+    return torch.from_numpy(np.unpackbits(bits.cpu().numpy(), axis=1).sum(axis=1)
+                            .astype(np.int32)).to(bits.device)
 
 
 def _bit_close(out, ref, magnitude):
@@ -1388,31 +1407,41 @@ def test_bit_launchers_refuse_cpu_tensors_and_dispatch_stays_plain():
 # on random bytes and sparse rows; power-law images with a hot word, one row
 # repeated through the batch, R = 0 and a small ragged R, D 16 and 128, D 6
 # (g copied in 4-byte pieces, the sums stored in pairs) and ml-100k's 256
-# bytes a row (8 strips: the widest clusters)
+# bytes a row (8 strips: the widest clusters); for the row kernel, a row of
+# 14,000 set bits picked 10 times among single picks at the Yelp widths,
+# every pick that row, a row of 60,000 set bits (pieces many times the split's
+# 256 bits) picked 3 times, and R past the plan block's 1,024 picks a pass
+# and its split slots (70,000 picks of 3,000 rows, each id about 23 times)
 BIT_CASES = ([(R, kind, 64, 12544 if R == 2048 else 12800)
               for kind in ("sparse", "random") for R in (2048, 4096, 1864, 1)]
              + [(2048, "power", 64, 12544), (4096, "power", 64, 12800),
                 (4096, "repeat", 64, 12800), (0, "sparse", 64, 12800), (37, "power", 64, 12800),
                 (2048, "power", 16, 12544), (2048, "power", 128, 12544),
                 (1864, "random", 128, 12800), (1, "sparse", 16, 12800),
-                (1864, "power", 6, 12800), (2048, "power", 64, 256), (4096, "repeat", 128, 256)])
+                (1864, "power", 6, 12800), (2048, "power", 64, 256), (4096, "repeat", 128, 256),
+                (2048, "hot10", 64, 12800), (4096, "same", 64, 12800),
+                (2048, "heavy", 128, 12800), (70_000, "repeat", 16, 256)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,kind,D,nbytes", BIT_CASES)
 def test_bit_kernels_match_plain_on_card(cuda_device, R, kind, D, nbytes):
     """Both kernels against their plain versions: within 1e-5 of the sum of
-    the terms' magnitudes plus 1e-7; one launch each (the row kernel makes
-    none at R = 0); two runs bit-identical."""
+    the terms' magnitudes plus 1e-7; one call counted each, the row kernel's
+    two kernel launches (none at R = 0); two runs bit-identical; every pick
+    of an id gets the same row."""
     bits, rows, v, g = _bit_inputs(3000, nbytes, R, D, R + D, cuda_device, kind)
-    before = (port_bits.bit_rows_matmul_cuda.launches, port_bits.bit_cols_matmul_cuda.launches)
-    out = port_bits.bit_rows_matmul_cuda(bits, rows, v)
+    counts = _bit_counts(bits)
+    before = (port_bits.bit_rows_matmul_cuda.launches, port_bits.bit_cols_matmul_cuda.launches,
+              port_bits.bit_rows_matmul_cuda.kernel_launches)
+    out = port_bits.bit_rows_matmul_cuda(bits, rows, v, counts)
     cols = port_bits.bit_cols_matmul_cuda(bits, rows, g)
-    assert (port_bits.bit_rows_matmul_cuda.launches,
-            port_bits.bit_cols_matmul_cuda.launches) == (before[0] + (R > 0), before[1] + 1)
+    assert (port_bits.bit_rows_matmul_cuda.launches, port_bits.bit_cols_matmul_cuda.launches,
+            port_bits.bit_rows_matmul_cuda.kernel_launches) == (
+                before[0] + (R > 0), before[1] + 1, before[2] + 2 * (R > 0))
     torch.cuda.synchronize()
     assert out.shape == (R, D) and cols.shape == (nbytes * 8, D)
-    assert torch.equal(out, port_bits.bit_rows_matmul_cuda(bits, rows, v))
+    assert torch.equal(out, port_bits.bit_rows_matmul_cuda(bits, rows, v, counts))
     assert torch.equal(cols, port_bits.bit_cols_matmul_cuda(bits, rows, g))
     plan = port_bits.bit_cols_plan(R, nbytes, D, *port_bits.cols_occupancy(cols.device, D))
     assert port_bits.bit_cols_matmul_cuda.last_grid == {"blocks": plan["blocks"],
@@ -1421,6 +1450,39 @@ def test_bit_kernels_match_plain_on_card(cuda_device, R, kind, D, nbytes):
                       port_bits.bit_rows_matmul_torch(bits, rows, v.abs()))
     assert _bit_close(cols, port_bits.bit_cols_matmul_torch(bits, rows, g),
                       port_bits.bit_cols_matmul_torch(bits, rows, g.abs()))
+    if R:
+        first = {}
+        for r, m in enumerate(rows.tolist()):
+            first.setdefault(m, r)
+        assert torch.equal(out, out[torch.tensor([first[m] for m in rows.tolist()],
+                                                 device=cuda_device)])
+        plan = port_bits.rows_counters()
+        assert (plan["unsplit walkers"] + plan["split walkers"], plan["copies"],
+                plan["picks outside"], plan["picks resolved"]) == (len(first), R - len(first), 0, R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,R,nbytes", [("hot10", 2048, 12800), ("heavy", 2048, 12800),
+                                           ("power", 2048, 12544), ("random", 1864, 12800)])
+def test_bit_rows_counts_move_only_the_split_on_card(cuda_device, kind, R, nbytes):
+    """The row kernel's counts only balance its work: the image's counts,
+    none, all zero (every row walked whole) and all huge (every row cut into
+    the most pieces, the cuts past the real set bits) each give the plain
+    version's rows within tolerance, and the zero and huge counts' rows agree
+    within it too."""
+    bits, rows, v, _ = _bit_inputs(3000, nbytes, R, 64, 11, cuda_device, kind)
+    exact = _bit_counts(bits)
+    ref = port_bits.bit_rows_matmul_torch(bits, rows, v)
+    mag = port_bits.bit_rows_matmul_torch(bits, rows, v.abs())
+    outs = {}
+    for label, counts in (("exact", exact), ("none", None), ("zero", torch.zeros_like(exact)),
+                          ("huge", torch.full_like(exact, 2 ** 30))):
+        outs[label] = port_bits.bit_rows_matmul_cuda(bits, rows, v, counts)
+        assert _bit_close(outs[label], ref, mag), label
+    plan = port_bits.rows_counters()
+    assert plan["split walkers"] >= 1  # huge counts split at least one row
+    assert _bit_close(outs["zero"], outs["huge"], mag)
+    assert torch.equal(outs["zero"], outs["none"])
 
 
 @pytest.mark.cuda
@@ -1431,6 +1493,26 @@ def test_bit_cols_nan_for_ids_outside_on_card(cuda_device):
         bits, rows, _, g = _bit_inputs(500, nbytes, R, 64, 5, cuda_device, "sparse")
         rows[R // 3] = 500
         assert bool(torch.isnan(port_bits.bit_cols_matmul_cuda(bits, rows, g)).all())
+
+
+@pytest.mark.cuda
+def test_bit_rows_nan_for_ids_outside_on_card(cuda_device):
+    """The row kernel gives each pick of an id outside the matrix (past it,
+    picked twice, and -1) a NaN row, and every other pick its row, copies of
+    a popular row among them."""
+    bits, rows, v, _ = _bit_inputs(500, 12800, 2048, 64, 6, cuda_device, "hot10")
+    bad = [5, 900, 1500]
+    rows[bad] = torch.tensor([500, 500, -1], device=cuda_device)
+    out = port_bits.bit_rows_matmul_cuda(bits, rows, v, _bit_counts(bits))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[bad]).all())
+    keep = torch.ones(2048, dtype=torch.bool, device=cuda_device)
+    keep[bad] = False
+    good = rows[keep]
+    assert _bit_close(out[keep], port_bits.bit_rows_matmul_torch(bits, good, v),
+                      port_bits.bit_rows_matmul_torch(bits, good, v.abs()))
+    plan = port_bits.rows_counters()
+    assert plan["picks outside"] == 3
 
 
 @pytest.mark.cuda
