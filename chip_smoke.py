@@ -31,7 +31,8 @@ Phases:
      dropout off and on, with a sequence that has no valid key, and at head
      width 132 on each route; the rel_apply kernels in both
      instances, forward and backward, at RippleNet's step and at edge
-     shapes;
+     shapes, and the backward under autograd on the forward's buckets
+     (the same bits, at most 3 and 2 kernels a call);
   4. the main paths, each with every kernel's launch count set to 0 just
      before and read just after (each kernel of the path must be > 0, and
      the Adam kernel must launch exactly once a training step):
@@ -1343,7 +1344,9 @@ def rel_inputs(torch, N, D, NR, seed, skew=None, empty=None, outside=0):
 def rel_cases():
     """(label, N, D, NR, extra): RippleNet's step at the ml-1m KG shape
     (4,096 rows x 2 hops x 16 memories, 53 relation ids), the same rows of
-    one eval chunk's users, and the edges."""
+    one eval chunk's users, and the edges: D = 4 mod 8 (the kernels pad k
+    with zeros), D 4, every row in one relation, the most relations with few
+    rows."""
     step = 2 * RIPPLENET["B"] * RIPPLENET["hops"] * RIPPLENET["M"]
     NR = ML1M_KG[2] + 2
     return [("step", step, RIPPLENET["D"], NR, {}),
@@ -1351,39 +1354,64 @@ def rel_cases():
             ("one relation holds 90%", 65_536, 64, NR, {"skew": 0.9}),
             ("NR 1", 4_097, 64, 1, {}),
             ("NR 200, ids outside [0, NR)", 50_000, 64, 200, {"outside": 17}),
-            ("D 128", 20_000, 128, 24, {})]
+            ("D 128", 20_000, 128, 24, {}),
+            ("D 20, ids outside [0, NR)", 30_001, 20, NR, {"outside": 5}),
+            ("D 36, a relation with no rows", 20_000, 36, NR, {"empty": 4}),
+            ("D 4", 5_000, 4, 7, {}),
+            ("every row in one relation", 40_000, 64, NR, {"skew": 1.0}),
+            ("NR 16,383, few rows", 3_000, 16, 16_383, {"outside": 3})]
 
 
 def check_rel_apply(torch):
     """rel_apply_fwd / rel_apply_bwd against the plain version on the card:
     y, dv and dR, both instances, at RippleNet's step and the edge shapes;
-    two runs compared bit for bit."""
+    two runs compared bit for bit; the kernels a call launches by the
+    wrappers' counters (3 forward; 4 for a backward that buckets again, 2
+    for one under autograd, which reuses the forward's buckets and must give
+    the same bits)."""
     from recbole_tpu_torch.ops import rel_apply as ra
+    fwd, bwd = ra.rel_apply_fwd_cuda, ra.rel_apply_bwd_cuda
     worst = {"rel_apply_fwd": 0.0, "rel_apply_bwd": 0.0}
     for n, (label, N, D, NR, extra) in enumerate(rel_cases()):
         v, rel, R, dy = rel_inputs(torch, N, D, NR, 400 + n, **extra)
         for bf16 in (False, True):
             def run():
+                k0 = (fwd.kernel_launches, bwd.kernel_launches)
                 y = ra.rel_apply_fwd_cuda(v, rel, R, bf16=bf16)
                 dv, dR = ra.rel_apply_bwd_cuda(v, rel, R, dy, bf16=bf16)
                 torch.cuda.synchronize()
+                if (fwd.kernel_launches - k0[0], bwd.kernel_launches - k0[1]) != (3, 4):
+                    raise AssertionError(f"rel_apply {label}: {fwd.kernel_launches - k0[0]} "
+                                         f"kernels forward, {bwd.kernel_launches - k0[1]} "
+                                         "backward; 3 and 4 expected")
                 return y, dv, dR
 
             got, again = run(), run()
             same = all(torch.equal(a, b) for a, b in zip(got, again))
+            # the backward under autograd, on the forward's buckets
+            vg, Rg = v.clone().requires_grad_(True), R.clone().requires_grad_(True)
+            k0 = (fwd.kernel_launches, bwd.kernel_launches)
+            ra.rel_apply(vg, rel, Rg, bf16=bf16).backward(dy)
+            torch.cuda.synchronize()
+            k_auto = (fwd.kernel_launches - k0[0], bwd.kernel_launches - k0[1])
+            reuse = torch.equal(vg.grad, got[1]) and torch.equal(Rg.grad, got[2])
             ref = (ra.rel_apply_torch(v, rel, R, bf16), *ra.rel_apply_torch_bwd(v, rel, R, dy, bf16))
             errs = {k: rel_err(a, b) for k, a, b in zip(("y", "dv", "dR"), got, ref)}
             tol = REL_TOL[bf16]
             log(f"[check] rel_apply {'bf16' if bf16 else 'fp32'} ({label}) N={N} D={D} NR={NR}: "
                 + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
                 + f" (tolerance {tol} of the tensor's largest value); two runs bit-identical: "
-                f"{same}")
+                f"{same}; under autograd {k_auto[0]} + {k_auto[1]} kernels, the backward on "
+                f"the forward's buckets bit-identical: {reuse}")
             if not all(bool(torch.isfinite(t).all()) for t in got):
                 raise AssertionError(f"rel_apply {label}: non-finite output")
             if max(errs.values()) > tol:
                 raise AssertionError(f"rel_apply {label}: beyond tolerance {tol}: {errs}")
             if not same:
                 raise AssertionError(f"rel_apply {label}: two runs differ")
+            if not reuse or k_auto[0] > 3 or k_auto[1] > 2:
+                raise AssertionError(f"rel_apply {label}: under autograd {k_auto} kernels "
+                                     f"(at most 3 and 2), bit-identical: {reuse}")
             if "empty" in extra and float(got[2][extra["empty"]].abs().max()) != 0.0:
                 raise AssertionError("rel_apply: a relation with no rows got a gradient")
             if "outside" in extra:
@@ -2101,6 +2129,12 @@ def phase_ripplenet(torch, tmp):
         f"{launches['rel_apply_bwd'] / steps:.2f}, adam_leaf {launches['adam_leaf'] / steps:.2f};"
         f" rel_apply_fwd {launches['rel_apply_fwd']} = 1 a step + {chunks} an eval batch "
         "(one per item chunk)")
+    per_call = {k: launches[f"{k}_kernels"] / max(launches[k], 1)
+                for k in ("rel_apply_fwd", "rel_apply_bwd")}
+    log(f"[ripplenet] rel_apply kernels a call: forward {per_call['rel_apply_fwd']:.2f}, "
+        f"backward {per_call['rel_apply_bwd']:.2f} (on the forward's buckets)")
+    if per_call["rel_apply_fwd"] > 3 or per_call["rel_apply_bwd"] > 2:
+        raise AssertionError(f"rel_apply launched more kernels a call than 3 and 2: {per_call}")
     log(f"[ripplenet] epoch seconds {times['train']} (includes the upload); train examples/s: "
         f"{train.n / times['train'][-1]:.1f}; ms/step: "
         f"{1e3 * times['train'][-1] / steps:.3f}")
@@ -2857,7 +2891,10 @@ def time_rel_apply(torch):
     runs (53 passes over all rows) is logged beside it. The bound: v, rel, R
     and y (backward: v, rel, R, dy, dv, dR) moved once, 2 N D^2 operations
     forward and 4 N D^2 backward at the fp32 rate (fp32 instance) or the
-    bf16 tensor-core rate (bf16 instance)."""
+    bf16 tensor-core rate (bf16 instance); the fp32 entry also gives it at
+    the 3xTF32 rate its kernels run at, a third of dense TF32
+    (``bound_3xtf32_ms``). Every entry also gives the time in a CUDA graph
+    (``graph_ms``)."""
     from recbole_tpu_torch.ops import rel_apply as ra
     N = 2 * RIPPLENET["B"] * RIPPLENET["hops"] * RIPPLENET["M"]
     D, NR = RIPPLENET["D"], ML1M_KG[2] + 2
@@ -2890,9 +2927,12 @@ def time_rel_apply(torch):
             nbytes = 4 * (N * D * (3 if way == "bwd" else 2) + N
                           + NR * D * D * (2 if way == "bwd" else 1))
             t = {"ms": cuda_ms(torch, kernel, 50), "plain_ms": cuda_ms(torch, plain, 10),
-                 "library_ms": cuda_ms(torch, lib, 20)}
+                 "library_ms": cuda_ms(torch, lib, 20),
+                 "graph_ms": graph_ms(torch, kernel, calls=20, replays=10)}
             t["bound_ms"], t["bound_by"] = bound(flops, nbytes,
                                                  PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+            if not bf16:
+                t["bound_3xtf32_ms"], _ = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
             key = f"rel_apply_{way}"
             if bf16:
                 out[key]["bf16"] = t

@@ -30,10 +30,13 @@ and the CPU path use them); the launchers of the hand-written Hopper kernels in
 ``csrc/rel_apply.cu`` (``rel_apply_fwd_cuda``, ``rel_apply_bwd_cuda``, each
 with a launch count), wrapped for autograd in ``RelApply``; and the
 dispatcher ``rel_apply``: the plain version for a CPU tensor, the kernels
-for a CUDA tensor, nothing falling back. The kernels bucket the rows by
-relation on the device and sum dR from per-tile partials in order, so two
-runs give the same bits. Limits (from the built library): D a multiple of 4
-and at most 128, NR at most 16,383; else it raises.
+for a CUDA tensor, nothing falling back. The forward buckets the rows by
+relation on the device (two kernels; the stable sort) and multiplies them
+on the tensor cores in one more; ``RelApply`` keeps its bucket tables for
+the backward, one pass and a reduce that sums dR's partials (one a block
+and run of one relation) in block order, so two runs give the same bits.
+Limits (from the built library): D a multiple of 4 and at most 128, NR at
+most 16,383; else it raises.
 """
 
 import ctypes
@@ -101,6 +104,12 @@ class _PlainRelApply(torch.autograd.Function):
 # ----------------------------------------------------------------- launchers
 
 _LIB = None
+# the count kernel's ticket, one int32 per (device, stream): zero when made,
+# and zero again after each bucketing (its last block resets it); never
+# freed (a captured CUDA graph may still use it)
+_TICKETS = {}
+# the backward's dR partial floats per (device, N, D, NR, instance)
+_PARTIALS = {}
 
 
 def _lib():
@@ -108,16 +117,17 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("rel_apply")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rel_apply_fwd.argtypes = [p, p, p, i, i, i, i, p, p, p]
-        lib.rel_apply_bwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]
-        lib.rel_apply_scratch_ints.argtypes = [i, i, i]
-        lib.rel_apply_partial_floats.argtypes = [i, i, i]
+        lib.rel_apply_bucket.argtypes = [p, i, i, i, i, p, p, p]
+        lib.rel_apply_fwd.argtypes = [p, p, i, i, i, i, p, p, p]
+        lib.rel_apply_bwd.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
+        lib.rel_apply_scratch_ints.argtypes = [i, i, i, i]
+        lib.rel_apply_partial_floats.argtypes = [i, i, i, i]
         lib.rel_apply_max_width.argtypes = []
         lib.rel_apply_max_relations.argtypes = []
         lib.rel_apply_scratch_ints.restype = ctypes.c_longlong
         lib.rel_apply_partial_floats.restype = ctypes.c_longlong
-        for fn in (lib.rel_apply_fwd, lib.rel_apply_bwd, lib.rel_apply_max_width,
-                   lib.rel_apply_max_relations):
+        for fn in (lib.rel_apply_bucket, lib.rel_apply_fwd, lib.rel_apply_bwd,
+                   lib.rel_apply_max_width, lib.rel_apply_max_relations):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -153,72 +163,126 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _scratch(N, D, NR, device):
-    n = _lib().rel_apply_scratch_ints(N, D, NR)
-    return torch.empty(n, dtype=torch.int32, device=device)
+class RelBuckets:
+    """One call's bucket tables on the card (the rows' stable sort by
+    relation, and each tile kernel's blocks: a relation's sorted rows a
+    block), as ``rel_apply_fwd_cuda(..., keep_buckets=True)`` made them for
+    ``rel``: ``rel_apply_bwd_cuda`` takes them instead of bucketing again."""
+
+    __slots__ = ("scratch", "N", "D", "NR", "bf16")
+
+    def __init__(self, scratch, N, D, NR, bf16):
+        self.scratch, self.N, self.D, self.NR, self.bf16 = scratch, N, D, NR, bf16
 
 
-def rel_apply_fwd_cuda(v, rel, R, *, bf16=False):
-    """Launch the bucketing kernels and ``rel_rows_kernel``: y (N, D)
-    float32. Counts its launches in ``rel_apply_fwd_cuda.launches``
-    (``launches_bf16``: the bf16 instance's among them)."""
+def _bucket(rel, N, D, NR, bf16):
+    """Launch rel_count_kernel and rel_scatter_kernel: the bucket tables of
+    ``rel`` on its device, for the instance at D (the tile kernels' blocks
+    follow their occupancy)."""
+    stream = _stream(rel)
+    key = (rel.device.index, stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=rel.device)
+    n = _lib().rel_apply_scratch_ints(N, D, NR, int(bf16))
+    if n < 0:
+        raise RuntimeError("rel_apply: the tile kernels' occupancy query failed")
+    scratch = torch.empty(n, dtype=torch.int32, device=rel.device)
+    err = _lib().rel_apply_bucket(rel.data_ptr(), N, D, NR, int(bf16), scratch.data_ptr(),
+                                  ticket.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"rel_apply bucketing kernel launch failed: CUDA error {err}")
+    return RelBuckets(scratch, N, D, NR, bool(bf16))
+
+
+def rel_apply_fwd_cuda(v, rel, R, *, bf16=False, keep_buckets=False):
+    """Launch the bucketing kernels and ``rel_fwd_kernel``: y (N, D) float32,
+    and with ``keep_buckets`` (y, the ``RelBuckets`` its backward can reuse).
+    Counts its calls in ``rel_apply_fwd_cuda.launches`` (``launches_bf16``:
+    the bf16 instance's among them) and the kernels they launch in
+    ``kernel_launches`` (3 a call)."""
     N, D, NR = _check("rel_apply_fwd_cuda", v, rel, R)
+    buckets = _bucket(rel, N, D, NR, bf16)
     y = torch.empty_like(v)
-    scratch = _scratch(N, D, NR, v.device)
-    err = _lib().rel_apply_fwd(v.data_ptr(), rel.data_ptr(), R.data_ptr(), N, D, NR, int(bf16),
-                               scratch.data_ptr(), y.data_ptr(), _stream(v))
+    err = _lib().rel_apply_fwd(v.data_ptr(), R.data_ptr(), N, D, NR, int(bf16),
+                               buckets.scratch.data_ptr(), y.data_ptr(), _stream(v))
     if err:
         raise RuntimeError(f"rel_apply_fwd kernel launch failed: CUDA error {err}")
     rel_apply_fwd_cuda.launches += 1
     rel_apply_fwd_cuda.launches_bf16 += bool(bf16)
-    return y
+    rel_apply_fwd_cuda.kernel_launches += 3
+    return (y, buckets) if keep_buckets else y
 
 
 rel_apply_fwd_cuda.launches = 0
 rel_apply_fwd_cuda.launches_bf16 = 0
+rel_apply_fwd_cuda.kernel_launches = 0
 
 
-def rel_apply_bwd_cuda(v, rel, R, dy, *, bf16=False):
-    """Launch the bucketing kernels, ``rel_rows_kernel`` on R^T (dv),
-    ``rel_dr_tile_kernel`` and ``rel_dr_reduce_kernel`` (dR): (dv, dR).
-    Counts its launches in ``rel_apply_bwd_cuda.launches``."""
+def _partials(device, N, D, NR, bf16):
+    key = (device.index, N, D, NR, bool(bf16))
+    if key not in _PARTIALS:
+        with torch.cuda.device(device):
+            n = _lib().rel_apply_partial_floats(N, D, NR, int(bf16))
+        if n < 0:
+            raise RuntimeError("rel_apply_bwd: the backward kernel's grid query failed")
+        _PARTIALS[key] = n
+    return torch.empty(_PARTIALS[key], dtype=torch.float32, device=device)
+
+
+def rel_apply_bwd_cuda(v, rel, R, dy, *, bf16=False, buckets=None):
+    """Launch ``rel_bwd_kernel`` (dv, and a dR partial a block) and
+    ``rel_dr_reduce_kernel`` (dR): (dv, dR). ``buckets``: the
+    forward's tables for the same rel (``keep_buckets``); without them the
+    bucketing kernels run first. Counts its calls in
+    ``rel_apply_bwd_cuda.launches`` and the kernels in ``kernel_launches``
+    (2 a call with buckets, else 4)."""
     N, D, NR = _check("rel_apply_bwd_cuda", v, rel, R)
     if tuple(dy.shape) != (N, D) or dy.dtype != torch.float32 or dy.device != v.device:
         raise ValueError("dy must be float32 (N, D) on v's device")
     dy = dy.contiguous()
-    lib = _lib()
-    scratch = _scratch(N, D, NR, v.device)
-    partials = torch.empty(lib.rel_apply_partial_floats(N, D, NR), dtype=torch.float32,
-                           device=v.device)
+    if buckets is None:
+        buckets = _bucket(rel, N, D, NR, bf16)
+        rel_apply_bwd_cuda.kernel_launches += 2
+    elif (buckets.N, buckets.D, buckets.NR, buckets.bf16) != (N, D, NR, bool(bf16)) \
+            or buckets.scratch.device != v.device:
+        raise ValueError(f"rel_apply_bwd_cuda: buckets of N={buckets.N}, D={buckets.D}, "
+                         f"NR={buckets.NR}, bf16={buckets.bf16} for a call of N={N}, D={D}, "
+                         f"NR={NR}, bf16={bool(bf16)}")
+    partials = _partials(v.device, N, D, NR, bf16)
     dv = torch.empty_like(v)
     dR = torch.empty_like(R)
-    err = lib.rel_apply_bwd(v.data_ptr(), rel.data_ptr(), R.data_ptr(), dy.data_ptr(), N, D, NR,
-                            int(bf16), scratch.data_ptr(), partials.data_ptr(), dv.data_ptr(),
-                            dR.data_ptr(), _stream(v))
+    err = _lib().rel_apply_bwd(v.data_ptr(), R.data_ptr(), dy.data_ptr(), N, D, NR, int(bf16),
+                               buckets.scratch.data_ptr(), partials.data_ptr(), dv.data_ptr(),
+                               dR.data_ptr(), _stream(v))
     if err:
         raise RuntimeError(f"rel_apply_bwd kernel launch failed: CUDA error {err}")
     rel_apply_bwd_cuda.launches += 1
     rel_apply_bwd_cuda.launches_bf16 += bool(bf16)
+    rel_apply_bwd_cuda.kernel_launches += 2
     return dv, dR
 
 
 rel_apply_bwd_cuda.launches = 0
 rel_apply_bwd_cuda.launches_bf16 = 0
+rel_apply_bwd_cuda.kernel_launches = 0
 
 
 class RelApply(torch.autograd.Function):
-    """rel_apply on CUDA tensors: forward and backward are the kernels."""
+    """rel_apply on CUDA tensors: forward and backward are the kernels; the
+    backward reuses the forward's bucket tables."""
 
     @staticmethod
     def forward(ctx, v, rel, R, bf16):
         ctx.bf16 = bf16
         ctx.save_for_backward(v, rel, R)
-        return rel_apply_fwd_cuda(v, rel, R, bf16=bf16)
+        y, ctx.buckets = rel_apply_fwd_cuda(v, rel, R, bf16=bf16, keep_buckets=True)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
         v, rel, R = ctx.saved_tensors
-        dv, dR = rel_apply_bwd_cuda(v, rel, R, dy, bf16=ctx.bf16)
+        dv, dR = rel_apply_bwd_cuda(v, rel, R, dy, bf16=ctx.bf16, buckets=ctx.buckets)
         return dv, None, dR, None
 
 

@@ -13,12 +13,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from recbole_tpu.config.configurator import Config as JaxConfig
 from recbole_tpu.data.utils import (create_dataset as jax_create_dataset,
                                     data_preparation as jax_data_preparation)
 from recbole_tpu.models import get_model as jax_get_model
 from recbole_tpu.models.knowledge import ripplenet as jax_ripplenet
+from recbole_tpu.ops.rel_apply import rel_apply as jax_rel_apply
 from recbole_tpu.trainer import trainer as jax_trainer_mod
 from recbole_tpu.utils.utils import init_seed as jax_init_seed
 from recbole_tpu_torch import run_recbole
@@ -189,6 +191,40 @@ def test_rel_apply_plain_matches_jax_relation_loop(NR):
     _close(got_y.numpy().reshape(B, M, D), np.asarray(y), 2e-4, "plain y")
     _close(ref_dv.numpy().reshape(B, M, D), np.asarray(dv), 2e-4, "plain dv")
     _close(ref_dR.numpy(), np.asarray(dR), 2e-4, "plain dR")
+
+
+def test_rel_apply_bf16_plain_matches_pallas_interpret():
+    """The bf16 instance's plain version (the kernels' rounding points)
+    against the JAX package's Pallas kernel and its custom VJP in interpret
+    mode: D 64, NR 53, N 600 (not a multiple of the kernel's 256-row blocks,
+    so it pads), relation 9 with no rows. dR (fp32 sums, no final rounding)
+    within 1e-5 of its largest value. y and dv round an fp32 sum to bf16 at
+    the same point in both, but the sums run in another order, so an element
+    whose sum lies next to a rounding boundary can land one bf16 step away
+    (1-3 of 38,400 in the draws tried): every element equal or one bf16
+    step apart, at most 0.1% of them apart."""
+    rng = np.random.RandomState(19)
+    N, D, NR = 600, 64, 53
+    rels = rng.randint(0, NR, N).astype(np.int32)
+    rels[rels == 9] = 10
+    vecs = rng.randn(N, D).astype(np.float32)
+    R = (rng.randn(NR, D, D) / np.sqrt(D)).astype(np.float32)
+    dy = rng.randn(N, D).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        y, vjp = jax.vjp(lambda v, R: jax_rel_apply(v, jnp.asarray(rels), R),
+                         jnp.asarray(vecs), jnp.asarray(R))
+        dv, dR = vjp(jnp.asarray(dy))
+    tv, trel, tR = torch.tensor(vecs), torch.tensor(rels), torch.tensor(R)
+    got_y = port_rel.rel_apply_torch(tv, trel, tR, bf16=True)
+    got_dv, got_dR = port_rel.rel_apply_torch_bwd(tv, trel, tR, torch.tensor(dy), bf16=True)
+    for what, got, ref in (("y", got_y.numpy(), np.asarray(y)),
+                           ("dv", got_dv.numpy(), np.asarray(dv))):
+        step = np.spacing(np.maximum(np.abs(got), np.abs(ref))) * 2.0 ** 16  # bf16's step
+        apart = got != ref
+        assert np.all(np.abs(got - ref) <= step), what
+        assert apart.sum() <= apart.size // 1000, (what, int(apart.sum()))
+    _close(got_dR.numpy(), np.asarray(dR), 1e-5, "dR")
+    assert float(got_dR[9].abs().max()) == 0.0 and float(np.abs(np.asarray(dR)[9]).max()) == 0.0
 
 
 def test_rel_apply_dispatch_stays_plain_on_cpu_and_launchers_refuse_it():

@@ -2209,7 +2209,10 @@ def _rel_inputs(N, D, NR, seed, device, skew=None, empty=None, outside=0):
 
 REL_CASES = {"step": dict(N=131072, D=64, NR=53), "ragged": dict(N=1001, D=64, NR=53, empty=7),
              "skew": dict(N=20000, D=64, NR=53, skew=0.9), "one": dict(N=777, D=64, NR=1),
-             "many": dict(N=30000, D=64, NR=200, outside=5), "wide": dict(N=5000, D=128, NR=24)}
+             "many": dict(N=30000, D=64, NR=200, outside=5), "wide": dict(N=5000, D=128, NR=24),
+             "d20": dict(N=3001, D=20, NR=7, outside=3), "d36": dict(N=4099, D=36, NR=11, empty=2),
+             "d4": dict(N=2500, D=4, NR=5), "all_one": dict(N=9000, D=64, NR=53, skew=1.0),
+             "nr_max": dict(N=3000, D=16, NR=16383, outside=4)}
 
 
 @pytest.mark.cuda
@@ -2220,16 +2223,19 @@ def test_rel_apply_kernels_match_plain_on_card(cuda_device, bf16, case):
     inputs: y, dv and dR within rtol 2e-4 of each tensor's largest value in
     the fp32 instance (fp32 sums in another order), within 2e-2 of it in the
     bf16 instance (the bound the JAX kernel is held to against the XLA loop,
-    tests/test_round5_fixes.py:163-195); one launch each; two runs
-    bit-identical."""
+    tests/test_round5_fixes.py:163-195); one call each, 3 kernels forward
+    and 4 backward (it buckets again); two runs bit-identical. The cases:
+    RippleNet's step, the edges, D = 4 mod 8 (k padded with zeros), D 4,
+    every row in one relation, and the most relations with few rows."""
     c = dict(REL_CASES[case])
     N, D, NR = c.pop("N"), c.pop("D"), c.pop("NR")
     v, rel, R, dy = _rel_inputs(N, D, NR, 31 + N, cuda_device, **c)
-    before = (port_rel.rel_apply_fwd_cuda.launches, port_rel.rel_apply_bwd_cuda.launches)
+    fwd, bwd = port_rel.rel_apply_fwd_cuda, port_rel.rel_apply_bwd_cuda
+    before = (fwd.launches, bwd.launches, fwd.kernel_launches, bwd.kernel_launches)
     y = port_rel.rel_apply_fwd_cuda(v, rel, R, bf16=bf16)
     dv, dR = port_rel.rel_apply_bwd_cuda(v, rel, R, dy, bf16=bf16)
-    assert (port_rel.rel_apply_fwd_cuda.launches,
-            port_rel.rel_apply_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert (fwd.launches, bwd.launches, fwd.kernel_launches, bwd.kernel_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 3, before[3] + 4)
     torch.cuda.synchronize()
     assert torch.equal(y, port_rel.rel_apply_fwd_cuda(v, rel, R, bf16=bf16))
     dv2, dR2 = port_rel.rel_apply_bwd_cuda(v, rel, R, dy, bf16=bf16)
@@ -2264,8 +2270,37 @@ def test_rel_apply_autograd_and_limits_on_card(cuda_device):
     assert _rel(v.grad, ref_dv) <= 2e-4 and _rel(R.grad, ref_dR) <= 2e-4
     lib = port_rel._lib()
     assert lib.rel_apply_max_width() == 128
+    assert lib.rel_apply_max_relations() == 16383
     for D in (18, 132):
         args = _rel_inputs(10, D, 3, 4, cuda_device)[:3]
         with pytest.raises(ValueError, match="multiple of 4"):
             port_rel.rel_apply(*args, bf16=False)
     assert port_rel.rel_apply_fwd_cuda.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [64, 36])
+def test_rel_apply_autograd_reuses_the_forwards_buckets_on_card(cuda_device, bf16, D):
+    """Under autograd the backward takes the forward's bucket tables: at most
+    3 kernels forward and 2 backward (none of them a bucketing kernel), and
+    the same bits as the standalone launchers, which bucket for themselves;
+    under no_grad the forward keeps nothing for a backward."""
+    v, rel, R, dy = _rel_inputs(20000, D, 53, 5, cuda_device, outside=6)
+    fwd, bwd = port_rel.rel_apply_fwd_cuda, port_rel.rel_apply_bwd_cuda
+    vg, Rg = v.clone().requires_grad_(True), R.clone().requires_grad_(True)
+    k0 = (fwd.kernel_launches, bwd.kernel_launches)
+    y = port_rel.rel_apply(vg, rel, Rg, bf16=bf16)
+    k1 = (fwd.kernel_launches, bwd.kernel_launches)
+    y.backward(dy)
+    k2 = (fwd.kernel_launches, bwd.kernel_launches)
+    assert k1[0] - k0[0] <= 3 and k1[1] == k0[1]
+    assert k2[0] == k1[0] and k2[1] - k1[1] <= 2
+    torch.cuda.synchronize()
+    y_alone = port_rel.rel_apply_fwd_cuda(v, rel, R, bf16=bf16)
+    dv_alone, dR_alone = port_rel.rel_apply_bwd_cuda(v, rel, R, dy, bf16=bf16)
+    assert torch.equal(y.detach(), y_alone)
+    assert torch.equal(vg.grad, dv_alone) and torch.equal(Rg.grad, dR_alone)
+    with torch.no_grad():
+        out = port_rel.rel_apply(vg, rel, Rg, bf16=bf16)
+    assert out.grad_fn is None and torch.equal(out, y_alone)
