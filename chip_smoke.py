@@ -528,24 +528,46 @@ def phase_build(torch):
             log(f"[build] {name}: {line.strip()}")
 
 
-def check_topk(torch, B, N, D, k, seed, pad_only=False):
+def check_topk(torch, B, N, D, k, seed, pad_only=False, dup=False):
     """``pad_only``: the mask a sequential full-sort pass gives, column 0
-    ([PAD]) set and nothing else, in place of a user's history."""
-    from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda, masked_topk_torch
+    ([PAD]) set and nothing else, in place of a user's history. ``dup``: row
+    0's best item copied either side of every boundary between the kernel's
+    slices of the item axis (ties across slices). Every case also holds the
+    output in (value desc, id asc) order and two runs to the same bits."""
+    from recbole_tpu_torch.ops.masked_topk import (masked_topk_cuda, masked_topk_plan,
+                                                   masked_topk_torch)
     q, items, mask = topk_inputs(torch, B, N, D, seed)
     if pad_only:
         mask.zero_()
         mask[:, 0] = 1
+    if dup:
+        best = int(torch.argmax(q[0] @ items.T))
+        cuts = masked_topk_plan(B, N, D, k, torch.cuda.get_device_properties(0)
+                                .multi_processor_count).slice_items(N)
+        if len(cuts) < 2:
+            raise AssertionError(f"masked_topk: no slice boundary at B={B} N={N}")
+        for lo, _ in cuts[1:]:
+            items[lo - 1] = items[best]
+            items[lo] = items[best]
     kv, ki = masked_topk_cuda(q, items, mask, k)
+    kv2, ki2 = masked_topk_cuda(q, items, mask, k)
     torch.cuda.synchronize()
+    if not (torch.equal(kv.view(torch.int32), kv2.view(torch.int32)) and torch.equal(ki, ki2)):
+        raise AssertionError(f"masked_topk: two runs differ at B={B} N={N} D={D}")
     pv, pi = masked_topk_torch(q, items, mask, k)
     scores = torch.where(mask > 0, torch.full((), -1e15, device="cuda"), q @ items.T)
     kv, ki, pv, pi = kv.cpu(), ki.cpu().long(), pv.cpu(), pi.cpu().long()
     scores = scores.cpu()
+    if bool((ki < 0).any() or (ki >= N).any()):
+        raise AssertionError("masked_topk returned an id outside the items")
     tol = TOPK_ATOL + TOPK_RTOL * pv.abs()
     if not bool(((kv - pv).abs() <= tol).all()):
         raise AssertionError(f"masked_topk values differ at B={B} N={N}: max "
                              f"{float((kv - pv).abs().max())}")
+    # the order is (value desc, id asc)
+    if not bool(((kv[:, :-1] > kv[:, 1:]) | ((kv[:, :-1] == kv[:, 1:])
+                                              & (ki[:, :-1] < ki[:, 1:]))).all()):
+        raise AssertionError("masked_topk output is not in (value desc, id asc) order")
     # the kernel's values are the plain scores of the ids it returns
     own = torch.gather(scores, 1, ki)
     if not bool(((own - kv).abs() <= TOPK_ATOL + TOPK_RTOL * own.abs()).all()):
@@ -560,9 +582,9 @@ def check_topk(torch, B, N, D, k, seed, pad_only=False):
     if bool(torch.gather(mask.cpu(), 1, ki).any()):
         raise AssertionError("masked_topk returned a masked item")
     err = float((kv - pv).abs().max())
-    log(f"[check] masked_topk B={B} N={N} D={D} k={k}{' only [PAD] masked' if pad_only else ''}: "
-        f"max|err| {err:.3e}, "
-        f"near-tie id swaps {swaps} of {B * k}")
+    log(f"[check] masked_topk B={B} N={N} D={D} k={k}{' only [PAD] masked' if pad_only else ''}"
+        f"{' duplicates across slices' if dup else ''}: max|err| {err:.3e}, "
+        f"near-tie id swaps {swaps} of {B * k}, two runs bit-identical")
     return err
 
 
@@ -2366,24 +2388,52 @@ def time_adam(torch, shapes, heads, iters):
     return n, t
 
 
-def phase_timing(torch):
-    from recbole_tpu_torch.ops import embed_grad as eg
-    from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda, masked_topk_torch
-    out = {}
-    B, N, D, k = 4096, ML1M[1] + 1, 64, 10
-    q, items, mask = topk_inputs(torch, B, N, D, seed=1)
+def time_topk(torch, kernel, B, N, D, k, seed, plain=True):
+    """One masked top-k kernel (``kernel``, a tree's ``masked_topk_cuda``) at
+    (B, N, D, k) on ``topk_inputs``: by events, in a CUDA graph, the host's
+    enqueue a call, the plain version (``plain``), the library call (matmul,
+    masked_fill, topk), and the bounds: q, items, the mask and the output
+    moved once (``bound_bytes_ms``), 2 B N D operations at the fp32 rate
+    (``bound_ms``) and at the 3xTF32 rate the kernel runs at, a third of
+    dense TF32 (``bound_3xtf32_ms``). ``launches_a_call`` is the wrapper's
+    own count over 20 calls, one kernel each. (torch.profiler is not asked
+    here: this late in a long process it recorded a fraction of the
+    launches; the card tests read it in a process of their own.)"""
+    from recbole_tpu_torch.ops.masked_topk import masked_topk_torch
+    q, items, mask = topk_inputs(torch, B, N, D, seed)
 
     def library():
         s = (q @ items.T).masked_fill_(mask > 0, -1e15)
         return torch.topk(s, k, dim=1)
 
-    t = {"ms": cuda_ms(torch, lambda: masked_topk_cuda(q, items, mask, k), 50),
-         "plain_ms": cuda_ms(torch, lambda: masked_topk_torch(q, items, mask, k), 20),
-         "library_ms": cuda_ms(torch, library, 20)}
-    t["bound_ms"], t["bound_by"] = bound(2.0 * B * N * D,
-                                         4 * (B * D + N * D) + B * N + 8 * B * k)
-    out["masked_topk"] = t
-    log(f"[time] masked_topk B={B} N={N} D={D} k={k}: {t}")
+    def call():
+        return kernel(q, items, mask, k)
+
+    t = {"ms": cuda_ms(torch, call, 50), "graph_ms": graph_ms(torch, call, calls=20, replays=10),
+         "host_ms": host_ms(torch, call, 50),
+         "plain_ms": cuda_ms(torch, lambda: masked_topk_torch(q, items, mask, k), 10)
+         if plain else None,
+         "library_ms": cuda_ms(torch, library, 20),
+         "library_graph_ms": graph_ms(torch, library, calls=5, replays=4)}
+    flops, nbytes = 2.0 * B * N * D, 4 * (B * D + N * D) + B * N + 8 * B * k
+    t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+    t["bound_3xtf32_ms"], _ = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
+    t["bound_bytes_ms"] = nbytes / PEAK_BYTES * 1e3
+    before = kernel.launches
+    for _ in range(20):
+        call()
+    t["launches_a_call"] = (kernel.launches - before) / 20
+    log(f"[time] masked_topk B={B} N={N} D={D} k={k} ({flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; library: matmul + masked_fill + topk): {t}")
+    return t
+
+
+def phase_timing(torch):
+    from recbole_tpu_torch.ops import embed_grad as eg
+    from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda
+    out = {}
+    out["masked_topk"] = time_topk(torch, masked_topk_cuda, 4096, ML1M[1] + 1, 64, 10, seed=1)
+    out["masked_topk"]["ml100k"] = time_topk(torch, masked_topk_cuda, 943, 1683, 64, 10, seed=2)
 
     # Adam over each main path's leaf set, one launch a step; BPR's is the
     # row's own entry
@@ -3024,7 +3074,12 @@ def main():
                               check_topk(torch, 943, 1683, 64, 10, seed=3),
                               # SASRec's full-sort batches: 4,096, then the last 1,944
                               check_topk(torch, 4096, ML1M[1] + 1, 64, 10, seed=14, pad_only=True),
-                              check_topk(torch, 1944, ML1M[1] + 1, 64, 10, seed=15, pad_only=True)),
+                              check_topk(torch, 1944, ML1M[1] + 1, 64, 10, seed=15, pad_only=True),
+                              # D 4 mod 8 (zero-padded k-steps), D past one K chunk, one row
+                              check_topk(torch, 943, 1683, 20, 10, seed=16),
+                              check_topk(torch, 1944, ML1M[1] + 1, 128, 10, seed=17),
+                              check_topk(torch, 1, ML1M[1] + 1, 64, 10, seed=18),
+                              check_topk(torch, 1944, ML1M[1] + 1, 64, 10, seed=19, dup=True)),
            "adam_leaf": max(
                *(check_adam(torch, label, shapes, heads, seed)
                  for seed, (label, (shapes, heads)) in enumerate(ADAM_SETS.items(), start=4)),

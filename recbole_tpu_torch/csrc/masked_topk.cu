@@ -1,209 +1,647 @@
-// Fused masked score + streaming top-k for full-sort evaluation, for Hopper.
+// Fused masked score + top-k for full-sort evaluation, for Hopper (sm_90a).
 //
-// Replaces: recbole_tpu/ops/masked_topk.py::masked_topk_pallas (kernel body
-// _kernel, :43-91). It computes what masked_topk_xla (:35-40) computes:
+// Replaces: recbole_tpu/ops/masked_topk.py::masked_topk_pallas (:94; kernel
+// body _kernel :43-91, pallas_call :112). It computes what masked_topk_xla
+// (:35-40) computes:
 //   scores = q @ items^T;  scores[mask > 0] = -1e15;  top-k of each row,
-// ties going to the lower item id as lax.top_k breaks them. The (B, N)
-// score matrix never exists.
+// ordered (score desc, id asc) as lax.top_k orders them. The (B, N) score
+// matrix never exists.
 //
-// What bounds it on the H100: at the main path's shapes (ml-1m eval:
-// B = 4096, N = 3707, D = 64, k = 10) the work is 2*B*N*D = 1.94 GFLOP of
-// fp32 FMA (29 us at the 67 TFLOP/s non-tensor peak) against 17.5 MB of
-// traffic (5.2 us at 3.35 TB/s), so fp32 FMA issue bounds it. The scores
-// stay fp32 (no TF32 tensor cores): the JAX reference's fp32 ranking is the
-// oracle, and a TF32 score reorders near ties.
+// What bounds it on the H100: at the main path's shape (an ml-1m-shaped
+// pass: B = 4,096, N = 3,707, D = 64, k = 10) the work is 2 B N D = 1.94
+// GFLOP against 17.5 MB of traffic (15.2 MB of it the int8 mask): 0.029 ms
+// at the 67 TFLOP/s fp32 FMA rate, 0.012 ms at the 3xTF32 rate (a third of
+// dense TF32's 494.7 TFLOP/s), 0.005 ms for the bytes. The products go to
+// the tensor cores as 3xTF32: each operand split into a TF32 hi part (x
+// rounded to its top 19 bits) and the remainder lo, three mma.sync m16n8k8
+// a k-step (lo hi, hi lo, then hi hi; lo lo dropped) in fresh sums added to
+// the fp32 total, which keeps about 2^-21 of each |a b|. A single TF32
+// product would reorder near ties against the fp32 oracle. As measured
+// (scripts/torch_topk_probe.py, PERF.md): mma.sync's TF32 rate and the
+// products' latency leave the products alone at about 0.11 ms a call, and
+// the selection, latency-bound chains of shuffles and ballots, about as
+// much again unless it runs beside them.
 //
-// Design. A block of 8 warps owns 32 query rows (4 per warp), staged in
-// shared memory once. It walks the item table in tiles of 32 items; each
-// tile is loaded into shared memory with float4 loads (row stride D + 4
-// floats, so a warp's 16-byte reads hit distinct banks) and reused by all 32
-// rows. Each lane scores one item of the tile against its warp's 4 rows,
-// sequential fp32 FMA over D, so one float4 item read feeds 16 FMAs. The
-// Pallas kernel's sequential grid with scratch carried across tiles becomes
-// the loop inside the block. Each row's running top-k is a sorted list
-// distributed over the warp's registers (slot t of lane l is position
-// l + 32 t, up to 32 * SLOTS positions); an item enters only if it beats
-// the row's current k-th entry, which after the first tiles is rare, so the
-// warp-serial insertion (ballot, broadcast, rank by popcount, shift by
-// shuffle) costs little beside the scoring. The order is the strict total
-// order (score desc, id asc), so the result does not depend on the order in
-// which items arrive.
+// Design. The grid is (row tiles of 16 MT query rows, MT 4, 2 or 1) x (S
+// slices of the item axis); the launcher (ops/masked_topk.py::
+// masked_topk_plan) picks MT and S from (B, N, D, k) and the card's SM count
+// so that one wave, a block an SM, fills the card. A block keeps its query
+// rows in shared memory for its whole slice and walks the slice 64 items a
+// step:
+//   * items (a K chunk of at most 64 floats a row) and the tile's mask bytes
+//     come by cp.async into a ring of 3 stages, issued 2 steps ahead. Mask
+//     rows lie N bytes apart, so a row's 64 bytes start at any offset: the
+//     kernel copies the aligned 16-byte chunks that cover them
+//     (5 a row) and reads past the offset; a chunk that leaves the tensor's
+//     B N bytes is read byte by byte within it.
+//   * product_warps(MT) product warps: warp (wm, wn) computes rows 16 wm..
+//     of 8 NTW items at 8 NTW wn (NTW m16n8 tiles), each fragment split at
+//     use; D = 4 mod 8 is zero-padded to a multiple of 8 in shared memory,
+//     and D > 64 runs in K chunks of 64 through the ring. Tile t's scores,
+//     masked, go to one of two buffers, and a row's flag is raised where one
+//     of them beats the row's k-th entry (its bar).
+//   * kSelWarps selecting warps, in the same step, take tile t - 1 from the
+//     other buffer, each its rows, a row at a time and flagged rows only: the
+//     slice's first tile is sorted into the row's list (a bitonic network
+//     over the warp); in a later one the entries that beat the bar are
+//     ranked against the list and each other at once and placed. Each row's
+//     top k so far and its bar lie in shared memory.
+// A block then writes its slice's list (k entries a row, (-inf, INT_MAX)
+// past the slice's items) to a scratch, and the last block of a row tile to
+// finish (an integer ticket per row tile, reset by that block) merges the S
+// lists: an entry's place is its position in its list plus, in each other
+// list, the count of entries that beat it (a binary search), and it is
+// kept when that place is below k. (score desc, id asc) is a strict total
+// order over distinct ids, so the result does not depend on the order in
+// which blocks finish, and two runs give the same bits. With S = 1 a block
+// keeps its own lists. The block that holds a row's final k ids takes their
+// values again in fp32 (a fused multiply-add a coordinate in order, as the
+// plain fp32 product sums them), orders the row by those and writes it: the
+// output's values carry fp32's rounding, and 3xTF32 only chooses the ids.
+// One kernel a call.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface, loaded by recbole_tpu_torch/ops/cuda_build.py.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
-#include <limits.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kTile = 32;  // items per tile: one per lane
+constexpr int kSelWarps = 16;            // selecting warps a block
+constexpr int kTN = 64;               // items a tile
+constexpr int kStages = 3;            // the staging ring's depth
+constexpr int kKC = 64;               // floats of an item row a stage holds
+constexpr int kIS = kKC + 4;          // a staged item row's stride (floats)
+constexpr int kMaskChunks = kTN / 16 + 1;  // 16-byte chunks covering 64 bytes
+constexpr int kMaskRow = 16 * kMaskChunks; // bytes a staged mask row holds
+constexpr int kSS = kTN + 8;          // the score tile's stride (floats)
+constexpr int kMaxMerge = 512;        // S k a row, at most
+constexpr int kMaxSlices = 16;
+constexpr int kMaxSmem = 232448;      // a block's shared memory on the H100
 constexpr float kNegInf = -1e15f;
 constexpr unsigned kFull = 0xffffffffu;
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// a row of the query tile in shared memory: D zero-padded to a multiple of
+// 8, plus 4 floats, so that a fragment's 8 rows by 4 columns hit 32 banks
+__host__ __device__ __forceinline__ int a_stride(int D) { return round_up(D, 8) + 4; }
+
+// a ring stage: 64 item rows of a K chunk, and bm rows of mask bytes
+__host__ __device__ __forceinline__ int stage_bytes(int bm) { return kTN * kIS * 4 + bm * kMaskRow; }
+
+// a block of bm = 16 MT query rows: the query tile, the ring, two score
+// tiles, each row's bar (its k-th entry) and two flags (a tile has an entry
+// that beats the bar), each row's top k so far, and the block's flag
+__host__ __device__ __forceinline__ size_t smem_bytes(int bm, int D, int k) {
+  return (size_t)4 * bm * a_stride(D) + (size_t)kStages * stage_bytes(bm) +
+         (size_t)8 * bm * kSS + (size_t)16 * bm + (size_t)8 * bm * k + 16;
+}
+
+// a block's product warps: 16 at 32 and 64 rows (one or two m16n8 tiles a
+// warp), 8 at 16 rows; its threads, with the selecting warps
+__host__ __device__ constexpr int product_warps(int mt) { return mt >= 2 ? 16 : 8; }
+__host__ __device__ constexpr int threads(int mt) { return 32 * (product_warps(mt) + kSelWarps); }
 
 __device__ __forceinline__ bool beats(float s1, int i1, float s2, int i2) {
   return s1 > s2 || (s1 == s2 && i1 < i2);
 }
 
-template <int SLOTS>
-__global__ void __launch_bounds__(kWarps * 32)
-masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
-                   const int8_t* __restrict__ mask, int B, int N, int D, int k,
-                   float* __restrict__ out_vals, int* __restrict__ out_ids) {
-  extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);   // [kRowsPerBlock][D]
-  float* s_items = s_q + kRowsPerBlock * D;       // [kTile][D + 4]
-  const int dpad = D + 4;
-  const int nvec = D / 4;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int wrow0 = warp * kRowsPerWarp;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  for (int i = tid; i < kRowsPerBlock * D; i += blockDim.x) {
-    const int r = i / D;
-    const int row = row0 + r;
-    s_q[i] = row < B ? q[(size_t)row * D + (i - r * D)] : 0.f;
-  }
+// 16 bytes from global to shared, or (bytes 0) 16 zero bytes
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float lv[kRowsPerWarp][SLOTS];
-  int li[kRowsPerWarp][SLOTS];
-  float thr_v[kRowsPerWarp];
-  int thr_i[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-    for (int t = 0; t < SLOTS; ++t) {
-      lv[r][t] = -INFINITY;
-      li[r][t] = INT_MAX;
-    }
-    thr_v[r] = -INFINITY;
-    thr_i[r] = INT_MAX;
-  }
-  const int kth_lane = (k - 1) & 31;
-  const int kth_slot = (k - 1) >> 5;
+// c += a b: one m16n8k8 tile, tf32 operands, fp32 sums
+__device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  for (int t0 = 0; t0 < N; t0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and the queries staged)
-    for (int i = tid; i < kTile * nvec; i += blockDim.x) {
-      const int r = i / nvec;
-      const int c = i - r * nvec;
-      const int item = t0 + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (item < N) v = reinterpret_cast<const float4*>(items + (size_t)item * D)[c];
-      *reinterpret_cast<float4*>(s_items + r * dpad + 4 * c) = v;
-    }
-    __syncthreads();
+// x = hi + lo for 3xTF32: hi is x rounded to its top 19 bits (a tf32
+// value, nearest, ties away from zero, by an integer add and a mask), lo the
+// exact remainder (|lo| <= 2^-11 |x|), whose low bits the tensor cores drop:
+// a product keeps about 2^-21 of |a b|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
 
-    const int item = t0 + lane;
-    const float* it = s_items + lane * dpad;
-    float acc[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = 0.f;
-    for (int c = 0; c < nvec; ++c) {
-      const float4 x = *reinterpret_cast<const float4*>(it + 4 * c);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 y = *reinterpret_cast<const float4*>(s_q + (wrow0 + r) * D + 4 * c);
-        acc[r] = fmaf(y.x, x.x, acc[r]);
-        acc[r] = fmaf(y.y, x.y, acc[r]);
-        acc[r] = fmaf(y.z, x.z, acc[r]);
-        acc[r] = fmaf(y.w, x.w, acc[r]);
-      }
-    }
+// the byte offset of a row's tile segment within its first staged chunk
+__device__ __forceinline__ int mask_offset(const int8_t* mask, int row, int N, int item0) {
+  return (int)(reinterpret_cast<uintptr_t>(mask + (size_t)row * N + item0) & 15);
+}
 
+// Sort 64 (score, id) pairs of a warp, lane l holding entries l (slot 0)
+// and l + 32 (slot 1), best first in (score desc, id asc): a bitonic network,
+// each block of `size` entries built best-first or worst-first by its place,
+// then merged; 20 exchange stages by shuffle and one in registers.
+__device__ __forceinline__ void sort64(float& v0, int& i0, float& v1, int& i1, int lane) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = row0 + wrow0 + r;
-      if (row >= B) continue;  // warp-uniform
-      float s = acc[r];
-      const bool valid = item < N;
-      if (valid && mask[(size_t)row * N + item] > 0) s = kNegInf;
-      unsigned bal = __ballot_sync(kFull, valid && beats(s, item, thr_v[r], thr_i[r]));
-      while (bal) {
-        const int src = __ffs(bal) - 1;
-        bal &= bal - 1;
-        const float cs = __shfl_sync(kFull, s, src);
-        const int ci = __shfl_sync(kFull, item, src);
-        if (!beats(cs, ci, thr_v[r], thr_i[r])) continue;  // the bar rose meanwhile
-        int pos = 0;
+  for (int size = 2; size <= 64; size <<= 1) {
 #pragma unroll
-        for (int t = 0; t < SLOTS; ++t)
-          pos += __popc(__ballot_sync(kFull, beats(lv[r][t], li[r][t], cs, ci)));
-        // shift positions >= pos down by one, highest slot first so each
-        // slot still reads the old values of the slot before it
-#pragma unroll
-        for (int t = SLOTS - 1; t >= 0; --t) {
-          float pv = __shfl_up_sync(kFull, lv[r][t], 1);
-          int pi = __shfl_up_sync(kFull, li[r][t], 1);
-          if (t > 0) {
-            const float wv = __shfl_sync(kFull, lv[r][t > 0 ? t - 1 : 0], 31);
-            const int wi = __shfl_sync(kFull, li[r][t > 0 ? t - 1 : 0], 31);
-            if (lane == 0) { pv = wv; pi = wi; }
-          }
-          const int p = lane + 32 * t;
-          if (p == pos) { lv[r][t] = cs; li[r][t] = ci; }
-          else if (p > pos) { lv[r][t] = pv; li[r][t] = pi; }
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      if (j == 32) {  // size 64: entry l against entry l + 32, one lane
+        if (beats(v1, i1, v0, i0)) {
+          const float tv = v0; v0 = v1; v1 = tv;
+          const int ti = i0; i0 = i1; i1 = ti;
         }
-        float tv = lv[r][0];
-        int ti = li[r][0];
-#pragma unroll
-        for (int t = 1; t < SLOTS; ++t)
-          if (t == kth_slot) { tv = lv[r][t]; ti = li[r][t]; }
-        thr_v[r] = __shfl_sync(kFull, tv, kth_lane);
-        thr_i[r] = __shfl_sync(kFull, ti, kth_lane);
+        continue;
       }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + wrow0 + r;
-    if (row >= B) continue;
-#pragma unroll
-    for (int t = 0; t < SLOTS; ++t) {
-      const int p = lane + 32 * t;
-      if (p < k) {
-        out_vals[(size_t)row * k + p] = lv[r][t];
-        out_ids[(size_t)row * k + p] = li[r][t];
-      }
+      const bool lower = (lane & j) == 0;
+      const bool best0 = size == 64 || size == 32 || (lane & size) == 0;
+      const bool best1 = size == 64 || (size < 32 && (lane & size) == 0);
+      const float p0 = __shfl_xor_sync(kFull, v0, j), p1 = __shfl_xor_sync(kFull, v1, j);
+      const int q0 = __shfl_xor_sync(kFull, i0, j), q1 = __shfl_xor_sync(kFull, i1, j);
+      const bool take0 = lower == best0 ? beats(p0, q0, v0, i0) : beats(v0, i0, p0, q0);
+      const bool take1 = lower == best1 ? beats(p1, q1, v1, i1) : beats(v1, i1, p1, q1);
+      if (take0) { v0 = p0; i0 = q0; }
+      if (take1) { v1 = p1; i1 = q1; }
     }
   }
 }
 
+// A row's running top k: entry (score, id) p of the row at lv[p], li[p],
+// sorted best first, and its k-th entry, the bar, as one 64-bit word (read
+// and written whole: the products' warps read it while a selecting warp may
+// raise it).
+__device__ __forceinline__ void store_bar(float2* bar, int r, float v, int i) {
+  bar[r] = make_float2(v, __int_as_float(i));
+}
+
+// Tile t's selection by one warp, for its flagged rows (rows the products'
+// warps saw an entry beat the bar in): the slice's first tile is sorted into
+// the list; in a later one, the entries that beat the bar are ranked against
+// the list and each other at once (an entry's place: the list's entries and
+// the other candidates that beat it; a list entry's: its place plus the
+// candidates that beat it), and those placed below k are written.
 template <int SLOTS>
-int launch(const float* q, const float* items, const int8_t* mask, int B, int N,
-           int D, int k, float* vals, int* ids, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kRowsPerBlock * D + (size_t)kTile * (D + 4));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(masked_topk_kernel<SLOTS>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
+__device__ __forceinline__ void select_tile(const float* sc, int* flags, float* s_lv, int* s_li,
+                                            float2* bars, int warp, int rw, int lane, int t,
+                                            bool first, int N, int k) {
+  unsigned flagged = __ballot_sync(kFull, lane < rw && flags[warp * rw + (lane < rw ? lane : 0)]);
+  const int kth_lane = (k - 1) & 31;
+  const int kth_slot = (k - 1) >> 5;
+  while (flagged) {
+    const int lr = warp * rw + __ffs(flagged) - 1;
+    flagged &= flagged - 1;
+    if (lane == 0) flags[lr] = 0;
+    const float* sr = sc + lr * kSS;
+    float* lvp = s_lv + lr * k;
+    int* lip = s_li + lr * k;
+    float sv0 = sr[lane], sv1 = sr[32 + lane];  // masked already
+    int si0 = t * kTN + lane, si1 = si0 + 32;
+    if (si0 >= N) { sv0 = -INFINITY; si0 = INT_MAX; }  // past the items
+    if (si1 >= N) { sv1 = -INFINITY; si1 = INT_MAX; }
+    if (first) {
+      sort64(sv0, si0, sv1, si1, lane);
+#pragma unroll
+      for (int u = 0; u < SLOTS; ++u) {
+        if (32 * u + lane < k) {
+          lvp[32 * u + lane] = u == 0 ? sv0 : u == 1 ? sv1 : -INFINITY;
+          lip[32 * u + lane] = u == 0 ? si0 : u == 1 ? si1 : INT_MAX;
+        }
+      }
+      const float kv = __shfl_sync(kFull, kth_slot ? sv1 : sv0, kth_lane);
+      const int ki = __shfl_sync(kFull, kth_slot ? si1 : si0, kth_lane);
+      if (lane == 0) store_bar(bars, lr, kth_slot < 2 ? kv : -INFINITY, kth_slot < 2 ? ki : INT_MAX);
+      __syncwarp();
+      continue;
+    }
+    const float2 bar = bars[lr];
+    const int bi = __float_as_int(bar.y);
+    const unsigned bal0 = __ballot_sync(kFull, beats(sv0, si0, bar.x, bi));
+    const unsigned bal1 = __ballot_sync(kFull, beats(sv1, si1, bar.x, bi));
+    if (!(bal0 | bal1)) continue;
+    // the list in registers, place l + 32 u in slot u of lane l; past k
+    // none is needed (a candidate beats the k-th entry)
+    float lv[SLOTS];
+    int li[SLOTS];
+    int up[SLOTS];  // candidates that beat the list entry
+#pragma unroll
+    for (int u = 0; u < SLOTS; ++u) {
+      const bool in = 32 * u + lane < k;
+      lv[u] = in ? lvp[32 * u + lane] : -INFINITY;
+      li[u] = in ? lip[32 * u + lane] : INT_MAX;
+      up[u] = 0;
+    }
+    int r0 = 0, r1 = 0;  // the lane's candidates' places
+    for (int h = 0; h < 2; ++h) {
+      unsigned bal = h ? bal1 : bal0;
+      const float sv = h ? sv1 : sv0;
+      while (bal) {
+        const int src = __ffs(bal) - 1;
+        bal &= bal - 1;
+        const float cs = __shfl_sync(kFull, sv, src);
+        const int ci = t * kTN + 32 * h + src;  // a candidate is an item below N
+        int pos = 0;
+#pragma unroll
+        for (int u = 0; u < SLOTS; ++u) {
+          pos += __popc(__ballot_sync(kFull, beats(lv[u], li[u], cs, ci)));
+          up[u] += beats(cs, ci, lv[u], li[u]);
+        }
+        if (lane == src) { if (h) r1 += pos; else r0 += pos; }
+        r0 += beats(cs, ci, sv0, si0);
+        r1 += beats(cs, ci, sv1, si1);
+      }
+    }
+    __syncwarp();  // every lane has read the list
+#pragma unroll
+    for (int u = 0; u < SLOTS; ++u) {
+      const int p = 32 * u + lane + up[u];
+      if (32 * u + lane < k && p < k) {
+        lvp[p] = lv[u];
+        lip[p] = li[u];
+      }
+    }
+    if (bal0 >> lane & 1 && r0 < k) { lvp[r0] = sv0; lip[r0] = si0; }
+    if (bal1 >> lane & 1 && r1 < k) { lvp[r1] = sv1; lip[r1] = si1; }
+    __syncwarp();
+    if (lane == 0) store_bar(bars, lr, lvp[k - 1], lip[k - 1]);
+    __syncwarp();
   }
-  const int grid = (B + kRowsPerBlock - 1) / kRowsPerBlock;
-  masked_topk_kernel<SLOTS><<<grid, kWarps * 32, smem, stream>>>(
-      q, items, mask, B, N, D, k, vals, ids);
+}
+
+// A block: 16 MT query rows (MT m16 tiles), product_warps(MT) product warps
+// and kSelWarps selecting warps. Product warp (wm, wn) = (w % MT, w / MT)
+// computes rows 16 wm.. of items 8 NTW wn.. (NTW m16n8 tiles) of tile t; in
+// the same step selecting warp w selects rows RW w.. of tile t - 1: scores,
+// masked, and the rows' flags alternate between two buffers.
+template <int MT, int SLOTS>
+__global__ void __launch_bounds__(threads(MT), 1)
+masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
+                   const int8_t* __restrict__ mask, int B, int N, int D, int k,
+                   float* __restrict__ out_vals, int* __restrict__ out_ids,
+                   float* __restrict__ part_vals, int* __restrict__ part_ids,
+                   int* __restrict__ tickets) {
+  constexpr int BM = 16 * MT;
+  constexpr int PW = product_warps(MT);
+  constexpr int NTW = 8 * MT / PW;    // m16n8 tiles a product warp
+  constexpr int NT = threads(MT);
+  constexpr int RW = BM / kSelWarps;  // rows a selecting warp takes
+  extern __shared__ float4 smem4[];
+  const int AS = a_stride(D);
+  const int Dp = AS - 4;
+  const int SB = stage_bytes(BM);
+  float* s_a = reinterpret_cast<float*>(smem4);                         // [BM][AS]
+  char* s_ring = reinterpret_cast<char*>(s_a + BM * AS);                 // kStages x SB
+  float* s_sc = reinterpret_cast<float*>(s_ring + (size_t)kStages * SB); // [2][BM][kSS]
+  float2* s_bar = reinterpret_cast<float2*>(s_sc + 2 * BM * kSS);        // [BM]
+  int* s_flag = reinterpret_cast<int*>(s_bar + BM);                      // [2][BM]
+  float* s_lv = reinterpret_cast<float*>(s_flag + 2 * BM);               // [BM][k]
+  int* s_li = reinterpret_cast<int*>(s_lv + BM * k);                     // [BM][k]
+  int* s_last = s_li + BM * k;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int row0 = blockIdx.x * BM;
+  const int S = gridDim.y;
+  const int T = (N + kTN - 1) / kTN;
+  const int t_lo = (int)((long long)blockIdx.y * T / S);
+  const int t_hi = (int)((long long)(blockIdx.y + 1) * T / S);
+  const int nch = max(1, (Dp + kKC - 1) / kKC);
+  const int nsteps = (t_hi - t_lo) * nch;
+  const uintptr_t mask_lo = reinterpret_cast<uintptr_t>(mask);
+  const uintptr_t mask_hi = mask_lo + (size_t)B * N;
+
+  // the query tile, zero past B and past D (one commit group with step 0)
+  {
+    const int cpr = Dp / 4;
+    for (int i = tid; i < BM * cpr; i += NT) {
+      const int r = i / cpr, c = i - r * cpr;
+      const bool ok = row0 + r < B && 4 * c < D;
+      cp16(s_a + r * AS + 4 * c, ok ? q + (size_t)(row0 + r) * D + 4 * c : q, ok ? 16 : 0);
+    }
+  }
+
+  // stage a step (tile, K chunk): the chunk's item rows and, with the
+  // tile's last chunk, its mask bytes; one commit group, maybe empty
+  auto issue = [&](int step) {
+    if (step < nsteps) {
+      const int t = t_lo + step / nch, c = step - (step / nch) * nch;
+      char* stage = s_ring + (size_t)(step % kStages) * SB;
+      float* s_it = reinterpret_cast<float*>(stage);
+      const int k0 = c * kKC;
+      const int cpr = min(kKC, Dp - k0) / 4;
+      const int dr = NT / cpr, dc = NT - dr * cpr;
+      for (int i = tid, r = tid / cpr, cc = tid % cpr; i < kTN * cpr;
+           i += NT, r += dr + (cc + dc >= cpr), cc += dc - (cc + dc >= cpr ? cpr : 0)) {
+        const int item = t * kTN + r, col = k0 + 4 * cc;
+        const bool ok = item < N && col < D;
+        cp16(s_it + r * kIS + 4 * cc, ok ? items + (size_t)item * D + col : items, ok ? 16 : 0);
+      }
+      if (c == nch - 1) {
+        int8_t* s_m = reinterpret_cast<int8_t*>(stage + kTN * kIS * 4);
+        for (int i = tid; i < BM * kMaskChunks; i += NT) {
+          const int r = i / kMaskChunks, cc = i - r * kMaskChunks;
+          if (row0 + r >= B) continue;
+          const uintptr_t seg = reinterpret_cast<uintptr_t>(mask + (size_t)(row0 + r) * N +
+                                                            (size_t)t * kTN);
+          const uintptr_t chunk = (seg & ~(uintptr_t)15) + 16 * cc;
+          int8_t* dst = s_m + r * kMaskRow + 16 * cc;
+          if (chunk >= mask_lo && chunk + 16 <= mask_hi) {
+            cp16(dst, reinterpret_cast<const void*>(chunk), 16);
+          } else {
+            for (int b = 0; b < 16; ++b) {
+              const uintptr_t p = chunk + b;
+              dst[b] = p >= mask_lo && p < mask_hi ? *reinterpret_cast<const int8_t*>(p) : 0;
+            }
+          }
+        }
+      }
+    }
+    cp_commit();
+  };
+
+  for (int r = tid; r < BM; r += NT) {
+    store_bar(s_bar, r, -INFINITY, INT_MAX);  // before the first tile every entry passes
+    s_flag[r] = s_flag[BM + r] = 0;
+  }
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  const int wm = warp % MT, wn = warp / MT;
+  float acc[NTW][4];
+  for (int step = 0; step < nsteps; ++step) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // step's stage landed; the stage refilled below is consumed
+    issue(step + kStages - 1);
+
+    const int t = t_lo + step / nch, c = step - (step / nch) * nch;
+    if (warp >= PW) {  // a selecting warp: the tile before
+      if (c == nch - 1 && t > t_lo) {
+        const int tp = t - 1;
+        select_tile<SLOTS>(s_sc + (tp & 1) * BM * kSS, s_flag + (tp & 1) * BM, s_lv, s_li,
+                           s_bar, warp - PW, RW, lane, tp, tp == t_lo, N, k);
+      }
+      continue;
+    }
+    if (c == 0) {
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+    const char* stage = s_ring + (size_t)(step % kStages) * SB;
+    const float* s_it = reinterpret_cast<const float*>(stage) + (wn * 8 * NTW + g) * kIS + qd;
+    const float* s_q = s_a + (wm * 16 + g) * AS + c * kKC + qd;
+    const int nks = min(kKC, Dp - c * kKC) / 8;
+#pragma unroll
+    for (int ks = 0; ks < kKC / 8; ++ks) {
+      if (ks >= nks) break;
+      uint32_t ah[4], al[4];
+      split_tf32(s_q[8 * ks], ah[0], al[0]);
+      split_tf32(s_q[8 * AS + 8 * ks], ah[1], al[1]);
+      split_tf32(s_q[8 * ks + 4], ah[2], al[2]);
+      split_tf32(s_q[8 * AS + 8 * ks + 4], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(s_it[8 * j * kIS + 8 * ks], bh0, bl0);
+        split_tf32(s_it[8 * j * kIS + 8 * ks + 4], bh1, bl1);
+        // a k-step's three products in fresh sums, the small terms first,
+        // then one fp32 add: the tensor cores' sums stay small
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma1688(d, al, bh0, bh1);
+        mma1688(d, ah, bl0, bl1);
+        mma1688(d, ah, bh0, bh1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += d[e];
+      }
+    }
+    if (c != nch - 1) continue;
+
+    // the tile's scores, masked, to its buffer, and each row's flag raised
+    // where one of them beats the row's bar (read as the previous tile's
+    // selection may be raising it: a lower bar only flags more rows)
+    {
+      const int8_t* s_m = reinterpret_cast<const int8_t*>(stage + kTN * kIS * 4);
+      float* sc = s_sc + (t & 1) * BM * kSS;
+      int* flags = s_flag + (t & 1) * BM;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int lr = wm * 16 + g + 8 * half;
+        const bool live = row0 + lr < B;
+        const int8_t* mr = s_m + lr * kMaskRow +
+                           (live ? mask_offset(mask, row0 + lr, N, t * kTN) : 0);
+        const float2 bar = s_bar[lr];
+        const int bi = __float_as_int(bar.y);
+        bool cand = false;
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int col = wn * 8 * NTW + 8 * j + 2 * qd;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = live && mr[col + e] > 0 ? kNegInf : acc[j][2 * half + e];
+            cand |= t * kTN + col + e < N && beats(v[e], t * kTN + col + e, bar.x, bi);
+          }
+          *reinterpret_cast<float2*>(sc + lr * kSS + col) = make_float2(v[0], v[1]);
+        }
+        if (cand && live) flags[lr] = 1;
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the last tile's scores and flags
+  if (warp >= PW) {
+    const int tp = t_hi - 1;
+    select_tile<SLOTS>(s_sc + (tp & 1) * BM * kSS, s_flag + (tp & 1) * BM, s_lv, s_li, s_bar,
+                       warp - PW, RW, lane, tp, tp == t_lo, N, k);
+  }
+  __syncthreads();  // every row's list is final
+
+  const int nrows = min(BM, B - row0);
+  if (S > 1) {
+    // the slice's lists to the scratch; the last block of the row tile to
+    // finish merges them
+    float* dv = part_vals + (size_t)blockIdx.y * B * k;
+    int* di = part_ids + (size_t)blockIdx.y * B * k;
+    for (int x = tid; x < nrows * k; x += NT) {
+      dv[(size_t)row0 * k + x] = s_lv[x];
+      di[(size_t)row0 * k + x] = s_li[x];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *s_last = atomicAdd(tickets + blockIdx.x, 1) == S - 1;
+    __syncthreads();
+    if (!*s_last) return;
+    __threadfence();
+
+    // The merge of the S lists of each row, as many rows at a time as the
+    // query tile's and the ring's bytes hold: all threads load them, then
+    // each takes entries in turn; an entry's place is its position plus, in
+    // each other list of its row, the count of entries that beat it (a
+    // binary search), and its id goes to that place of the row's list when
+    // the place is below k.
+    const int L = S * k;
+    const int room = (BM * AS * 4 + kStages * SB) / 8;  // entries the region holds
+    const int RC = min(nrows, room / L);
+    float* mv = reinterpret_cast<float*>(smem4);
+    int* mi = reinterpret_cast<int*>(mv + RC * L);
+    for (int c0 = 0; c0 < nrows; c0 += RC) {
+      const int nr = min(RC, nrows - c0);
+      const int n = nr * L;
+      __syncthreads();
+      // entry (list s, row c, place p) at (s nr + c) k + p: a list's rows lie
+      // together in the scratch; four loads in flight a thread
+      for (int x0 = tid; x0 < n; x0 += 4 * NT) {
+        float v[4];
+        int id[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int x = x0 + u * NT;
+          if (x < n) {
+            const int s = x / (nr * k), rem = x - s * nr * k;
+            const size_t at = ((size_t)s * B + row0 + c0) * k + rem;
+            v[u] = __ldcg(part_vals + at);
+            id[u] = __ldcg(part_ids + at);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (x0 + u * NT < n) {
+            mv[x0 + u * NT] = v[u];
+            mi[x0 + u * NT] = id[u];
+          }
+        }
+      }
+      __syncthreads();
+      for (int x = tid; x < n; x += NT) {
+        const int sl = x / (nr * k), rem = x - sl * nr * k;
+        const int c = rem / k, p = rem - c * k;
+        const float ev = mv[x];
+        const int ei = mi[x];
+        int rank = p;
+        for (int o = 0; o < S && rank < k; ++o) {
+          if (o == sl) continue;
+          const float* ov = mv + (o * nr + c) * k;
+          const int* oi = mi + (o * nr + c) * k;
+          int lo = 0, hi = k;  // entries of list o that beat e form a prefix
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (beats(ov[mid], oi[mid], ev, ei)) lo = mid + 1; else hi = mid;
+          }
+          rank += lo;
+        }
+        if (rank < k) s_li[(c0 + c) * k + rank] = ei;
+      }
+    }
+    if (tid == 0) tickets[blockIdx.x] = 0;
+    __syncthreads();  // every row's merged list
+  }
+
+  // The rows' k ids are chosen; their values are taken again as the plain
+  // fp32 product takes them, a fused multiply-add a coordinate in order from
+  // 0, so that the output carries fp32's rounding and not 3xTF32's (which
+  // near a score of 0 lies up to about 2^-21 of the largest product from
+  // it), and each row is ordered again by (score desc, id asc) on those
+  // values. The choice stays 3xTF32's: an id can differ from the plain
+  // version's only at a near tie.
+  for (int x = tid; x < nrows * k; x += NT) {
+    const size_t row = (size_t)row0 + x / k;
+    const int id = s_li[x];
+    float v = -INFINITY;  // never: k <= N real items fill every list
+    if (id >= 0 && id < N) {
+      if (mask[row * N + id] > 0) {
+        v = kNegInf;
+      } else {
+        const float4* qa = reinterpret_cast<const float4*>(q + row * D);
+        const float4* ib = reinterpret_cast<const float4*>(items + (size_t)id * D);
+        v = 0.f;
+#pragma unroll 4
+        for (int c = 0; c < D / 4; ++c) {
+          const float4 a = __ldg(qa + c), b = __ldg(ib + c);
+          v = fmaf(a.x, b.x, v);
+          v = fmaf(a.y, b.y, v);
+          v = fmaf(a.z, b.z, v);
+          v = fmaf(a.w, b.w, v);
+        }
+      }
+    }
+    s_lv[x] = v;
+  }
+  __syncthreads();
+  for (int x = tid; x < nrows * k; x += NT) {
+    const int r = x / k;
+    const float v = s_lv[x];
+    const int id = s_li[x];
+    int rank = 0;
+    for (int j = 0; j < k; ++j) rank += beats(s_lv[r * k + j], s_li[r * k + j], v, id);
+    out_vals[(size_t)(row0 + r) * k + rank] = v;
+    out_ids[(size_t)(row0 + r) * k + rank] = id;
+  }
+}
+
+template <int MT, int SLOTS>
+int launch(const float* q, const float* items, const int8_t* mask, int B, int N, int D, int k,
+           int S, float* vals, int* ids, float* part, int* tickets, cudaStream_t stream) {
+  // the kernel's shared-memory limit, raised once per device
+  static unsigned long long raised = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !(raised >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(masked_topk_kernel<MT, SLOTS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) raised |= 1ull << dev;
+  }
+  constexpr int BM = 16 * MT;
+  const size_t smem = smem_bytes(BM, D, k);
+  const dim3 grid((B + BM - 1) / BM, S);
+  float* part_vals = part;
+  int* part_ids = part ? reinterpret_cast<int*>(part + (size_t)S * B * k) : nullptr;
+  masked_topk_kernel<MT, SLOTS><<<grid, threads(MT), smem, stream>>>(
+      q, items, mask, B, N, D, k, vals, ids, part_vals, part_ids, tickets);
   return (int)cudaGetLastError();
+}
+
+template <int MT>
+int launch_k(const float* q, const float* items, const int8_t* mask, int B, int N, int D, int k,
+             int S, float* vals, int* ids, float* part, int* tickets, cudaStream_t s) {
+  if (k <= 32) return launch<MT, 1>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  if (k <= 64) return launch<MT, 2>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  return launch<MT, 4>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
 }
 
 }  // namespace
 
 // q (B, D) f32, items (N, D) f32, mask (B, N) int8, all contiguous, D % 4 == 0,
-// 16-byte aligned; vals (B, k) f32 and ids (B, k) int32 are written.
-// 1 <= k <= 128 and k <= N. Returns the CUDA error code of the launch.
-extern "C" int masked_topk_f32(const float* q, const float* items, const int8_t* mask,
-                               int B, int N, int D, int k, float* vals, int* ids,
-                               void* stream) {
+// q and items 16-byte aligned; vals (B, k) f32 and ids (B, k) int32 are
+// written. 1 <= k <= 128, k <= N, D <= 512. Blocks of 16 mt query rows (mt
+// 1, 2 or 4, whose shared memory fits) and S slices of the item axis
+// (1 <= S <= min(16, ceil(N / 64)), S k <= 512), as
+// ops/masked_topk.py::masked_topk_plan picks them. With S > 1: part holds
+// 2 S B k floats (the slices' lists) and tickets one zeroed int per row tile
+// (left zeroed). Returns the CUDA error code of the launch.
+extern "C" int masked_topk_f32(const float* q, const float* items, const int8_t* mask, int B,
+                               int N, int D, int k, int mt, int S, float* vals, int* ids,
+                               float* part, int* tickets, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 32) return launch<1>(q, items, mask, B, N, D, k, vals, ids, s);
-  if (k <= 64) return launch<2>(q, items, mask, B, N, D, k, vals, ids, s);
-  if (k <= 128) return launch<4>(q, items, mask, B, N, D, k, vals, ids, s);
-  return (int)cudaErrorInvalidValue;
+  const int T = (N + kTN - 1) / kTN;
+  if (B < 1 || k < 1 || k > 128 || k > N || D < 0 || D % 4 || D > 512 || S < 1 || S > T ||
+      S > kMaxSlices || (mt != 1 && mt != 2 && mt != 4) ||
+      (S > 1 && (S * k > kMaxMerge || !part || !tickets)) ||
+      smem_bytes(16 * mt, D, k) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (mt == 4) return launch_k<4>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  if (mt == 2) return launch_k<2>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  return launch_k<1>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
 }

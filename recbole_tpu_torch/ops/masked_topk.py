@@ -1,11 +1,13 @@
 """Fused masked score + top-k for full-sort evaluation.
 
-Port of recbole_tpu/ops/masked_topk.py. Three things live here:
+Port of recbole_tpu/ops/masked_topk.py. Here live:
 
 * ``masked_topk_torch``, the plain PyTorch version of ``masked_topk_xla``
   (:35-40): materialise the (B, N) scores, mask, and take the top k with
   ties going to the lower item id as ``lax.top_k`` breaks them (a stable
   descending sort, not ``torch.topk``, whose tie order is unspecified);
+* ``masked_topk_plan``, the kernel's launch plan: row tiles of 16, 32 or
+  64 queries by slices of the item axis;
 * ``masked_topk_cuda``, the launcher of the hand-written Hopper kernel in
   ``csrc/masked_topk.cu``, which replaces ``masked_topk_pallas`` (:94);
 * ``masked_topk``, the dispatcher: the plain version for CPU tensors, the
@@ -13,6 +15,7 @@ Port of recbole_tpu/ops/masked_topk.py. Three things live here:
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +23,12 @@ from . import cuda_build
 
 NEG_INF = -1e15
 K_CAP = 128  # the kernel keeps at most 128 entries per row
+TN = 64  # items a tile
+STAGES = 3  # the kernel's staging ring
+MAX_MERGE = 512  # S k at most: a row's slice lists are merged in shared memory
+MAX_SLICES = 16
+BLOCK_SMEM = 232448  # the most shared memory a block takes on the H100
+H100_SMS = 132
 
 
 def masked_topk_torch(query, items, invalid_mask, k):
@@ -35,22 +44,108 @@ def masked_topk_torch(query, items, invalid_mask, k):
     return vals[:, :k], ids[:, :k].to(torch.int32)
 
 
+# ------------------------------------------------------------------ the plan
+
+def masked_topk_smem(mt, D, k):
+    """A block's shared memory with 16 ``mt`` query rows at width D and lists
+    of k (csrc/masked_topk.cu::smem_bytes): the query tile (D padded to a
+    multiple of 8, plus 4 floats a row), the ring of 3 stages (64 item rows
+    of 68 floats and a mask row of 80 bytes a query row, a stage), two score
+    tiles (72 floats a query row each), each row's k-th entry and two flags,
+    the lists (k entries of 8 bytes a row) and the block's flag."""
+    bm, dp = 16 * mt, (D + 7) // 8 * 8
+    return (4 * bm * (dp + 4) + STAGES * (TN * 68 * 4 + bm * 80) + 8 * bm * (TN + 8)
+            + 16 * bm + 8 * bm * k + 16)
+
+
+class MaskedTopkPlan(NamedTuple):
+    mt: int  # a block's query rows in m16 tiles: 16 mt rows
+    row_tiles: int  # ceil(B / (16 mt)): the grid's x
+    slices: int  # S, the grid's y: the item axis in S slices of whole tiles
+    smem: int  # bytes of shared memory a block (one block an SM)
+
+    def slice_items(self, N):
+        """[(first item, end)] of each slice, as the kernel cuts them: tiles
+        of 64 items, slice s taking tiles [s T / S, (s + 1) T / S)."""
+        T = (N + TN - 1) // TN
+        S = self.slices
+        return [(s * T // S * TN, min(N, (s + 1) * T // S * TN)) for s in range(S)]
+
+
+def masked_topk_plan(B, N, D, k, sms=H100_SMS):
+    """The launch plan at (B, N, D, k) on a card of ``sms`` SMs, one block
+    an SM (768 or 1,024 threads, the kernel's launch bounds): the tallest
+    block (64, 32 or 16 query rows) whose shared memory fits and whose row
+    tiles need at most 4 slices to fill the card, and S the most slices
+    that keep the grid within one wave, at most one a tile of 64 items, 16
+    in all, and with S k <= 512 for the merge. 16 rows always fit (115 KB
+    at D 512, k 128)."""
+    tiles = (N + TN - 1) // TN
+    for mt in (4, 2, 1):
+        smem = masked_topk_smem(mt, D, k)
+        rows = (B + 16 * mt - 1) // (16 * mt)
+        if smem <= BLOCK_SMEM and sms // rows <= 4:
+            break
+    S = max(1, min(sms // rows, tiles, MAX_SLICES, MAX_MERGE // k))
+    return MaskedTopkPlan(mt, rows, S, smem)
+
+
+# ----------------------------------------------------------------- launcher
+
+_LIB = None
+# per device index: its SM count
+_SMS = {}
+# one int32 ticket per row tile, per (device, stream): zero when made, and
+# zero again after each call (a row tile's last block resets its own);
+# never freed, also when a longer one replaces it (a captured CUDA graph may
+# still use it)
+_TICKETS = {}
+_RETIRED = []
+# per (device index, B, N, D, k): its plan
+_PLANS = {}
+
+
 def _lib():
-    lib = cuda_build.load("masked_topk")
-    fn = lib.masked_topk_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The built library, loaded once: a call reads and hashes no file."""
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("masked_topk")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.masked_topk_f32.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+        lib.masked_topk_f32.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _plan(device, B, N, D, k):
+    key = (device.index, B, N, D, k)
+    plan = _PLANS.get(key)
+    if plan is None:
+        sms = _SMS.get(device.index)
+        if sms is None:
+            sms = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = _PLANS[key] = masked_topk_plan(B, N, D, k, sms)
+    return plan
+
+
+def _tickets(device, stream, rows):
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < rows:
+        if t is not None:
+            _RETIRED.append(t)
+        t = _TICKETS[key] = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def masked_topk_cuda(query, items, invalid_mask, k):
     """Launch the CUDA kernel on CUDA tensors; same contract as
-    ``masked_topk_torch``. Counts its launches in ``masked_topk_cuda.launches``."""
+    ``masked_topk_torch``. Counts its calls in ``masked_topk_cuda.launches``
+    (one kernel a call)."""
     if not (query.is_cuda and items.is_cuda and invalid_mask.is_cuda):
         raise ValueError("masked_topk_cuda needs CUDA tensors")
-    if not (query.device == items.device == invalid_mask.device):
+    device = query.device
+    if not (device == items.device == invalid_mask.device):
         raise ValueError("query, items and invalid_mask must share a device")
     if query.dtype != torch.float32 or items.dtype != torch.float32:
         raise TypeError("masked_topk_cuda takes float32 query and items")
@@ -72,11 +167,19 @@ def masked_topk_cuda(query, items, invalid_mask, k):
             raise ValueError(f"{name} must be contiguous")
     if query.data_ptr() % 16 or items.data_ptr() % 16:
         raise ValueError("query and items must be 16-byte aligned")
-    vals = torch.empty((B, k), dtype=torch.float32, device=query.device)
-    ids = torch.empty((B, k), dtype=torch.int32, device=query.device)
-    err = _lib()(query.data_ptr(), items.data_ptr(), invalid_mask.data_ptr(),
-                 B, N, D, k, vals.data_ptr(), ids.data_ptr(),
-                 torch.cuda.current_stream(query.device).cuda_stream)
+    plan = _plan(device, B, N, D, k)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    vals = torch.empty((B, k), dtype=torch.float32, device=device)
+    ids = torch.empty((B, k), dtype=torch.int32, device=device)
+    part = tickets = None
+    if plan.slices > 1:
+        part = torch.empty(2 * plan.slices * B * k, dtype=torch.float32, device=device)
+        tickets = _tickets(device, stream, plan.row_tiles)
+    err = _lib().masked_topk_f32(
+        query.data_ptr(), items.data_ptr(), invalid_mask.data_ptr(), B, N, D, k,
+        plan.mt, plan.slices, vals.data_ptr(), ids.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), stream)
     if err:
         raise RuntimeError(f"masked_topk kernel launch failed: CUDA error {err}")
     masked_topk_cuda.launches += 1

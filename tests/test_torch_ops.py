@@ -637,6 +637,148 @@ def test_masked_topk_kernel_ties_and_wide_k_on_card(cuda_device):
         assert torch.equal(i, i_ref)
 
 
+def _topk_on_card(dev, q, items, mask, k, exact_ids=False):
+    """The kernel against the plain version: values at rtol 1e-5 / atol
+    1e-6, ids equal or (unless ``exact_ids``) near ties within that
+    tolerance, no masked item where an unmasked one should be, ids below N,
+    two runs bit-identical, one launch a call."""
+    q, items, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (q, items, mask))
+    before = port_topk.masked_topk_cuda.launches
+    v, i = port_topk.masked_topk_cuda(q, items, mask, k)
+    v2, i2 = port_topk.masked_topk_cuda(q, items, mask, k)
+    torch.cuda.synchronize()
+    assert port_topk.masked_topk_cuda.launches == before + 2
+    assert torch.equal(v.view(torch.int32), v2.view(torch.int32)) and torch.equal(i, i2)
+    v_ref, i_ref = port_topk.masked_topk_torch(q, items, mask, k)
+    torch.testing.assert_close(v, v_ref, rtol=1e-5, atol=1e-6)
+    assert int(i.min()) >= 0 and int(i.max()) < items.shape[0]
+    if exact_ids:
+        assert torch.equal(i, i_ref)
+    scores = torch.where(mask > 0, torch.full((), -1e15, device=dev), q @ items.T)
+    differ = i != i_ref
+    a = torch.gather(scores, 1, i.long())[differ]
+    b = torch.gather(scores, 1, i_ref.long())[differ]
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    # masked items only where the plain version has them, by id, exactly
+    masked = v_ref == -1e15
+    assert torch.equal(torch.gather(mask, 1, i.long()) > 0, masked)
+    assert torch.equal(i[masked], i_ref[masked])
+    return v, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4, 20, 36, 128, 512])
+def test_masked_topk_kernel_widths_on_card(cuda_device, D):
+    """D 4 mod 8 (zero-padded k-steps), and D past one 64-float K chunk."""
+    _topk_on_card(cuda_device, *_topk_inputs(300, 1683, D, seed=31, history=80), 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37])
+def test_masked_topk_kernel_few_rows_on_card(cuda_device, B):
+    """B below one row tile: the plan splits the items over many slices."""
+    assert port_topk.masked_topk_plan(B, 3707, 64, 10).slices > 8
+    _topk_on_card(cuda_device, *_topk_inputs(B, 3707, 64, seed=32, history=100), 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 0.1])
+@pytest.mark.parametrize("N", [10, 64, 65, 128])
+def test_masked_topk_kernel_k_equals_n_on_card(cuda_device, N, scale):
+    """k = N: every item comes out, the masked ones last by id, and with
+    them the scores near 0, where the tolerance is its atol. At unit scale
+    3xTF32's own sums miss that atol there (1.43e-6 against 1.4e-6 before
+    the kernel took its outputs' values again in fp32); 0.1 is the
+    embeddings' scale, as chip_smoke.topk_inputs draws them."""
+    q, items, mask = _topk_inputs(70, N, 16, seed=33, history=N // 5)
+    q, items = q * np.float32(scale), items * np.float32(scale)
+    _, i = _topk_on_card(cuda_device, q, items, mask, N)
+    assert torch.equal(i.sort(dim=1).values.cpu(),
+                       torch.arange(N, dtype=torch.int32).expand(70, N))
+
+
+@pytest.mark.cuda
+def test_masked_topk_kernel_k128_over_short_slices_on_card(cuda_device):
+    """k 128 over slices of 64-128 items: each slice's list ends in
+    (-inf, INT_MAX) entries that must never come out."""
+    q, items, mask = _topk_inputs(8, 300, 16, seed=34, history=20)
+    plan = port_topk.masked_topk_plan(8, 300, 16, 128)
+    assert plan.slices == 4 and min(hi - lo for lo, hi in plan.slice_items(300)) < 128
+    _topk_on_card(cuda_device, q, items, mask, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 50, 128])
+def test_masked_topk_kernel_rows_short_of_unmasked_items_on_card(cuda_device, k):
+    """Rows with fewer unmasked items than k, and a row masked throughout:
+    the masked items fill the rest at -1e15 in id order, as the plain
+    version orders them."""
+    q, items, mask = _topk_inputs(130, 700, 32, seed=35, history=0)
+    mask[:64, :] = 1
+    mask[:64, 3::97] = 0  # 8 unmasked a row
+    mask[64, :] = 1
+    mask[65:, 128:320] = 1
+    _topk_on_card(cuda_device, q, items, mask, k)
+
+
+@pytest.mark.cuda
+def test_masked_topk_kernel_duplicates_across_slices_on_card(cuda_device):
+    """Integer data (every score exact in fp32 and in 3xTF32) with exact
+    duplicates either side of every slice boundary: ids exact."""
+    rng = np.random.RandomState(36)
+    B, N, D = 200, 1683, 64
+    q = rng.randint(-3, 4, size=(B, D)).astype(np.float32)
+    items = rng.randint(-3, 4, size=(N, D)).astype(np.float32)
+    mask = np.zeros((B, N), np.int8)
+    mask[:, 0] = 1
+    plan = port_topk.masked_topk_plan(B, N, D, 10)
+    assert plan.slices > 1
+    best = int(np.argmax(q @ items.T, axis=1)[0])
+    for lo, _ in plan.slice_items(N)[1:]:
+        items[lo - 1] = items[best]
+        items[lo] = items[best]
+    for k in (10, 40):
+        _topk_on_card(cuda_device, q, items, mask, k, exact_ids=True)
+
+
+@pytest.mark.cuda
+def test_masked_topk_kernel_unaligned_mask_on_card(cuda_device):
+    """A mask whose rows start at every offset mod 16 and whose base is not
+    16-byte aligned (a view one row in): the staged chunks are read within
+    the tensor's bytes only."""
+    q, items, mask = _topk_inputs(101, 1683, 64, seed=37, history=60)
+    big = torch.from_numpy(mask).to(cuda_device)
+    sub = big[1:]
+    assert sub.data_ptr() % 16
+    q_d = torch.from_numpy(q[1:].copy()).to(cuda_device)
+    it_d = torch.from_numpy(items).to(cuda_device)
+    v, i = port_topk.masked_topk_cuda(q_d, it_d, sub, 10)
+    v_ref, i_ref = port_topk.masked_topk_torch(q_d, it_d, sub, 10)
+    torch.testing.assert_close(v, v_ref, rtol=1e-5, atol=1e-6)
+    assert not torch.gather(sub, 1, i.long()).any()
+
+
+@pytest.mark.cuda
+def test_masked_topk_kernel_one_kernel_a_call_on_card(cuda_device):
+    """At most 2 kernels (and no memset) a call, by the wrapper's count and
+    by torch.profiler, at the main path's shapes."""
+    from torch.profiler import ProfilerActivity, profile
+    for B, N in ((4096, 3707), (1944, 3707), (943, 1683)):
+        q, items, mask = (torch.from_numpy(a).to(cuda_device)
+                          for a in _topk_inputs(B, N, 64, seed=38, history=N // 20))
+        port_topk.masked_topk_cuda(q, items, mask, 10)
+        torch.cuda.synchronize()
+        before = port_topk.masked_topk_cuda.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                port_topk.masked_topk_cuda(q, items, mask, 10)
+            torch.cuda.synchronize()
+        assert port_topk.masked_topk_cuda.launches == before + 5
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        assert 0 < len(kernels) <= 10
+        assert all("masked_topk" in e.name for e in kernels), {e.name for e in kernels}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(6041, 64), (3707, 64)])
 def test_adam_kernel_matches_plain_on_card(cuda_device, shape):
