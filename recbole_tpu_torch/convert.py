@@ -8,8 +8,9 @@ are addressed by dotted paths, list positions as numbers:
 ``params["mlp"][1]["w"]`` is ``"mlp.1.w"``. The port's modules name their
 parameters by exactly these paths (``MLPLayers`` in ``models/layers.py``
 names layer i's leaves ``<i>.w`` and ``<i>.b``, ``TransformerEncoder`` names
-them ``<i>.wq`` ... ``<i>.ln2_b``), so the name map of every
-ported model is the identity, and linear weights are (in, out) in
+them ``<i>.wq`` ... ``<i>.ln2_b``; KGCN's aggregator lists are ``agg_w.<i>``
+and ``agg_b.<i>``, MKR's units ``cc.<i>.vv`` ... ``cc.<i>.be``), so the name
+map of every ported model is the identity, and linear weights are (in, out) in
 both packages, so no leaf is transposed. A model whose names must differ
 gets its own map here when it is ported.
 

@@ -5,9 +5,10 @@ Port of recbole_tpu/models/__init__.py. Models self-register with
 lazily on first lookup (case-insensitive, exact-case preferred). Ported so
 far: the general family's BPR and LightGCN, the context family's base with
 DeepFM, FM and LR, the sequential family's base with SASRec, GRU4Rec and
-NARM, and the knowledge family's base with RippleNet. The other graph
-models of the general family raise ``NotImplementedError`` naming ROADMAP
-Queue 1, item 8, and the other seven knowledge models item 9; any other
+NARM, and the knowledge family's base with RippleNet, CKE, CFKG, KTUP,
+KGCN, KGNNLS and MKR. The other graph models of the general family raise
+``NotImplementedError`` naming ROADMAP Queue 1, item 8, and KGAT item 9;
+any other
 name raises ``ValueError``; the other 11 context models, the other 22
 sequential models and the remaining families are ROADMAP Queue 1.
 """
@@ -20,8 +21,8 @@ _LOADED = False
 _CATEGORIES = ("general", "context", "sequential", "knowledge")
 # graph models of the general family that the LightGCN slice left out
 _GRAPH_NOT_PORTED = ("NGCF", "SpectralCF", "GCMC", "DGCF")
-# knowledge models that the RippleNet slice left out
-_KNOWLEDGE_NOT_PORTED = ("CKE", "CFKG", "KTUP", "KGCN", "KGNNLS", "MKR", "KGAT")
+# the knowledge model that the knowledge slices left out
+_KNOWLEDGE_NOT_PORTED = ("KGAT",)
 
 
 def register_model(name):
@@ -55,7 +56,7 @@ def get_model(name):
                                   "the graph models beside LightGCN)")
     if name.lower() in (n.lower() for n in _KNOWLEDGE_NOT_PORTED):
         raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP Queue 1, item 9: "
-                                  "the knowledge models beside RippleNet)")
+                                  "KGAT with KGATTrainer)")
     raise ValueError(f"model {name!r} not found; known: {sorted(_REGISTRY)}")
 
 

@@ -68,18 +68,36 @@ class AbstractRecommender(nn.Module):
         """(B, n_items) scores of every item for each row's user."""
         raise NotImplementedError
 
+    # models whose per-pair scoring carries heavy per-item state (KGCN's
+    # sampled neighbour trees, KGNN-LS) set this to bound the (user, item)
+    # pairs scored at once; None scores every pair of a chunk together
+    score_pair_block = None
+
     def score_items(self, batch, items):
         """(B, C) scores of candidate ``items`` (B, C) for each row (parity:
-        base.py:183-206, without the pair blocks of models not ported yet):
-        the batch repeated C times with the candidates as its item column,
-        through ``predict``. Models with one query vector dotted with the
-        item table, or with per-user state shared by all candidates
-        (RippleNet), override it."""
+        base.py:181-212): with ``score_pair_block`` set, the (user, item)
+        pairs in blocks of that many through ``_pair_scores``; else the batch
+        repeated C times with the candidates as its item column, through
+        ``predict``. Models with one query vector dotted with the item table,
+        or with per-user state shared by all candidates (RippleNet), override
+        it."""
         B, C = items.shape
+        if self.score_pair_block:
+            users = batch[self.config["USER_ID_FIELD"]].repeat_interleave(C, dim=0)
+            flat_i = items.reshape(-1)
+            pb = int(self.score_pair_block)
+            out = [self._pair_scores(users[s:s + pb], flat_i[s:s + pb])
+                   for s in range(0, B * C, pb)]
+            return torch.cat(out).reshape(B, C)
         flat = {k: (v if v.dim() == 0 else v.repeat_interleave(C, dim=0))
                 for k, v in batch.items()}
         flat[self.config["ITEM_ID_FIELD"]] = items.reshape(-1)
         return self.predict(flat).reshape(B, C)
+
+    def _pair_scores(self, users, items):
+        """(P,) ranking scores of aligned (user, item) pairs: the hook of a
+        ``score_pair_block`` model (no sigmoid needed)."""
+        raise NotImplementedError
 
     def __str__(self):
         return self.__class__.__name__

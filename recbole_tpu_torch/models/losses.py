@@ -1,8 +1,9 @@
 """Loss functions.
 
 Port of recbole_tpu/models/losses.py's ``bpr_loss``, ``bce_loss``,
-``ce_loss``, ``mse_loss`` and ``emb_loss``. Each takes an optional per-row ``weight``; padding rows carry
-weight 0 and the mean is taken over the weight sum.
+``ce_loss``, ``mse_loss``, ``mask_rows``, ``emb_loss`` and
+``emb_margin_loss``. Each loss takes an optional per-row ``weight``; padding
+rows carry weight 0 and the mean is taken over the weight sum.
 """
 
 import torch
@@ -39,6 +40,15 @@ def mse_loss(preds, labels, weight=None):
     return _wmean(torch.square(preds - labels), weight)
 
 
+def mask_rows(w, *tensors):
+    """Zero the rows of weight 0 out of batch representations before a
+    norm-based regularizer (parity: losses.py:56-63); the tensors as they
+    are (a tuple) when ``w`` is None."""
+    if w is None:
+        return tensors
+    return tuple(t * w.reshape((-1,) + (1,) * (t.dim() - 1)).to(t.dtype) for t in tensors)
+
+
 def emb_loss(*embeddings, norm=2):
     """Sum of each embedding's p-norm over its looked-up rows, divided by
     the last embedding's batch size (parity: EmbLoss, loss.py:70-84; each
@@ -47,3 +57,12 @@ def emb_loss(*embeddings, norm=2):
     for e in embeddings:
         total = total + torch.clamp(torch.sum(torch.abs(e) ** norm), min=1e-12) ** (1.0 / norm)
     return total / max(embeddings[-1].shape[0], 1)
+
+
+def emb_margin_loss(*embeddings, power=2):
+    """Sum over rows of max(sum |e|^power - 1, 0): rows whose power-norm
+    passes 1 (parity: EmbMarginLoss, loss.py:85-101; losses.py:90-97)."""
+    total = 0.0
+    for e in embeddings:
+        total = total + torch.sum(torch.clamp(torch.sum(e ** power, dim=-1) - 1.0, min=0.0))
+    return total

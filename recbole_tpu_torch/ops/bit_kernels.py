@@ -24,11 +24,16 @@ version for CPU tensors, the kernel for CUDA tensors, no fallback between
 them. The kernels sum in fp32 in an order fixed by the data, deterministic
 (no float atomics). ``bit_cols_plan`` chooses the column kernel's grid on
 the host; the row kernel plans its work on the card (two launches a call).
+The kernels take an even D up to 128; the dispatchers route any D before
+launch (``column_slices``): an odd D is zero-padded by one column, dropped
+from the output, and a D past 128 runs as slices of at most 128 columns of v
+(or g), concatenated, the output columns being independent.
 """
 
 import ctypes
 
 import torch
+from torch.nn import functional as F
 
 from . import cuda_build
 
@@ -348,17 +353,40 @@ bit_cols_matmul_cuda.last_grid = None
 
 # --------------------------------------------------------------- dispatchers
 
+def column_slices(D, width=MAX_D):
+    """(Dp, [(lo, hi)]): D zero-padded to an even width, and the slices of
+    at most ``width`` columns the kernels run on."""
+    Dp = D + D % 2
+    return Dp, [(lo, min(lo + width, Dp)) for lo in range(0, Dp, width)]
+
+
+def by_column_slices(fn, x, width=MAX_D):
+    """``fn(x)`` for an (n, D) operand at any D, where ``fn`` takes an even
+    width up to ``width`` and its output's columns are x's: x zero-padded to
+    an even width, run a slice at a time, the slices' outputs concatenated
+    and the pad column dropped."""
+    D = x.shape[1]
+    Dp, slices = column_slices(D, width)
+    if Dp != D:
+        x = F.pad(x, (0, Dp - D))
+    if len(slices) == 1:
+        out = fn(x.contiguous())
+    else:
+        out = torch.cat([fn(x[:, lo:hi].contiguous()) for lo, hi in slices], dim=1)
+    return out if Dp == D else out[:, :D]
+
+
 def bit_rows_matmul(bits, rows, v, counts=None):
     """``B[rows] @ v`` -> (R, D) float32. The plain version for CPU tensors
-    (``counts`` unused), the kernel otherwise."""
+    (``counts`` unused), the kernel otherwise, at any D (``by_column_slices``)."""
     if v.device.type == "cpu":
         return bit_rows_matmul_torch(bits, rows, v)
-    return bit_rows_matmul_cuda(bits, rows, v, counts)
+    return by_column_slices(lambda x: bit_rows_matmul_cuda(bits, rows, x, counts), v)
 
 
 def bit_cols_matmul(bits, rows, g):
     """``B[rows]^T @ g`` -> (nbytes * 8, D) float32. The plain version for
-    CPU tensors, the kernel otherwise."""
+    CPU tensors, the kernel otherwise, at any D (``by_column_slices``)."""
     if g.device.type == "cpu":
         return bit_cols_matmul_torch(bits, rows, g)
-    return bit_cols_matmul_cuda(bits, rows, g)
+    return by_column_slices(lambda x: bit_cols_matmul_cuda(bits, rows, x), g)

@@ -11,18 +11,24 @@ Port of recbole_tpu/ops/masked_topk.py. Here live:
 * ``masked_topk_cuda``, the launcher of the hand-written Hopper kernel in
   ``csrc/masked_topk.cu``, which replaces ``masked_topk_pallas`` (:94);
 * ``masked_topk``, the dispatcher: the plain version for CPU tensors, the
-  kernel for CUDA tensors, and no fallback between them.
+  kernel for CUDA tensors (D zero-padded to a multiple of 4 around it: the
+  scores are unchanged), and no fallback between them;
+* ``masked_topk_fits``, the route the trainer takes before launch: a width
+  past 512 or a k past 128 goes to its non-fused step (scores, mask,
+  ``torch.topk``), as the JAX package's ``masked_topk`` has no such limit.
 """
 
 import ctypes
 from typing import NamedTuple
 
 import torch
+from torch.nn import functional as F
 
 from . import cuda_build
 
 NEG_INF = -1e15
 K_CAP = 128  # the kernel keeps at most 128 entries per row
+MAX_D = 512  # the widest query the kernel takes (a multiple of 4)
 TN = 64  # items a tile
 STAGES = 3  # the kernel's staging ring
 MAX_MERGE = 512  # S k at most: a row's slice lists are merged in shared memory
@@ -160,8 +166,8 @@ def masked_topk_cuda(query, items, invalid_mask, k):
                          f"{tuple(items.shape)}, mask {tuple(invalid_mask.shape)}")
     if not 1 <= k <= min(K_CAP, N):
         raise ValueError(f"k={k} must lie in [1, min({K_CAP}, n_items={N})]")
-    if D % 4 or D > 512:
-        raise ValueError(f"embedding width {D} must be a multiple of 4, at most 512")
+    if D % 4 or D > MAX_D:
+        raise ValueError(f"embedding width {D} must be a multiple of 4, at most {MAX_D}")
     for name, t in (("query", query), ("items", items), ("invalid_mask", invalid_mask)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -189,8 +195,28 @@ def masked_topk_cuda(query, items, invalid_mask, k):
 masked_topk_cuda.launches = 0
 
 
+def padded_width(D):
+    """The width the kernel runs for D: the next multiple of 4."""
+    return -(-D // 4) * 4
+
+
+def masked_topk_fits(D, k):
+    """Whether the kernel takes a query of width D (once padded) and k."""
+    return 1 <= k <= K_CAP and padded_width(D) <= MAX_D
+
+
+def pad_width(query, items):
+    """Zero-pad the query's and the items' columns to ``padded_width``:
+    every score keeps its value (the extra terms are 0 x 0)."""
+    p = padded_width(query.shape[1]) - query.shape[1]
+    if not p:
+        return query, items
+    return F.pad(query, (0, p)).contiguous(), F.pad(items, (0, p)).contiguous()
+
+
 def masked_topk(query, items, invalid_mask, k):
-    """Dispatcher: the plain version for CPU tensors, the kernel otherwise."""
+    """Dispatcher: the plain version for CPU tensors, the kernel otherwise
+    (D zero-padded to a multiple of 4 first)."""
     if query.device.type == "cpu":
         return masked_topk_torch(query, items, invalid_mask, k)
-    return masked_topk_cuda(query, items, invalid_mask, k)
+    return masked_topk_cuda(*pad_width(query, items), invalid_mask, k)

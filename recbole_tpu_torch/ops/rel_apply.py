@@ -35,15 +35,25 @@ relation on the device (two kernels; the stable sort) and multiplies them
 on the tensor cores in one more; ``RelApply`` keeps its bucket tables for
 the backward, one pass and a reduce that sums dR's partials (one a block
 and run of one relation) in block order, so two runs give the same bits.
-Limits (from the built library): D a multiple of 4 and at most 128, NR at
-most 16,383; else it raises.
+The kernels' limits (from the built library): D a multiple of 4 and at
+most 128, NR at most 16,383; the launchers raise past them. The dispatcher
+routes every D before launch (``width_blocks``): it zero-pads D to a
+multiple of 4 (v's columns and both axes of R; exact) and, past 128, to
+the fewest equal blocks of at most 128 columns, and composes the kernels
+on the square blocks,
+``y[:, c] = sum over k of v[:, k] @ R[rel][c, k]^T`` added in k's order,
+autograd giving the backward from the blocks' own.
 """
 
 import ctypes
 
 import torch
+from torch.nn import functional as F
 
 from . import cuda_build
+
+# the widest D the kernels take (rel_apply_max_width of the built library)
+BLOCK_D = 128
 
 
 def _rounder(bf16):
@@ -288,12 +298,48 @@ class RelApply(torch.autograd.Function):
 
 # ---------------------------------------------------------------- dispatcher
 
+def width_blocks(D, block=BLOCK_D):
+    """(Dp, [(lo, hi)]): the width the kernels run D at and its column
+    blocks, all of one width (the kernels take square matrices), a multiple
+    of 4 and at most ``block``: D zero-padded to a multiple of 4, and past
+    ``block`` to the fewest such blocks."""
+    Dp = -(-D // 4) * 4
+    n = -(-Dp // block)
+    w = -(-Dp // n // 4) * 4 if n > 1 else Dp
+    return n * w, [(i * w, (i + 1) * w) for i in range(n)]
+
+
+def rel_apply_blocks(v, rel, R, bf16, apply, block=BLOCK_D):
+    """``apply(v, rel, R, bf16)`` (one call of the kernels, or the plain
+    version in the tests) at any D: D zero-padded to ``width_blocks``'s
+    width, and past ``block`` its square blocks composed, each output block
+    the sum of its input blocks' products in a fixed order. Differentiable
+    through ``apply``'s own backward."""
+    D = v.shape[1]
+    Dp, blocks = width_blocks(D, block)
+    if Dp != D:
+        v = F.pad(v, (0, Dp - D))
+        R = F.pad(R, (0, Dp - D, 0, Dp - D))
+    if len(blocks) == 1:
+        y = apply(v.contiguous(), rel, R.contiguous(), bf16)
+    else:
+        cols = []
+        for lo, hi in blocks:
+            y_c = None
+            for klo, khi in blocks:
+                part = apply(v[:, klo:khi].contiguous(), rel,
+                             R[:, lo:hi, klo:khi].contiguous(), bf16)
+                y_c = part if y_c is None else y_c + part
+            cols.append(y_c)
+        y = torch.cat(cols, dim=1)
+    return y if Dp == D else y[:, :D]
+
+
 def rel_apply(v, rel, R, *, bf16):
     """v (N, D) float32, rel (N,) integer relation ids, R (NR, D, D)
     float32 -> (N, D) float32: the plain version for a CPU tensor (its
     backward written out with the kernels' rounding points), the kernels for
-    a CUDA tensor."""
+    a CUDA tensor, at any D through ``rel_apply_blocks``."""
     if v.device.type == "cpu":
         return _PlainRelApply.apply(v, rel, R, bool(bf16))
-    return RelApply.apply(v.contiguous(), rel.to(torch.int32).contiguous(), R.contiguous(),
-                          bool(bf16))
+    return rel_apply_blocks(v, rel.to(torch.int32).contiguous(), R, bool(bf16), RelApply.apply)

@@ -46,11 +46,11 @@ model's device:
     on the device.
 
 ``get_trainer`` serves the general, context and sequential families with
-``Trainer`` and the knowledge family with ``KGTrainer``. Still raising:
-other learners, gradient clipping, weight decay, dataset negatives and the
-both-way sampler, the sampled and labeled eval steps, bfloat16 eval scores
-and the other trainer subclasses (KGAT's, MKR's and the rest: ROADMAP
-Queue 1).
+``Trainer``, the knowledge family with ``KGTrainer``, and MKR with
+``MKRTrainer``. Still raising: other learners, gradient clipping, weight
+decay, dataset negatives and the both-way sampler, the sampled and labeled
+eval steps, bfloat16 eval scores and the other trainer subclasses (KGAT's
+and the rest: ROADMAP Queue 1).
 """
 
 import os
@@ -67,7 +67,7 @@ from ..data.loaders import RowEvalLoader
 from ..evaluator.evaluator import topk_metric_sums, TopKCollector, ValueCollector
 from ..sampler.sampler import sample_negatives, sample_negatives_unchecked
 from ..ops.fused_adam import AdamLeaves, adam_multi
-from ..ops.masked_topk import masked_topk
+from ..ops.masked_topk import masked_topk, masked_topk_fits
 
 # the score of a masked item in the non-fused full-sort step (parity:
 # trainer.py:36)
@@ -578,21 +578,26 @@ class Trainer:
         sequential base's ``full_sort_predict`` and ``full_sort_query``
         unchanged, takes the fused path (parity: trainer.py:934-1004, the
         ``opted_in or base_stack`` rule :938-951): its query and item table
-        go through the masked top-k. A model with ``full_sort_predict`` only
+        go through the masked top-k, or, at a width or k the kernel does not
+        take (``masked_topk_fits``), their product through the non-fused
+        step. A model with ``full_sort_predict`` only
         takes the non-fused
         one (parity: trainer.py:1052-1075): float32 scores from
         ``full_sort_predict`` or, for a model with neither, from chunks of
-        ``score_items``; NEG_INF in the [PAD] column and added at the
-        history, ``torch.topk``."""
+        ``score_items`` (a ``full_sort_fallback`` model's always); NEG_INF in
+        the [PAD] column and added at the history, ``torch.topk``."""
         model = self.model
         uid_f = self.config["USER_ID_FIELD"]
         if str(self.config["eval_score_dtype"]).lower() != "float32":
             raise NotImplementedError(
                 "eval_score_dtype other than float32 is not ported yet "
                 "(ROADMAP Queue 1, item 5)")
-        fused = fused_full_sort(type(model))
+        # a model's full_sort_fallback (KGCN past one hop) sends it to the
+        # chunked score_items step (parity: trainer.py:930-932, :951)
+        fallback = bool(getattr(model, "full_sort_fallback", False))
+        fused = fused_full_sort(type(model)) and not fallback
         has_full_sort = (type(model).full_sort_predict
-                         is not AbstractRecommender.full_sort_predict)
+                         is not AbstractRecommender.full_sort_predict and not fallback)
         consts = {"hist": None, "hlen": None}
         if getattr(eval_data, "mask_history", True):
             consts["hist"], consts["hlen"] = eval_data.phase_history.device_tables(
@@ -632,12 +637,21 @@ class Trainer:
             user_id = batch[uid_f]
             invalid = invalid_item_mask(user_id, consts["hist"], consts["hlen"],
                                         n_items)
+            scores = None
             if fused:
                 query, table = model.full_sort_query(batch)
-                _, topk_idx = masked_topk(query.contiguous(), table.contiguous(),
-                                          invalid, max_k)
+                if masked_topk_fits(query.shape[1], max_k):
+                    _, topk_idx = masked_topk(query.contiguous(), table.contiguous(),
+                                              invalid, max_k)
+                else:
+                    # wider than the kernel's 512 or k past its 128: the
+                    # non-fused step on the same query, the product that
+                    # full_sort_predict gives for a model on the fused rule
+                    scores = query @ table.T
             else:
-                scores = all_item_scores(batch).to(torch.float32)
+                scores = all_item_scores(batch)
+            if scores is not None:
+                scores = scores.to(torch.float32)
                 scores = torch.where(invalid > 0, scores + NEG_INF, scores)
                 scores[:, 0] = NEG_INF
                 _, topk_idx = torch.topk(scores, max_k, dim=1)
@@ -733,18 +747,50 @@ class KGTrainer(Trainer):
         return super()._train_epoch(train_data, epoch_idx, self.epoch_mode(epoch_idx))
 
 
+class MKRTrainer(Trainer):
+    """MKR's loop policy (parity: trainer.py:1417-1433, reference
+    MKRTrainer, trainer.py:570-597): every epoch an rs_only_loss pass
+    (``calculate_rs_loss``), and every ``kge_interval``-th epoch (3 unless
+    set) a kg pass after it; the epoch reports both parts (the kg part 0 on
+    an epoch without one)."""
+
+    default_train_mode = "rs_only_loss"
+
+    def __init__(self, config, model):
+        super().__init__(config, model)
+        self.kge_interval = config["kge_interval"] or 3
+
+    def epoch_modes(self, epoch_idx):
+        """The train modes of epoch ``epoch_idx``, in order."""
+        if epoch_idx % self.kge_interval == 0:
+            return ("rs_only_loss", "kg")
+        return ("rs_only_loss",)
+
+    def _train_epoch(self, train_data, epoch_idx, mode=None):
+        modes = self.epoch_modes(epoch_idx)
+        parts = ()
+        for m in ("rs_only_loss", "kg"):
+            loss = super()._train_epoch(train_data, epoch_idx, m) if m in modes else 0.0
+            parts += loss if isinstance(loss, tuple) else (loss,)
+        return parts
+
+
 # knowledge models whose own trainers are not ported yet
-_KG_TRAINERS_NOT_PORTED = ("KGAT", "MKR")
+_KG_TRAINERS_NOT_PORTED = ("KGAT",)
+_KG_TRAINERS = {"MKR": MKRTrainer}
 
 
 def get_trainer(model_type, model_name):
     """parity: reference get_trainer (utils/utils.py:78-96), the JAX
     package's trainer.py:1675-1690. The port has the base Trainer, which
-    serves the general, context and sequential families, and KGTrainer, the
-    knowledge family's default."""
+    serves the general, context and sequential families, KGTrainer, the
+    knowledge family's default, and MKRTrainer."""
     if model_name in _KG_TRAINERS_NOT_PORTED:
         raise NotImplementedError(
-            f"{model_name}'s trainer is not ported yet (ROADMAP Queue 1, item 9)")
+            f"{model_name}'s trainer is not ported yet (ROADMAP Queue 1, item 9: KGAT "
+            "with KGATTrainer)")
+    if model_name in _KG_TRAINERS:
+        return _KG_TRAINERS[model_name]
     if model_type is ModelType.KNOWLEDGE:
         return KGTrainer
     if model_type not in (ModelType.GENERAL, ModelType.CONTEXT, ModelType.SEQUENTIAL):

@@ -674,6 +674,27 @@ def test_masked_topk_kernel_widths_on_card(cuda_device, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [6, 10])
+def test_masked_topk_dispatcher_pads_the_width_on_card(cuda_device, D):
+    """A width the kernel refuses (not a multiple of 4) runs through the
+    dispatcher, zero-padded: one launch, against the plain version at D."""
+    q, items, mask = (torch.from_numpy(a).to(cuda_device)
+                      for a in _topk_inputs(943, 1683, D, seed=34, history=60))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        port_topk.masked_topk_cuda(q, items, mask, 10)
+    before = port_topk.masked_topk_cuda.launches
+    v, i = port_topk.masked_topk(q, items, mask, 10)
+    assert port_topk.masked_topk_cuda.launches == before + 1
+    v_ref, i_ref = port_topk.masked_topk_torch(q, items, mask, 10)
+    torch.testing.assert_close(v, v_ref, rtol=1e-5, atol=1e-6)
+    scores = torch.where(mask > 0, torch.full((), -1e15, device=cuda_device), q @ items.T)
+    differ = i != i_ref
+    torch.testing.assert_close(torch.gather(scores, 1, i.long())[differ],
+                               torch.gather(scores, 1, i_ref.long())[differ],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 37])
 def test_masked_topk_kernel_few_rows_on_card(cuda_device, B):
     """B below one row tile: the plan splits the items over many slices."""
@@ -1658,6 +1679,26 @@ def test_bit_rows_nan_for_ids_outside_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [65, 256])
+def test_bit_dispatchers_route_any_width_on_card(cuda_device, D):
+    """Widths the kernels refuse run through the dispatchers: an odd D
+    padded by a zero column (one launch a product), D 256 as two slices of
+    128 columns (two); both products against the plain version at D."""
+    bits, rows, v, g = _bit_inputs(300, 256, 700, D, 9, cuda_device, kind="sparse")
+    before = (port_bits.bit_rows_matmul_cuda.launches, port_bits.bit_cols_matmul_cuda.launches)
+    out_r = port_bits.bit_rows_matmul(bits, rows, v, _bit_counts(bits))
+    out_c = port_bits.bit_cols_matmul(bits, rows, g)
+    calls = 1 if D <= 128 else 2
+    assert (port_bits.bit_rows_matmul_cuda.launches - before[0],
+            port_bits.bit_cols_matmul_cuda.launches - before[1]) == (calls, calls)
+    ref_r = port_bits.bit_rows_matmul_torch(bits, rows, v)
+    ref_c = port_bits.bit_cols_matmul_torch(bits, rows, g)
+    assert out_r.shape == ref_r.shape == (700, D) and out_c.shape == ref_c.shape
+    assert _bit_close(out_r, ref_r, port_bits.bit_rows_matmul_torch(bits, rows, v.abs()))
+    assert _bit_close(out_c, ref_c, port_bits.bit_cols_matmul_torch(bits, rows, g.abs()))
+
+
+@pytest.mark.cuda
 def test_bit_kernels_limits_on_card(cuda_device):
     """Shapes beyond the built library's limits raise; nothing falls back."""
     bits, rows, v, g = _bit_inputs(50, 64, 5, 16, 1, cuda_device)
@@ -2416,8 +2457,32 @@ def test_rel_apply_autograd_and_limits_on_card(cuda_device):
     for D in (18, 132):
         args = _rel_inputs(10, D, 3, 4, cuda_device)[:3]
         with pytest.raises(ValueError, match="multiple of 4"):
-            port_rel.rel_apply(*args, bf16=False)
+            port_rel.rel_apply_fwd_cuda(*args, bf16=False)
     assert port_rel.rel_apply_fwd_cuda.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [18, 256])
+def test_rel_apply_dispatcher_routes_any_width_on_card(cuda_device, bf16, D):
+    """Widths the kernels refuse run through the dispatcher: D 18 zero-padded
+    to 20 (one forward and one backward call), D 256 as two square blocks of
+    128 composed (four of each); y, dv and dR against the plain version at
+    D within the instance's tolerance (fp32 2e-4; bf16 2e-2, each block's y
+    rounded before the blocks add)."""
+    v, rel, R, dy = _rel_inputs(20000, D, 53, 8, cuda_device, outside=5)
+    fwd, bwd = port_rel.rel_apply_fwd_cuda, port_rel.rel_apply_bwd_cuda
+    vg, Rg = v.clone().requires_grad_(True), R.clone().requires_grad_(True)
+    before = (fwd.launches, bwd.launches)
+    y = port_rel.rel_apply(vg, rel, Rg, bf16=bf16)
+    y.backward(dy)
+    calls = 1 if D <= 128 else 4
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (calls, calls)
+    tol = 2e-2 if bf16 else 2e-4
+    ref_dv, ref_dR = port_rel.rel_apply_torch_bwd(v, rel, R, dy, bf16)
+    assert _rel(y, port_rel.rel_apply_torch(v, rel, R, bf16)) <= tol
+    assert _rel(vg.grad, ref_dv) <= tol and _rel(Rg.grad, ref_dR) <= tol
+    assert y.shape == (20000, D) and float(y.detach()[rel == 53].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
