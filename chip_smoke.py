@@ -12,7 +12,9 @@ Phases:
      compare the two results bit for bit; Adam over each main path's whole
      leaf set at once (BPR's, DeepFM-Criteo's, SASRec's 36 with the [PAD]
      row's zero head, LightGCN's) and over unaligned leaves, a leaf without
-     a gradient and a 0-d one; the whole-layer transformer
+     a gradient and a 0-d one, and with weight decay 1e-8 and 1e-2 over
+     MFSimple's leaves at the ml-1m shape, BPR's and SASRec's and the edge
+     leaves, each the plain version's bits; the whole-layer transformer
      kernels in both instances (bf16-rounded operands, and fp32 ones as
      3xTF32 products), forward and backward, with dropout off and on (the
      plain version is handed the masks the kernels draw), with the worst
@@ -92,10 +94,24 @@ Phases:
         top-k must not launch), 1 epoch each, and 5 steps and a valid pass
         of RippleNet at embedding_size 18 and 256 and of LightGCN's
         restricted step at 65 and 256;
+     l. KGAT at its default_config (embedding 64, one layer: the dense path,
+        batch 2048) under KGATTrainer on the ml-1m-shaped file and KG: 1
+        epoch (an rs pass, a kg pass, the attention update), a valid pass,
+        20 profiled rs steps, the attention update's ms; then 5 steps and a
+        valid pass at layers [64, 32, 16] (the ELL path); Adam only;
+     m. the fork's protocols, 1 epoch each: BPR with valid_full_to_uni1000
+        (a uniform-1,000 sampled valid pass; the masked top-k in the test
+        pass alone), SASRec under TO_LS,uni100, and on a labeled copy of the
+        file (a rating 1-5 from a seed, threshold {rating: 4}) MFSimple with
+        dataset negatives both ways, MFSimple with the both-way sampler at
+        k 3, and GMF, MLP and NCF at their defaults (weight decay 1e-8 in
+        the Adam kernel);
   5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's,
-     SASRec's, LightGCN's, GRU4Rec's, NARM's, RippleNet's and the six
+     SASRec's, LightGCN's, GRU4Rec's, NARM's, RippleNet's and the seven
      knowledge models' (10 epochs) test recall@10 and DeepFM's test AUC,
-     each held to a floor;
+     and MFSimple's test recall@10 under the fork's labeled protocol, each
+     held to a floor; BPR's best valid recall@10 under the uniform-1,000
+     validation beside the JAX package's;
   6. timing with CUDA events at the main paths' shapes: kernel, plain
      version, the one-call library yardstick, and the card's bound for the
      same work; Adam over each main path's leaf set and the embedding
@@ -103,7 +119,9 @@ Phases:
      embedding gradients with the
      kernels a call launches (the windowed path at DeepFM-Criteo's large
      fields and at a LightGCN step's two tables); the masked top-k, the
-     relation apply and the packed-bit kernels also at the routed widths.
+     relation apply and the packed-bit kernels also at the routed widths;
+     Adam over MFSimple's leaves without and with weight decay, the library
+     call with the same decay.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
@@ -189,6 +207,16 @@ ADAM_SETS = {"bpr": (BPR_LEAF_SHAPES, [0, 0]),
              "deepfm_criteo": (DEEPFM_LEAF_SHAPES, [0] * len(DEEPFM_LEAF_SHAPES)),
              "sasrec": (SASREC_LEAF_SHAPES, [64] + [0] * (len(SASREC_LEAF_SHAPES) - 1)),
              "lightgcn": (LIGHTGCN_LEAF_SHAPES, [0, 0])}
+# MFSimple's five leaves at the ml-1m shape (embedding_dimension 128; user,
+# item and global biases; [PAD] included), which train with weight_decay
+# 1e-8, as GMF's, MLP's and NCF's do
+MFSIMPLE_LEAF_SHAPES = [(ML1M[0] + 1, 128), (ML1M[1] + 1, 128), (ML1M[0] + 1,), (ML1M[1] + 1,),
+                        (1,)]
+# the leaf sets Adam's weight decay is checked on, and the decays: the four
+# baselines' default 1e-8, and 1e-2, where the term moves every element
+ADAM_WD_SETS = {"mfsimple": (MFSIMPLE_LEAF_SHAPES, [0] * 5), "bpr": ADAM_SETS["bpr"],
+                "sasrec": ADAM_SETS["sasrec"]}
+ADAM_WDS = (1e-8, 1e-2)
 # an Adam timing takes copies of a smaller leaf set in turn, so that this
 # many bytes, three times the H100's 50 MB L2, pass between two calls on one
 # copy (adam_copies)
@@ -248,10 +276,6 @@ RIPPLE_RECALL_FLOOR = 0.155
 
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
-# adam_leaf: rtol 1e-6 of each element, plus 1e-6 of the tensor's largest
-# magnitude (the bar of the port's Adam tests). The kernel rounds each
-# operation once in the plain version's order, so it should agree bit for bit
-ADAM_RTOL = 1e-6
 # embedding gradients: the kernels add a row's cotangents in fp32 in the
 # order of r, index_add_ in the order its atomics land, so each element may
 # differ by the rounding of its own terms: 1e-5 of the sum of their
@@ -447,18 +471,24 @@ def synth_ctr_dataset(config, shape, seed=42):
     return ds
 
 
-def write_ml1m_shape(path, seed=42):
+def write_ml1m_shape(path, seed=42, rating_seed=None):
     """An atomic .inter file of ml-1m's shape: uniform users, power-law
-    items (the draw of bench.py's synth_ml1m)."""
+    items (the draw of bench.py's synth_ml1m). With ``rating_seed`` the same
+    rows with a rating column, 1 to 5 drawn uniformly from that seed (a
+    labeled copy, for the fork's threshold protocols)."""
     n_users, n_items, n_inter = ML1M
     rng = np.random.RandomState(seed)
     uids = rng.randint(1, n_users + 1, size=n_inter)
     iids = 1 + np.floor((n_items - 1) * rng.random_sample(n_inter) ** 2.2).astype(np.int64)
     ts = np.arange(n_inter)
+    cols, head = [uids, iids, ts], "user_id:token\titem_id:token\ttimestamp:float"
+    if rating_seed is not None:
+        cols.insert(2, np.random.RandomState(rating_seed).randint(1, 6, n_inter))
+        head = "user_id:token\titem_id:token\trating:float\ttimestamp:float"
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as fh:
-        fh.write("user_id:token\titem_id:token\ttimestamp:float\n")
-        np.savetxt(fh, np.stack([uids, iids, ts], axis=1), fmt="%d", delimiter="\t")
+        fh.write(head + "\n")
+        np.savetxt(fh, np.stack(cols, axis=1), fmt="%d", delimiter="\t")
 
 
 def yelp_draw(seed=42):
@@ -614,15 +644,21 @@ def check_topk(torch, B, N, D, k, seed, pad_only=False, dup=False, dispatch=Fals
     return err
 
 
-def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=None):
+def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=None, wd=0.0):
     """Three steps of the kernel over a whole leaf set at once against
-    adam_multi_torch on the same inputs. ``none``: leaves without a
-    gradient; ``offset``: every p, m and v a view that many elements into
-    its buffer (off the 16-byte path); ``g_offset`` (default ``offset``):
-    the same for the gradients. Returns the largest |difference|."""
+    adam_multi_torch on the same inputs: p, m and v must be the plain
+    version's bits (the kernel rounds each operation once in the plain
+    version's order). ``none``: leaves without a gradient; ``offset``: every
+    p, m and v a view that many elements into its buffer (off the 16-byte
+    path); ``g_offset`` (default ``offset``): the same for the gradients;
+    ``wd``: the weight decay (a multiply and an add, each rounded, in both).
+    A leaf's zero head starts at 0, as a [PAD] row does, and must stay 0 in
+    p, m and v at every weight decay. Returns the largest |difference|."""
     from recbole_tpu_torch.ops.fused_adam import AdamLeaves, adam_multi_cuda, adam_multi_torch
     rng = np.random.RandomState(seed)
     p0 = [np.asarray(rng.standard_normal(s) * 0.1, np.float32) for s in shapes]
+    for a, h in zip(p0, heads):
+        a.reshape(-1)[:h] = 0.0
     grads = [[None if i in none else np.asarray(rng.standard_normal(s) * 1e-3, np.float32)
               for i, s in enumerate(shapes)] for _ in range(3)]
 
@@ -639,23 +675,26 @@ def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=No
         for t, g in enumerate(grads, start=1):
             c1, c2 = 1.0 / (1.0 - 0.9 ** t), 1.0 / (1.0 - 0.999 ** t)
             fn(leaves, [None if a is None else on_card(a, g_at) for a in g], c1, c2,
-               b1=0.9, b2=0.999, lr=1e-3, eps=1e-8)
+               b1=0.9, b2=0.999, lr=1e-3, eps=1e-8, wd=wd)
         torch.cuda.synchronize()
         state[kind] = leaves
     err = 0.0
     for i, shape in enumerate(shapes):
         k, p = state["kernel"], state["plain"]
         for a, b in ((k.p[i], p.p[i]), (k.m[i], p.m[i]), (k.v[i], p.v[i])):
-            tol = ADAM_RTOL * (b.abs() + b.abs().max())
-            if not bool(((a - b).abs() <= tol).all()):
-                raise AssertionError(f"adam_multi differs on {label} leaf {i} {shape}: max "
-                                     f"{float((a - b).abs().max())}")
+            if not torch.equal(a, b):
+                raise AssertionError(f"adam_multi is not the plain version's bits on {label} "
+                                     f"leaf {i} {shape}: max {float((a - b).abs().max())}")
             err = max(err, float((a - b).abs().max()))
-    if any(h and bool(state["kernel"].m[i].reshape(-1)[:h].any()) for i, h in enumerate(heads)):
-        raise AssertionError(f"adam_multi moved the moments of a zero head on {label}")
+    # a zero head's gradient is zeroed, then decayed by wd * p (the JAX
+    # chain's order), which is 0 on a [PAD] row
+    kern = state["kernel"]
+    if any(h and bool(t[i].reshape(-1)[:h].any())
+           for i, h in enumerate(heads) for t in (kern.p, kern.m, kern.v)):
+        raise AssertionError(f"adam_multi moved a zero head off 0 on {label}")
     log(f"[check] adam_multi {label}: {len(shapes)} leaves "
-        f"({sum(int(np.prod(s)) for s in shapes)} elements) in one launch a step, x3 steps: "
-        f"max|err| {err:.3e}")
+        f"({sum(int(np.prod(s)) for s in shapes)} elements) in one launch a step, x3 steps, "
+        f"weight decay {wd}: max|err| {err:.3e}, bit for bit")
     return err
 
 
@@ -2273,7 +2312,7 @@ KG_OFF = ("masked_topk", "rel_apply_fwd", "rel_apply_bwd", "onehot_matmul_grad",
           "windowed_grad", "trm_layer_fwd", "trm_layer_bwd", "fused_transformer_layer_fwd",
           "fused_gru_fwd", "fused_gru_bwd", "fused_attention_fwd", "fused_attention_whole_fwd",
           "bit_rows_matmul", "bit_cols_matmul")
-# the six knowledge models at their default_config widths: the config a
+# the seven knowledge models at their default_config widths: the config a
 # phase adds, its epochs, its trainer class and the modes of each epoch
 KG_MODELS = {
     "CKE": ({}, 1, "KGTrainer", [("rskg",)]),
@@ -2284,6 +2323,9 @@ KG_MODELS = {
     "KGCN": ({}, 1, "KGTrainer", [("rskg",)]),
     "KGNNLS": ({}, 1, "KGTrainer", [("rskg",)]),
     "MKR": ({}, 1, "MKRTrainer", [("rs_only_loss", "kg")]),
+    # an rs pass, a kg pass, then the attention update, each epoch; the
+    # default's one layer takes the dense path
+    "KGAT": ({}, 1, "KGATTrainer", [("rs", "kg")]),
 }
 
 
@@ -2374,7 +2416,157 @@ def phase_kg_model(torch, tmp, model_name):
     log(f"[{tag}] full-sort valid pass seconds {times['eval']}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
     profile_steps(torch, trainer, train, tag)
+    return launches, (train, valid), trainer
+
+
+def time_attention_update(torch, model, calls=5):
+    """KGAT's update_attentive_A on the ml-1m-shaped CKG: ms a call by CUDA
+    events, and the hand-written kernels it launches (none)."""
+    reset_launches()
+    ms = cuda_ms(torch, model.update_attentive_A, calls)
+    ran = {k: v for k, v in read_launches("kgat_update", ()).items() if v}
+    if ran:
+        raise AssertionError(f"KGAT's attention update launched {ran}")
+    log(f"[kgat] update_attentive_A: {ms:.3f} ms a call by events ({calls} calls after 3): "
+        f"{model.n_edges} edges in {len(model._rel_slices)} relations, {model.n_pairs} "
+        f"unique pairs over {model.n_nodes} nodes, dense blocks {tuple(model.att_ui_dense.shape)}"
+        f" and {tuple(model.att_iu_dense.shape)}")
+    return ms
+
+
+def phase_kgat_ell(torch, tmp, loaders):
+    """KGAT at the KGAT paper's three layers ([64, 32, 16]: the ELL path
+    over the whole CKG) on the loaders of phase_kg_model's KGAT run: 5 rs
+    steps and a valid pass, Adam once a step and no kernel of KG_OFF."""
+    t0 = time.time()
+    launches = short_run(torch, tmp, "kgat_ell", "KGAT",
+                         {"load_col": {"inter": ["user_id", "item_id", "timestamp"]},
+                          "layers": [64, 32, 16]}, loaders, 5, ("adam_leaf",), KG_OFF)
+    log(f"[kgat_ell] model, 5 steps and the valid pass in {time.time() - t0:.1f}s")
     return launches
+
+
+def general_config(torch, tmp, model, dataset, extra):
+    from recbole_tpu_torch.config.configurator import Config
+    return Config(model, dataset, config_dict={
+        "data_path": os.path.join(tmp, "data"), "device": "cuda", "epochs": 1,
+        "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False, **extra},
+        _parse_cmd_line=False)
+
+
+# the kernels a general model's path must not launch (its fit and eval run
+# Adam, and the masked top-k only where named)
+GENERAL_OFF = ("rel_apply_fwd", "rel_apply_bwd", "onehot_matmul_grad", "windowed_grad",
+               "trm_layer_fwd", "trm_layer_bwd", "fused_transformer_layer_fwd", "fused_gru_fwd",
+               "fused_gru_bwd", "fused_attention_fwd", "fused_attention_whole_fwd",
+               "bit_rows_matmul", "bit_cols_matmul")
+
+
+def protocol_fit(torch, tmp, tag, model_name, config, loaders, loader_types, must_launch,
+                 must_not, weight_decay):
+    """One epoch of ``model_name`` on ``loaders`` (built under another
+    config of the same data) through get_model -> get_trainer -> fit with
+    validation -> evaluate(test); the valid and test loaders held to
+    ``loader_types``, the optimizer to ``weight_decay``, Adam to one launch
+    a step, and the masked top-k, where it is in ``must_launch``, to the
+    test pass alone (a sampled or labeled valid pass ranks candidates)."""
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import get_trainer
+    train, valid, test = loaders
+    got_types = (type(valid).__name__, type(test).__name__)
+    if got_types != loader_types:
+        raise AssertionError(f"{tag}: loaders {got_types}, {loader_types} expected")
+    model = get_model(model_name)(config, train.dataset)
+    trainer = get_trainer(config["MODEL_TYPE"], model_name)(config, model)
+    if trainer.optimizer["weight_decay"] != weight_decay:
+        raise AssertionError(f"{tag}: weight decay {trainer.optimizer['weight_decay']}")
+    times, release = capture_epoch_times()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    best_score, best_valid = trainer.fit(train, valid, saved=False)
+    torch.cuda.synchronize()
+    topk_in_fit = kernel_wrappers()["masked_topk"].launches
+    test_result = trainer.evaluate(test, load_best_model=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches(tag, must_launch)
+    release()
+    ran = {k: launches[k] for k in must_not if launches.get(k)}
+    if ran or ("masked_topk" in must_launch and topk_in_fit):
+        raise AssertionError(f"kernels off the {tag} path were launched: {ran}, masked top-k "
+                             f"{topk_in_fit} times in fit")
+    result = {"best_valid_result": best_valid, "test_result": test_result}
+    log(f"[{tag}] {model_name} {got_types}: fit (1 epoch, validation) + test {wall:.2f}s wall; "
+        f"{ADAM_STEPS['n']} steps, {launches['adam_leaf']} Adam launches (weight decay "
+        f"{weight_decay}); epoch seconds {times['train']} (with the upload); ms a step "
+        f"{1e3 * times['train'][-1] / max(ADAM_STEPS['n'], 1):.3f}; valid pass seconds "
+        f"{times['eval']}; max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(f"[{tag}] result {json.dumps(result)}")
+    check_result(result, JAX_ML100K)
+    return launches
+
+
+def phase_protocols(torch, tmp):
+    """The fork's protocols on the ml-1m-shaped file (written by phase_bpr)
+    and on a labeled copy of it (a rating 1-5 from a seed, threshold
+    {rating: 4}), 1 epoch each: BPR with valid_full_to_uni1000 (a uniform-
+    1,000 sampled valid pass, the masked top-k in the full-sort test),
+    SASRec under TO_LS,uni100 (its whole-layer kernels; sampled valid and
+    test), then MFSimple with dataset negatives both ways, MFSimple with the
+    both-way sampler at k 3, and GMF, MLP and NCF at their defaults
+    (weight decay 1e-8 in the Adam kernel)."""
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.utils.logger import init_logger
+    from recbole_tpu_torch.utils.utils import init_seed
+    out = {}
+    t0 = time.time()
+    config = general_config(torch, tmp, "BPR", "ml-1m-shape", {"valid_full_to_uni1000": True})
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    loaders = data_preparation(config, create_dataset(config))
+    log(f"[bpr_uni1000] loaders in {time.time() - t0:.1f}s; valid: {loaders[1].neg_k} "
+        f"negatives a positive, up to {loaders[1].max_pos} positives a user, "
+        f"{loaders[1].num_candidates} candidates, batch {loaders[1].batch_size}")
+    out["bpr_uni1000"] = protocol_fit(
+        torch, tmp, "bpr_uni1000", "BPR", config, loaders,
+        ("SampledEvalLoader", "FullSortEvalLoader"), ("adam_leaf", "masked_topk"), GENERAL_OFF,
+        0.0)
+    del loaders
+    out["sasrec_uni100"] = seq_phase(
+        torch, tmp, "sasrec_uni100", "SASRec", {"eval_setting": "TO_LS,uni100"}, 1,
+        ("n_layers", "hidden_size", "MAX_ITEM_LIST_LENGTH", "train_batch_size", "eval_setting"),
+        ("trm_layer_fwd", "trm_layer_bwd", "onehot_matmul_grad", "adam_leaf"),
+        ("masked_topk", "windowed_grad", "fused_transformer_layer_fwd"))[0]
+    t0 = time.time()
+    write_ml1m_shape(os.path.join(tmp, "data", "ml-1m-labeled", "ml-1m-labeled.inter"),
+                     rating_seed=44)
+    labeled = {"load_col": {"inter": ["user_id", "item_id", "rating", "timestamp"]},
+               "threshold": {"rating": 4}}
+    log(f"[labeled] wrote the labeled ml-1m-shaped .inter in {time.time() - t0:.1f}s")
+    runs = {"dataset_negatives": [
+                ("mfsimple_dn", "MFSimple", {"train_use_dataset_negatives": True})],
+            "full": [("mfsimple_bothway", "MFSimple", {"train_use_bothway_sampler": True,
+                                                       "training_neg_sample_num": 3}),
+                     ("gmf", "GMF", {}), ("mlp", "MLP", {}), ("ncf", "NCF", {})]}
+    for protocol, models in runs.items():
+        extra = {**labeled, "eval_use_dataset_negatives": protocol == "dataset_negatives"}
+        t0 = time.time()
+        config = general_config(torch, tmp, "MFSimple", "ml-1m-labeled", extra)
+        init_seed(config["seed"], config["reproducibility"])
+        loaders = data_preparation(config, create_dataset(config))
+        types = (("DatasetNegEvalLoader",) * 2 if protocol == "dataset_negatives"
+                 else ("FullSortEvalLoader",) * 2)
+        log(f"[labeled] {protocol} loaders in {time.time() - t0:.1f}s: train {loaders[0].n} "
+            f"rows (label 1: {int(loaders[0].columns()['label'].sum())})")
+        for tag, model_name, model_extra in models:
+            out[tag] = protocol_fit(
+                torch, tmp, tag, model_name,
+                general_config(torch, tmp, model_name, "ml-1m-labeled", {**extra, **model_extra}),
+                loaders, types, ("adam_leaf",), GENERAL_OFF + ("masked_topk",), 1e-8)
+        del loaders
+    return out
 
 
 def phase_routes(torch, tmp):
@@ -2589,7 +2781,7 @@ def phase_quality(torch, tmp):
 # / 0.1816 over seeds 2020-2022
 ML100K_KG_RUN = {"epochs": 10}
 CKE_RECALL_FLOOR = 0.145
-# the other five knowledge models on ml-100k under the same protocol at 10
+# the other six knowledge models on ml-100k under the same protocol at 10
 # epochs (KTUP: 5 rs then 5 kg epochs, its default alternation): test
 # recall@10 of the JAX package on the CPU, seeds 2020 / 2021 / 2022
 # (python run.py --model=<M> --dataset=ml-100k --epochs=10 --seed=<s>
@@ -2598,11 +2790,12 @@ ML100K_KG = {"CFKG": ("0.1098 / 0.1112 / 0.1165", 0.095),
              "KTUP": ("0.0842 / 0.0959 / 0.0765", 0.065),
              "KGCN": ("0.1303 / 0.1461 / 0.1654", 0.115),
              "KGNNLS": ("0.1302 / 0.1461 / 0.1654", 0.115),
-             "MKR": ("0.1024 / 0.1041 / 0.1049", 0.085)}
+             "MKR": ("0.1024 / 0.1041 / 0.1049", 0.085),
+             "KGAT": ("0.0966 / 0.1180 / 0.1054", 0.087)}
 
 
 def phase_quality_kg(torch, tmp):
-    """ml-100k test recall@10 of the six knowledge models at their
+    """ml-100k test recall@10 of the seven knowledge models at their
     defaults, 10 epochs (RO_RS full sort, early stopping on mrr@10), each
     held to its floor (CKE_RECALL_FLOOR, ML100K_KG). Adam must launch in
     each run, and the masked top-k never."""
@@ -2637,6 +2830,60 @@ def phase_quality_kg(torch, tmp):
     return out
 
 
+# MFSimple on ml-100k under the fork's labeled protocol (threshold {rating:
+# 3}, dataset negatives in training and in evaluation; tests/test_aux.py:
+# 138-161), 10 epochs: test recall@10 of the JAX package on the CPU, seeds
+# 2020 / 2021 / 2022 (python run.py --model=MFSimple --dataset=ml-100k
+# --epochs=10 --seed=<s> with those keys), and the floor, about 0.9x the lowest
+ML100K_LABELED = {"threshold": {"rating": 3}, "train_use_dataset_negatives": True,
+                  "eval_use_dataset_negatives": True, "epochs": 10}
+MFSIMPLE_LABELED = ("0.8640 / 0.8638 / 0.8638", 0.775)
+# BPR on ml-100k with the fork's uniform-1000 validation, 20 epochs: the JAX
+# package's best valid recall@10 on the CPU, seed 2020 (python run.py
+# --model=BPR --dataset=ml-100k --epochs=20 --valid_full_to_uni1000=True
+# --eval_batch_size=16: its sampler's all-pairs comparison does not fit in
+# memory at the default batch); printed beside the port's, with no floor
+# (the two draw other negatives)
+ML100K_UNI1000 = {"valid_full_to_uni1000": True, "epochs": 20}
+BPR_UNI1000_JAX = 0.1056
+
+
+def phase_quality_protocols(torch, tmp):
+    """ml-100k: MFSimple's test recall@10 under the labeled protocol, held
+    to its floor (the Adam kernel with weight decay 1e-8 in every step, the
+    masked top-k never); BPR's best valid recall@10 under the uniform-1000
+    validation beside the JAX package's."""
+    from recbole_tpu_torch import run_recbole
+    from recbole_tpu_torch.ops.fused_adam import adam_multi_cuda
+    from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda
+    common = {"device": "cuda", "checkpoint_dir": os.path.join(tmp, "saved100k"),
+              "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING",
+              "show_progress": False}
+    before = (adam_multi_cuda.launches, masked_topk_cuda.launches)
+    t0 = time.time()
+    result = run_recbole(model="MFSimple", dataset="ml-100k",
+                         config_dict={**ML100K_LABELED, **common})
+    ran = (adam_multi_cuda.launches - before[0], masked_topk_cuda.launches - before[1])
+    test = result["test_result"]
+    ref, floor = MFSIMPLE_LABELED
+    log(f"[quality] ml-100k MFSimple (labeled: threshold rating 3, dataset negatives both "
+        f"ways, 10 epochs) {time.time() - t0:.1f}s; Adam launches {ran[0]}, masked top-k "
+        f"{ran[1]}; best valid {result['best_valid_result']}")
+    log(f"[quality]   test {json.dumps(test)}   recall@10 of the JAX package on the CPU, "
+        f"seeds 2020-2022: {ref}; floor {floor}")
+    check_result(result, JAX_ML100K)
+    if ran[0] <= 0 or ran[1]:
+        raise AssertionError(f"the ml-100k MFSimple run made {ran} Adam / masked top-k launches")
+    if test["recall@10"] < floor:
+        raise AssertionError(f"ml-100k MFSimple test recall@10 {test['recall@10']} < {floor}")
+    t0 = time.time()
+    result = run_recbole(model="BPR", dataset="ml-100k", config_dict={**ML100K_UNI1000, **common})
+    check_result(result, JAX_ML100K)
+    log(f"[quality] ml-100k BPR, uniform-1000 validation, 20 epochs: {time.time() - t0:.1f}s; "
+        f"best valid recall@10 {result['best_valid_result']['recall@10']} (JAX package on the "
+        f"CPU, seed 2020: {BPR_UNI1000_JAX}); test {json.dumps(result['test_result'])}")
+
+
 def adam_copies(shapes):
     """How many copies of a leaf set an Adam timing takes in turn: enough
     that ADAM_ROTATE_BYTES pass between two calls on one copy, so that a
@@ -2665,8 +2912,10 @@ def adam_library(torch, sets, **kw):
     return rotating(steps)
 
 
-def time_adam(torch, shapes, heads, iters):
-    """One Adam step over a main path's leaf set (every gradient present):
+def time_adam(torch, shapes, heads, iters, wd=0.0):
+    """One Adam step over a main path's leaf set (every gradient present),
+    at weight decay ``wd`` (the library call's ``weight_decay``, the same
+    coupled L2):
     the kernel by CUDA events (``ms``) and in one CUDA graph (``graph_ms``),
     the host's ms to enqueue one call (``host_ms``), the plain version, and
     ``Adam(fused=True).step`` by events (``library_ms``) and, capturable, in a
@@ -2684,7 +2933,7 @@ def time_adam(torch, shapes, heads, iters):
 
     def step(fn):
         return rotating([lambda lv=lv, g=g: fn(lv, g, 10.0, 1000.0, b1=0.9, b2=0.999, lr=1e-3,
-                                               eps=1e-8)
+                                               eps=1e-8, wd=wd)
                          for lv, (_, g) in zip(leaves, sets)])
 
     n = sum(x.numel() for x in sets[0][0])
@@ -2693,10 +2942,12 @@ def time_adam(torch, shapes, heads, iters):
          "graph_ms": graph_ms(torch, step(adam_multi_cuda), calls),
          "host_ms": host_ms(torch, step(adam_multi_cuda)),
          "plain_ms": cuda_ms(torch, step(adam_multi_torch), max(3, iters // 10)),
-         "library_ms": cuda_ms(torch, adam_library(torch, sets), iters),
-         "library_graph_ms": graph_ms(torch, adam_library(torch, sets, capturable=True), calls),
-         "copies": copies}
-    t["bound_ms"], t["bound_by"] = bound(14.0 * n, 28 * n - 4 * sum(heads))
+         "library_ms": cuda_ms(torch, adam_library(torch, sets, weight_decay=wd), iters),
+         "library_graph_ms": graph_ms(torch, adam_library(torch, sets, capturable=True,
+                                                          weight_decay=wd), calls),
+         "copies": copies, "weight_decay": wd}
+    # the decay adds a multiply and an add an element; the bytes stay 28
+    t["bound_ms"], t["bound_by"] = bound((16.0 if wd else 14.0) * n, 28 * n - 4 * sum(heads))
     return n, t
 
 
@@ -2759,6 +3010,13 @@ def phase_timing(torch):
             out["adam_leaf"][label] = t
         log(f"[time] adam_leaf one step over the {label} leaves ({len(shapes)} leaves, "
             f"{n} elements, one launch): {t}")
+    # MFSimple's leaves at its default decay (row 2e), and without decay on
+    # the same leaves in the same call
+    for label, wd in (("mfsimple", 0.0), ("mfsimple_wd", 1e-8)):
+        n, t = time_adam(torch, MFSIMPLE_LEAF_SHAPES, [0] * 5, 200, wd=wd)
+        out["adam_leaf"][label] = t
+        log(f"[time] adam_leaf one step over MFSimple's leaves ({len(MFSIMPLE_LEAF_SHAPES)} "
+            f"leaves, {n} elements, one launch, weight decay {wd}): {t}")
 
     # one step's backward at the Criteo shape: the 17 small fields through
     # the one-hot kernel, reading its column block in place (the 9 large
@@ -3495,7 +3753,16 @@ def main():
                             [(2053,), (3, 7), (), (4096,), (2047,), (37, 9)],
                             [6, 0, 0, 2, 0, 9], seed=9, none=(1,), offset=offset,
                             g_offset=g_offset)
-                 for offset, g_offset in ((0, 0), (1, 1), (0, 1))))}
+                 for offset, g_offset in ((0, 0), (1, 1), (0, 1))),
+               # weight decay: the four baselines' leaf set at ml-1m and BPR's
+               # and SASRec's, at the baselines' 1e-8 and at 1e-2; and the
+               # edge leaves (a missing gradient, zero heads) decayed
+               *(check_adam(torch, f"{label} at weight decay {wd}", shapes, heads, seed, wd=wd)
+                 for seed, ((label, (shapes, heads)), wd) in enumerate(
+                     itertools.product(ADAM_WD_SETS.items(), ADAM_WDS), start=20)),
+               check_adam(torch, "edge leaves at weight decay 0.01",
+                          [(2053,), (3, 7), (), (4096,), (2047,), (37, 9)],
+                          [6, 0, 0, 2, 0, 9], seed=30, none=(1,), offset=1, wd=1e-2))}
     for kname, cases in embed_grad_cases(torch).items():
         err[kname] = check_embed_grad(torch, kname, cases)
     images = yelp_bit_inputs(torch)
@@ -3528,20 +3795,30 @@ def main():
         by_path["ripplenet"] = phase_ripplenet(torch, tmp)
         clock("ripplenet")
         for model_name in KG_MODELS:
-            by_path[model_name.lower()] = phase_kg_model(torch, tmp, model_name)
+            by_path[model_name.lower()], loaders, trainer = phase_kg_model(torch, tmp, model_name)
+            if model_name == "KGAT":
+                time_attention_update(torch, trainer.model)
+                by_path["kgat_ell"] = phase_kgat_ell(torch, tmp, loaders)
+            del loaders, trainer
+            torch.cuda.empty_cache()
             clock(model_name.lower())
         by_path.update(phase_routes(torch, tmp))
         clock("routes")
+        by_path.update(phase_protocols(torch, tmp))
+        clock("protocols")
         phase_quality(torch, tmp)
         clock("quality")
         phase_quality_kg(torch, tmp)
         clock("quality_kg")
+        phase_quality_protocols(torch, tmp)
+        clock("quality_protocols")
     timing = phase_timing(torch)
     clock("timing")
     kernels = [{"name": kname, **KERNEL_META[kname],
                 "launches": sum(path[kname] for path in by_path.values()),
                 "launches_by_path": {p: path[kname] for p, path in by_path.items()},
                 "max_abs_err": err[kname], **timing[kname]} for kname in KERNEL_META]
+    log(f"[clock] the whole run: {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

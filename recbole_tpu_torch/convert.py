@@ -21,7 +21,12 @@ packages from the same weights.
 
 A JAX tree's ``_const`` subtree (dataset-derived arrays: a graph operator,
 packed-bit images) is skipped both ways: the port rebuilds those arrays from
-the dataset as non-persistent buffers of the module.
+the dataset as non-persistent buffers of the module. What the rest of the
+tree holds is the module's ``state_dict``: its parameters and its persistent
+buffers, the state that is not trained (KGAT's ``edge_attention``). The
+tree is loaded through ``load_state_dict``, so a module's own post-hooks
+rebuild what derives from it (KGAT's dense blocks, which the JAX tree keeps
+under ``_const``).
 """
 
 import numpy as np
@@ -67,20 +72,21 @@ CONST_KEY = "_const"
 
 
 def load_jax_params(model, params):
-    own = dict(model.named_parameters())
+    own = model.state_dict()
     flat = flatten_tree({k: v for k, v in params.items() if k != CONST_KEY})
     if set(flat) != set(own):
         raise KeyError(f"parameter names differ: module {sorted(own)}, "
                        f"given {sorted(flat)}")
-    with torch.no_grad():
-        for name, p in own.items():
-            src = np.asarray(flat[name])
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {src.shape} vs module {tuple(p.shape)}")
-            p.copy_(torch.tensor(src, dtype=p.dtype))
+    state = {}
+    for name, p in own.items():
+        src = np.asarray(flat[name])
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {src.shape} vs module {tuple(p.shape)}")
+        state[name] = torch.tensor(src, dtype=p.dtype)
+    model.load_state_dict(state)
     return model
 
 
 def export_params(model):
     return unflatten_tree({name: p.detach().cpu().numpy()
-                           for name, p in model.named_parameters()})
+                           for name, p in model.state_dict().items()})

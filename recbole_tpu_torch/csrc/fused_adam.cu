@@ -8,11 +8,20 @@
 // in its order, each operation rounded once (no contraction into FMA; IEEE
 // division and square root), so the kernel and the plain version agree bit
 // for bit:
+//   g  = g + wd p                       (only where wd != 0)
 //   m' = b1 m + (1 - b1) g
 //   v' = b2 v + ((1 - b2) g) g
 //   p' = p - (lr (m' c1)) / (sqrt(v' c2) + eps)
 // with c1 = 1 / (1 - b1^t) and c2 = 1 / (1 - b2^t) from the host's integer
 // step count (JAX's bias-correction arrangement, not torch.optim.Adam's).
+// wd is the coupled L2 weight decay of the JAX package's
+// optax.add_decayed_weights before optax.adam (recbole_tpu/trainer/
+// trainer.py:64-75): the decayed term joins the gradient before the moments,
+// after the zero head and a null gradient have made it 0, as the JAX chain
+// adds it after the [PAD] row's gradient is zeroed. It is a multiply and an
+// add, each rounded, as the plain version's g + wd * p; at wd = 0 the term is
+// skipped (a uniform branch), so every other path is bit for bit what it was
+// (adding 0 * p would turn a -0 gradient into +0 and 0 * inf into NaN).
 //
 // What bounds it on the H100: it reads p, m, v, g and writes p, m, v, 28
 // bytes an element (24 where the gradient is zero) for 14 flops, so memory
@@ -80,7 +89,7 @@ struct Leaf {
 static_assert(sizeof(Leaf) == 56, "Leaf must match LEAF_DTYPE");
 
 struct Scalars {
-  float c1, c2, b1, omb1, b2, omb2, lr, eps;
+  float c1, c2, b1, omb1, b2, omb2, lr, eps, wd;
   int n_leaves, total_chunks;
 };
 
@@ -92,6 +101,7 @@ struct Table {
 static_assert(sizeof(Table<kMaxLeaves>) <= 32764, "kernel parameters are at most 32,764 bytes");
 
 __device__ __forceinline__ void adam1(float& p, float& m, float& v, float g, const Scalars& s) {
+  if (s.wd != 0.0f) g = __fadd_rn(g, __fmul_rn(s.wd, p));
   const float m2 = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.omb1, g));
   const float v2 = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(__fmul_rn(s.omb2, g), g));
   const float upd = __fdiv_rn(__fmul_rn(s.lr, __fmul_rn(m2, s.c1)),
@@ -238,19 +248,20 @@ extern "C" int adam_multi_max_leaves() { return kMaxLeaves; }
 
 // One launch over n_leaves records (each n > 0, chunk_start their chunk
 // prefix, total_chunks the sum) with the step's gradient addresses (null: a
-// zero gradient), on stream. The parameter block is the smallest instance
-// that holds the list: Table<kMaxLeaves> alone (28.7 KB of parameters) cost
+// zero gradient) and weight decay wd (0: none), on stream. The parameter
+// block is the smallest instance that holds the list: Table<kMaxLeaves> alone (28.7 KB of parameters) cost
 // the host 2-25 us more a call than Table<16> / <64> at BPR's, DeepFM's,
 // SASRec's and LightGCN's sets, with the same device time
 // (scripts/torch_adam_ab.py --kernels-only, both builds in turns in one call,
 // an NVIDIA H100 80GB HBM3 at 700 W).
 extern "C" int adam_multi_f32(const void* leaves, const void* grads, int n_leaves,
                               int total_chunks, float c1, float c2, float b1, float omb1,
-                              float b2, float omb2, float lr, float eps, void* stream) {
+                              float b2, float omb2, float lr, float eps, float wd,
+                              void* stream) {
   if (n_leaves <= 0 || total_chunks <= 0) return (int)cudaErrorInvalidValue;
   const Leaf* l = static_cast<const Leaf*>(leaves);
   const float* const* g = static_cast<const float* const*>(grads);
-  const Scalars s = {c1, c2, b1, omb1, b2, omb2, lr, eps, 0, 0};
+  const Scalars s = {c1, c2, b1, omb1, b2, omb2, lr, eps, wd, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_leaves <= 16) return launch<16>(l, g, n_leaves, total_chunks, s, st);
   if (n_leaves <= 64) return launch<64>(l, g, n_leaves, total_chunks, s, st);

@@ -2,12 +2,15 @@
 
 Port of recbole_tpu/data/loaders.py: ``TrainLoader`` (:17),
 ``ArrayTrainLoader`` (:63), ``SeqTransform`` (:103), ``SequentialTrainLoader``
-(:152), ``SequentialEvalLoader`` (:193), ``RowEvalLoader`` (:271) and
-``FullSortEvalLoader`` (:345). A train loader only holds the columnar
-training table: the trainer uploads it to the device once and slices
-shuffled batches there, the eager counterpart of the JAX trainer's scanned
-epoch (trainer.py:503-509). Negatives are drawn on the device by the
-trainer. The sampled and dataset-negative eval loaders are not ported yet.
+(:152), ``SequentialEvalLoader`` (:193), ``SequentialSampledEvalLoader``
+(:255), ``RowEvalLoader`` (:271), ``FullSortEvalLoader`` (:345),
+``DatasetNegEvalLoader`` (:415) and ``SampledEvalLoader`` (:499). A train
+loader only holds the columnar training table: the trainer uploads it to the
+device once and slices shuffled batches there, the eager counterpart of the
+JAX trainer's scanned epoch (trainer.py:503-509). Negatives, of training and
+of the sampled eval protocols, are drawn on the device by the trainer.
+``UserTrainLoader`` (:306) comes with the MultiVAE family (ROADMAP Queue 1,
+item 10).
 """
 
 import numpy as np
@@ -134,10 +137,11 @@ class SequentialEvalLoader:
 
     pos_len is always 1; no history masking (items may repeat; parity:
     SequentialFullDataLoader, sequential_dataloader.py:236-294, history_index
-    None).
+    None) and negative sampling is repeatable.
     """
 
     mask_history = False
+    repeatable_sampling = True
 
     def __init__(self, config, split, n_items, batch_size=None):
         self.config = config
@@ -189,14 +193,24 @@ class SequentialEvalLoader:
             }
 
 
-class SequentialSampledEvalLoader:
-    """Sampled ranking evaluation over sequential splits: not ported yet."""
+class SequentialSampledEvalLoader(SequentialEvalLoader):
+    """Sampled ranking over sequential splits (uni<k>/pop<k>): each row's
+    target, then k negatives drawn on the device without exclusion. The
+    batch keeps batch x (1 + k) candidates near eval_batch_size x 4096."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "sampled evaluation of sequential models (uni<k>/pop<k>, and "
-            "valid_full_to_uni1000) is not ported yet (ROADMAP Queue 1, item 3); "
-            "use full-sort eval")
+    def __init__(self, config, split, n_items, neg_sample_args, batch_size=None):
+        self.neg_k = int(neg_sample_args["by"])
+        self.distribution = neg_sample_args.get("distribution", "uniform")
+        super().__init__(config, split, n_items, batch_size)
+        if batch_size is None:
+            width = max(1 + self.neg_k, 1)
+            budget = (self.config["eval_batch_size"] or 4096) * 4096
+            self.batch_size = int(np.clip(budget // width, 4, 4096))
+            self.batch_size = min(self.batch_size, max(self.n, 4))
+
+    @property
+    def num_candidates(self):
+        return 1 + self.neg_k
 
 
 class RowEvalLoader:
@@ -307,19 +321,108 @@ class FullSortEvalLoader:
             yield {"user_id": u, "pos_items": p, "pos_len": l, "_mask": mask}
 
 
-class SampledEvalLoader:
-    """Sampled ranking evaluation (uni<k>/pop<k>): not ported yet."""
+class SampledEvalLoader(FullSortEvalLoader):
+    """Sampled ranking evaluation (uni<k>/pop<k> presets).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "sampled evaluation (uni<k>/pop<k>, and valid_full_to_uni1000) is "
-            "not ported yet (ROADMAP Queue 1, item 3); use full-sort eval")
+    Reference semantics (general_dataloader.py:132-265): each user's
+    candidate list is their P positives followed by P*k sampled negatives (k
+    per positive), the negatives excluding every item the user interacted
+    with in any phase up to this one. Negatives are drawn on the device per
+    batch.
+    """
+
+    def __init__(self, config, dataset, n_items, neg_sample_args, batch_size=None):
+        self.neg_k = int(neg_sample_args["by"])
+        self.distribution = neg_sample_args.get("distribution", "uniform")
+        super().__init__(config, dataset, n_items, batch_size)
+        if batch_size is None:
+            # candidate width P*(1+k); keep batch x width bounded, and never
+            # pad beyond the real user count
+            width = max(self.max_pos * (1 + self.neg_k), 1)
+            budget = (self.config["eval_batch_size"] or 4096) * 4096
+            self.batch_size = int(np.clip(budget // width, 4, 4096))
+            self.batch_size = min(self.batch_size, max(len(self.users), 4))
+
+    @property
+    def num_candidates(self):
+        return self.max_pos * (1 + self.neg_k)
 
 
 class DatasetNegEvalLoader:
-    """Ranking against the dataset's labeled negatives: not ported yet."""
+    """Ranking evaluation against the dataset's OWN labeled negatives.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "eval_use_dataset_negatives is not ported yet (ROADMAP Queue 1, "
-            "item 3)")
+    Parity target: the fork's GeneralNegFromDatasetDataLoader
+    (general_dataloader.py:53-129): per user, the candidate list is their
+    label-1 rows (positives first) followed by their label-0 rows; pos_len
+    and neg_len come from the data, no sampling, no history mask. Users
+    without a positive are left out: they add nothing to grouped metrics.
+    """
+
+    mask_history = False
+
+    def __init__(self, config, dataset, n_items, batch_size=None):
+        from .dataset import build_history_matrix
+        self.config = config
+        self.n_items = n_items
+        label_f = config["LABEL_FIELD"]
+        if label_f not in dataset.inter_feat:
+            raise ValueError("eval_use_dataset_negatives requires a label "
+                             "column in the dataset")
+        uids = np.asarray(dataset.inter_feat[config["USER_ID_FIELD"]])
+        iids = np.asarray(dataset.inter_feat[config["ITEM_ID_FIELD"]])
+        labels = np.asarray(dataset.inter_feat[label_f]) > 0.5
+
+        def group(u, i):
+            if len(u) == 0:
+                return (np.zeros(0, np.int64), np.zeros((0, 1), np.int32),
+                        np.zeros(0, np.int32))
+            users = np.unique(u)
+            mat, lens = build_history_matrix(u, i, int(u.max()) + 1)
+            return users, mat[users], lens[users].astype(np.int32)
+
+        pu, pos, plen = group(uids[labels], iids[labels])
+        nu, neg, nlen = group(uids[~labels], iids[~labels])
+        # each positive user's row of the negative table (none: 0 negatives)
+        if len(nu):
+            row = np.minimum(np.searchsorted(nu, pu), len(nu) - 1)
+            has = nu[row] == pu
+        else:
+            row, has = np.zeros(len(pu), np.int64), np.zeros(len(pu), bool)
+        self.users = pu.astype(np.int32)
+        self.pos_items, self.pos_len = pos, plen
+        self.neg_items = np.zeros((len(pu), neg.shape[1]), np.int32)
+        self.neg_len = np.zeros(len(pu), np.int32)
+        self.neg_items[has] = neg[row[has]]
+        self.neg_len[has] = nlen[row[has]]
+        self.max_pos = pos.shape[1]
+        self.max_neg = neg.shape[1]
+        if batch_size is None:
+            width = max(self.max_pos + self.max_neg, 1)
+            budget = (config["eval_batch_size"] or 4096) * 4096
+            batch_size = int(np.clip(budget // width, 4, 4096))
+            batch_size = min(batch_size, max(len(self.users), 4))
+        self.batch_size = batch_size
+
+    @property
+    def n_eval_users(self):
+        return len(self.users)
+
+    def __len__(self):
+        return (len(self.users) + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        B = self.batch_size
+        for start in range(0, len(self.users), B):
+            sl = slice(start, start + B)
+            arrs = {"user_id": self.users[sl], "pos_items": self.pos_items[sl],
+                    "pos_len": self.pos_len[sl], "neg_items": self.neg_items[sl],
+                    "neg_len": self.neg_len[sl]}
+            cnt = len(arrs["user_id"])
+            pad = B - cnt
+            mask = np.ones(B, np.float32)
+            if pad:
+                arrs = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+                        for k, v in arrs.items()}
+                mask[-pad:] = 0.0
+            arrs["_mask"] = mask
+            yield arrs

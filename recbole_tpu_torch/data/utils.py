@@ -7,17 +7,18 @@ sequential and knowledge model families: ``create_dataset`` and
 on the train loader and the fork's validation override. When the protocol
 is full-sort and no benchmark split files are given,
 ``valid_full_to_uni1000`` downgrades VALIDATION to uniform-1000 sampled
-ranking (reference data/utils.py:84-88); that reaches the sampled loader,
-which is not ported yet and raises, as do the social and KG-sequential
-datasets and ``eval_use_dataset_negatives``.
+ranking (reference data/utils.py:84-88). Sampled protocols (uni<k>/pop<k>)
+get the sampled loaders, general and sequential, and
+``eval_use_dataset_negatives`` the dataset-negative loader; the social and
+KG-sequential datasets are not ported yet and raise.
 """
 
 import numpy as np
 
 from .dataset import Dataset, build_history_matrix
 from .loaders import (TrainLoader, FullSortEvalLoader, SampledEvalLoader,
-                      RowEvalLoader, SequentialTrainLoader, SequentialEvalLoader,
-                      SequentialSampledEvalLoader)
+                      DatasetNegEvalLoader, RowEvalLoader, SequentialTrainLoader,
+                      SequentialEvalLoader, SequentialSampledEvalLoader)
 from ..config.eval_setting import EvalSetting
 from ..sampler.sampler import PhaseHistory
 from ..utils.enums import ModelType, EvaluatorType
@@ -116,7 +117,6 @@ def _make_eval_loader(config, split_ds, full_ds, neg_args, sequential=False):
                 "protocol either)")
         return RowEvalLoader(config, split_ds)
     if config["eval_use_dataset_negatives"] and not sequential:
-        from .loaders import DatasetNegEvalLoader
         return DatasetNegEvalLoader(config, split_ds, full_ds.item_num)
     if sequential:
         if neg_args["strategy"] == "full":

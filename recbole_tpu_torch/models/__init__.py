@@ -3,14 +3,14 @@
 Port of recbole_tpu/models/__init__.py. Models self-register with
 @register_model at import time; get_model imports the category packages
 lazily on first lookup (case-insensitive, exact-case preferred). Ported so
-far: the general family's BPR and LightGCN, the context family's base with
-DeepFM, FM and LR, the sequential family's base with SASRec, GRU4Rec and
-NARM, and the knowledge family's base with RippleNet, CKE, CFKG, KTUP,
-KGCN, KGNNLS and MKR. The other graph models of the general family raise
-``NotImplementedError`` naming ROADMAP Queue 1, item 8, and KGAT item 9;
-any other
-name raises ``ValueError``; the other 11 context models, the other 22
-sequential models and the remaining families are ROADMAP Queue 1.
+far: the general family's BPR, LightGCN, MFSimple, GMF, MLP and NCF, the
+context family's base with DeepFM, FM and LR, the sequential family's base
+with SASRec, GRU4Rec and NARM, and the knowledge family's base with all
+eight of its models (RippleNet, CKE, CFKG, KTUP, KGCN, KGNNLS, MKR and
+KGAT). The other graph models of the general family raise
+``NotImplementedError`` naming ROADMAP Queue 1, item 8; any other name
+raises ``ValueError``; the other 11 context models, the other 22 sequential
+models and the remaining families are ROADMAP Queue 1.
 """
 
 import importlib
@@ -21,8 +21,6 @@ _LOADED = False
 _CATEGORIES = ("general", "context", "sequential", "knowledge")
 # graph models of the general family that the LightGCN slice left out
 _GRAPH_NOT_PORTED = ("NGCF", "SpectralCF", "GCMC", "DGCF")
-# the knowledge model that the knowledge slices left out
-_KNOWLEDGE_NOT_PORTED = ("KGAT",)
 
 
 def register_model(name):
@@ -54,9 +52,6 @@ def get_model(name):
     if name.lower() in (n.lower() for n in _GRAPH_NOT_PORTED):
         raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP Queue 1, item 8: "
                                   "the graph models beside LightGCN)")
-    if name.lower() in (n.lower() for n in _KNOWLEDGE_NOT_PORTED):
-        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP Queue 1, item 9: "
-                                  "KGAT with KGATTrainer)")
     raise ValueError(f"model {name!r} not found; known: {sorted(_REGISTRY)}")
 
 

@@ -118,9 +118,9 @@ def dropout_apply(generator, x, rate):
 
 
 class _Dense(nn.Module):
-    def __init__(self, generator, in_dim, out_dim, device, bn):
+    def __init__(self, generator, in_dim, out_dim, device, bn, init=xavier_normal):
         super().__init__()
-        self.w = nn.Parameter(xavier_normal(generator, (in_dim, out_dim), device))
+        self.w = nn.Parameter(init(generator, (in_dim, out_dim), device))
         self.b = nn.Parameter(torch.zeros(out_dim, device=device))
         if bn:
             self.bn_g = nn.Parameter(torch.ones(out_dim, device=device))
@@ -128,16 +128,17 @@ class _Dense(nn.Module):
 
 
 class MLPLayers(nn.ModuleList):
-    """parity: MLPLayers (reference layers.py:30), xavier-normal weights and
-    zero biases. Layer i's parameters are named ``<i>.w`` and ``<i>.b``
+    """parity: MLPLayers (reference layers.py:30), xavier-normal weights
+    (``init``: another initializer of this module, as ``mlp_init``'s
+    ``init`` names one) and zero biases. Layer i's parameters are named ``<i>.w`` and ``<i>.b``
     (``<i>.bn_g``/``<i>.bn_b`` with ``bn=True``), the paths of the JAX
     package's list of layer dicts. Per layer: dropout -> linear ->
     [batch norm] -> activation. Dropout is applied only in train mode and
     only when a generator is given."""
 
     def __init__(self, generator, layer_dims, device, act="relu", dropout=0.0,
-                 bn=False, final_act=True):
-        super().__init__(_Dense(generator, layer_dims[i], layer_dims[i + 1], device, bn)
+                 bn=False, final_act=True, init=xavier_normal):
+        super().__init__(_Dense(generator, layer_dims[i], layer_dims[i + 1], device, bn, init)
                          for i in range(len(layer_dims) - 1))
         self.act = activation(act)
         self.dropout = float(dropout)

@@ -1,31 +1,99 @@
-"""Scatter-free sparse propagation over degree-bucketed padded neighbour
-lists (ELL).
+"""Scatter-free sparse propagation over edge lists.
 
-Port of the ELL part of recbole_tpu/ops/edge_prop.py (:107-240):
+Port of recbole_tpu/ops/edge_prop.py:
 
     out[n] = sum over edges e with head[e] == n of att[e] * x[tail[e]]
 
-Nodes are bucketed by degree on a ~1.25x geometric ladder, so each bucket is
-a (n_b, K_b) table of edge ids and neighbour ids with little padding even on
-power-law graphs; padded slots point at a sentinel edge whose weight is 0.
-The forward gathers each bucket's neighbour rows and reduces them with its
-weights (``einsum``), then puts the bucket rows back in node order with an
-inverse-permutation gather; the backward is the same pass over the
-tail-grouped tables. No scatter anywhere, so both directions are
-deterministic. ``att`` is a constant: it gets no gradient.
+Two formulations, as in the JAX package:
+
+* Sorted edges (``build_sorted_edge_consts``, ``sorted_edge_propagate``,
+  :35-104): the edges sorted by head; the forward is a gather and a sorted
+  segment sum over each head's run of edges (``torch.segment_reduce`` over
+  the run lengths: no atomics). Its backward, ``SortedEdgePropagate``, has
+  no scatter: ``d_x`` is each tail's segment sum of the edge cotangents
+  taken in tail order (a fixed permutation) as differences of one
+  inclusive cumsum at the runs' ends, and ``d_att`` a gather and a row
+  reduce. The cumsum difference carries the rounding of the running sum:
+  the JAX docstring expects about 1e-5 relative error in ``d_x``; the
+  forward is exact. No model of either package calls it; its tests do.
+* ELL (``build_ell_consts``, ``ell_propagate``, :107-240): nodes are
+  bucketed by degree on a ~1.25x geometric ladder, so each bucket is a
+  (n_b, K_b) table of edge ids and neighbour ids with little padding even
+  on power-law graphs; padded slots point at a sentinel edge whose weight
+  is 0. The forward gathers each bucket's neighbour rows and reduces them
+  with their weights (``einsum``), then puts the bucket rows back in node
+  order with an inverse-permutation gather; the backward is the same pass
+  over the tail-grouped tables. No scatter anywhere, so both directions are
+  deterministic. ``att`` is a constant: it gets no gradient.
 
 ``BipartiteProp``'s hybrid (ops/graph.py) calls ``ell_side``/``ell_rows``
 alone: its operator is symmetric, so its backward is its forward. The
-two-direction tables and ``ell_propagate`` are for operators that are not,
-such as KGAT's attention-weighted one (ROADMAP Queue 1, item 9).
-
-The sorted-edge propagation of the same file (``build_sorted_edge_consts``,
-``sorted_edge_propagate``) comes with the knowledge family (ROADMAP Queue 1,
-item 9).
+two-direction tables and ``ell_propagate`` serve operators that are not,
+such as KGAT's attention-weighted one (models/knowledge/kgat.py).
 """
 
 import numpy as np
 import torch
+
+
+def build_sorted_edge_consts(heads, tails, n_nodes):
+    """numpy preprocessing for ``sorted_edge_propagate``: the edges sorted
+    by head (stable), the tail-order permutation and each node's run of
+    edges in head and in tail order. Returns (order, consts of int64
+    arrays), ``order`` the edges' sorting permutation."""
+    heads = np.asarray(heads)
+    tails = np.asarray(tails)
+    order = np.argsort(heads, kind="stable")
+    heads, tails = heads[order], tails[order]
+    tail_perm = np.argsort(tails, kind="stable")
+    sorted_tails = tails[tail_perm]
+    nodes = np.arange(n_nodes)
+    return order, {
+        "ep_heads": heads.astype(np.int64),
+        "ep_tails": tails.astype(np.int64),
+        "ep_tail_perm": tail_perm.astype(np.int64),
+        "ep_tstarts": np.searchsorted(sorted_tails, nodes).astype(np.int64),
+        "ep_tends": np.searchsorted(sorted_tails, nodes, side="right").astype(np.int64),
+        "ep_hstarts": np.searchsorted(heads, nodes).astype(np.int64),
+        "ep_hends": np.searchsorted(heads, nodes, side="right").astype(np.int64),
+    }
+
+
+def boundary_segment_sum(vals, starts, ends):
+    """Sums of the consecutive runs [starts[n], ends[n]) of ``vals`` rows, as
+    differences of one inclusive cumsum with a zero row in front."""
+    cume = torch.cat([vals.new_zeros((1,) + vals.shape[1:]), torch.cumsum(vals, dim=0)])
+    return cume[ends] - cume[starts]
+
+
+class SortedEdgePropagate(torch.autograd.Function):
+    """Forward: gather and a sorted segment sum by head (exact). Backward:
+    ``d_x`` by tail-ordered boundary sums, ``d_att`` by gather and reduce;
+    no scatter in either."""
+
+    @staticmethod
+    def forward(ctx, x, att, heads, tails, tail_perm, tstarts, tends, hstarts, hends):
+        ctx.save_for_backward(x, att, heads, tails, tail_perm, tstarts, tends)
+        msgs = x[tails] * att[:, None]
+        return torch.segment_reduce(msgs, "sum", lengths=hends - hstarts, axis=0)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x, att, heads, tails, tail_perm, tstarts, tends = ctx.saved_tensors
+        d_head = d_out[heads]                                   # (E, D)
+        d_x = d_att = None
+        if ctx.needs_input_grad[0]:
+            d_x = boundary_segment_sum((d_head * att[:, None])[tail_perm], tstarts, tends)
+        if ctx.needs_input_grad[1]:
+            d_att = torch.sum(d_head * x[tails], dim=-1)
+        return d_x, d_att, None, None, None, None, None, None, None
+
+
+def sorted_edge_propagate(x, att, heads, tails, tail_perm, tstarts, tends, hstarts, hends):
+    """x: (N, D); att: (E,) edge weights in head-sorted order; the index
+    tensors from ``build_sorted_edge_consts``. Returns (N, D)."""
+    return SortedEdgePropagate.apply(x, att, heads, tails, tail_perm, tstarts, tends,
+                                     hstarts, hends)
 
 
 def ell_side(group, other, E, n_nodes, prefix):

@@ -6,7 +6,11 @@ Port of recbole_tpu/ops/fused_adam.py. What lives here:
   ``trainer.py:335-337`` (and of the Pallas kernel ``adam_leaf_kernel``),
   with JAX's bias-correction arrangement
   ``p' = p - lr * (m' c1) / (sqrt(v' c2) + eps)``, c1 = 1/(1-b1^t),
-  c2 = 1/(1-b2^t) — not torch.optim.Adam's;
+  c2 = 1/(1-b2^t) — not torch.optim.Adam's; a nonzero ``wd`` first adds
+  ``wd * p`` to the gradient, the coupled L2 decay of the JAX package's
+  ``optax.add_decayed_weights`` before ``optax.adam`` (trainer.py:64-75),
+  after the zero head and a missing gradient have been read as zeros, as
+  the JAX chain decays after zeroing the [PAD] row's gradient;
 * ``AdamLeaves``, a step's leaves without their gradients: p, m and v of
   each, and its ``zero_head``, the number of leading elements whose
   gradient counts as zero (the [PAD] row of a ``pad_zero_params`` table).
@@ -47,8 +51,10 @@ MAX_LEAVES = 512
 _LIB = None
 
 
-def adam_leaf_torch(p, m, v, g, c1, c2, *, b1, b2, lr, eps):
+def adam_leaf_torch(p, m, v, g, c1, c2, *, b1, b2, lr, eps, wd=0.0):
     with torch.no_grad():
+        if wd:
+            g = g + wd * p
         m2 = b1 * m + (1.0 - b1) * g
         v2 = b2 * v + (1.0 - b2) * g * g
         p2 = p - lr * (m2 * c1) / (torch.sqrt(v2 * c2) + eps)
@@ -144,7 +150,7 @@ def _check_leaf(what, tensors, dev, shape):
             raise ValueError(f"adam_multi_cuda: {what} must be contiguous")
 
 
-def adam_multi_torch(leaves, grads, c1, c2, *, b1, b2, lr, eps):
+def adam_multi_torch(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0):
     """One Adam step over every leaf of ``leaves`` (an AdamLeaves), with
     ``grads`` one gradient a leaf, None for a zero gradient."""
     if len(grads) != len(leaves):
@@ -156,7 +162,7 @@ def adam_multi_torch(leaves, grads, c1, c2, *, b1, b2, lr, eps):
             flat = g.reshape(-1).clone()
             flat[:head] = 0.0
             g = flat.view(p.shape)
-        adam_leaf_torch(p, m, v, g, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+        adam_leaf_torch(p, m, v, g, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd)
     return leaves
 
 
@@ -169,13 +175,13 @@ def _lib():
                                "ops/fused_adam.py's")
         fn = lib.adam_multi_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
-            ctypes.c_float] * 8 + [ctypes.c_void_p]
+            ctypes.c_float] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = fn
     return _LIB
 
 
-def adam_multi_cuda(leaves, grads, c1, c2, *, b1, b2, lr, eps):
+def adam_multi_cuda(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0):
     """Launch the CUDA kernel over every leaf of ``leaves``, on CUDA tensors;
     same contract as ``adam_multi_torch``. One launch, or one for each
     MAX_LEAVES leaves. Counts its launches in ``adam_multi_cuda.launches``."""
@@ -196,7 +202,7 @@ def adam_multi_cuda(leaves, grads, c1, c2, *, b1, b2, lr, eps):
         gptr.append(g.data_ptr())
     tab.grads[:] = gptr
     fn = _lib()
-    scalars = (c1, c2, b1, 1.0 - b1, b2, 1.0 - b2, lr, eps)
+    scalars = (c1, c2, b1, 1.0 - b1, b2, 1.0 - b2, lr, eps, wd)
     # the launch goes to the current device: switch only when it is another
     with (torch.cuda.device(dev) if torch.cuda.current_device() != dev
           else contextlib.nullcontext()):
@@ -213,14 +219,14 @@ def adam_multi_cuda(leaves, grads, c1, c2, *, b1, b2, lr, eps):
 adam_multi_cuda.launches = 0
 
 
-def adam_multi(leaves, grads, c1, c2, *, b1, b2, lr, eps):
+def adam_multi(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0):
     """Dispatcher: the plain version for CPU tensors, the kernel otherwise."""
     if leaves.device.type == "cpu":
-        return adam_multi_torch(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
-    return adam_multi_cuda(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+        return adam_multi_torch(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd)
+    return adam_multi_cuda(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd)
 
 
-def adam_leaf(p, m, v, g, c1, c2, *, b1, b2, lr, eps):
+def adam_leaf(p, m, v, g, c1, c2, *, b1, b2, lr, eps, wd=0.0):
     """One leaf through the dispatcher."""
-    adam_multi(AdamLeaves([p], [m], [v]), [g], c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+    adam_multi(AdamLeaves([p], [m], [v]), [g], c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd)
     return p, m, v

@@ -1,5 +1,5 @@
-"""Trainer: train step, epoch loop, checkpoints, full-sort and value-metric
-evaluation.
+"""Trainer: train step, epoch loop, checkpoints, full-sort, sampled, labeled
+and value-metric evaluation.
 
 Port of recbole_tpu/trainer/trainer.py's base ``Trainer`` (parity target:
 reference Trainer, recbole/trainer/trainer.py:62-452). The JAX trainer jits
@@ -13,10 +13,12 @@ model's device:
   * negatives are drawn on the device inside the step (``_make_rec_augment``:
     pairwise models get a negative column, pointwise ones their rows
     followed by k negative rows labelled 0; without exclusion for the
-    sequential family, whose items may repeat); labeled rows (the CTR
-    protocols: no sampling, or no user/item ids at all) pass through as they
-    are; a loader's ``device_transform`` (the sequential family's
-    padded-sequence gather) runs first;
+    sequential family, whose items may repeat; the fork's both-way sampler
+    adds k negatives and round(k/3) pseudo-positives to every row, gated by
+    ``_weight``); labeled rows (the CTR protocols, the fork's dataset
+    negatives, listwise input, no sampling) pass through as they are; a
+    loader's ``device_transform`` (the sequential family's padded-sequence
+    gather) runs first;
   * a model may return its loss as a tuple of parts: the step sums them for
     the gradient and the epoch reports each part (parity: trainer.py:367);
   * train modes (``_build_mode``, parity: trainer.py:447-500): ``rs`` (rec
@@ -29,7 +31,10 @@ model's device:
   * the model is in train mode only inside the step, and draws its dropout
     masks from the trainer's generator;
   * Adam is the single-pass in-place sweep of ops/fused_adam.py over every
-    float32 leaf at once, one launch a step (``_fused_adam_apply``);
+    float32 leaf at once, one launch a step (``_fused_adam_apply``), with the
+    JAX chain's coupled ``weight_decay`` in it; the model's persistent
+    buffers (state not trained, such as KGAT's attention) ride in the
+    checkpoint beside the parameters;
   * full-sort evaluation of a model that defines ``full_sort_query`` in
     its own class, or inherits the sequential base's whole dot-product stack
     (the JAX trainer's rule), goes through
@@ -41,16 +46,20 @@ model's device:
     ``score_items`` over chunks of the item axis (2,048 items, or what
     ``eval_pair_bytes`` allows in 512 MB) and then ranked the same way;
     each batch reduces to per-metric partial sums on the device;
+  * sampled evaluation (uni<k>/pop<k>, the fork's uni1000 validation) ranks
+    each user's positives and P*k negatives drawn on the device, and the
+    labeled evaluation (``eval_use_dataset_negatives``) the user's label-1
+    then label-0 items, both by ``score_items``, equal scores in index order
+    as ``jax.lax.top_k`` ranks them;
   * value-metric evaluation (``_evaluate_individual``) uploads the eval
     table once, predicts in device-sliced batches, and computes AUC/LogLoss
     on the device.
 
 ``get_trainer`` serves the general, context and sequential families with
-``Trainer``, the knowledge family with ``KGTrainer``, and MKR with
-``MKRTrainer``. Still raising: other learners, gradient clipping, weight
-decay, dataset negatives and the both-way sampler, the sampled and labeled
-eval steps, bfloat16 eval scores and the other trainer subclasses (KGAT's
-and the rest: ROADMAP Queue 1).
+``Trainer``, the knowledge family with ``KGTrainer``, MKR with
+``MKRTrainer`` and KGAT with ``KGATTrainer``. Still raising: other learners
+and gradient clipping (ROADMAP Queue 1, item 5), bfloat16 eval scores and
+the other trainer subclasses (ROADMAP Queue 1).
 """
 
 import os
@@ -75,18 +84,20 @@ NEG_INF = -1e15
 
 
 def build_optimizer(config):
-    """Validate the optimizer settings (parity: _build_optimizer,
-    trainer.py:109-130). The port has the fused Adam path only."""
+    """Validate the optimizer settings (parity: build_optimizer,
+    trainer.py:39-75). The port has the fused Adam path only, with the
+    JAX chain's coupled weight decay (``optax.add_decayed_weights`` before
+    ``optax.adam``: ``wd * p`` joins the gradient) in its kernel."""
     name = str(config["learner"]).lower()
     if name != "adam":
         raise NotImplementedError(
             f"learner {config['learner']!r} is not ported yet (ROADMAP "
             "Queue 1, item 5); the port trains with adam")
-    if config["clip_grad_norm"] or config["weight_decay"]:
+    if config["clip_grad_norm"]:
         raise NotImplementedError(
-            "clip_grad_norm and weight_decay are not ported yet (ROADMAP "
-            "Queue 1, item 5)")
-    return {"lr": float(config["learning_rate"])}
+            "clip_grad_norm is not ported yet (ROADMAP Queue 1, item 5)")
+    return {"lr": float(config["learning_rate"]),
+            "weight_decay": float(config["weight_decay"] or 0.0)}
 
 
 def invalid_item_mask(user_id, hist, hlen, n_items):
@@ -138,6 +149,62 @@ def pointwise_rows(batch, negs, iid_f, label_f):
                else w.to(torch.float32))
         out[label_f] = torch.cat([pos, torch.zeros(B * k, device=negs.device)])
     return out
+
+
+def bothway_rows(batch, generator, consts, uid_f, iid_f, label_f, n_items, k, k3, rounds):
+    """The both-ways sampler's batch (parity: trainer.py:222-248): the B rows
+    as they are, then k blocks of B rows holding each row's j-th sampled
+    negative, labelled 0, then k3 blocks holding its j-th sampled
+    pseudo-positive, labelled 1, every other column repeated. Both
+    expansions are emitted for every row: ``_weight`` keeps the negatives of
+    label-1 rows and the pseudo-positives of label-0 rows (times the row's
+    own weight). The negatives are drawn before the pseudo-positives, each
+    excluding the user's train history."""
+    users = batch[uid_f]
+    B = users.shape[0]
+    label = batch[label_f].to(torch.float32)
+    w = batch.get("_weight")
+    w = torch.ones(B, device=users.device) if w is None else w.to(torch.float32)
+    negs = sample_negatives(generator, users, consts["hist"], consts["hlen"], n_items, k,
+                            rounds=rounds)
+    pseudo = sample_negatives(generator, users, consts["hist"], consts["hlen"], n_items, k3,
+                              rounds=rounds)
+    out = {f: torch.cat([v] * (1 + k + k3)) for f, v in batch.items()}
+    out[iid_f] = torch.cat([batch[iid_f], negs.T.reshape(-1), pseudo.T.reshape(-1)])
+    out[label_f] = torch.cat([label, label.new_zeros(B * k), label.new_ones(B * k3)])
+    out["_weight"] = torch.cat([w, (w * label).repeat(k), (w * (1 - label)).repeat(k3)])
+    return out
+
+
+def draw_negatives(generator, user_id, consts, count, n_items, rounds, repeatable):
+    """(B, count) negatives for a train batch or a sampled eval batch
+    (parity: trainer.py:230-234, :1117-1123): without exclusion for the
+    sequential family (``repeatable``: items may repeat in a history), else
+    excluding ``consts``' history table; from ``consts["pop"]`` where the
+    distribution is popularity. One function, so that a caller can hand the
+    steps other draws."""
+    if repeatable:
+        return sample_negatives_unchecked(generator, (user_id.shape[0], count), n_items,
+                                          pop_items=consts.get("pop"), device=user_id.device)
+    return sample_negatives(generator, user_id, consts["hist"], consts["hlen"], n_items,
+                            count, rounds=rounds, pop_items=consts.get("pop"))
+
+
+def candidate_hits(scores, cand_valid, pos_len, max_k):
+    """(B, max_k) int32 hit rows of a candidate ranking whose first
+    ``pos_len`` candidates are the positives (parity: trainer.py:1131-1143):
+    an invalid candidate scores NEG_INF, a list narrower than ``max_k`` is
+    padded with NEG_INF (the fork's top-k padding fix,
+    abstract_evaluator.py:71-74), and a ranked slot is a hit when its index
+    is below ``pos_len``. Equal scores rank the lower index first, as
+    ``jax.lax.top_k`` does (a stable sort; ``torch.topk`` leaves their order
+    open): a sequential split's negatives may repeat its target, whose
+    score they then equal."""
+    scores = scores.to(torch.float32).masked_fill(~cand_valid, NEG_INF)
+    if scores.shape[1] < max_k:
+        scores = torch.nn.functional.pad(scores, (0, max_k - scores.shape[1]), value=NEG_INF)
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :max_k]
+    return (order < pos_len[:, None]).to(torch.int32)
 
 
 class Trainer:
@@ -218,36 +285,35 @@ class Trainer:
     def _make_rec_augment(self, train_data):
         """Device-side batch shaping (parity: trainer.py:166-289): the
         loader's device transform first; then labeled rows pass through (the
-        pure-feature protocol, and no sampling); pairwise models get a
-        sampled negative column; pointwise ones their rows (labelled from the
-        data, or by ``_weight``, or 1) followed by k rows of sampled
-        negatives labelled 0. Returns (augment, consts)."""
+        pure-feature protocol, ``train_use_dataset_negatives``, listwise
+        input, and no sampling); ``train_use_bothway_sampler`` gives every
+        row k sampled negatives labelled 0 and round(k/3) sampled
+        pseudo-positives labelled 1, both expansions emitted for every row
+        and gated by ``_weight`` (the fork's GeneralNegSampleBothWaysDataloader,
+        custom_dataloaders.py:16-44); pairwise models get a sampled negative
+        column; pointwise ones their rows (labelled from the data, or by
+        ``_weight``, or 1) followed by k rows of sampled negatives labelled 0.
+        Returns (augment, consts)."""
         model = self.model
         cfg = self.config
         uid_f = cfg["USER_ID_FIELD"]
         iid_f = cfg["ITEM_ID_FIELD"]
-        if cfg["train_use_dataset_negatives"] or cfg["train_use_bothway_sampler"]:
-            raise NotImplementedError(
-                "train_use_dataset_negatives and train_use_bothway_sampler are "
-                "not ported yet (ROADMAP Queue 1, item 3)")
         neg_args = cfg["train_neg_sample_args"]
         k = int(neg_args.get("by") or 0) if neg_args["strategy"] == "by" else 0
         transform = getattr(train_data, "device_transform", None)
-        if uid_f is None or iid_f is None or (
-                k == 0 and model.input_type is not InputType.PAIRWISE):
+        if (uid_f is None or iid_f is None or cfg["train_use_dataset_negatives"]
+                or model.input_type is InputType.LISTWISE
+                or (k == 0 and model.input_type is not InputType.PAIRWISE)):
             # pure-feature CTR protocol (Criteo/Avazu: USER_ID_FIELD: ~), or
-            # labeled rows used as they are: nothing to sample
+            # labeled rows used as they are (the fork's
+            # GeneralNegFromDatasetDataLoader): nothing to sample
             if transform is None:
                 return (lambda batch, generator, consts: batch), {}
             return ((lambda batch, generator, consts: transform(batch, consts)),
                     dict(transform.consts(self.device)))
-        pointwise = model.input_type is InputType.POINTWISE
-        if not pointwise and model.input_type is not InputType.PAIRWISE:
-            raise NotImplementedError(
-                f"{model.input_type} training with sampled negatives is not "
-                "ported yet (ROADMAP Queue 1, item 3)")
         if k < 1:
             raise ValueError("pairwise training needs training_neg_sample_num >= 1")
+        pointwise = model.input_type is InputType.POINTWISE
         rounds = cfg["neg_sampling_resample_rounds"]
         neg_f = cfg["NEG_PREFIX"] + iid_f
         label_f = cfg["LABEL_FIELD"]
@@ -255,9 +321,12 @@ class Trainer:
         # sequential models sample without used-id exclusion: items may repeat
         # in a history (parity: RepeatableSampler, sampler.py:341-420)
         repeatable = model.type is ModelType.SEQUENTIAL
+        bothway = bool(cfg["train_use_bothway_sampler"])
+        k3 = max(int(round(k / 3)), 1)
         consts = {}
         if not repeatable:
             train_data.phase_history.assert_sampleable("train")
+        if not repeatable or bothway:
             hist, hlen = train_data.phase_history.device_tables("train", self.device)
             consts = {"hist": hist, "hlen": hlen}
         if transform is not None:
@@ -269,14 +338,11 @@ class Trainer:
         def augment(batch, generator, consts):
             if transform is not None:
                 batch = transform(batch, consts)
-            if repeatable:
-                negs = sample_negatives_unchecked(
-                    generator, (batch[uid_f].shape[0], k), n_items,
-                    pop_items=consts.get("pop"), device=self.device)
-            else:
-                negs = sample_negatives(generator, batch[uid_f], consts["hist"],
-                                        consts["hlen"], n_items, k, rounds=rounds,
-                                        pop_items=consts.get("pop"))
+            if bothway:
+                return bothway_rows(batch, generator, consts, uid_f, iid_f, label_f,
+                                    n_items, k, k3, rounds)
+            negs = draw_negatives(generator, batch[uid_f], consts, k, n_items, rounds,
+                                  repeatable)
             if pointwise:
                 return pointwise_rows(batch, negs, iid_f, label_f)
             if k == 1:
@@ -302,7 +368,8 @@ class Trainer:
 
     def _fused_adam_apply(self, grads):
         """One Adam step over every parameter, in place, in one launch on the
-        card (parity: trainer.py:317-354, same defaults as optax.adam).
+        card (parity: trainer.py:317-354, same defaults as optax.adam; with
+        ``weight_decay``, the optax chain of build_optimizer, trainer.py:64-75).
         ``grads`` holds one gradient a parameter in ``named_parameters()``
         order, None for a leaf the loss does not reach (a zero gradient, as
         jax.grad gives it). c1 and c2 come from the integer step count on the
@@ -313,7 +380,8 @@ class Trainer:
         t = self.opt_state["count"]
         c1 = 1.0 / (1.0 - b1 ** t)
         c2 = 1.0 / (1.0 - b2 ** t)
-        adam_multi(self._step_leaves(), grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps)
+        adam_multi(self._step_leaves(), grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps,
+                   wd=self.optimizer["weight_decay"])
 
     def _step_leaves(self):
         """The AdamLeaves of the parameters and the optimizer state's moments,
@@ -514,9 +582,20 @@ class Trainer:
 
     # ------------------------------------------------------------- checkpoint
 
+    def _state_buffers(self):
+        """The model's persistent buffers: state that is not trained but
+        changes in training (KGAT's attention), which a checkpoint carries
+        beside the parameters. Dataset-derived arrays, and what derives
+        from that state (KGAT's dense blocks, rebuilt by the model's
+        ``load_state_dict`` post-hook), are non-persistent."""
+        params = {n for n, _ in self.model.named_parameters()}
+        return {n: b for n, b in self.model.state_dict(keep_vars=True).items()
+                if n not in params}
+
     def _save_checkpoint(self, epoch):
-        """torch.save of the learned state, moments and generator state
-        (parity: trainer.py:805-826; single device)."""
+        """torch.save of the learned state, the model's persistent buffers,
+        moments and generator state (parity: trainer.py:805-826; single
+        device)."""
         state = {
             "config": dict(self.config.final),
             "epoch": epoch,
@@ -525,6 +604,7 @@ class Trainer:
             "best_valid_score": self.best_valid_score,
             "best_valid_result": self.best_valid_result,
             "params": {n: p.detach().cpu() for n, p in self.model.named_parameters()},
+            "buffers": {n: b.detach().cpu() for n, b in self._state_buffers().items()},
             "opt_state": {
                 "count": self.opt_state["count"],
                 "mu": {n: t.cpu() for n, t in self.opt_state["mu"].items()},
@@ -539,10 +619,10 @@ class Trainer:
         # torch.load's weights_only mode refuses
         return torch.load(path, map_location="cpu", weights_only=False)
 
-    def _load_params(self, params):
-        with torch.no_grad():
-            for n, p in self.model.named_parameters():
-                p.copy_(params[n])
+    def _load_params(self, state):
+        """The parameters and persistent buffers of a checkpoint's state,
+        through ``load_state_dict`` so that the model's post-hooks run."""
+        self.model.load_state_dict({**state["params"], **state.get("buffers", {})})
 
     def resume_checkpoint(self, resume_file):
         state = self._load_state(resume_file)
@@ -551,7 +631,7 @@ class Trainer:
         self.train_loss_dict = dict(state.get("train_loss_dict", {}))
         self.best_valid_score = state["best_valid_score"]
         self.best_valid_result = state.get("best_valid_result")
-        self._load_params(state["params"])
+        self._load_params(state)
         opt = state["opt_state"]
         self.opt_state = {
             "count": opt["count"],
@@ -566,7 +646,7 @@ class Trainer:
                          self.start_epoch)
 
     def load_params(self, model_file):
-        self._load_params(self._load_state(model_file)["params"])
+        self._load_params(self._load_state(model_file))
 
     # ------------------------------------------------------------- evaluation
 
@@ -689,6 +769,71 @@ class Trainer:
                 collector.collect(batch[label_f], self.model.predict(batch))
         return collector.evaluate()
 
+    def _make_sampled_eval_step(self, eval_data, metrics, max_k):
+        """Sampled step (uni<k>/pop<k>; parity: trainer.py:1086-1154): each
+        user's P positive slots, then P*k negatives drawn on the device by
+        ``draw_negatives``, k for each valid positive; the model's
+        ``score_items`` over the candidates, ranked by ``candidate_hits``."""
+        model = self.model
+        cfg = self.config
+        uid_f = cfg["USER_ID_FIELD"]
+        n_items = eval_data.n_items
+        P, k = eval_data.max_pos, eval_data.neg_k
+        rounds = cfg["neg_sampling_resample_rounds"]
+        repeatable = getattr(eval_data, "repeatable_sampling", False)
+        consts = {}
+        if not repeatable:
+            eval_data.phase_history.assert_sampleable(eval_data.sample_phase)
+            consts["hist"], consts["hlen"] = eval_data.phase_history.device_tables(
+                eval_data.sample_phase, self.device)
+        transform = getattr(eval_data, "device_transform", None)
+        if transform is not None:
+            consts.update(transform.consts(self.device))
+        if eval_data.distribution == "popularity":
+            consts["pop"] = torch.as_tensor(
+                eval_data.phase_history.pop_items[eval_data.sample_phase], device=self.device)
+
+        def eval_step(consts, batch):
+            pos_items = batch.pop("pos_items")
+            pos_len = batch.pop("pos_len")
+            mask = batch.pop("_mask")
+            if transform is not None:
+                batch = transform(batch, consts)
+            user_id = batch[uid_f]
+            negs = draw_negatives(self.generator, user_id, consts, P * k, n_items, rounds,
+                                  repeatable)
+            cand = torch.cat([pos_items, negs.to(pos_items.dtype)], dim=1)
+            slot = torch.arange(P * (1 + k), device=cand.device)[None, :]
+            cand_valid = torch.where(slot < P, slot < pos_len[:, None],
+                                     slot - P < (pos_len * k)[:, None])
+            pos_index = candidate_hits(model.score_items(batch, cand), cand_valid, pos_len, max_k)
+            return topk_metric_sums(metrics, pos_index, pos_len, mask)
+
+        return eval_step, consts
+
+    def _make_labeled_eval_step(self, eval_data, metrics, max_k):
+        """Ranking over the dataset's own labeled candidates (the fork's
+        GeneralNegFromDatasetDataLoader protocol; parity: trainer.py:
+        1156-1203): each user's label-1 items, then their label-0 items, no
+        history mask, ranked by ``candidate_hits``."""
+        model = self.model
+
+        def eval_step(consts, batch):
+            pos_items = batch.pop("pos_items")
+            pos_len = batch.pop("pos_len")
+            neg_items = batch.pop("neg_items")
+            neg_len = batch.pop("neg_len")
+            mask = batch.pop("_mask")
+            P, N = pos_items.shape[1], neg_items.shape[1]
+            cand = torch.cat([pos_items, neg_items], dim=1)
+            slot = torch.arange(P + N, device=cand.device)[None, :]
+            cand_valid = torch.where(slot < P, slot < pos_len[:, None],
+                                     slot - P < neg_len[:, None])
+            pos_index = candidate_hits(model.score_items(batch, cand), cand_valid, pos_len, max_k)
+            return topk_metric_sums(metrics, pos_index, pos_len, mask)
+
+        return eval_step, {}
+
     def evaluate(self, eval_data, load_best_model=True, model_file=None,
                  show_progress=False):
         if load_best_model:
@@ -698,11 +843,17 @@ class Trainer:
         collector = TopKCollector(self.config)
         metrics = tuple(collector.topk_metrics)
         max_k = collector.max_k
+        # routed by the loader, as the JAX trainer does (trainer.py:1297-1308)
+        if hasattr(eval_data, "neg_items"):
+            make = self._make_labeled_eval_step
+        elif hasattr(eval_data, "neg_k"):
+            make = self._make_sampled_eval_step
+        else:
+            make = self._make_full_sort_eval_step
         key = (id(eval_data), metrics, max_k)
         cached = self._eval_step_cache.get(key)
         if cached is None or cached[0] is not eval_data:
-            cached = (eval_data,) + self._make_full_sort_eval_step(
-                eval_data, metrics, max_k)
+            cached = (eval_data,) + make(eval_data, metrics, max_k)
             self._eval_step_cache[key] = cached
         _, step, consts = cached
         # metric partial sums accumulate on the device; one host transfer
@@ -775,20 +926,28 @@ class MKRTrainer(Trainer):
         return parts
 
 
-# knowledge models whose own trainers are not ported yet
-_KG_TRAINERS_NOT_PORTED = ("KGAT",)
-_KG_TRAINERS = {"MKR": MKRTrainer}
+class KGATTrainer(Trainer):
+    """KGAT's loop policy (parity: trainer.py:1390-1415, reference
+    KGATTrainer, trainer.py:484-508): every epoch an rs pass, a kg pass,
+    then the model's ``update_attentive_A`` (no gradient); the epoch reports
+    both losses."""
+
+    def _train_epoch(self, train_data, epoch_idx, mode=None):
+        rs = super()._train_epoch(train_data, epoch_idx, "rs")
+        kg = super()._train_epoch(train_data, epoch_idx, "kg")
+        self.model.update_attentive_A()
+        return ((rs if isinstance(rs, tuple) else (rs,))
+                + (kg if isinstance(kg, tuple) else (kg,)))
+
+
+_KG_TRAINERS = {"MKR": MKRTrainer, "KGAT": KGATTrainer}
 
 
 def get_trainer(model_type, model_name):
     """parity: reference get_trainer (utils/utils.py:78-96), the JAX
     package's trainer.py:1675-1690. The port has the base Trainer, which
     serves the general, context and sequential families, KGTrainer, the
-    knowledge family's default, and MKRTrainer."""
-    if model_name in _KG_TRAINERS_NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name}'s trainer is not ported yet (ROADMAP Queue 1, item 9: KGAT "
-            "with KGATTrainer)")
+    knowledge family's default, MKRTrainer and KGATTrainer."""
     if model_name in _KG_TRAINERS:
         return _KG_TRAINERS[model_name]
     if model_type is ModelType.KNOWLEDGE:

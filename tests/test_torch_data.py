@@ -17,6 +17,7 @@ from recbole_tpu.sampler.sampler import sample_negatives as jax_sample_negatives
 from recbole_tpu.utils.utils import init_seed as jax_init_seed
 from recbole_tpu_torch.config.configurator import Config
 from recbole_tpu_torch.data.atomic import read_atomic_file
+from recbole_tpu_torch.data.loaders import FullSortEvalLoader, SampledEvalLoader
 from recbole_tpu_torch.data.utils import create_dataset, data_preparation
 from recbole_tpu_torch.sampler.sampler import first_non_colliding, sample_negatives
 from recbole_tpu_torch.trainer.trainer import build_optimizer
@@ -154,12 +155,18 @@ def test_unported_paths_raise(synth_dataset_dir, tmp_path, monkeypatch):
     pc = Config("BPR", "synth", config_dict={**cfg, "valid_full_to_uni1000": True},
                 _parse_cmd_line=False)
     init_seed(pc["seed"])
-    with pytest.raises(NotImplementedError, match="sampled evaluation"):
-        data_preparation(pc, create_dataset(pc))
-    for bad in ({"learner": "sgd"}, {"weight_decay": 1e-4}, {"clip_grad_norm": 5.0}):
-        with pytest.raises(NotImplementedError):
+    # the fork's validation override builds the uniform-1000 sampled loader;
+    # the test split keeps full sort
+    _, valid, test = data_preparation(pc, create_dataset(pc))
+    assert type(valid) is SampledEvalLoader and type(test) is FullSortEvalLoader
+    assert (valid.neg_k, valid.distribution) == (1000, "uniform")
+    assert valid.num_candidates == valid.max_pos * 1001
+    for bad in ({"learner": "sgd"}, {"clip_grad_norm": 5.0}):
+        with pytest.raises(NotImplementedError, match=r"\(ROADMAP Queue 1, item 5\)"):
             build_optimizer(Config("BPR", "synth", config_dict={**cfg, **bad},
                                    _parse_cmd_line=False))
+    assert build_optimizer(Config("BPR", "synth", config_dict={**cfg, "weight_decay": 1e-4},
+                                  _parse_cmd_line=False))["weight_decay"] == 1e-4
     with pytest.raises(NotImplementedError, match="native"):
         read_atomic_file(f"{synth_dataset_dir}/synth/synth.inter", native=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -31,7 +31,7 @@ from recbole_tpu_torch.models import get_model
 from recbole_tpu_torch.models.knowledge import ripplenet as port_ripplenet
 from recbole_tpu_torch.ops import rel_apply as port_rel
 from recbole_tpu_torch.trainer import trainer as trainer_mod
-from recbole_tpu_torch.trainer.trainer import KGTrainer, Trainer, get_trainer
+from recbole_tpu_torch.trainer.trainer import KGATTrainer, KGTrainer, Trainer, get_trainer
 from recbole_tpu_torch.utils.enums import ModelType
 from recbole_tpu_torch.utils.utils import init_seed
 from tests.synth_data import make_synthetic_dataset
@@ -310,13 +310,13 @@ def test_weight_carrier_round_trip_and_init(synth_dataset_dir, tmp_path):
 
 
 def test_unported_knowledge_models_and_trainers_raise():
-    """KGAT alone of the knowledge family is left: its model and its
-    trainer raise, naming ROADMAP Queue 1 item 9 and KGAT."""
+    """No knowledge model is left: KGAT, the last, resolves (either case)
+    with its own trainer, KGATTrainer, as the JAX package's registry gives
+    them."""
     for name in ("KGAT", "kgat"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9: KGAT"):
-            get_model(name)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9: KGAT"):
-        get_trainer(ModelType.KNOWLEDGE, "KGAT")
+        assert get_model(name).model_name == "KGAT"
+    assert get_trainer(ModelType.KNOWLEDGE, "KGAT") is KGATTrainer
+    assert jax_trainer_mod.get_trainer(ModelType.KNOWLEDGE, "KGAT").__name__ == "KGATTrainer"
     for name in ("CKE", "CFKG", "KTUP", "KGCN", "KGNNLS", "MKR"):
         assert get_model(name).model_name == name
     assert get_trainer(ModelType.KNOWLEDGE, "RippleNet") is KGTrainer

@@ -24,6 +24,7 @@ from recbole_tpu.utils.utils import init_seed as jax_init_seed
 from recbole_tpu_torch import run_recbole
 from recbole_tpu_torch.config.configurator import Config
 from recbole_tpu_torch.convert import export_params, flatten_tree, load_jax_params
+from recbole_tpu_torch.data.loaders import SequentialEvalLoader, SequentialSampledEvalLoader
 from recbole_tpu_torch.data.utils import create_dataset, data_preparation
 from recbole_tpu_torch.models import get_model, layers
 from recbole_tpu_torch.ops import fused_attention as fa
@@ -483,8 +484,12 @@ def test_unported_sequential_paths_raise(synth_dataset_dir, tmp_path):
     pc = Config("SASRec", "synth", config_dict={**cfg, "valid_full_to_uni1000": True},
                 _parse_cmd_line=False)
     init_seed(pc["seed"])
-    with pytest.raises(NotImplementedError, match="sampled evaluation of sequential"):
-        data_preparation(pc, create_dataset(pc))
+    # the fork's validation override builds the sequential sampled loader
+    # (repeatable draws, one target and 1,000 negatives a row)
+    _, valid, test = data_preparation(pc, create_dataset(pc))
+    assert type(valid) is SequentialSampledEvalLoader and type(test) is SequentialEvalLoader
+    assert valid.repeatable_sampling and not valid.mask_history
+    assert (valid.neg_k, valid.num_candidates) == (1000, 1001)
     pc = Config("SASRec", "synth", config_dict={**cfg, "eval_setting": "RO_RS,full"},
                 _parse_cmd_line=False)
     with pytest.raises(ValueError, match="leave-one-out"):
@@ -723,14 +728,6 @@ def test_sasrec_one_adam_call_matches_the_per_leaf_step_with_the_pad_fill(synth_
     assert torch.equal(got["item_embedding"][0], pad_row)
     assert not trainer.opt_state["mu"]["item_embedding"][0].any()
     assert not trainer.opt_state["nu"]["item_embedding"][0].any()
-
-
-def test_sequential_sampled_eval_refusal_cites_its_roadmap_item():
-    """Sampled sequential evaluation is ROADMAP Queue 1 item 3's work, and
-    the refusal says so."""
-    from recbole_tpu_torch.data.loaders import SequentialSampledEvalLoader
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP Queue 1, item 3\)"):
-        SequentialSampledEvalLoader()
 
 
 def test_gauc_refusal_cites_its_roadmap_item():
