@@ -14,7 +14,11 @@ Phases:
      row's zero head, LightGCN's) and over unaligned leaves, a leaf without
      a gradient and a 0-d one, and with weight decay 1e-8 and 1e-2 over
      MFSimple's leaves at the ml-1m shape, BPR's and SASRec's and the edge
-     leaves, each the plain version's bits; the whole-layer transformer
+     leaves, and with the clip on both sides of max_norm and adamw's
+     decoupled term over SASRec's and the edge leaves, each the plain
+     version's bits; the masked top-k's bf16-operand instance at SASRec's,
+     BPR's and ml-100k's fused passes, past one K chunk and through the
+     dispatcher's padding; the whole-layer transformer
      kernels in both instances (bf16-rounded operands, and fp32 ones as
      3xTF32 products), forward and backward, with dropout off and on (the
      plain version is handed the masks the kernels draw), with the worst
@@ -23,7 +27,7 @@ Phases:
      Yelp shape's packed rows and on random bytes; the GRU recurrence
      kernels in both instances, forward and backward, at GRU4Rec's and
      NARM's step (the bf16 instance on the one-block tensor-core route, the
-     fp32 one on the one-block 3xTF32 route), ragged and eval batches, with zero and
+     fp32 one on the one-block 3xTF32 route), ragged train and eval batches, with zero and
      nonzero h0, and a two-layer stack, and at H 132, 256 and the cluster limit (the bf16
      instance's cluster kernels, the fp32 instance's wh in device memory),
      the limit + 4, H 704 (the global route at 8 sequences a block) and H 10
@@ -43,16 +47,18 @@ Phases:
   4. the main paths, each with every kernel's launch count set to 0 just
      before and read just after (each kernel of the path must be > 0, and
      the Adam kernel must launch exactly once a training step):
-     a. run_recbole(model="BPR") for 2 epochs on an ml-1m-shaped dataset
+     a. run_recbole(model="BPR") for 1 epoch on an ml-1m-shaped dataset
         written from a seed;
      b. DeepFM at the full Criteo width (13 float + 26 token fields, a
         (2,565,692, 11) merged table, batch 2048, 2,292,530 rows from a
         seed) through Config -> data_preparation -> get_model ->
-        get_trainer -> fit with validation -> evaluate(test), 2 epochs;
+        get_trainer -> fit with validation -> evaluate(test), 1 epoch;
      c. run_recbole(model="SASRec") at its default widths (2 layers, 2
-        heads, hidden 64, inner 256, 50 positions, dropout 0.5, CE) for 2
-        epochs on the same ml-1m-shaped file under TO_LS,full, then 20
-        steps under torch.profiler; and one epoch of the same model on
+        heads, hidden 64, inner 256, 50 positions, dropout 0.5, CE) for 1
+        epoch on the same ml-1m-shaped file under TO_LS,full, then 20
+        steps under torch.profiler, and a valid pass of the trained model
+        with bf16 scores (the masked top-k's bf16 instance) and one with
+        GAUC (the non-fused step); and one epoch of the same model on
         ml-100k with fused_attention "layer" under compute_dtype float32,
         which goes through the fp32 instance of the transformer kernels;
      d. LightGCN at its defaults (embedding 64, 2 layers, batch 2048) on a
@@ -63,7 +69,7 @@ Phases:
         step, 1 epoch, then 20 steps under torch.profiler;
      e. GRU4Rec at its defaults (embedding 64, hidden 128, 1 layer, dropout
         0.3, CE, batch 2048, bf16) on the ml-1m-shaped file under TO_LS,full,
-        2 epochs, then 20 steps under torch.profiler; every GRU launch on
+        1 epoch, then 20 steps under torch.profiler; every GRU launch on
         the one-block tensor-core route;
      f. NARM at its defaults (embedding 64, hidden 128, dropouts 0.25 and
         0.5, CE; its GRU in fp32) on the same file, 1 epoch; every GRU
@@ -105,10 +111,20 @@ Phases:
         file (a rating 1-5 from a seed, threshold {rating: 4}) MFSimple with
         dataset negatives both ways, MFSimple with the both-way sampler at
         k 3, and GMF, MLP and NCF at their defaults (weight decay 1e-8 in
-        the Adam kernel);
+        the Adam kernel), and a valid pass of NCF with bf16 scores (the
+        chunked score_items on bf16-rounded parameters);
+     n. the transformer users at their default_config widths on the
+        ml-1m-shaped file with an ml-1m-shaped item file written from a
+        seed (title words, release year, 1-6 of 18 genres), TO_LS,full, 1
+        epoch each, then 20 steps each under torch.profiler: BERT4Rec (the
+        fp32 whole-layer kernels' bidirectional instance at 51 positions),
+        SASRecF and FDSA (item features; FDSA's two encoders), GCSAN, and
+        S3Rec's pretraining epoch under S3RecTrainer and a finetuning epoch
+        from its checkpoint;
   5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's,
-     SASRec's, LightGCN's, GRU4Rec's, NARM's, RippleNet's and the seven
-     knowledge models' (10 epochs) test recall@10 and DeepFM's test AUC,
+     SASRec's, BERT4Rec's and FDSA's (5 epochs), LightGCN's, GRU4Rec's,
+     NARM's, RippleNet's and the seven knowledge models' (10 epochs) test
+     recall@10 and DeepFM's test AUC,
      and MFSimple's test recall@10 under the fork's labeled protocol, each
      held to a floor; BPR's best valid recall@10 under the uniform-1,000
      validation beside the JAX package's;
@@ -121,13 +137,18 @@ Phases:
      fields and at a LightGCN step's two tables); the masked top-k, the
      relation apply and the packed-bit kernels also at the routed widths;
      Adam over MFSimple's leaves without and with weight decay, the library
-     call with the same decay.
+     call with the same decay; the masked top-k's bf16 instance (row 1b)
+     at row 1's shape and ml-100k's, against a bf16 matmul with fp32
+     output, masked_fill and topk; Adam over SASRec's leaves with the clip
+     (row 2f: the norm, the kernel, the clipped step), against
+     clip_grad_norm_ and Adam(fused=True).
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 imports nothing of JAX or of the JAX package recbole_tpu.
 """
 
+import glob
 import itertools
 import json
 import logging
@@ -150,6 +171,10 @@ PEAK_BYTES = 3.35e12
 
 # ml-1m's shape (users, items, interactions)
 ML1M = (6040, 3706, 1_000_209)
+# the epochs of BPR, DeepFM-Criteo, SASRec and GRU4Rec on the ml-1m-shaped
+# files (cut from 2 to 1 for the run's time limit: their steady steps are
+# measured under the profiler)
+ML1M_EPOCHS = 1
 # JAX package's ml-100k BPR test metrics on a TPU v5e (PARITY.md:18-24)
 JAX_ML100K = {"recall@10": 0.2342, "mrr@10": 0.4522, "ndcg@10": 0.2805,
               "hit@10": 0.7582, "precision@10": 0.1951}
@@ -193,6 +218,18 @@ ML100K_SEQ = {"eval_setting": "TO_LS,full", "training_neg_sample_num": 0,
               "load_col": {"inter": ["user_id", "item_id", "rating", "timestamp"]},
               "epochs": 50}
 SASREC_RECALL_FLOOR = 0.115
+# BERT4Rec and FDSA on ml-100k under the same protocol, 5 epochs: test
+# recall@10 of the JAX package on the CPU at seeds 2020 / 2021 / 2022
+# (python run.py --model=<M> --dataset=ml-100k --epochs=5 --seed=<s>
+# --eval_setting=TO_LS,full --training_neg_sample_num=0
+# --valid_full_to_uni1000=False; FDSA with --load_col="{'inter': ['user_id',
+# 'item_id', 'rating', 'timestamp'], 'item': '*'}"), and the floor, about
+# 0.9x the lowest
+ML100K_TRM_EPOCHS = 5
+ML100K_TRM = {"BERT4Rec": ("0.0498 / 0.0530 / 0.0626", 0.045),
+              "FDSA": ("0.0817 / 0.0806 / 0.0827", 0.072)}
+# RecBole's atomic ml-1m .item: title words, release years, 18 genres
+ML1M_TITLE_WORDS, ML1M_YEARS, ML1M_GENRES = 4000, (1919, 2000), 18
 
 # the Yelp shape the reference times LightGCN on (users, items, interactions;
 # asset/time_test_result/General_recommendation.md:123-140, the shape of
@@ -217,6 +254,9 @@ MFSIMPLE_LEAF_SHAPES = [(ML1M[0] + 1, 128), (ML1M[1] + 1, 128), (ML1M[0] + 1,), 
 ADAM_WD_SETS = {"mfsimple": (MFSIMPLE_LEAF_SHAPES, [0] * 5), "bpr": ADAM_SETS["bpr"],
                 "sasrec": ADAM_SETS["sasrec"]}
 ADAM_WDS = (1e-8, 1e-2)
+# the clip's norm by the norm kernels against global_grad_norm: the same
+# fp32 squares summed in another order
+NORM_RTOL = 1e-5
 # an Adam timing takes copies of a smaller leaf set in turn, so that this
 # many bytes, three times the H100's 50 MB L2, pass between two calls on one
 # copy (adam_copies)
@@ -471,6 +511,14 @@ def synth_ctr_dataset(config, shape, seed=42):
     return ds
 
 
+def write_rows(fh, cols):
+    """Integer columns as tab-separated rows (pandas' writer: about 2.5x
+    np.savetxt's speed at the Yelp shape's 2.9M rows)."""
+    import pandas as pd
+    pd.DataFrame({i: c for i, c in enumerate(cols)}).to_csv(fh, sep="\t", header=False,
+                                                            index=False)
+
+
 def write_ml1m_shape(path, seed=42, rating_seed=None):
     """An atomic .inter file of ml-1m's shape: uniform users, power-law
     items (the draw of bench.py's synth_ml1m). With ``rating_seed`` the same
@@ -488,7 +536,7 @@ def write_ml1m_shape(path, seed=42, rating_seed=None):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as fh:
         fh.write(head + "\n")
-        np.savetxt(fh, np.stack(cols, axis=1), fmt="%d", delimiter="\t")
+        write_rows(fh, cols)
 
 
 def yelp_draw(seed=42):
@@ -507,8 +555,7 @@ def write_yelp_shape(path, seed=42):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as fh:
         fh.write("user_id:token\titem_id:token\ttimestamp:float\n")
-        np.savetxt(fh, np.stack([uids, iids, np.arange(len(uids))], axis=1), fmt="%d",
-                   delimiter="\t")
+        write_rows(fh, [uids, iids, np.arange(len(uids))])
 
 
 def yelp_bit_inputs(torch, seed=42):
@@ -575,8 +622,10 @@ def phase_build(torch):
             log(f"[build] {name}: {line.strip()}")
 
 
-def check_topk(torch, B, N, D, k, seed, pad_only=False, dup=False, dispatch=False):
-    """``pad_only``: the mask a sequential full-sort pass gives, column 0
+def check_topk(torch, B, N, D, k, seed, pad_only=False, dup=False, dispatch=False, bf16=False):
+    """``bf16``: the bf16-operand instance (eval_score_dtype bfloat16), q
+    and items rounded to bf16, against the plain version on the same
+    operands. ``pad_only``: the mask a sequential full-sort pass gives, column 0
     ([PAD]) set and nothing else, in place of a user's history. ``dup``: row
     0's best item copied either side of every boundary between the kernel's
     slices of the item axis (ties across slices). ``dispatch``: through the
@@ -586,13 +635,15 @@ def check_topk(torch, B, N, D, k, seed, pad_only=False, dup=False, dispatch=Fals
     from recbole_tpu_torch.ops.masked_topk import (masked_topk, masked_topk_cuda,
                                                    masked_topk_plan, masked_topk_torch)
     q, items, mask = topk_inputs(torch, B, N, D, seed)
+    if bf16:
+        q, items = q.to(torch.bfloat16), items.to(torch.bfloat16)
     if pad_only:
         mask.zero_()
         mask[:, 0] = 1
     if dup:
-        best = int(torch.argmax(q[0] @ items.T))
+        best = int(torch.argmax(q[0].float() @ items.float().T))
         cuts = masked_topk_plan(B, N, D, k, torch.cuda.get_device_properties(0)
-                                .multi_processor_count).slice_items(N)
+                                .multi_processor_count, q.element_size()).slice_items(N)
         if len(cuts) < 2:
             raise AssertionError(f"masked_topk: no slice boundary at B={B} N={N}")
         for lo, _ in cuts[1:]:
@@ -609,7 +660,8 @@ def check_topk(torch, B, N, D, k, seed, pad_only=False, dup=False, dispatch=Fals
     if not (torch.equal(kv.view(torch.int32), kv2.view(torch.int32)) and torch.equal(ki, ki2)):
         raise AssertionError(f"masked_topk: two runs differ at B={B} N={N} D={D}")
     pv, pi = masked_topk_torch(q, items, mask, k)
-    scores = torch.where(mask > 0, torch.full((), -1e15, device="cuda"), q @ items.T)
+    scores = torch.where(mask > 0, torch.full((), -1e15, device="cuda"),
+                         q.float() @ items.float().T)
     kv, ki, pv, pi = kv.cpu(), ki.cpu().long(), pv.cpu(), pi.cpu().long()
     scores = scores.cpu()
     if bool((ki < 0).any() or (ki >= N).any()):
@@ -636,25 +688,35 @@ def check_topk(torch, B, N, D, k, seed, pad_only=False, dup=False, dispatch=Fals
     if bool(torch.gather(mask.cpu(), 1, ki).any()):
         raise AssertionError("masked_topk returned a masked item")
     err = float((kv - pv).abs().max())
-    log(f"[check] masked_topk B={B} N={N} D={D} k={k}{' only [PAD] masked' if pad_only else ''}"
+    log(f"[check] masked_topk{' bf16 operands' if bf16 else ''} B={B} N={N} D={D} k={k}"
+        f"{' only [PAD] masked' if pad_only else ''}"
         f"{' duplicates across slices' if dup else ''}"
-        f"{' through the dispatcher (D zero-padded to a multiple of 4)' if dispatch else ''}: "
+        f"{' through the dispatcher (D zero-padded to a 16-byte multiple)' if dispatch else ''}: "
         f"max|err| {err:.3e}, "
         f"near-tie id swaps {swaps} of {B * k}, two runs bit-identical")
     return err
 
 
-def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=None, wd=0.0):
+def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=None, wd=0.0,
+               clip=None, dwd=0.0):
     """Three steps of the kernel over a whole leaf set at once against
     adam_multi_torch on the same inputs: p, m and v must be the plain
     version's bits (the kernel rounds each operation once in the plain
     version's order). ``none``: leaves without a gradient; ``offset``: every
     p, m and v a view that many elements into its buffer (off the 16-byte
     path); ``g_offset`` (default ``offset``): the same for the gradients;
-    ``wd``: the weight decay (a multiply and an add, each rounded, in both).
+    ``wd``: the weight decay (a multiply and an add, each rounded, in both);
+    ``clip``: "below" or "above", max_norm 10x below every step's global
+    gradient norm (every gradient scaled by (g / norm) * max_norm, the norm
+    read by the kernel from the device) or 10x above it (none), the norm
+    the trainer's: the launcher's own, by the norm kernels over the leaf
+    table (``grad_norm_cuda``, held to the plain ``global_grad_norm`` at
+    NORM_RTOL), which the plain version is handed; ``dwd``: adamw's
+    decoupled decay.
     A leaf's zero head starts at 0, as a [PAD] row does, and must stay 0 in
     p, m and v at every weight decay. Returns the largest |difference|."""
-    from recbole_tpu_torch.ops.fused_adam import AdamLeaves, adam_multi_cuda, adam_multi_torch
+    from recbole_tpu_torch.ops.fused_adam import (AdamLeaves, adam_multi_cuda, adam_multi_torch,
+                                                  global_grad_norm, grad_norm_cuda)
     rng = np.random.RandomState(seed)
     p0 = [np.asarray(rng.standard_normal(s) * 0.1, np.float32) for s in shapes]
     for a, h in zip(p0, heads):
@@ -668,14 +730,31 @@ def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=No
         return buf[at:].view(a.shape)
 
     g_at = offset if g_offset is None else g_offset
-    state = {}
+    max_norm = None
+    if clip is not None:
+        norms = [float(global_grad_norm([None if a is None else torch.from_numpy(a)
+                                         for a in g], heads)) for g in grads]
+        max_norm = 0.1 * min(norms) if clip == "below" else 10.0 * max(norms)
+    state, step_norms, norm_err = {}, [], 0.0
     for kind, fn in (("kernel", adam_multi_cuda), ("plain", adam_multi_torch)):
         leaves = AdamLeaves([on_card(a) for a in p0], [on_card(np.zeros_like(a)) for a in p0],
                             [on_card(np.zeros_like(a)) for a in p0], heads)
         for t, g in enumerate(grads, start=1):
             c1, c2 = 1.0 / (1.0 - 0.9 ** t), 1.0 / (1.0 - 0.999 ** t)
-            fn(leaves, [None if a is None else on_card(a, g_at) for a in g], c1, c2,
-               b1=0.9, b2=0.999, lr=1e-3, eps=1e-8, wd=wd)
+            tg = [None if a is None else on_card(a, g_at) for a in g]
+            cl = None
+            if kind == "kernel" and max_norm is not None:
+                norm, ref = grad_norm_cuda(leaves, tg), global_grad_norm(tg, heads)
+                norm_err = max(norm_err, abs(float(norm) / float(ref) - 1.0))
+                if norm_err > NORM_RTOL:
+                    raise AssertionError(f"the norm kernels' norm on {label} is {float(norm)}, "
+                                         f"the plain version's {float(ref)}")
+                step_norms.append(norm)
+                cl = (None, max_norm)  # the trainer's route: the launcher takes the norm
+            elif max_norm is not None:
+                cl = (step_norms[t - 1], max_norm)
+            fn(leaves, tg, c1, c2, b1=0.9, b2=0.999, lr=1e-3, eps=1e-8, wd=wd, clip=cl,
+               dwd=dwd)
         torch.cuda.synchronize()
         state[kind] = leaves
     err = 0.0
@@ -694,7 +773,9 @@ def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=No
         raise AssertionError(f"adam_multi moved a zero head off 0 on {label}")
     log(f"[check] adam_multi {label}: {len(shapes)} leaves "
         f"({sum(int(np.prod(s)) for s in shapes)} elements) in one launch a step, x3 steps, "
-        f"weight decay {wd}: max|err| {err:.3e}, bit for bit")
+        f"weight decay {wd}, clip {clip} (max_norm {max_norm}"
+        + (f"; the norm kernels' norm within {norm_err:.2e} of the plain version's"
+           if clip else "") + f"), adamw decay {dwd}: max|err| {err:.3e}, bit for bit")
     return err
 
 
@@ -1179,14 +1260,14 @@ def check_gru(torch):
     out, dxi, dh0, dwh, dbh, both instances (bf16 = GRU4Rec's default, fp32 =
     NARM's GRU and GRU4Rec under float32; at H 128 the one-block
     tensor-core route and the one-block 3xTF32 route, each asserted), at
-    the step (2,048), the ragged
-    last train batch of the ml-1m-shaped file (1,097), a full-sort batch
-    (4,096) and its last (1,944), h0 zero and not; two runs compared bit for
-    bit; then a two-layer GRU4Rec stack at full width through
-    layers.gru_apply against the plain version, forward and gradients; then
-    through fused_gru and autograd at H 132, 256 and the cluster limit (the
-    bf16 instance's cluster kernels), the limit + 4, H 10 (padded) and H
-    7,268 (the global route with its rows in device memory)."""
+    the step (2,048, h0 zero and not), the ragged last train batch of the
+    ml-1m-shaped file (1,097), a full-sort batch (4,096) and its last
+    (1,944); two runs compared bit for bit; then a two-layer GRU4Rec stack
+    at full width through layers.gru_apply against the plain version,
+    forward and gradients; then through fused_gru and autograd at 512
+    sequences at H 132, 256 and the cluster limit (the bf16 instance's
+    cluster kernels), the limit + 4, 704 and H 10 (padded), and at 5
+    sequences H 7,268 (the global route with its rows in device memory)."""
     from recbole_tpu_torch.models.layers import GRU
     from recbole_tpu_torch.ops import fused_gru as fg
     L, E, H = GRU4REC["L"], GRU4REC["E"], GRU4REC["H"]
@@ -1197,49 +1278,53 @@ def check_gru(torch):
             f"{fg._lib().fused_gru_smem_bytes(H, 0, bf16)}, backward "
             f"{fg._lib().fused_gru_smem_bytes(H, 1, bf16)} bytes")
     n = 0
+    # the step with h0 zero and not; the ragged last train batch, a full
+    # eval batch and its ragged last with h0 zero, as the main path gives
+    # them (the ragged batches' nonzero h0 is left out for the run's time
+    # limit)
     for bf16 in (True, False):
-        for label, B in (("step", GRU4REC["B"]), ("last train batch", 1097),
-                         ("eval batch", 4096), ("last eval batch", 1944)):
-            for h0 in (False, True):
-                n += 1
-                xi, hinit, wh, bh, dout = gru_inputs(torch, B, L, H, 200 + n, bf16, h0)
+        for label, B, h0 in (("step", GRU4REC["B"], False), ("step", GRU4REC["B"], True),
+                             ("last train batch", 1097, False), ("eval batch", 4096, False),
+                             ("last eval batch", 1944, False)):
+            n += 1
+            xi, hinit, wh, bh, dout = gru_inputs(torch, B, L, H, 200 + n, bf16, h0)
 
-                def run():
-                    out = fg.fused_gru_fwd_cuda(xi, hinit, wh, bh)
-                    grads = fg.fused_gru_bwd_cuda(xi, hinit, wh, bh, out, dout)
-                    torch.cuda.synchronize()
-                    return (out, *grads)
+            def run():
+                out = fg.fused_gru_fwd_cuda(xi, hinit, wh, bh)
+                grads = fg.fused_gru_bwd_cuda(xi, hinit, wh, bh, out, dout)
+                torch.cuda.synchronize()
+                return (out, *grads)
 
-                before = gru_counts(fg)
-                got, again = run(), run()
-                # H 128: bf16 on the one-block tensor-core kernels, fp32 on the 3xTF32 ones
-                tc, tf = 2 * int(bf16), 2 * int(not bf16)
-                if tuple(a - b for a, b in zip(gru_counts(fg), before)) != (2, 2, 0, 0, tc, tc,
-                                                                           tf, tf):
-                    raise AssertionError(f"fused_gru ({label}) took another route than "
-                                         f"{GRU_ROUTES[4 if bf16 else 5]}")
-                same = all(torch.equal(a, b) for a, b in zip(got, again))
-                ref = (fg.fused_gru_torch_fwd(xi, hinit, wh, bh, bf16),
-                       *fg.fused_gru_torch_bwd(xi, hinit, wh, bh, got[0], dout, bf16))
-                names = ("out", "dxi", "dh0", "dwh", "dbh")
-                errs = {k: rel_err(a, b) for k, a, b in zip(names, got, ref)}
-                tol = GRU_TOL[bf16]
-                log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} ({label}) B={B} L={L} H={H} "
-                    f"h0={'nonzero' if h0 else 'zero'}: " + ", ".join(
-                        f"{k} {v:.3e}" for k, v in errs.items())
-                    + f" (tolerance {tol} of the tensor's largest value); two runs "
-                    f"bit-identical: {same}")
-                if not all(bool(torch.isfinite(t.float()).all()) for t in got):
-                    raise AssertionError(f"fused_gru {label}: non-finite output")
-                if max(errs.values()) > tol:
-                    raise AssertionError(f"fused_gru {label}: beyond tolerance {tol}: {errs}")
-                if not same:
-                    raise AssertionError(f"fused_gru {label}: two runs differ, the kernels are "
-                                         "meant to be deterministic")
-                worst["fused_gru_fwd"] = max(worst["fused_gru_fwd"],
-                                             float((got[0].float() - ref[0].float()).abs().max()))
-                worst["fused_gru_bwd"] = max([worst["fused_gru_bwd"], *(
-                    float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], ref[1:]))])
+            before = gru_counts(fg)
+            got, again = run(), run()
+            # H 128: bf16 on the one-block tensor-core kernels, fp32 on the 3xTF32 ones
+            tc, tf = 2 * int(bf16), 2 * int(not bf16)
+            if tuple(a - b for a, b in zip(gru_counts(fg), before)) != (2, 2, 0, 0, tc, tc,
+                                                                       tf, tf):
+                raise AssertionError(f"fused_gru ({label}) took another route than "
+                                     f"{GRU_ROUTES[4 if bf16 else 5]}")
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ref = (fg.fused_gru_torch_fwd(xi, hinit, wh, bh, bf16),
+                   *fg.fused_gru_torch_bwd(xi, hinit, wh, bh, got[0], dout, bf16))
+            names = ("out", "dxi", "dh0", "dwh", "dbh")
+            errs = {k: rel_err(a, b) for k, a, b in zip(names, got, ref)}
+            tol = GRU_TOL[bf16]
+            log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} ({label}) B={B} L={L} H={H} "
+                f"h0={'nonzero' if h0 else 'zero'}: " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (tolerance {tol} of the tensor's largest value); two runs "
+                f"bit-identical: {same}")
+            if not all(bool(torch.isfinite(t.float()).all()) for t in got):
+                raise AssertionError(f"fused_gru {label}: non-finite output")
+            if max(errs.values()) > tol:
+                raise AssertionError(f"fused_gru {label}: beyond tolerance {tol}: {errs}")
+            if not same:
+                raise AssertionError(f"fused_gru {label}: two runs differ, the kernels are "
+                                     "meant to be deterministic")
+            worst["fused_gru_fwd"] = max(worst["fused_gru_fwd"],
+                                         float((got[0].float() - ref[0].float()).abs().max()))
+            worst["fused_gru_bwd"] = max([worst["fused_gru_bwd"], *(
+                float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], ref[1:]))])
     for cdt in (torch.bfloat16, None):
         gru = GRU(torch.Generator(device="cuda").manual_seed(5), E, H, 2, "cuda")
         rng = np.random.RandomState(31)
@@ -1263,16 +1348,17 @@ def check_gru(torch):
         if max(errs.values()) > tol:
             raise AssertionError(f"gru_apply two layers: beyond tolerance {tol}: {errs}")
     # hidden sizes beyond the shared-memory route, through fused_gru and
-    # autograd at the step's batch: H 132, 256 and the cluster limit (the
-    # bf16 instance's cluster kernels; the fp32 instance reads wh from device
-    # memory), the limit + 4 (device memory in both), 704 (device memory, 8
+    # autograd at 512 sequences (the step's 2,048 are cut for the run's time
+    # limit): H 132, 256 and the cluster limit (the bf16 instance's cluster
+    # kernels; the fp32 instance reads wh from device memory), the limit + 4
+    # (device memory in both, 16 sequences a block), 704 (device memory, 8
     # sequences a block), and H 10 (zero-padded to 12 by the dispatcher);
     # then, at 5 sequences of 3 steps, H 7,268, past the last width whose
     # backward rows fit a block (one sequence a block, its rows in device
     # memory)
     lib = fg._lib()
     limit = lib.fused_gru_max_cluster_hidden()
-    widths = [(H2, GRU4REC["B"], L) for H2 in (132, 256, limit, limit + 4, 704, 10)]
+    widths = [(H2, 512, L) for H2 in (132, 256, limit, limit + 4, 704, 10)]
     widths.append((lib.fused_gru_max_hidden() + 4, 5, 3))
     for H2, B2, L2 in widths:
         Hp = fg.padded_hidden(H2)
@@ -1281,11 +1367,12 @@ def check_gru(torch):
             plan = ""
             if route == "cluster":
                 plan = "; plan forward {}, backward {}".format(
-                    fg.fused_gru_cluster_plan(GRU4REC["B"], Hp, False),
-                    fg.fused_gru_cluster_plan(GRU4REC["B"], Hp, True))
+                    fg.fused_gru_cluster_plan(B2, Hp, False),
+                    fg.fused_gru_cluster_plan(B2, Hp, True))
             log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} H={H2}: runs at H={Hp}, wh in "
                 f"{route}, {lib.fused_gru_smem_bytes(Hp, 1, bf16)} bytes of shared memory a "
                 f"block at most (backward){plan}")
+            t_case = time.time()
             xi, hinit, wh, bh, dout = gru_inputs(torch, B2, L2, H2, 260 + H2 + bf16, bf16, True)
 
             def run(fn):
@@ -1309,7 +1396,8 @@ def check_gru(torch):
             tol = GRU_TOL[bf16]
             log(f"[check] fused_gru {'bf16' if bf16 else 'fp32'} B={B2} L={L2} H={H2}: "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                + f" (tolerance {tol}); two runs bit-identical: {same}")
+                + f" (tolerance {tol}); two runs bit-identical: {same}; "
+                f"{time.time() - t_case:.1f}s")
             if not all(bool(torch.isfinite(t.float()).all()) for t in got) \
                     or max(errs.values()) > tol or not same:
                 raise AssertionError(f"fused_gru H={H2}: {errs}, bit-identical {same}")
@@ -1593,7 +1681,7 @@ def capture_epoch_times():
     class Grab(logging.Filter):
         def filter(self, record):
             msg = record.msg if isinstance(record.msg, str) else ""
-            if msg.startswith("epoch %d training"):
+            if msg.startswith("epoch %d training") or msg.startswith("pretrain epoch %d"):
                 times["train"].append(record.args[1])
             elif msg.startswith("epoch %d evaluating"):
                 times["eval"].append(record.args[1])
@@ -1715,7 +1803,7 @@ def phase_bpr(torch, tmp):
     reset_launches()
     t0 = time.time()
     result = run_recbole(model="BPR", dataset="ml-1m-shape", config_dict={
-        "data_path": os.path.join(tmp, "data"), "epochs": 2,
+        "data_path": os.path.join(tmp, "data"), "epochs": ML1M_EPOCHS,
         "valid_full_to_uni1000": False, "device": "cuda",
         "checkpoint_dir": os.path.join(tmp, "saved"),
         "log_dir": os.path.join(tmp, "log"), "state": "INFO",
@@ -1724,12 +1812,12 @@ def phase_bpr(torch, tmp):
     wall = time.time() - t0
     launches = read_launches("bpr", ("masked_topk", "adam_leaf"))
     release()
-    log(f"[bpr] run_recbole BPR ml-1m-shape 2 epochs: {wall:.2f}s wall")
+    log(f"[bpr] run_recbole BPR ml-1m-shape {ML1M_EPOCHS} epoch(s): {wall:.2f}s wall")
     log(f"[bpr] result {json.dumps(result)}")
     check_result(result, JAX_ML100K)
     n_train = round(ML1M[2] * 0.8)
     log(f"[bpr] epoch seconds {times['train']} (epoch 0 includes the upload); "
-        f"train examples/s (epoch 1): {n_train / times['train'][-1]:.1f}")
+        f"train examples/s (last epoch): {n_train / times['train'][-1]:.1f}")
     log(f"[bpr] full-sort valid eval seconds {times['eval']}")
     log(f"[bpr] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     return launches
@@ -1737,7 +1825,7 @@ def phase_bpr(torch, tmp):
 
 def phase_deepfm(torch, tmp):
     """DeepFM at the full Criteo width through the normal entry points, cut
-    to 2 epochs. The labels are random at this shape, so AUC is about 0.5
+    to ML1M_EPOCHS. The labels are random at this shape, so AUC is about 0.5
     and only its finiteness is checked."""
     from recbole_tpu_torch.config.configurator import Config
     from recbole_tpu_torch.data.utils import data_preparation
@@ -1746,7 +1834,7 @@ def phase_deepfm(torch, tmp):
     from recbole_tpu_torch.utils.logger import init_logger
     from recbole_tpu_torch.utils.utils import init_seed
     config = Config("DeepFM", "criteo-shape", config_dict={
-        "data_path": os.path.join(tmp, "data"), "epochs": 2, "device": "cuda",
+        "data_path": os.path.join(tmp, "data"), "epochs": ML1M_EPOCHS, "device": "cuda",
         "USER_ID_FIELD": None, "ITEM_ID_FIELD": None, "LABEL_FIELD": "label",
         "TIME_FIELD": None, "train_batch_size": CRITEO_BATCH,
         "checkpoint_dir": os.path.join(tmp, "saved"),
@@ -1777,17 +1865,17 @@ def phase_deepfm(torch, tmp):
     launches = read_launches("deepfm", ("adam_leaf", "onehot_matmul_grad", "windowed_grad"))
     release()
     result = {"best_valid_result": best_valid, "test_result": test_result}
-    log(f"[deepfm] fit (2 epochs, validation each) + test: {wall:.2f}s wall")
+    log(f"[deepfm] fit ({ML1M_EPOCHS} epoch(s), validation each) + test: {wall:.2f}s wall")
     log(f"[deepfm] result {json.dumps(result)}")
     check_result(result, ("auc", "logloss"))
-    steps = 2 * len(train)
+    steps = ML1M_EPOCHS * len(train)
     log(f"[deepfm] {steps} steps; launches per step: adam_leaf "
         f"{launches['adam_leaf'] / steps:.2f}, onehot_matmul_grad "
         f"{launches['onehot_matmul_grad'] / steps:.2f}, windowed_grad "
         f"{launches['windowed_grad'] / steps:.2f}")
     log(f"[deepfm] epoch seconds {times['train']} (epoch 0 includes the upload); "
-        f"train examples/s (epoch 1): {train.n / times['train'][-1]:.1f}; "
-        f"ms/step (epoch 1): {1e3 * times['train'][-1] / len(train):.3f}")
+        f"train examples/s (last epoch): {train.n / times['train'][-1]:.1f}; "
+        f"ms/step (last epoch): {1e3 * times['train'][-1] / len(train):.3f}")
     log(f"[deepfm] value-metric valid pass seconds {times['eval']}")
     log(f"[deepfm] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     profile_steps(torch, trainer, train, "deepfm")
@@ -1796,7 +1884,7 @@ def phase_deepfm(torch, tmp):
 
 def phase_sasrec(torch, tmp):
     """SASRec at its default widths on the ml-1m-shaped file (written by
-    phase_bpr, with timestamps), TO_LS,full, cut to 2 epochs; then 20 steady
+    phase_bpr, with timestamps), TO_LS,full, cut to ML1M_EPOCHS; then 20 steady
     steps under the profiler."""
     from recbole_tpu_torch.config.configurator import Config
     from recbole_tpu_torch.data.utils import create_dataset, data_preparation
@@ -1805,7 +1893,7 @@ def phase_sasrec(torch, tmp):
     from recbole_tpu_torch.utils.logger import init_logger
     from recbole_tpu_torch.utils.utils import init_seed
     config = Config("SASRec", "ml-1m-shape", config_dict={
-        "data_path": os.path.join(tmp, "data"), "epochs": 2, "device": "cuda",
+        "data_path": os.path.join(tmp, "data"), "epochs": ML1M_EPOCHS, "device": "cuda",
         "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
         "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
         "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False},
@@ -1843,22 +1931,32 @@ def phase_sasrec(torch, tmp):
     if launches["windowed_grad"] or launches["fused_transformer_layer_fwd"]:
         raise AssertionError(f"kernels off the SASRec path were launched: {launches}")
     result = {"best_valid_result": best_valid, "test_result": test_result}
-    log(f"[sasrec] fit (2 epochs, validation each) + test: {wall:.2f}s wall")
+    log(f"[sasrec] fit ({ML1M_EPOCHS} epoch(s), validation each) + test: {wall:.2f}s wall")
     log(f"[sasrec] result {json.dumps(result)}")
     check_result(result, JAX_ML100K)
-    steps = 2 * len(train)
+    steps = ML1M_EPOCHS * len(train)
     log(f"[sasrec] {steps} steps; launches per step: trm_layer_bwd "
         f"{launches['trm_layer_bwd'] / steps:.2f}, onehot_matmul_grad "
         f"{launches['onehot_matmul_grad'] / steps:.2f}, adam_leaf "
         f"{launches['adam_leaf'] / steps:.2f}; trm_layer_fwd {launches['trm_layer_fwd']} = "
         f"2 a step + 2 an eval batch")
     log(f"[sasrec] epoch seconds {times['train']} (epoch 0 includes the upload); "
-        f"train examples/s (epoch 1): {train.n / times['train'][-1]:.1f}; "
-        f"ms/step (epoch 1): {1e3 * times['train'][-1] / len(train):.3f}")
+        f"train examples/s (last epoch): {train.n / times['train'][-1]:.1f}; "
+        f"ms/step (last epoch): {1e3 * times['train'][-1] / len(train):.3f}")
     log(f"[sasrec] full-sort valid pass seconds {times['eval']}")
     log(f"[sasrec] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     profile_steps(torch, trainer, train, "sasrec")
-    return launches
+    # the trained model's valid pass with bf16 scores (the masked top-k's
+    # bf16-operand instance) and with GAUC (the non-fused step)
+    out = {"sasrec": launches}
+    out["sasrec_bf16_scores"] = eval_pass(
+        torch, "sasrec_bf16_scores", "SASRec", config, {"eval_score_dtype": "bfloat16"}, train,
+        valid, ("masked_topk", "trm_layer_fwd"), ("fused_transformer_layer_fwd",), model=model)
+    out["sasrec_gauc"] = eval_pass(
+        torch, "sasrec_gauc", "SASRec", config,
+        {"metrics": ["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"]}, train, valid,
+        ("trm_layer_fwd",), ("masked_topk",), model=model)
+    return out
 
 
 def phase_sasrec_fp32(torch, tmp):
@@ -1967,19 +2065,21 @@ def phase_lightgcn(torch, tmp):
 
 
 def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, must_launch,
-              must_not):
-    """One sequential model on the ml-1m-shaped file (written by phase_bpr)
-    under TO_LS,full through Config -> data_preparation -> get_model ->
-    get_trainer -> fit with validation -> evaluate(test), with every
-    kernel's launch count set to 0 just before and read just after; then 20
-    steady steps under the profiler. Returns (launches, model, config)."""
+              must_not, dataset="ml-1m-shape", saved=False):
+    """One sequential model on the ml-1m-shaped file (written by phase_bpr;
+    ``dataset``: another name for it, beside an item file) under TO_LS,full
+    through Config -> data_preparation -> get_model -> get_trainer -> fit
+    with validation (``saved``: writing its checkpoints) -> evaluate(test),
+    with every kernel's launch count set to 0 just before and read just
+    after; then 20 steady steps under the profiler. Returns (launches,
+    model, widths)."""
     from recbole_tpu_torch.config.configurator import Config
     from recbole_tpu_torch.data.utils import create_dataset, data_preparation
     from recbole_tpu_torch.models import get_model
     from recbole_tpu_torch.trainer.trainer import get_trainer
     from recbole_tpu_torch.utils.logger import init_logger
     from recbole_tpu_torch.utils.utils import init_seed
-    config = Config(model_name, "ml-1m-shape", config_dict={
+    config = Config(model_name, dataset, config_dict={
         "data_path": os.path.join(tmp, "data"), "epochs": epochs, "device": "cuda",
         "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
         "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
@@ -2001,7 +2101,7 @@ def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, mu
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.time()
-    best_score, best_valid = trainer.fit(train, valid, saved=False)
+    best_score, best_valid = trainer.fit(train, valid, saved=saved)
     test_result = trainer.evaluate(test, load_best_model=False)
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -2010,7 +2110,8 @@ def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, mu
     ran = {k: launches[k] for k in must_not if launches.get(k)}
     if ran:
         raise AssertionError(f"kernels off the {tag} path were launched: {ran}")
-    result = {"best_valid_result": best_valid, "test_result": test_result}
+    # S3Rec's pretraining validates nothing: its test pass stands in
+    result = {"best_valid_result": best_valid or test_result, "test_result": test_result}
     log(f"[{tag}] fit ({epochs} epochs, validation each) + test: {wall:.2f}s wall")
     log(f"[{tag}] result {json.dumps(result)}")
     check_result(result, JAX_ML100K)
@@ -2028,11 +2129,11 @@ def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, mu
 
 
 def phase_gru4rec(torch, tmp):
-    """GRU4Rec at its defaults, 2 epochs: the bf16 instance of the GRU
+    """GRU4Rec at its defaults, ML1M_EPOCHS: the bf16 instance of the GRU
     kernels (H 128: every launch on the one-block tensor-core route), the
     one-hot gradient, Adam and the masked top-k."""
     launches, model, widths = seq_phase(
-        torch, tmp, "gru4rec", "GRU4Rec", {}, 2,
+        torch, tmp, "gru4rec", "GRU4Rec", {}, ML1M_EPOCHS,
         ("embedding_size", "hidden_size", "num_layers", "dropout_prob", "loss_type",
          "MAX_ITEM_LIST_LENGTH", "train_batch_size"),
         ("fused_gru_fwd", "fused_gru_bwd", "fused_gru_fwd_tc", "fused_gru_bwd_tc",
@@ -2090,6 +2191,124 @@ def phase_sasrec_attention(torch, tmp):
          "fused_attention_bwd"))
     if tuple(widths.values()) != (2, 2, 64, 256, 50, 0.5, True, 2048):
         raise AssertionError(f"SASRec was not built at its default widths: {widths}")
+    return launches
+
+
+def write_ml1m_items(path, seed=45):
+    """An atomic .item file in the shape of RecBole's ml-1m .item for the
+    ml-1m-shaped file's items: item_id:token, movie_title:token_seq (1 to 8
+    words of a 4,000-word vocabulary, Zipf-like), release_year:token
+    (1919-2000) and genre:token_seq (1 to 6 of 18 genres), from a seed."""
+    rng = np.random.RandomState(seed)
+    n = ML1M[1]
+    words = np.minimum(rng.zipf(1.3, (n, 8)), ML1M_TITLE_WORDS)
+    n_words = rng.randint(1, 9, n)
+    years = rng.randint(ML1M_YEARS[0], ML1M_YEARS[1] + 1, n)
+    n_genres = rng.randint(1, 7, n)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write("item_id:token\tmovie_title:token_seq\trelease_year:token\tgenre:token_seq\n")
+        for i in range(n):
+            title = " ".join(f"w{w}" for w in words[i, :n_words[i]])
+            genres = " ".join(f"g{g}" for g in rng.choice(ML1M_GENRES, n_genres[i],
+                                                           replace=False))
+            fh.write(f"{i + 1}\t{title}\t{years[i]}\t{genres}\n")
+
+
+# the transformer users' paths: the fp32 instance of the whole-layer
+# kernels (their encoders get no compute dtype), and what they must not
+# launch
+TRM_FP32 = ("fused_transformer_layer_fwd", "fused_transformer_layer_bwd")
+TRM_USERS_OFF = ("trm_layer_fwd", "trm_layer_bwd", "windowed_grad", "fused_attention_fwd",
+                 "fused_attention_whole_fwd", "fused_gru_fwd", "rel_apply_fwd",
+                 "bit_rows_matmul", "bit_cols_matmul")
+TRM_USERS_KEYS = ("n_layers", "n_heads", "hidden_size", "inner_size", "MAX_ITEM_LIST_LENGTH",
+                  "hidden_dropout_prob", "hidden_act", "train_batch_size")
+TRM_USERS_ITEMS = {"load_col": {"inter": ["user_id", "item_id", "timestamp"], "item": "*"}}
+
+
+def phase_trm_users(torch, tmp):
+    """The transformer users at their default_config widths on the
+    ml-1m-shaped file with an ml-1m-shaped item file (write_ml1m_items),
+    TO_LS,full, 1 epoch each (cut), then 20 steps each under the profiler:
+    BERT4Rec (the bidirectional fp32 instance at 51 positions; the cloze
+    loss), SASRecF and FDSA (the item features, all three fields; FDSA's
+    two encoders a step), GCSAN (1 layer, 1 head, the session GNN before
+    the encoder), and S3Rec (item_attribute genre): 1 pretraining epoch
+    under S3RecTrainer (four bidirectional encodes a step), whose
+    checkpoint a finetuning run then loads for 1 epoch (its full sort the
+    non-fused step, as the JAX trainer's rule gives it)."""
+    data = os.path.join(tmp, "data", "ml-1m-items")
+    os.makedirs(data, exist_ok=True)
+    os.symlink(os.path.join(tmp, "data", "ml-1m-shape", "ml-1m-shape.inter"),
+               os.path.join(data, "ml-1m-items.inter"))
+    t0 = time.time()
+    write_ml1m_items(os.path.join(data, "ml-1m-items.item"))
+    log(f"[trm_users] wrote the ml-1m-shaped .item ({ML1M[1]} items) in {time.time() - t0:.1f}s")
+    out = {}
+    base = ("adam_leaf",)
+    runs = (("bert4rec", "BERT4Rec", {}, TRM_FP32 + base + ("onehot_matmul_grad", "masked_topk"),
+             (2, 2, 64, 256, 50, 0.5, "gelu", 2048)),
+            ("sasrecf", "SASRecF", TRM_USERS_ITEMS,
+             TRM_FP32 + base + ("onehot_matmul_grad", "masked_topk"),
+             (2, 2, 64, 256, 50, 0.5, "gelu", 2048)),
+            ("fdsa", "FDSA", TRM_USERS_ITEMS,
+             TRM_FP32 + base + ("onehot_matmul_grad", "masked_topk"),
+             (2, 2, 64, 256, 50, 0.5, "gelu", 2048)),
+            ("gcsan", "GCSAN", {}, TRM_FP32 + base + ("onehot_matmul_grad", "masked_topk"),
+             (1, 1, 64, 256, 50, 0.2, "gelu", 2048)),
+            ("s3rec_pretrain", "S3Rec", {**TRM_USERS_ITEMS, "item_attribute": "genre"},
+             TRM_FP32 + base + ("onehot_matmul_grad",), (2, 2, 64, 256, 50, 0.5, "gelu", 2048)))
+    for tag, model_name, extra, must, widths_want in runs:
+        off = TRM_USERS_OFF + (("masked_topk",) if model_name == "S3Rec" else ())
+        launches, model, widths = seq_phase(torch, tmp, tag, model_name, extra, 1,
+                                            TRM_USERS_KEYS, must, off, dataset="ml-1m-items",
+                                            saved=model_name == "S3Rec")
+        if tuple(widths.values()) != widths_want or model.trm_cdt is not None:
+            raise AssertionError(f"{model_name} was not built at its defaults: {widths}, "
+                                 f"encoder dtype {model.trm_cdt}")
+        if model_name == "BERT4Rec" and model.L != 51:
+            raise AssertionError(f"BERT4Rec runs {model.L} positions, 51 expected")
+        out[tag] = launches
+        del model
+        torch.cuda.empty_cache()
+    ckpt = max(glob.glob(os.path.join(tmp, "saved", "S3Rec-*.ckpt")), key=os.path.getmtime)
+    out["s3rec_finetune"] = seq_phase(
+        torch, tmp, "s3rec_finetune", "S3Rec", {**TRM_USERS_ITEMS, "item_attribute": "genre",
+                                                "train_stage": "finetune",
+                                                "pre_model_path": ckpt}, 1,
+        TRM_USERS_KEYS, TRM_FP32 + base + ("onehot_matmul_grad",),
+        TRM_USERS_OFF + ("masked_topk",), dataset="ml-1m-items")[0]
+    log(f"[trm_users] S3Rec finetuned from {os.path.basename(ckpt)}")
+    return out
+
+
+def eval_pass(torch, tag, model_name, config, extra, train, data, must_launch, must_not,
+              model=None):
+    """One evaluation of ``data`` by a trainer under ``config`` with
+    ``extra`` (a model of ``model_name`` built on ``train``'s dataset, or
+    ``model``), the launch counts set to 0 just before and read just after.
+    Returns the launches."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.models import get_model
+    from recbole_tpu_torch.trainer.trainer import get_trainer
+    cfg = Config(model_name, config["dataset"], config_dict={**config.final, **extra},
+                 _parse_cmd_line=False)
+    if model is None:
+        model = get_model(model_name)(cfg, train.dataset)
+    trainer = get_trainer(cfg["MODEL_TYPE"], model_name)(cfg, model)
+    reset_launches()
+    t0 = time.time()
+    result = trainer.evaluate(data, load_best_model=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches(tag, must_launch)
+    ran = {k: launches[k] for k in must_not if launches.get(k)}
+    if ran:
+        raise AssertionError(f"kernels off the {tag} pass were launched: {ran}")
+    if not result or not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError(f"{tag}: bad result {result}")
+    log(f"[{tag}] {model_name} {extra}: one valid pass {wall:.3f}s; {json.dumps(result)}")
     return launches
 
 
@@ -2155,6 +2374,10 @@ def short_run(torch, tmp, tag, model_name, extra, loaders, steps, must_launch, m
     return launches
 
 
+# the wide phases' train steps (cut from 5 to 3 for the run's time limit)
+WIDE_STEPS = 3
+
+
 def phase_wide(torch, tmp):
     """Widths the kernels took only after their limits were lifted, a few
     steps each on the ml-1m-shaped file: GRU4Rec at hidden 10 (padded), 256
@@ -2179,22 +2402,24 @@ def phase_wide(torch, tmp):
     for hidden in (10, 256, 704):
         on = tc if hidden <= 128 else cluster if hidden <= 384 else ()
         out[f"gru4rec_h{hidden}"] = short_run(
-            torch, tmp, f"gru4rec_h{hidden}", "GRU4Rec", {"hidden_size": hidden}, loaders, 5,
+            torch, tmp, f"gru4rec_h{hidden}", "GRU4Rec", {"hidden_size": hidden}, loaders,
+            WIDE_STEPS,
             ("fused_gru_fwd", "fused_gru_bwd") + on,
             off_gru + tuple(k for k in cluster + tc if k not in on))
     for fused in ("layer2", True):
         out[f"sasrec_d128_{fused}"] = short_run(
             torch, tmp, f"sasrec_d128_{fused}", "SASRec",
-            {"hidden_size": 128, "fused_attention": fused}, loaders, 5, whole, routed + tiled)
+            {"hidden_size": 128, "fused_attention": fused}, loaders, WIDE_STEPS, whole,
+            routed + tiled)
     out["sasrec_layer_bf16"] = short_run(
         torch, tmp, "sasrec_layer_bf16", "SASRec",
-        {"fused_attention": "layer"}, loaders, 5, whole,
+        {"fused_attention": "layer"}, loaders, WIDE_STEPS, whole,
         routed + tiled)
     loaders = seq_loaders(torch, tmp, "SASRec", {"MAX_ITEM_LIST_LENGTH": 200})
     for fused in ("layer2", True):
         out[f"sasrec_l200_{fused}"] = short_run(
             torch, tmp, f"sasrec_l200_{fused}", "SASRec",
-            {"MAX_ITEM_LIST_LENGTH": 200, "fused_attention": fused}, loaders, 5, tiled,
+            {"MAX_ITEM_LIST_LENGTH": 200, "fused_attention": fused}, loaders, WIDE_STEPS, tiled,
             routed + whole)
     return out
 
@@ -2565,6 +2790,14 @@ def phase_protocols(torch, tmp):
                 torch, tmp, tag, model_name,
                 general_config(torch, tmp, model_name, "ml-1m-labeled", {**extra, **model_extra}),
                 loaders, types, ("adam_leaf",), GENERAL_OFF + ("masked_topk",), 1e-8)
+        if protocol == "full":
+            # NCF's chunked score_items full sort with every parameter
+            # rounded to bf16 (eval_score_dtype bfloat16): no kernel
+            out["ncf_bf16_scores"] = eval_pass(
+                torch, "ncf_bf16_scores", "NCF",
+                general_config(torch, tmp, "NCF", "ml-1m-labeled", extra),
+                {"eval_score_dtype": "bfloat16"}, loaders[0], loaders[1], (),
+                GENERAL_OFF + ("masked_topk", "adam_leaf"))
         del loaders
     return out
 
@@ -2705,6 +2938,31 @@ def phase_quality(torch, tmp):
     if test["recall@10"] < SASREC_RECALL_FLOOR:
         raise AssertionError(f"ml-100k SASRec test recall@10 {test['recall@10']} < "
                              f"{SASREC_RECALL_FLOOR}")
+
+    from recbole_tpu_torch.ops import trm_layer as tl
+    for model, (ref, floor) in ML100K_TRM.items():
+        before = tl.trm_layer_bwd_cuda.launches_fp32
+        t0 = time.time()
+        items = ({"load_col": {"inter": ["user_id", "item_id", "rating", "timestamp"],
+                               "item": "*"}} if model == "FDSA" else {})
+        result = run_recbole(model=model, dataset="ml-100k", config_dict={
+            **ML100K_SEQ, **items, "epochs": ML100K_TRM_EPOCHS, "valid_full_to_uni1000": False,
+            "device": "cuda", "checkpoint_dir": os.path.join(tmp, "saved100k"),
+            "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING",
+            "show_progress": False})
+        test = result["test_result"]
+        ran = tl.trm_layer_bwd_cuda.launches_fp32 - before
+        log(f"[quality] ml-100k {model} (TO_LS full-sort, {ML100K_TRM_EPOCHS} epochs, early "
+            f"stopping on mrr@10) {time.time() - t0:.1f}s; fp32 whole-layer backward launches "
+            f"{ran}; best valid {result['best_valid_result']}")
+        log(f"[quality]   test {json.dumps(test)}   JAX package on the CPU, seeds 2020 / 2021 "
+            f"/ 2022, same protocol: recall@10 {ref}")
+        check_result(result, JAX_ML100K)
+        if ran <= 0:
+            raise AssertionError(f"the ml-100k {model} run did not go through the fp32 "
+                                 "whole-layer kernels")
+        if test["recall@10"] < floor:
+            raise AssertionError(f"ml-100k {model} test recall@10 {test['recall@10']} < {floor}")
 
     from recbole_tpu_torch.ops import bit_kernels as bk
     before = (bk.bit_rows_matmul_cuda.launches, bk.bit_cols_matmul_cuda.launches)
@@ -2912,7 +3170,7 @@ def adam_library(torch, sets, **kw):
     return rotating(steps)
 
 
-def time_adam(torch, shapes, heads, iters, wd=0.0):
+def time_adam(torch, shapes, heads, iters, wd=0.0, max_norm=None):
     """One Adam step over a main path's leaf set (every gradient present),
     at weight decay ``wd`` (the library call's ``weight_decay``, the same
     coupled L2):
@@ -2921,8 +3179,20 @@ def time_adam(torch, shapes, heads, iters, wd=0.0):
     ``Adam(fused=True).step`` by events (``library_ms``) and, capturable, in a
     graph (``library_graph_ms``); the bound reads p, m, v and g and writes p,
     m and v once (g not read in a zero head). Each timing takes
-    ``adam_copies`` copies of the leaves in turn, so that the bound holds."""
-    from recbole_tpu_torch.ops.fused_adam import AdamLeaves, adam_multi_cuda, adam_multi_torch
+    ``adam_copies`` copies of the leaves in turn, so that the bound holds.
+    ``max_norm``: the clipped step as the trainer takes it, one launcher
+    call that takes the global norm (the two norm kernels over the leaf
+    table, on the gradient addresses it writes once) and then launches the
+    kernel reading it (``ms``, ``graph_ms``, ``host_ms``; ``plain_ms`` with
+    ``global_grad_norm``), beside the norm alone (``grad_norm_cuda``: ``norm_ms``,
+    ``norm_graph_ms``, ``norm_host_ms``), the plain norm alone
+    (``plain_norm_ms``: a fused per-tensor norm launch and one over their
+    norms) and the kernel alone on a norm made beforehand (``kernel_ms``,
+    ``kernel_graph_ms``); the library call is ``clip_grad_norm_`` then
+    ``Adam(fused=True).step``. The bound is the kernel's; the norm reads g
+    once more (``norm_bound_ms``)."""
+    from recbole_tpu_torch.ops.fused_adam import (AdamLeaves, adam_multi_cuda, adam_multi_torch,
+                                                  global_grad_norm, grad_norm_cuda)
     gen = torch.Generator(device="cuda").manual_seed(2)
     copies = adam_copies(shapes)
     sets = [([torch.randn(s, device="cuda", generator=gen) * 0.1 for s in shapes],
@@ -2931,10 +3201,15 @@ def time_adam(torch, shapes, heads, iters, wd=0.0):
     leaves = [AdamLeaves(p, [torch.zeros_like(x) for x in p], [torch.zeros_like(x) for x in p],
                          heads) for p, _ in sets]
 
-    def step(fn):
-        return rotating([lambda lv=lv, g=g: fn(lv, g, 10.0, 1000.0, b1=0.9, b2=0.999, lr=1e-3,
-                                               eps=1e-8, wd=wd)
-                         for lv, (_, g) in zip(leaves, sets)])
+    def step(fn, norms=None):
+        def one(lv, g, norm):
+            # norm None: the launcher takes it (the norm kernels, or the plain
+            # version's global_grad_norm), as the trainer's step does
+            clip = None if max_norm is None else (norm, max_norm)
+            return fn(lv, g, 10.0, 1000.0, b1=0.9, b2=0.999, lr=1e-3, eps=1e-8, wd=wd,
+                      clip=clip)
+        return rotating([lambda lv=lv, g=g, nm=nm: one(lv, g, nm) for lv, (_, g), nm in zip(
+            leaves, sets, norms or [None] * len(leaves))])
 
     n = sum(x.numel() for x in sets[0][0])
     calls = copies * -(-20 // copies)
@@ -2942,16 +3217,55 @@ def time_adam(torch, shapes, heads, iters, wd=0.0):
          "graph_ms": graph_ms(torch, step(adam_multi_cuda), calls),
          "host_ms": host_ms(torch, step(adam_multi_cuda)),
          "plain_ms": cuda_ms(torch, step(adam_multi_torch), max(3, iters // 10)),
-         "library_ms": cuda_ms(torch, adam_library(torch, sets, weight_decay=wd), iters),
-         "library_graph_ms": graph_ms(torch, adam_library(torch, sets, capturable=True,
-                                                          weight_decay=wd), calls),
          "copies": copies, "weight_decay": wd}
-    # the decay adds a multiply and an add an element; the bytes stay 28
-    t["bound_ms"], t["bound_by"] = bound((16.0 if wd else 14.0) * n, 28 * n - 4 * sum(heads))
+    if max_norm is None:
+        t["library_ms"] = cuda_ms(torch, adam_library(torch, sets, weight_decay=wd), iters)
+        t["library_graph_ms"] = graph_ms(torch, adam_library(torch, sets, capturable=True,
+                                                             weight_decay=wd), calls)
+    else:
+        norms = [grad_norm_cuda(lv, g) for lv, (_, g) in zip(leaves, sets)]
+        t["max_norm"] = max_norm
+        t["kernel_ms"] = cuda_ms(torch, step(adam_multi_cuda, norms), iters)
+        t["kernel_graph_ms"] = graph_ms(torch, step(adam_multi_cuda, norms), calls)
+        norm_call = rotating([lambda lv=lv, g=g: grad_norm_cuda(lv, g)
+                              for lv, (_, g) in zip(leaves, sets)])
+        t["norm_ms"] = cuda_ms(torch, norm_call, iters)
+        t["norm_graph_ms"] = graph_ms(torch, norm_call, calls)
+        t["norm_host_ms"] = host_ms(torch, norm_call)
+        t["plain_norm_ms"] = cuda_ms(torch, rotating([lambda g=g: global_grad_norm(g, heads)
+                                                      for _, g in sets]), iters)
+        t["library_ms"] = cuda_ms(torch, clip_library(torch, sets, max_norm), iters)
+        t["library_graph_ms"] = graph_ms(torch, clip_library(torch, sets, max_norm,
+                                                             capturable=True), calls)
+        t["norm_bound_ms"] = 4.0 * n / PEAK_BYTES * 1e3
+    # the decay adds a multiply and an add an element, the clip a divide and
+    # a multiply; the bytes stay 28
+    flops = (14.0 + (2.0 if wd else 0.0) + (2.0 if max_norm is not None else 0.0)) * n
+    t["bound_ms"], t["bound_by"] = bound(flops, 28 * n - 4 * sum(heads))
     return n, t
 
 
-def time_topk(torch, kernel, B, N, D, k, seed, plain=True):
+def clip_library(torch, sets, max_norm, **kw):
+    """``clip_grad_norm_`` then ``Adam(fused=True).step`` over each (p,
+    grads) of ``sets`` in turn (the library's clipped step; the gradients
+    are scaled in place, so each call scales them again, which changes no
+    timing)."""
+    steps = []
+    for p, grads in sets:
+        params = [torch.nn.Parameter(x.clone()) for x in p]
+        for prm, g in zip(params, grads):
+            prm.grad = g.clone()
+        opt = torch.optim.Adam(params, lr=1e-3, fused=True, **kw)
+        opt.step()
+
+        def call(params=params, opt=opt):
+            torch.nn.utils.clip_grad_norm_(params, max_norm, foreach=True)
+            opt.step()
+        steps.append(call)
+    return rotating(steps)
+
+
+def time_topk(torch, kernel, B, N, D, k, seed, plain=True, bf16=False):
     """One masked top-k kernel (``kernel``, a tree's ``masked_topk_cuda``) at
     (B, N, D, k) on ``topk_inputs``: by events, in a CUDA graph, the host's
     enqueue a call, the plain version (``plain``), the library call (matmul,
@@ -2961,12 +3275,28 @@ def time_topk(torch, kernel, B, N, D, k, seed, plain=True):
     dense TF32 (``bound_3xtf32_ms``). ``launches_a_call`` is the wrapper's
     own count over 20 calls, one kernel each. (torch.profiler is not asked
     here: this late in a long process it recorded a fraction of the
-    launches; the card tests read it in a process of their own.)"""
+    launches; the card tests read it in a process of their own.) ``bf16``:
+    the bf16-operand instance on q and items rounded to bf16; its bound at
+    the bf16 tensor-core rate and 2-byte operands; the library call a bf16
+    matmul with fp32 output (``torch.mm(..., out_dtype=float32)``; where
+    this torch has no such argument, the bf16 product widened), then
+    masked_fill and topk."""
     from recbole_tpu_torch.ops.masked_topk import masked_topk_cuda, masked_topk_torch
     q, items, mask = topk_inputs(torch, B, N, D, seed)
+    if bf16:
+        q, items = q.to(torch.bfloat16), items.to(torch.bfloat16)
+    items_t = items.T
+
+    def product():
+        if not bf16:
+            return q @ items_t
+        try:
+            return torch.mm(q, items_t, out_dtype=torch.float32)
+        except TypeError:
+            return (q @ items_t).float()
 
     def library():
-        s = (q @ items.T).masked_fill_(mask > 0, -1e15)
+        s = product().masked_fill_(mask > 0, -1e15)
         return torch.topk(s, k, dim=1)
 
     def call():
@@ -2978,9 +3308,14 @@ def time_topk(torch, kernel, B, N, D, k, seed, plain=True):
          if plain else None,
          "library_ms": cuda_ms(torch, library, 20),
          "library_graph_ms": graph_ms(torch, library, calls=5, replays=4)}
-    flops, nbytes = 2.0 * B * N * D, 4 * (B * D + N * D) + B * N + 8 * B * k
-    t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
-    t["bound_3xtf32_ms"], _ = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
+    esize = q.element_size()
+    flops, nbytes = 2.0 * B * N * D, esize * (B * D + N * D) + B * N + 8 * B * k
+    if bf16:
+        t["bound_ms"], t["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        t["library_out_fp32"] = "out_dtype" if _mm_out_dtype(torch) else "widened"
+    else:
+        t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+        t["bound_3xtf32_ms"], _ = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
     t["bound_bytes_ms"] = nbytes / PEAK_BYTES * 1e3
     # the dispatcher has no counter of its own: its kernel's counts
     counter = kernel if hasattr(kernel, "launches") else masked_topk_cuda
@@ -2988,9 +3323,19 @@ def time_topk(torch, kernel, B, N, D, k, seed, plain=True):
     for _ in range(20):
         call()
     t["launches_a_call"] = (counter.launches - before) / 20
-    log(f"[time] masked_topk B={B} N={N} D={D} k={k} ({flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB; library: matmul + masked_fill + topk): {t}")
+    log(f"[time] masked_topk{' bf16 operands' if bf16 else ''} B={B} N={N} D={D} k={k} "
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; library: matmul + masked_fill + "
+        f"topk): {t}")
     return t
+
+
+def _mm_out_dtype(torch):
+    """Whether torch.mm takes out_dtype (a bf16 product with fp32 output)."""
+    a = torch.ones((2, 2), dtype=torch.bfloat16, device="cuda")
+    try:
+        return torch.mm(a, a, out_dtype=torch.float32).dtype == torch.float32
+    except TypeError:
+        return False
 
 
 def phase_timing(torch):
@@ -2999,6 +3344,11 @@ def phase_timing(torch):
     out = {}
     out["masked_topk"] = time_topk(torch, masked_topk_cuda, 4096, ML1M[1] + 1, 64, 10, seed=1)
     out["masked_topk"]["ml100k"] = time_topk(torch, masked_topk_cuda, 943, 1683, 64, 10, seed=2)
+    # row 1b: the bf16-operand instance at row 1's shape and at ml-100k's
+    out["masked_topk"]["bf16"] = time_topk(torch, masked_topk_cuda, 4096, ML1M[1] + 1, 64, 10,
+                                           seed=1, bf16=True)
+    out["masked_topk"]["bf16_ml100k"] = time_topk(torch, masked_topk_cuda, 943, 1683, 64, 10,
+                                                  seed=2, bf16=True)
 
     # Adam over each main path's leaf set, one launch a step; BPR's is the
     # row's own entry
@@ -3017,6 +3367,14 @@ def phase_timing(torch):
         out["adam_leaf"][label] = t
         log(f"[time] adam_leaf one step over MFSimple's leaves ({len(MFSIMPLE_LEAF_SHAPES)} "
             f"leaves, {n} elements, one launch, weight decay {wd}): {t}")
+    # row 2f: SASRec's leaves with clip_grad_norm (max_norm below the norm:
+    # every gradient scaled), the norm and the kernel
+    n, t = time_adam(torch, *ADAM_SETS["sasrec"], 200, max_norm=1e-3)
+    out["adam_leaf"]["sasrec_clip"] = t
+    log(f"[time] adam_leaf one step over SASRec's leaves with clip_grad_norm "
+        f"({len(SASREC_LEAF_SHAPES)} leaves, {n} elements; the norm kernels "
+        f"{t['norm_ms']:.4f} ms, two launches, the plain norm {t['plain_norm_ms']:.4f} ms; "
+        f"the kernel alone {t['kernel_ms']:.4f} ms): {t}")
 
     # one step's backward at the Criteo shape: the 17 small fields through
     # the one-hot kernel, reading its column block in place (the 9 large
@@ -3727,10 +4085,15 @@ def main():
     import torch
 
     t_start = time.time()
+
+    def clock(part):
+        log(f"[clock] {part} done at {time.time() - t_start:.1f}s")
+
     name, count, smi = phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build(torch)
+    clock("build")
     count_adam_steps()
     err = {"masked_topk": max(check_topk(torch, 4096, ML1M[1] + 1, 64, 10, seed=0),
                               check_topk(torch, 943, 1683, 64, 10, seed=3),
@@ -3745,7 +4108,16 @@ def main():
                               # widths the kernel refuses, padded by the dispatcher
                               check_topk(torch, 4096, ML1M[1] + 1, 10, 10, seed=20,
                                          dispatch=True),
-                              check_topk(torch, 943, 1683, 6, 10, seed=21, dispatch=True)),
+                              check_topk(torch, 943, 1683, 6, 10, seed=21, dispatch=True),
+                              # the bf16-operand instance: SASRec's and BPR's fused
+                              # passes, D past one K chunk, and a width the dispatcher
+                              # pads to a multiple of 8
+                              check_topk(torch, 4096, ML1M[1] + 1, 64, 10, seed=22, bf16=True),
+                              check_topk(torch, 943, 1683, 64, 10, seed=23, bf16=True),
+                              check_topk(torch, 1944, ML1M[1] + 1, 128, 10, seed=24,
+                                         dup=True, bf16=True),
+                              check_topk(torch, 943, 1683, 20, 10, seed=25, dispatch=True,
+                                         bf16=True)),
            "adam_leaf": max(
                *(check_adam(torch, label, shapes, heads, seed)
                  for seed, (label, (shapes, heads)) in enumerate(ADAM_SETS.items(), start=4)),
@@ -3762,33 +4134,50 @@ def main():
                      itertools.product(ADAM_WD_SETS.items(), ADAM_WDS), start=20)),
                check_adam(torch, "edge leaves at weight decay 0.01",
                           [(2053,), (3, 7), (), (4096,), (2047,), (37, 9)],
-                          [6, 0, 0, 2, 0, 9], seed=30, none=(1,), offset=1, wd=1e-2))}
+                          [6, 0, 0, 2, 0, 9], seed=30, none=(1,), offset=1, wd=1e-2),
+               # the clip (the norm read from the device) on both sides of
+               # max_norm, and adamw's decoupled term, over SASRec's leaves
+               # (the [PAD] row a zero head) and the edge leaves
+               *(check_adam(torch, f"sasrec, clip {clip}, adamw {dwd}", *ADAM_SETS["sasrec"],
+                            seed=40 + i, clip=clip, dwd=dwd, wd=wd)
+                 for i, (clip, dwd, wd) in enumerate((("below", 0.0, 0.0), ("above", 0.0, 0.0),
+                                                      (None, 1e-4, 0.0),
+                                                      ("below", 1e-4, 1e-2)))),
+               check_adam(torch, "edge leaves, clip below, adamw",
+                          [(2053,), (3, 7), (), (4096,), (2047,), (37, 9)],
+                          [6, 0, 0, 2, 0, 9], seed=45, none=(1,), offset=1, clip="below",
+                          dwd=1e-4))}
+    clock("masked top-k and Adam checks")
     for kname, cases in embed_grad_cases(torch).items():
         err[kname] = check_embed_grad(torch, kname, cases)
+    clock("embedding-gradient checks")
     images = yelp_bit_inputs(torch)
     err.update(check_trm_layer(torch))
+    clock("whole-layer checks")
     err.update(check_bit_kernels(torch, images))
     for kname, e in check_bit_widths(torch, images).items():
         err[kname] = max(err[kname], e)
     del images
+    clock("bit-kernel checks")
     err.update(check_gru(torch))
+    clock("GRU checks")
     err.update(check_attention(torch))
+    clock("attention checks")
     err.update(check_rel_apply(torch))
     for kname, e in check_rel_routes(torch).items():
         err[kname] = max(err[kname], e)
     torch.cuda.empty_cache()
-
-    def clock(part):
-        log(f"[clock] {part} done at {time.time() - t_start:.1f}s")
-
     clock("build and checks")
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         for path, phase in (("bpr", phase_bpr), ("deepfm", phase_deepfm),
                             ("sasrec", phase_sasrec), ("sasrec_fp32", phase_sasrec_fp32),
                             ("lightgcn", phase_lightgcn), ("gru4rec", phase_gru4rec),
-                            ("narm", phase_narm), ("sasrec_attention", phase_sasrec_attention)):
-            by_path[path] = phase(torch, tmp)
+                            ("narm", phase_narm), ("sasrec_attention", phase_sasrec_attention),
+                            ("trm_users", phase_trm_users)):
+            got = phase(torch, tmp)
+            # a phase of several paths returns them by name
+            by_path.update(got if path in ("sasrec", "trm_users") else {path: got})
             clock(path)
         by_path.update(phase_wide(torch, tmp))
         clock("wide")

@@ -65,9 +65,10 @@ EVALUATION_DEFAULTS = {
     "valid_metric": "MRR@10",
     "valid_metric_bigger": True,
     "eval_batch_size": 4096,
-    # full-sort eval: the port scores in float32 ("bfloat16" raises for now);
-    # it has one full-sort path, the masked top-k kernel on the card, so
-    # use_pallas_topk has no effect
+    # full-sort eval scores: float32, or "bfloat16" (the masked top-k's
+    # bf16-operand instance; bf16-rounded parameters in the chunked step);
+    # the port has one full-sort path, the masked top-k kernel on the card,
+    # so use_pallas_topk has no effect
     "eval_score_dtype": "float32",
     "use_pallas_topk": False,
     "compilation_cache_dir": "/tmp/recbole_tpu_xla_cache",  # JAX only

@@ -10,9 +10,9 @@ parameters by exactly these paths (``MLPLayers`` in ``models/layers.py``
 names layer i's leaves ``<i>.w`` and ``<i>.b``, ``TransformerEncoder`` names
 them ``<i>.wq`` ... ``<i>.ln2_b``; KGCN's aggregator lists are ``agg_w.<i>``
 and ``agg_b.<i>``, MKR's units ``cc.<i>.vv`` ... ``cc.<i>.be``), so the name
-map of every ported model is the identity, and linear weights are (in, out) in
-both packages, so no leaf is transposed. A model whose names must differ
-gets its own map here when it is ported.
+map of every ported model is the identity (but for the ``_const`` leaves
+below), and linear weights are (in, out) in both packages, so no leaf is
+transposed.
 
 ``load_jax_params(model, params)`` copies a tree of numpy arrays into the
 module; ``export_params(model)`` gives the tree back. A missing or extra
@@ -21,7 +21,12 @@ packages from the same weights.
 
 A JAX tree's ``_const`` subtree (dataset-derived arrays: a graph operator,
 packed-bit images) is skipped both ways: the port rebuilds those arrays from
-the dataset as non-persistent buffers of the module. What the rest of the
+the dataset as non-persistent buffers of the module. The exception is random
+state kept there: SASRecF's and FDSA's frozen N(0, 1) feature tables
+(``_const.feat_<field>``), which the module holds as persistent buffers
+(``embedder.feat_<field>``); a module with a ``const_state_map()`` names
+those leaves ({``_const`` leaf: state_dict name}), and they are carried both
+ways. What the rest of the
 tree holds is the module's ``state_dict``: its parameters and its persistent
 buffers, the state that is not trained (KGAT's ``edge_attention``). The
 tree is loaded through ``load_state_dict``, so a module's own post-hooks
@@ -71,9 +76,17 @@ def unflatten_tree(flat):
 CONST_KEY = "_const"
 
 
+def _const_map(model):
+    fn = getattr(model, "const_state_map", None)
+    return fn() if fn is not None else {}
+
+
 def load_jax_params(model, params):
     own = model.state_dict()
     flat = flatten_tree({k: v for k, v in params.items() if k != CONST_KEY})
+    const = params.get(CONST_KEY, {})
+    for leaf, name in _const_map(model).items():
+        flat[name] = const[leaf]
     if set(flat) != set(own):
         raise KeyError(f"parameter names differ: module {sorted(own)}, "
                        f"given {sorted(flat)}")
@@ -88,5 +101,9 @@ def load_jax_params(model, params):
 
 
 def export_params(model):
-    return unflatten_tree({name: p.detach().cpu().numpy()
-                           for name, p in model.state_dict().items()})
+    state = {name: p.detach().cpu().numpy() for name, p in model.state_dict().items()}
+    const = {leaf: state.pop(name) for leaf, name in _const_map(model).items()}
+    tree = unflatten_tree(state)
+    if const:
+        tree[CONST_KEY] = const
+    return tree

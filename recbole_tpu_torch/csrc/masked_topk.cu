@@ -60,9 +60,21 @@
 // output's values carry fp32's rounding, and 3xTF32 only chooses the ids.
 // One kernel a call.
 //
+// The bf16-operand instance (eval_score_dtype: bfloat16; the JAX trainer
+// rounds the query and the table to bf16 before masked_topk,
+// recbole_tpu/trainer/trainer.py:981-983, and its dot keeps fp32 sums):
+// the same block, ring, selection and merge on bf16 query and item rows
+// (D a multiple of 8; 16-byte copies of 8 elements), each k-step one
+// mma.sync m16n8k16 with bf16 operands and fp32 accumulation: a product of
+// two bf16 values is exact in fp32, so the tensor cores' sums differ from
+// the plain fp32 product of the rounded operands only in their order. The
+// chosen ids' values are taken again as the fp32 instance's are, a fused
+// multiply-add a coordinate in order on the operands widened to fp32.
+//
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface, loaded by recbole_tpu_torch/ops/cuda_build.py.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -73,8 +85,7 @@ namespace {
 constexpr int kSelWarps = 16;            // selecting warps a block
 constexpr int kTN = 64;               // items a tile
 constexpr int kStages = 3;            // the staging ring's depth
-constexpr int kKC = 64;               // floats of an item row a stage holds
-constexpr int kIS = kKC + 4;          // a staged item row's stride (floats)
+constexpr int kKC = 64;               // elements of an item row a stage holds
 constexpr int kMaskChunks = kTN / 16 + 1;  // 16-byte chunks covering 64 bytes
 constexpr int kMaskRow = 16 * kMaskChunks; // bytes a staged mask row holds
 constexpr int kSS = kTN + 8;          // the score tile's stride (floats)
@@ -86,18 +97,32 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// a row of the query tile in shared memory: D zero-padded to a multiple of
-// 8, plus 4 floats, so that a fragment's 8 rows by 4 columns hit 32 banks
-__host__ __device__ __forceinline__ int a_stride(int D) { return round_up(D, 8) + 4; }
+// an operand type's elements a 16-byte copy: 4 floats, 8 bf16
+template <typename E>
+__host__ __device__ constexpr int vec() { return 16 / (int)sizeof(E); }
+
+// a row of the query tile in shared memory: D zero-padded to a whole
+// number of k-steps' pairs (8 floats, 16 bf16), plus 16 bytes, so that a
+// fragment's 8 rows by 4 words hit 32 banks
+template <typename E>
+__host__ __device__ __forceinline__ int a_stride(int D) { return round_up(D, 2 * vec<E>()) + vec<E>(); }
+
+// a staged item row's stride (elements), the same rule
+template <typename E>
+__host__ __device__ constexpr int item_stride() { return kKC + vec<E>(); }
 
 // a ring stage: 64 item rows of a K chunk, and bm rows of mask bytes
-__host__ __device__ __forceinline__ int stage_bytes(int bm) { return kTN * kIS * 4 + bm * kMaskRow; }
+template <typename E>
+__host__ __device__ __forceinline__ int stage_bytes(int bm) {
+  return kTN * item_stride<E>() * (int)sizeof(E) + bm * kMaskRow;
+}
 
 // a block of bm = 16 MT query rows: the query tile, the ring, two score
 // tiles, each row's bar (its k-th entry) and two flags (a tile has an entry
 // that beats the bar), each row's top k so far, and the block's flag
+template <typename E>
 __host__ __device__ __forceinline__ size_t smem_bytes(int bm, int D, int k) {
-  return (size_t)4 * bm * a_stride(D) + (size_t)kStages * stage_bytes(bm) +
+  return sizeof(E) * bm * a_stride<E>(D) + (size_t)kStages * stage_bytes<E>(bm) +
          (size_t)8 * bm * kSS + (size_t)16 * bm + (size_t)8 * bm * k + 16;
 }
 
@@ -142,6 +167,114 @@ __device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4], uint32_
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b: one m16n8k16 tile, bf16 operands (two to a register), fp32 sums
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// One K chunk of a product warp's tiles: rows 16 wm.. of the query tile
+// (s_q at the warp's row g, column c kKC, lane's qd) against the NTW item
+// tiles of its stage (s_it at its item g), nks k-steps.
+// fp32: 3xTF32, each operand split at use, three mma.sync m16n8k8 a step in
+// fresh sums (the small terms first), then one fp32 add.
+template <int NTW>
+__device__ __forceinline__ void chunk_products(float (*acc)[4], const float* s_q, const float* s_it,
+                                               int AS, int nks, int qd) {
+  s_q += qd;
+  s_it += qd;
+#pragma unroll
+  for (int ks = 0; ks < kKC / 8; ++ks) {
+    if (ks >= nks) break;
+    uint32_t ah[4], al[4];
+    split_tf32(s_q[8 * ks], ah[0], al[0]);
+    split_tf32(s_q[8 * AS + 8 * ks], ah[1], al[1]);
+    split_tf32(s_q[8 * ks + 4], ah[2], al[2]);
+    split_tf32(s_q[8 * AS + 8 * ks + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(s_it[8 * j * item_stride<float>() + 8 * ks], bh0, bl0);
+      split_tf32(s_it[8 * j * item_stride<float>() + 8 * ks + 4], bh1, bl1);
+      // a k-step's three products in fresh sums, the small terms first,
+      // then one fp32 add: the tensor cores' sums stay small
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma1688(d, al, bh0, bh1);
+      mma1688(d, ah, bl0, bl1);
+      mma1688(d, ah, bh0, bh1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += d[e];
+    }
+  }
+}
+
+// bf16: one mma.sync m16n8k16 a step, the fragments read two elements a
+// register, summed in the tensor cores' fp32 accumulators
+template <int NTW>
+__device__ __forceinline__ void chunk_products(float (*acc)[4], const __nv_bfloat16* s_q,
+                                               const __nv_bfloat16* s_it, int AS, int nks,
+                                               int qd) {
+  s_q += 2 * qd;
+  s_it += 2 * qd;
+#pragma unroll
+  for (int ks = 0; ks < kKC / 16; ++ks) {
+    if (ks >= nks) break;
+    uint32_t a[4];
+    a[0] = ld32(s_q + 16 * ks);
+    a[1] = ld32(s_q + 8 * AS + 16 * ks);
+    a[2] = ld32(s_q + 16 * ks + 8);
+    a[3] = ld32(s_q + 8 * AS + 16 * ks + 8);
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const __nv_bfloat16* b = s_it + 8 * j * item_stride<__nv_bfloat16>() + 16 * ks;
+      mma16816(acc[j], a, ld32(b), ld32(b + 8));
+    }
+  }
+}
+
+// the fp32 value of q . item over D coordinates, a fused multiply-add a
+// coordinate in order from 0 (the operands widened to fp32 first)
+__device__ __forceinline__ float dot_fma(const float* qa, const float* ib, int D) {
+  const float4* a4 = reinterpret_cast<const float4*>(qa);
+  const float4* b4 = reinterpret_cast<const float4*>(ib);
+  float v = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D / 4; ++c) {
+    const float4 a = __ldg(a4 + c), b = __ldg(b4 + c);
+    v = fmaf(a.x, b.x, v);
+    v = fmaf(a.y, b.y, v);
+    v = fmaf(a.z, b.z, v);
+    v = fmaf(a.w, b.w, v);
+  }
+  return v;
+}
+
+__device__ __forceinline__ float dot_fma(const __nv_bfloat16* qa, const __nv_bfloat16* ib, int D) {
+  const uint4* a4 = reinterpret_cast<const uint4*>(qa);
+  const uint4* b4 = reinterpret_cast<const uint4*>(ib);
+  float v = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 a = __ldg(a4 + c), b = __ldg(b4 + c);
+    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float2 af = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[w]));
+      const float2 bf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bw[w]));
+      v = fmaf(af.x, bf.x, v);
+      v = fmaf(af.y, bf.y, v);
+    }
+  }
+  return v;
 }
 
 // the byte offset of a row's tile segment within its first staged chunk
@@ -284,9 +417,9 @@ __device__ __forceinline__ void select_tile(const float* sc, int* flags, float* 
 // computes rows 16 wm.. of items 8 NTW wn.. (NTW m16n8 tiles) of tile t; in
 // the same step selecting warp w selects rows RW w.. of tile t - 1: scores,
 // masked, and the rows' flags alternate between two buffers.
-template <int MT, int SLOTS>
+template <typename E, int MT, int SLOTS>
 __global__ void __launch_bounds__(threads(MT), 1)
-masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
+masked_topk_kernel(const E* __restrict__ q, const E* __restrict__ items,
                    const int8_t* __restrict__ mask, int B, int N, int D, int k,
                    float* __restrict__ out_vals, int* __restrict__ out_ids,
                    float* __restrict__ part_vals, int* __restrict__ part_ids,
@@ -296,11 +429,13 @@ masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
   constexpr int NTW = 8 * MT / PW;    // m16n8 tiles a product warp
   constexpr int NT = threads(MT);
   constexpr int RW = BM / kSelWarps;  // rows a selecting warp takes
+  constexpr int V = vec<E>();         // elements a 16-byte copy
+  constexpr int IS = item_stride<E>();
   extern __shared__ float4 smem4[];
-  const int AS = a_stride(D);
-  const int Dp = AS - 4;
-  const int SB = stage_bytes(BM);
-  float* s_a = reinterpret_cast<float*>(smem4);                         // [BM][AS]
+  const int AS = a_stride<E>(D);
+  const int Dp = AS - V;
+  const int SB = stage_bytes<E>(BM);
+  E* s_a = reinterpret_cast<E*>(smem4);                                 // [BM][AS]
   char* s_ring = reinterpret_cast<char*>(s_a + BM * AS);                 // kStages x SB
   float* s_sc = reinterpret_cast<float*>(s_ring + (size_t)kStages * SB); // [2][BM][kSS]
   float2* s_bar = reinterpret_cast<float2*>(s_sc + 2 * BM * kSS);        // [BM]
@@ -325,11 +460,11 @@ masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
 
   // the query tile, zero past B and past D (one commit group with step 0)
   {
-    const int cpr = Dp / 4;
+    const int cpr = Dp / V;
     for (int i = tid; i < BM * cpr; i += NT) {
       const int r = i / cpr, c = i - r * cpr;
-      const bool ok = row0 + r < B && 4 * c < D;
-      cp16(s_a + r * AS + 4 * c, ok ? q + (size_t)(row0 + r) * D + 4 * c : q, ok ? 16 : 0);
+      const bool ok = row0 + r < B && V * c < D;
+      cp16(s_a + r * AS + V * c, ok ? q + (size_t)(row0 + r) * D + V * c : q, ok ? 16 : 0);
     }
   }
 
@@ -339,18 +474,18 @@ masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
     if (step < nsteps) {
       const int t = t_lo + step / nch, c = step - (step / nch) * nch;
       char* stage = s_ring + (size_t)(step % kStages) * SB;
-      float* s_it = reinterpret_cast<float*>(stage);
+      E* s_it = reinterpret_cast<E*>(stage);
       const int k0 = c * kKC;
-      const int cpr = min(kKC, Dp - k0) / 4;
+      const int cpr = min(kKC, Dp - k0) / V;
       const int dr = NT / cpr, dc = NT - dr * cpr;
       for (int i = tid, r = tid / cpr, cc = tid % cpr; i < kTN * cpr;
            i += NT, r += dr + (cc + dc >= cpr), cc += dc - (cc + dc >= cpr ? cpr : 0)) {
-        const int item = t * kTN + r, col = k0 + 4 * cc;
+        const int item = t * kTN + r, col = k0 + V * cc;
         const bool ok = item < N && col < D;
-        cp16(s_it + r * kIS + 4 * cc, ok ? items + (size_t)item * D + col : items, ok ? 16 : 0);
+        cp16(s_it + r * IS + V * cc, ok ? items + (size_t)item * D + col : items, ok ? 16 : 0);
       }
       if (c == nch - 1) {
-        int8_t* s_m = reinterpret_cast<int8_t*>(stage + kTN * kIS * 4);
+        int8_t* s_m = reinterpret_cast<int8_t*>(stage + kTN * IS * sizeof(E));
         for (int i = tid; i < BM * kMaskChunks; i += NT) {
           const int r = i / kMaskChunks, cc = i - r * kMaskChunks;
           if (row0 + r >= B) continue;
@@ -399,39 +534,17 @@ masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
       for (int j = 0; j < NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     }
     const char* stage = s_ring + (size_t)(step % kStages) * SB;
-    const float* s_it = reinterpret_cast<const float*>(stage) + (wn * 8 * NTW + g) * kIS + qd;
-    const float* s_q = s_a + (wm * 16 + g) * AS + c * kKC + qd;
-    const int nks = min(kKC, Dp - c * kKC) / 8;
-#pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks) {
-      if (ks >= nks) break;
-      uint32_t ah[4], al[4];
-      split_tf32(s_q[8 * ks], ah[0], al[0]);
-      split_tf32(s_q[8 * AS + 8 * ks], ah[1], al[1]);
-      split_tf32(s_q[8 * ks + 4], ah[2], al[2]);
-      split_tf32(s_q[8 * AS + 8 * ks + 4], ah[3], al[3]);
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(s_it[8 * j * kIS + 8 * ks], bh0, bl0);
-        split_tf32(s_it[8 * j * kIS + 8 * ks + 4], bh1, bl1);
-        // a k-step's three products in fresh sums, the small terms first,
-        // then one fp32 add: the tensor cores' sums stay small
-        float d[4] = {0.f, 0.f, 0.f, 0.f};
-        mma1688(d, al, bh0, bh1);
-        mma1688(d, ah, bl0, bl1);
-        mma1688(d, ah, bh0, bh1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] += d[e];
-      }
-    }
+    // a k-step is 8 fp32 or 16 bf16 coordinates
+    chunk_products<NTW>(acc, s_a + (wm * 16 + g) * AS + c * kKC,
+                        reinterpret_cast<const E*>(stage) + (wn * 8 * NTW + g) * IS, AS,
+                        min(kKC, Dp - c * kKC) / (2 * V), qd);
     if (c != nch - 1) continue;
 
     // the tile's scores, masked, to its buffer, and each row's flag raised
     // where one of them beats the row's bar (read as the previous tile's
     // selection may be raising it: a lower bar only flags more rows)
     {
-      const int8_t* s_m = reinterpret_cast<const int8_t*>(stage + kTN * kIS * 4);
+      const int8_t* s_m = reinterpret_cast<const int8_t*>(stage + kTN * IS * sizeof(E));
       float* sc = s_sc + (t & 1) * BM * kSS;
       int* flags = s_flag + (t & 1) * BM;
 #pragma unroll
@@ -491,7 +604,7 @@ masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
     // binary search), and its id goes to that place of the row's list when
     // the place is below k.
     const int L = S * k;
-    const int room = (BM * AS * 4 + kStages * SB) / 8;  // entries the region holds
+    const int room = (BM * AS * (int)sizeof(E) + kStages * SB) / 8;  // entries the region holds
     const int RC = min(nrows, room / L);
     float* mv = reinterpret_cast<float*>(smem4);
     int* mi = reinterpret_cast<int*>(mv + RC * L);
@@ -559,21 +672,7 @@ masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
     const int id = s_li[x];
     float v = -INFINITY;  // never: k <= N real items fill every list
     if (id >= 0 && id < N) {
-      if (mask[row * N + id] > 0) {
-        v = kNegInf;
-      } else {
-        const float4* qa = reinterpret_cast<const float4*>(q + row * D);
-        const float4* ib = reinterpret_cast<const float4*>(items + (size_t)id * D);
-        v = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < D / 4; ++c) {
-          const float4 a = __ldg(qa + c), b = __ldg(ib + c);
-          v = fmaf(a.x, b.x, v);
-          v = fmaf(a.y, b.y, v);
-          v = fmaf(a.z, b.z, v);
-          v = fmaf(a.w, b.w, v);
-        }
-      }
+      v = mask[row * N + id] > 0 ? kNegInf : dot_fma(q + row * D, items + (size_t)id * D, D);
     }
     s_lv[x] = v;
   }
@@ -589,8 +688,8 @@ masked_topk_kernel(const float* __restrict__ q, const float* __restrict__ items,
   }
 }
 
-template <int MT, int SLOTS>
-int launch(const float* q, const float* items, const int8_t* mask, int B, int N, int D, int k,
+template <typename E, int MT, int SLOTS>
+int launch(const E* q, const E* items, const int8_t* mask, int B, int N, int D, int k,
            int S, float* vals, int* ids, float* part, int* tickets, cudaStream_t stream) {
   // the kernel's shared-memory limit, raised once per device
   static unsigned long long raised = 0;
@@ -598,27 +697,42 @@ int launch(const float* q, const float* items, const int8_t* mask, int B, int N,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !(raised >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(masked_topk_kernel<MT, SLOTS>,
+    err = cudaFuncSetAttribute(masked_topk_kernel<E, MT, SLOTS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) raised |= 1ull << dev;
   }
   constexpr int BM = 16 * MT;
-  const size_t smem = smem_bytes(BM, D, k);
+  const size_t smem = smem_bytes<E>(BM, D, k);
   const dim3 grid((B + BM - 1) / BM, S);
   float* part_vals = part;
   int* part_ids = part ? reinterpret_cast<int*>(part + (size_t)S * B * k) : nullptr;
-  masked_topk_kernel<MT, SLOTS><<<grid, threads(MT), smem, stream>>>(
+  masked_topk_kernel<E, MT, SLOTS><<<grid, threads(MT), smem, stream>>>(
       q, items, mask, B, N, D, k, vals, ids, part_vals, part_ids, tickets);
   return (int)cudaGetLastError();
 }
 
-template <int MT>
-int launch_k(const float* q, const float* items, const int8_t* mask, int B, int N, int D, int k,
+template <typename E, int MT>
+int launch_k(const E* q, const E* items, const int8_t* mask, int B, int N, int D, int k,
              int S, float* vals, int* ids, float* part, int* tickets, cudaStream_t s) {
-  if (k <= 32) return launch<MT, 1>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
-  if (k <= 64) return launch<MT, 2>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
-  return launch<MT, 4>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  if (k <= 32) return launch<E, MT, 1>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  if (k <= 64) return launch<E, MT, 2>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  return launch<E, MT, 4>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+}
+
+template <typename E>
+int launch_checked(const E* q, const E* items, const int8_t* mask, int B, int N, int D, int k,
+                   int mt, int S, float* vals, int* ids, float* part, int* tickets, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int T = (N + kTN - 1) / kTN;
+  if (B < 1 || k < 1 || k > 128 || k > N || D < 0 || D % vec<E>() || D > 512 || S < 1 ||
+      S > T || S > kMaxSlices || (mt != 1 && mt != 2 && mt != 4) ||
+      (S > 1 && (S * k > kMaxMerge || !part || !tickets)) ||
+      smem_bytes<E>(16 * mt, D, k) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (mt == 4) return launch_k<E, 4>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  if (mt == 2) return launch_k<E, 2>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  return launch_k<E, 1>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
 }
 
 }  // namespace
@@ -634,14 +748,16 @@ int launch_k(const float* q, const float* items, const int8_t* mask, int B, int 
 extern "C" int masked_topk_f32(const float* q, const float* items, const int8_t* mask, int B,
                                int N, int D, int k, int mt, int S, float* vals, int* ids,
                                float* part, int* tickets, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int T = (N + kTN - 1) / kTN;
-  if (B < 1 || k < 1 || k > 128 || k > N || D < 0 || D % 4 || D > 512 || S < 1 || S > T ||
-      S > kMaxSlices || (mt != 1 && mt != 2 && mt != 4) ||
-      (S > 1 && (S * k > kMaxMerge || !part || !tickets)) ||
-      smem_bytes(16 * mt, D, k) > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  if (mt == 4) return launch_k<4>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
-  if (mt == 2) return launch_k<2>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
-  return launch_k<1>(q, items, mask, B, N, D, k, S, vals, ids, part, tickets, s);
+  return launch_checked<float>(q, items, mask, B, N, D, k, mt, S, vals, ids, part, tickets,
+                               stream);
+}
+
+// The bf16-operand instance: q (B, D) and items (N, D) bf16, D % 8 == 0, the
+// rest as masked_topk_f32 (vals fp32).
+extern "C" int masked_topk_bf16(const void* q, const void* items, const int8_t* mask, int B,
+                                int N, int D, int k, int mt, int S, float* vals, int* ids,
+                                float* part, int* tickets, void* stream) {
+  return launch_checked<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(q),
+                                       static_cast<const __nv_bfloat16*>(items), mask, B, N, D,
+                                       k, mt, S, vals, ids, part, tickets, stream);
 }

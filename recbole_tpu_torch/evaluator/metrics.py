@@ -2,7 +2,8 @@
 
 Port of recbole_tpu/evaluator/metrics.py, with the same float32 arithmetic
 (parity target: reference numpy metric fns,
-recbole/evaluator/metrics.py:27-355). GAUC is not ported yet.
+recbole/evaluator/metrics.py:27-355). GAUC, a rank metric, is
+``evaluator.gauc_metric_sums``.
 
 All top-k fns take:
     pos_index: (B, K) 0/1 float — whether the item at rank k is a positive

@@ -10,7 +10,15 @@ Port of recbole_tpu/ops/fused_adam.py. What lives here:
   ``wd * p`` to the gradient, the coupled L2 decay of the JAX package's
   ``optax.add_decayed_weights`` before ``optax.adam`` (trainer.py:64-75),
   after the zero head and a missing gradient have been read as zeros, as
-  the JAX chain decays after zeroing the [PAD] row's gradient;
+  the JAX chain decays after zeroing the [PAD] row's gradient; before
+  that, ``clip=(norm, max_norm)`` scales the gradient as
+  ``optax.clip_by_global_norm`` does (``(g / norm) * max_norm``, unless
+  ``norm < max_norm``; ``norm`` a 0-dim tensor on the leaves' device, the
+  step's global gradient norm, see ``global_grad_norm``; over a step's
+  leaves, ``norm`` None has it computed there from the gradients), and after the
+  Adam scaling ``dwd``, adamw's decoupled decay, adds ``(lr * dwd) * p`` to
+  the update (optax.adamw's order: scale_by_adam, add_decayed_weights,
+  then the learning rate);
 * ``AdamLeaves``, a step's leaves without their gradients: p, m and v of
   each, and its ``zero_head``, the number of leading elements whose
   gradient counts as zero (the [PAD] row of a ``pad_zero_params`` table).
@@ -21,6 +29,10 @@ Port of recbole_tpu/ops/fused_adam.py. What lives here:
 * ``adam_multi_cuda``, the launcher of the hand-written kernel in
   ``csrc/fused_adam.cu``, which replaces ``adam_leaf_kernel`` (:75): one
   launch sweeps every leaf of the step;
+* ``grad_norm_cuda``, the clip's global norm by that file's two norm
+  kernels over the same leaf table (the plain version is
+  ``global_grad_norm``), which ``adam_multi_cuda`` launches itself for
+  ``clip=(None, max_norm)``;
 * ``adam_multi``, the dispatcher: the plain version for CPU tensors, the
   kernel for CUDA tensors, and no fallback between them; ``adam_leaf``, its
   one-leaf form.
@@ -51,17 +63,44 @@ MAX_LEAVES = 512
 _LIB = None
 
 
-def adam_leaf_torch(p, m, v, g, c1, c2, *, b1, b2, lr, eps, wd=0.0):
+def adam_leaf_torch(p, m, v, g, c1, c2, *, b1, b2, lr, eps, wd=0.0, clip=None, dwd=0.0):
     with torch.no_grad():
+        if clip is not None:
+            g = clip_grad(g, *clip)
         if wd:
             g = g + wd * p
         m2 = b1 * m + (1.0 - b1) * g
         v2 = b2 * v + (1.0 - b2) * g * g
-        p2 = p - lr * (m2 * c1) / (torch.sqrt(v2 * c2) + eps)
+        upd = lr * (m2 * c1) / (torch.sqrt(v2 * c2) + eps)
+        if dwd:
+            upd = upd + (lr * dwd) * p
+        p2 = p - upd
         p.copy_(p2)
         m.copy_(m2)
         v.copy_(v2)
     return p, m, v
+
+
+def clip_grad(g, norm, max_norm):
+    """``g`` scaled as optax.clip_by_global_norm scales a leaf: ``(g /
+    norm) * max_norm`` (two roundings), or ``g`` itself when ``norm <
+    max_norm``. ``norm`` is a 0-dim tensor: nothing waits on the device."""
+    return torch.where(norm < max_norm, g, (g / norm) * max_norm)
+
+
+def global_grad_norm(grads, zero_heads):
+    """The global L2 norm of a step's gradients (None: a zero gradient),
+    each leaf's first ``zero_heads`` elements left out, as a 0-dim float32
+    tensor on their device (parity: optax.global_norm over the trainable
+    leaves after the [PAD] rows' gradients are zeroed, trainer.py:383-385,
+    :60-63); None when every gradient is None (a norm of 0: nothing to
+    clip). The plain version of ``grad_norm_cuda``; the plain learners'
+    norm on any device."""
+    parts = [g.reshape(-1)[head:] if head else g for g, head in zip(grads, zero_heads)
+             if g is not None]
+    if not parts:
+        return None
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(parts)))
 
 
 def leaf_table(addresses, numels, zero_heads):
@@ -133,6 +172,25 @@ class _CudaTable:
         self.shapes = [shapes[i] for i in rows]
         self.grads = np.zeros(len(rows), np.uint64)
         self.address, self.grads_address = table.ctypes.data, self.grads.ctypes.data
+        self.chunks = sum(chunks for _, _, chunks in groups)
+
+    def set_grads(self, leaves, grads):
+        """Write the step's gradient addresses (0 for None) after checking
+        each gradient; returns whether any is present."""
+        if len(grads) != len(leaves):
+            raise ValueError(f"{len(grads)} gradients for {len(leaves)} leaves")
+        dev, gptr = self.dev, []
+        for i, shape in zip(self.rows, self.shapes):
+            g = grads[i]
+            if g is None:
+                gptr.append(0)
+                continue
+            if (g.get_device() != dev or g.dtype != torch.float32 or g.shape != shape
+                    or not g.is_contiguous()):
+                _check_leaf(f"gradient {i}", (g,), leaves.p[i].device, shape)
+            gptr.append(g.data_ptr())
+        self.grads[:] = gptr
+        return any(gptr)
 
 
 def _check_leaf(what, tensors, dev, shape):
@@ -150,11 +208,16 @@ def _check_leaf(what, tensors, dev, shape):
             raise ValueError(f"adam_multi_cuda: {what} must be contiguous")
 
 
-def adam_multi_torch(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0):
+def adam_multi_torch(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0, clip=None, dwd=0.0):
     """One Adam step over every leaf of ``leaves`` (an AdamLeaves), with
-    ``grads`` one gradient a leaf, None for a zero gradient."""
+    ``grads`` one gradient a leaf, None for a zero gradient; ``clip=(None,
+    max_norm)`` clips by ``global_grad_norm`` of these gradients (no clip
+    when every gradient is None)."""
     if len(grads) != len(leaves):
         raise ValueError(f"{len(grads)} gradients for {len(leaves)} leaves")
+    if clip is not None and clip[0] is None:
+        norm = global_grad_norm(grads, leaves.zero_head)
+        clip = None if norm is None else (norm, clip[1])
     for p, m, v, head, g in zip(leaves.p, leaves.m, leaves.v, leaves.zero_head, grads):
         if g is None:
             g = torch.zeros_like(p)
@@ -162,7 +225,8 @@ def adam_multi_torch(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0):
             flat = g.reshape(-1).clone()
             flat[:head] = 0.0
             g = flat.view(p.shape)
-        adam_leaf_torch(p, m, v, g, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd)
+        adam_leaf_torch(p, m, v, g, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd, clip=clip,
+                        dwd=dwd)
     return leaves
 
 
@@ -173,40 +237,48 @@ def _lib():
         if lib.adam_multi_chunk() != CHUNK or lib.adam_multi_max_leaves() != MAX_LEAVES:
             raise RuntimeError("csrc/fused_adam.cu's chunk or leaf limit differs from "
                                "ops/fused_adam.py's")
-        fn = lib.adam_multi_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
-            ctypes.c_float] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = fn
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.adam_multi_f32.argtypes = [p, p, i, i] + [f] * 9 + [p, f, f, p]
+        lib.adam_grad_sq_f32.argtypes = [p, p, i, i, p, p]
+        lib.adam_grad_norm_finish_f32.argtypes = [p, i, p, p]
+        for fn in (lib.adam_multi_f32, lib.adam_grad_sq_f32, lib.adam_grad_norm_finish_f32):
+            fn.restype = i
+        _LIB = lib
     return _LIB
 
 
-def adam_multi_cuda(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0):
+def _on_device(dev):
+    """The launch goes to the current device: switch only when it is another."""
+    return (torch.cuda.device(dev) if torch.cuda.current_device() != dev
+            else contextlib.nullcontext())
+
+
+def adam_multi_cuda(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0, clip=None, dwd=0.0):
     """Launch the CUDA kernel over every leaf of ``leaves``, on CUDA tensors;
     same contract as ``adam_multi_torch``. One launch, or one for each
-    MAX_LEAVES leaves. Counts its launches in ``adam_multi_cuda.launches``."""
+    MAX_LEAVES leaves; with ``clip=(None, max_norm)`` the norm kernels
+    first (as ``grad_norm_cuda``, on the same gradient addresses). Counts
+    its launches in ``adam_multi_cuda.launches``."""
     if len(grads) != len(leaves):
         raise ValueError(f"{len(grads)} gradients for {len(leaves)} leaves")
     tab = leaves.cuda_table()
     if not tab.rows:
         return leaves
-    dev, gptr = tab.dev, []
-    for i, shape in zip(tab.rows, tab.shapes):
-        g = grads[i]
-        if g is None:
-            gptr.append(0)
-            continue
-        if (g.get_device() != dev or g.dtype != torch.float32 or g.shape != shape
-                or not g.is_contiguous()):
-            _check_leaf(f"gradient {i}", (g,), leaves.p[i].device, shape)
-        gptr.append(g.data_ptr())
-    tab.grads[:] = gptr
-    fn = _lib()
-    scalars = (c1, c2, b1, 1.0 - b1, b2, 1.0 - b2, lr, eps, wd)
-    # the launch goes to the current device: switch only when it is another
-    with (torch.cuda.device(dev) if torch.cuda.current_device() != dev
-          else contextlib.nullcontext()):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    present = tab.set_grads(leaves, grads)
+    norm_ptr, max_norm = None, 0.0
+    if clip is not None:
+        norm, max_norm = clip
+        if norm is None:
+            norm = _launch_norm(tab, leaves.device) if present else None
+        elif (not norm.is_cuda or norm.get_device() != tab.dev
+              or norm.dtype != torch.float32 or norm.numel() != 1):
+            raise ValueError("adam_multi_cuda: the clip's norm must be one float32 on the "
+                             "leaves' device")
+        norm_ptr = None if norm is None else norm.data_ptr()
+    fn = _lib().adam_multi_f32
+    scalars = (c1, c2, b1, 1.0 - b1, b2, 1.0 - b2, lr, eps, wd, norm_ptr, max_norm, lr * dwd)
+    with _on_device(tab.dev):
+        stream = torch.cuda.current_stream(tab.dev).cuda_stream
         for first, count, chunks in tab.groups:
             err = fn(tab.address + first * LEAF_DTYPE.itemsize, tab.grads_address + first * 8,
                      count, chunks, *scalars, stream)
@@ -219,14 +291,55 @@ def adam_multi_cuda(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0):
 adam_multi_cuda.launches = 0
 
 
-def adam_multi(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0):
+def grad_norm_cuda(leaves, grads):
+    """``global_grad_norm(grads, leaves.zero_head)`` by the kernels in
+    ``csrc/fused_adam.cu``, on CUDA tensors: over the leaves' table (built
+    once), one launch that writes each chunk's sum of squares (one for each
+    MAX_LEAVES leaves), then one that sums them in a fixed order and takes
+    the root, so the host does no per-leaf tensor work. A new 0-dim float32
+    tensor, or None when every gradient is None. It differs from the plain
+    version by rounding only (another order of the fp32 sums). Counts its
+    launches in ``grad_norm_cuda.launches``."""
+    tab = leaves.cuda_table()
+    if not tab.rows or not tab.set_grads(leaves, grads):
+        return None
+    return _launch_norm(tab, leaves.device)
+
+
+def _launch_norm(tab, device):
+    """The norm kernels over ``tab`` and the gradient addresses it holds."""
+    lib = _lib()
+    partial = torch.empty(tab.chunks, dtype=torch.float32, device=device)
+    norm = torch.empty((), dtype=torch.float32, device=device)
+    with _on_device(tab.dev):
+        stream = torch.cuda.current_stream(tab.dev).cuda_stream
+        at = 0
+        for first, count, chunks in tab.groups:
+            err = lib.adam_grad_sq_f32(tab.address + first * LEAF_DTYPE.itemsize,
+                                       tab.grads_address + first * 8, count, chunks,
+                                       partial.data_ptr() + 4 * at, stream)
+            if err:
+                raise RuntimeError(f"adam_grad_sq kernel launch failed: CUDA error {err}")
+            at += chunks
+            grad_norm_cuda.launches += 1
+        err = lib.adam_grad_norm_finish_f32(partial.data_ptr(), at, norm.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"adam_grad_norm_finish kernel launch failed: CUDA error {err}")
+        grad_norm_cuda.launches += 1
+    return norm
+
+
+grad_norm_cuda.launches = 0
+
+
+def adam_multi(leaves, grads, c1, c2, *, b1, b2, lr, eps, wd=0.0, clip=None, dwd=0.0):
     """Dispatcher: the plain version for CPU tensors, the kernel otherwise."""
-    if leaves.device.type == "cpu":
-        return adam_multi_torch(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd)
-    return adam_multi_cuda(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd)
+    fn = adam_multi_torch if leaves.device.type == "cpu" else adam_multi_cuda
+    return fn(leaves, grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd, clip=clip, dwd=dwd)
 
 
-def adam_leaf(p, m, v, g, c1, c2, *, b1, b2, lr, eps, wd=0.0):
+def adam_leaf(p, m, v, g, c1, c2, *, b1, b2, lr, eps, wd=0.0, clip=None, dwd=0.0):
     """One leaf through the dispatcher."""
-    adam_multi(AdamLeaves([p], [m], [v]), [g], c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd)
+    adam_multi(AdamLeaves([p], [m], [v]), [g], c1, c2, b1=b1, b2=b2, lr=lr, eps=eps, wd=wd,
+               clip=clip, dwd=dwd)
     return p, m, v

@@ -9,7 +9,10 @@ Port of recbole_tpu/ops/masked_topk.py. Here live:
 * ``masked_topk_plan``, the kernel's launch plan: row tiles of 16, 32 or
   64 queries by slices of the item axis;
 * ``masked_topk_cuda``, the launcher of the hand-written Hopper kernel in
-  ``csrc/masked_topk.cu``, which replaces ``masked_topk_pallas`` (:94);
+  ``csrc/masked_topk.cu``, which replaces ``masked_topk_pallas`` (:94): its
+  fp32 instance (3xTF32 products) for float32 operands, its bf16-operand
+  instance (bf16 ``mma.sync``, fp32 sums) for bfloat16 ones, which
+  ``eval_score_dtype: bfloat16`` gives it;
 * ``masked_topk``, the dispatcher: the plain version for CPU tensors, the
   kernel for CUDA tensors (D zero-padded to a multiple of 4 around it: the
   scores are unchanged), and no fallback between them;
@@ -38,11 +41,14 @@ H100_SMS = 132
 
 
 def masked_topk_torch(query, items, invalid_mask, k):
-    """query (B, D) f32, items (N, D) f32, invalid_mask (B, N) int8 -> top-k.
+    """query (B, D), items (N, D), both float32 or both bfloat16,
+    invalid_mask (B, N) int8 -> top-k.
 
     Returns (values (B, k) f32, ids (B, k) int32); masked entries score
-    NEG_INF."""
-    scores = query @ items.T
+    NEG_INF. bfloat16 operands are widened to float32 first: their products
+    are exact there and summed in fp32, as ``jnp.dot(...,
+    preferred_element_type=float32)`` sums them."""
+    scores = query.to(torch.float32) @ items.to(torch.float32).T
     scores = torch.where(invalid_mask > 0,
                          torch.full((), NEG_INF, dtype=scores.dtype,
                                     device=scores.device), scores)
@@ -52,16 +58,19 @@ def masked_topk_torch(query, items, invalid_mask, k):
 
 # ------------------------------------------------------------------ the plan
 
-def masked_topk_smem(mt, D, k):
+def masked_topk_smem(mt, D, k, esize=4):
     """A block's shared memory with 16 ``mt`` query rows at width D and lists
-    of k (csrc/masked_topk.cu::smem_bytes): the query tile (D padded to a
-    multiple of 8, plus 4 floats a row), the ring of 3 stages (64 item rows
-    of 68 floats and a mask row of 80 bytes a query row, a stage), two score
-    tiles (72 floats a query row each), each row's k-th entry and two flags,
-    the lists (k entries of 8 bytes a row) and the block's flag."""
-    bm, dp = 16 * mt, (D + 7) // 8 * 8
-    return (4 * bm * (dp + 4) + STAGES * (TN * 68 * 4 + bm * 80) + 8 * bm * (TN + 8)
-            + 16 * bm + 8 * bm * k + 16)
+    of k (csrc/masked_topk.cu::smem_bytes), for operands of ``esize`` bytes
+    (4 fp32, 2 bf16; v = 16 / esize elements a 16-byte copy): the query tile
+    (D padded to a multiple of 2 v, plus v elements a row), the ring of 3
+    stages (64 item rows of 64 + v elements and a mask row of 80 bytes a
+    query row, a stage), two score tiles (72 floats a query row each), each
+    row's k-th entry and two flags, the lists (k entries of 8 bytes a row)
+    and the block's flag."""
+    v = 16 // esize
+    bm, dp = 16 * mt, -(-D // (2 * v)) * 2 * v
+    return (esize * bm * (dp + v) + STAGES * (TN * (64 + v) * esize + bm * 80)
+            + 8 * bm * (TN + 8) + 16 * bm + 8 * bm * k + 16)
 
 
 class MaskedTopkPlan(NamedTuple):
@@ -78,7 +87,7 @@ class MaskedTopkPlan(NamedTuple):
         return [(s * T // S * TN, min(N, (s + 1) * T // S * TN)) for s in range(S)]
 
 
-def masked_topk_plan(B, N, D, k, sms=H100_SMS):
+def masked_topk_plan(B, N, D, k, sms=H100_SMS, esize=4):
     """The launch plan at (B, N, D, k) on a card of ``sms`` SMs, one block
     an SM (768 or 1,024 threads, the kernel's launch bounds): the tallest
     block (64, 32 or 16 query rows) whose shared memory fits and whose row
@@ -88,7 +97,7 @@ def masked_topk_plan(B, N, D, k, sms=H100_SMS):
     at D 512, k 128)."""
     tiles = (N + TN - 1) // TN
     for mt in (4, 2, 1):
-        smem = masked_topk_smem(mt, D, k)
+        smem = masked_topk_smem(mt, D, k, esize)
         rows = (B + 16 * mt - 1) // (16 * mt)
         if smem <= BLOCK_SMEM and sms // rows <= 4:
             break
@@ -117,20 +126,21 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("masked_topk")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.masked_topk_f32.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
-        lib.masked_topk_f32.restype = i
+        for fn in (lib.masked_topk_f32, lib.masked_topk_bf16):
+            fn.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+            fn.restype = i
         _LIB = lib
     return _LIB
 
 
-def _plan(device, B, N, D, k):
-    key = (device.index, B, N, D, k)
+def _plan(device, B, N, D, k, esize):
+    key = (device.index, B, N, D, k, esize)
     plan = _PLANS.get(key)
     if plan is None:
         sms = _SMS.get(device.index)
         if sms is None:
             sms = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = _PLANS[key] = masked_topk_plan(B, N, D, k, sms)
+        plan = _PLANS[key] = masked_topk_plan(B, N, D, k, sms, esize)
     return plan
 
 
@@ -153,8 +163,10 @@ def masked_topk_cuda(query, items, invalid_mask, k):
     device = query.device
     if not (device == items.device == invalid_mask.device):
         raise ValueError("query, items and invalid_mask must share a device")
-    if query.dtype != torch.float32 or items.dtype != torch.float32:
-        raise TypeError("masked_topk_cuda takes float32 query and items")
+    if query.dtype != items.dtype or query.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("masked_topk_cuda takes float32 or bfloat16 query and items, "
+                        f"one type (got {query.dtype}, {items.dtype})")
+    esize = query.element_size()
     if invalid_mask.dtype != torch.int8:
         raise TypeError("masked_topk_cuda takes an int8 invalid_mask")
     if query.dim() != 2 or items.dim() != 2 or invalid_mask.dim() != 2:
@@ -166,14 +178,15 @@ def masked_topk_cuda(query, items, invalid_mask, k):
                          f"{tuple(items.shape)}, mask {tuple(invalid_mask.shape)}")
     if not 1 <= k <= min(K_CAP, N):
         raise ValueError(f"k={k} must lie in [1, min({K_CAP}, n_items={N})]")
-    if D % 4 or D > MAX_D:
-        raise ValueError(f"embedding width {D} must be a multiple of 4, at most {MAX_D}")
+    if D % (16 // esize) or D > MAX_D:
+        raise ValueError(f"embedding width {D} must be a multiple of {16 // esize} "
+                         f"({query.dtype}), at most {MAX_D}")
     for name, t in (("query", query), ("items", items), ("invalid_mask", invalid_mask)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if query.data_ptr() % 16 or items.data_ptr() % 16:
         raise ValueError("query and items must be 16-byte aligned")
-    plan = _plan(device, B, N, D, k)
+    plan = _plan(device, B, N, D, k, esize)
     stream = torch.cuda.current_stream(device).cuda_stream
     vals = torch.empty((B, k), dtype=torch.float32, device=device)
     ids = torch.empty((B, k), dtype=torch.int32, device=device)
@@ -181,7 +194,8 @@ def masked_topk_cuda(query, items, invalid_mask, k):
     if plan.slices > 1:
         part = torch.empty(2 * plan.slices * B * k, dtype=torch.float32, device=device)
         tickets = _tickets(device, stream, plan.row_tiles)
-    err = _lib().masked_topk_f32(
+    fn = _lib().masked_topk_f32 if esize == 4 else _lib().masked_topk_bf16
+    err = fn(
         query.data_ptr(), items.data_ptr(), invalid_mask.data_ptr(), B, N, D, k,
         plan.mt, plan.slices, vals.data_ptr(), ids.data_ptr(),
         None if part is None else part.data_ptr(),
@@ -195,20 +209,22 @@ def masked_topk_cuda(query, items, invalid_mask, k):
 masked_topk_cuda.launches = 0
 
 
-def padded_width(D):
-    """The width the kernel runs for D: the next multiple of 4."""
-    return -(-D // 4) * 4
+def padded_width(D, esize=4):
+    """The width the kernel runs for D: the next multiple of 4 (fp32) or
+    8 (bf16), a 16-byte copy."""
+    v = 16 // esize
+    return -(-D // v) * v
 
 
 def masked_topk_fits(D, k):
     """Whether the kernel takes a query of width D (once padded) and k."""
-    return 1 <= k <= K_CAP and padded_width(D) <= MAX_D
+    return 1 <= k <= K_CAP and padded_width(D, 2) <= MAX_D
 
 
 def pad_width(query, items):
     """Zero-pad the query's and the items' columns to ``padded_width``:
     every score keeps its value (the extra terms are 0 x 0)."""
-    p = padded_width(query.shape[1]) - query.shape[1]
+    p = padded_width(query.shape[1], query.element_size()) - query.shape[1]
     if not p:
         return query, items
     return F.pad(query, (0, p)).contiguous(), F.pad(items, (0, p)).contiguous()

@@ -30,11 +30,21 @@ model's device:
     kernel's ``zero_head``), so a [PAD] embedding row never trains;
   * the model is in train mode only inside the step, and draws its dropout
     masks from the trainer's generator;
-  * Adam is the single-pass in-place sweep of ops/fused_adam.py over every
-    float32 leaf at once, one launch a step (``_fused_adam_apply``), with the
-    JAX chain's coupled ``weight_decay`` in it; the model's persistent
+  * Adam (and adamw) is the single-pass in-place sweep of ops/fused_adam.py
+    over every float32 leaf at once, one launch a step
+    (``_fused_adam_apply``), with the JAX chain's clip, coupled
+    ``weight_decay`` and adamw's decoupled decay in it; sgd, adagrad,
+    rmsprop and sparse_adam are plain torch (``_plain_learner_apply``),
+    as optax computes them outside any kernel; the model's persistent
     buffers (state not trained, such as KGAT's attention) ride in the
     checkpoint beside the parameters;
+  * ``eval_score_dtype: bfloat16`` rounds the fused step's query and
+    table to bfloat16 (the kernel's bf16-operand instance: exact products,
+    fp32 sums) and, in the non-fused ``score_items`` step, every float32
+    parameter (not the dataset-derived buffers), as the JAX trainer does
+    (trainer.py:936-1040); GAUC takes the non-fused step on every protocol,
+    ranks from a stable descending sort with ties at their average rank
+    (``evaluator.gauc_metric_sums``);
   * full-sort evaluation of a model that defines ``full_sort_query`` in
     its own class, or inherits the sequential base's whole dot-product stack
     (the JAX trainer's rule), goes through
@@ -57,11 +67,11 @@ model's device:
 
 ``get_trainer`` serves the general, context and sequential families with
 ``Trainer``, the knowledge family with ``KGTrainer``, MKR with
-``MKRTrainer`` and KGAT with ``KGATTrainer``. Still raising: other learners
-and gradient clipping (ROADMAP Queue 1, item 5), bfloat16 eval scores and
-the other trainer subclasses (ROADMAP Queue 1).
+``MKRTrainer``, KGAT with ``KGATTrainer`` and S3Rec with ``S3RecTrainer``.
+Still raising: the other trainer subclasses (ROADMAP Queue 1).
 """
 
+import contextlib
 import os
 import time
 
@@ -73,31 +83,48 @@ from ..utils.enums import InputType, ModelType
 from ..utils.logger import get_logger, get_local_time, set_color
 from ..utils.utils import early_stopping, calculate_valid_score, dict2str, ensure_dir
 from ..data.loaders import RowEvalLoader
-from ..evaluator.evaluator import topk_metric_sums, TopKCollector, ValueCollector
+from ..evaluator.evaluator import (topk_metric_sums, gauc_metric_sums, TopKCollector,
+                                   ValueCollector)
 from ..sampler.sampler import sample_negatives, sample_negatives_unchecked
-from ..ops.fused_adam import AdamLeaves, adam_multi
+from ..ops.fused_adam import AdamLeaves, adam_multi, clip_grad, global_grad_norm
 from ..ops.masked_topk import masked_topk, masked_topk_fits
+from .lazy_adam import lazy_adam_step
 
 # the score of a masked item in the non-fused full-sort step (parity:
 # trainer.py:36)
 NEG_INF = -1e15
 
 
+LEARNERS = ("adam", "sparse_adam", "adamw", "sgd", "adagrad", "rmsprop")
+# the learners that run on the Adam kernel, and optax.adamw's decoupled decay
+KERNEL_LEARNERS = ("adam", "adamw")
+ADAMW_DECAY = 1e-4
+
+
 def build_optimizer(config):
-    """Validate the optimizer settings (parity: build_optimizer,
-    trainer.py:39-75). The port has the fused Adam path only, with the
-    JAX chain's coupled weight decay (``optax.add_decayed_weights`` before
-    ``optax.adam``: ``wd * p`` joins the gradient) in its kernel."""
+    """The optimizer settings (parity: build_optimizer, trainer.py:39-75),
+    the JAX chain's order: ``clip_grad_norm`` (optax.clip_by_global_norm;
+    a number, or a dict whose ``max_norm`` defaults to 5), then
+    ``weight_decay`` coupled (optax.add_decayed_weights: ``wd * p`` joins
+    the gradient; warned about and dropped for sparse_adam), then the
+    learner. adam and adamw run on the Adam kernel with both terms in it;
+    sgd, adagrad, rmsprop and sparse_adam are plain torch with optax's
+    arithmetic (``_plain_learner_apply``). An unknown name logs a warning
+    and trains with adam."""
     name = str(config["learner"]).lower()
-    if name != "adam":
-        raise NotImplementedError(
-            f"learner {config['learner']!r} is not ported yet (ROADMAP "
-            "Queue 1, item 5); the port trains with adam")
-    if config["clip_grad_norm"]:
-        raise NotImplementedError(
-            "clip_grad_norm is not ported yet (ROADMAP Queue 1, item 5)")
-    return {"lr": float(config["learning_rate"]),
-            "weight_decay": float(config["weight_decay"] or 0.0)}
+    if name not in LEARNERS:
+        get_logger().warning("Unknown learner %r, falling back to adam", name)
+        name = "adam"
+    clip = config["clip_grad_norm"]
+    max_norm = None
+    if clip:
+        max_norm = float(clip.get("max_norm", 5.0) if isinstance(clip, dict) else clip)
+    wd = float(config["weight_decay"] or 0.0)
+    if wd and name == "sparse_adam":
+        get_logger().warning("sparse_adam does not support weight_decay; ignoring it")
+        wd = 0.0
+    return {"learner": name, "lr": float(config["learning_rate"]), "weight_decay": wd,
+            "max_norm": max_norm}
 
 
 def invalid_item_mask(user_id, hist, hlen, n_items):
@@ -116,6 +143,22 @@ def invalid_item_mask(user_id, hist, hlen, n_items):
     invalid.scatter_(1, uh, hvalid.to(torch.int8))
     invalid[:, 0] = 1
     return invalid
+
+
+def history_masked_scores(scores, user_id, hist, hlen):
+    """(B, n_items) float32 scores of the non-fused full-sort step: NEG_INF
+    in the [PAD] column, then NEG_INF added at each valid history slot
+    (twice for an item there twice), as the JAX step builds them (parity:
+    trainer.py:1057-1064). With ``hist`` None only [PAD] is masked."""
+    scores = scores.to(torch.float32).clone()
+    scores[:, 0] = NEG_INF
+    if hist is not None:
+        uh = hist[user_id]
+        hvalid = (torch.arange(uh.shape[1], device=uh.device)[None, :]
+                  < hlen[user_id][:, None])
+        scores.scatter_add_(1, uh.long(), torch.where(
+            hvalid, NEG_INF, 0.0).to(torch.float32))
+    return scores
 
 
 def fused_full_sort(cls):
@@ -190,21 +233,72 @@ def draw_negatives(generator, user_id, consts, count, n_items, rounds, repeatabl
                             count, rounds=rounds, pop_items=consts.get("pop"))
 
 
-def candidate_hits(scores, cand_valid, pos_len, max_k):
-    """(B, max_k) int32 hit rows of a candidate ranking whose first
-    ``pos_len`` candidates are the positives (parity: trainer.py:1131-1143):
-    an invalid candidate scores NEG_INF, a list narrower than ``max_k`` is
-    padded with NEG_INF (the fork's top-k padding fix,
-    abstract_evaluator.py:71-74), and a ranked slot is a hit when its index
-    is below ``pos_len``. Equal scores rank the lower index first, as
+def candidate_hits(scores, pos_len, max_k):
+    """(B, max_k) int32 hit rows of a ranking of ``masked_candidate_scores``
+    whose first ``pos_len`` candidates are the positives (parity:
+    trainer.py:1131-1143): a ranked slot is a hit when its index is below
+    ``pos_len``. Equal scores rank the lower index first, as
     ``jax.lax.top_k`` does (a stable sort; ``torch.topk`` leaves their order
     open): a sequential split's negatives may repeat its target, whose
     score they then equal."""
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :max_k]
+    return (order < pos_len[:, None]).to(torch.int32)
+
+
+def masked_candidate_scores(scores, cand_valid, max_k):
+    """float32 candidate scores, NEG_INF at an invalid candidate, padded
+    with NEG_INF to at least ``max_k`` columns (the fork's top-k padding
+    fix, abstract_evaluator.py:71-74; parity: trainer.py:1132-1137)."""
     scores = scores.to(torch.float32).masked_fill(~cand_valid, NEG_INF)
     if scores.shape[1] < max_k:
         scores = torch.nn.functional.pad(scores, (0, max_k - scores.shape[1]), value=NEG_INF)
-    order = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :max_k]
-    return (order < pos_len[:, None]).to(torch.int32)
+    return scores
+
+
+def candidate_metric_sums(metrics, scores, cand_valid, pos_len, P, max_k, mask,
+                          user_len=None):
+    """The top-k metric sums of a candidate step whose first ``P`` slots
+    hold each user's ``pos_len`` positives, and, where ``user_len`` (each
+    user's valid candidates, float32) is given, GAUC's sums over the same
+    masked scores (parity: trainer.py:1144-1151, :1189-1200)."""
+    scores = masked_candidate_scores(scores, cand_valid, max_k)
+    sums = topk_metric_sums(metrics, candidate_hits(scores, pos_len, max_k), pos_len, mask)
+    if user_len is not None:
+        slot = torch.arange(scores.shape[1], device=scores.device)[None, :]
+        pos01 = ((slot < pos_len[:, None]) & (slot < P)).to(torch.int32)
+        sums.update(gauc_metric_sums(scores, pos01, pos_len, user_len, mask))
+    return sums
+
+
+def eval_bf16(config):
+    """Whether ``eval_score_dtype`` asks for bfloat16 scores."""
+    dtype = str(config["eval_score_dtype"]).lower()
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"eval_score_dtype {dtype!r}: the port has float32 and bfloat16")
+    return dtype == "bfloat16"
+
+
+@contextlib.contextmanager
+def bf16_parameters(model, on=True):
+    """Inside: every float32 parameter of ``model`` holds its values rounded
+    to bfloat16 (the JAX trainer casts every float32 leaf of the param tree
+    but ``_const``, trainer.py:1028-1038; the port's buffers, its
+    dataset-derived arrays and frozen tables, stay as they are). The
+    rounded values stay in float32 storage: a product of two of them is
+    exact in fp32 and the sums are fp32, as the JAX models' dots with
+    ``preferred_element_type=float32`` sum them (a bfloat16 tensor would
+    round every product's output to bf16 in torch). Restored on exit."""
+    saved = []
+    if on:
+        for p in model.parameters():
+            if p.dtype == torch.float32:
+                saved.append((p, p.data))
+                p.data = p.data.to(torch.bfloat16).to(torch.float32)
+    try:
+        yield
+    finally:
+        for p, data in saved:
+            p.data = data
 
 
 class Trainer:
@@ -232,6 +326,7 @@ class Trainer:
         self.opt_state = None
         # (mu, nu, AdamLeaves) of the optimizer state the leaves were built on
         self._adam_leaves = None
+        self._pad_heads = None
         self.train_loss_dict = {}
         self._modes = {}
         self._eval_step_cache = {}
@@ -357,19 +452,105 @@ class Trainer:
         return augment, consts
 
     def _fused_adam_init(self):
+        """The optimizer state: the step count and, by learner, the Adam
+        moments ``mu`` and ``nu`` (adam, adamw, sparse_adam), adagrad's
+        ``sum_of_squares`` (0.1 to start, optax's initial accumulator) or
+        rmsprop's ``nu``; sgd keeps only the count."""
         params = dict(self.model.named_parameters())
         bad = [n for n, p in params.items() if p.dtype != torch.float32]
         if bad:
             raise NotImplementedError(f"non-float32 parameters {bad}: the port's "
-                                      "Adam sweeps float32 leaves only")
-        zeros = {n: torch.zeros_like(p) for n, p in params.items()}
-        return {"count": 0, "mu": zeros,
-                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+                                      "optimizers take float32 leaves only")
+        learner = self.optimizer["learner"]
+        state = {"count": 0}
+        if learner in ("adam", "adamw", "sparse_adam"):
+            state["mu"] = {n: torch.zeros_like(p) for n, p in params.items()}
+            state["nu"] = {n: torch.zeros_like(p) for n, p in params.items()}
+        elif learner == "adagrad":
+            state["sum_of_squares"] = {n: torch.full_like(p, 0.1) for n, p in params.items()}
+        elif learner == "rmsprop":
+            state["nu"] = {n: torch.zeros_like(p) for n, p in params.items()}
+        return state
+
+    def _apply_gradients(self, grads):
+        """The step's update from ``grads`` (one a parameter, None for a
+        leaf the loss does not reach): the Adam kernel for adam and adamw,
+        else the plain learners. A gradient autograd leaves strided (the
+        weight of a product whose input was a reshaped view) is made
+        contiguous first: the kernel reads each leaf's elements in order."""
+        grads = [g if g is None or g.is_contiguous() else g.contiguous() for g in grads]
+        if self.optimizer["learner"] in KERNEL_LEARNERS:
+            self._fused_adam_apply(grads)
+        else:
+            self._plain_learner_apply(grads)
+
+    def _zero_heads(self):
+        """Each parameter's [PAD] width: the first row of a
+        ``pad_zero_params`` table, else 0 (the parameters are fixed once the
+        model is built, so the list is made once)."""
+        if self._pad_heads is None:
+            pad_zero = getattr(self.model, "pad_zero_params", ())
+            self._pad_heads = [p[0].numel() if n in pad_zero else 0
+                               for n, p in self.model.named_parameters()]
+        return self._pad_heads
+
+    def _clip(self, grads):
+        """(global norm, max_norm) of the step's gradients when
+        ``clip_grad_norm`` is set, else None; the norm stays on the device.
+        The plain learners' clip: adam and adamw hand the Adam launcher
+        ``(None, max_norm)``, and it takes the norm on its own leaf table."""
+        max_norm = self.optimizer["max_norm"]
+        if max_norm is None:
+            return None
+        norm = global_grad_norm(grads, self._zero_heads())
+        return None if norm is None else (norm, max_norm)
+
+    def _plain_learner_apply(self, grads):
+        """sgd, adagrad, rmsprop and sparse_adam in plain torch, optax's
+        arithmetic (optax 0.2.6's sgd, adagrad, rmsprop; lazy_adam.py), on
+        gradients made as the JAX chain makes them: None read as zeros, the
+        [PAD] rows zeroed, clipped, then the coupled decay added."""
+        opt, state = self.optimizer, self.opt_state
+        lr, wd = opt["lr"], opt["weight_decay"]
+        clip = self._clip(grads)
+        names = [n for n, _ in self.model.named_parameters()]
+        params = [p.data for _, p in self.model.named_parameters()]
+        state["count"] += 1
+        full = []
+        with torch.no_grad():
+            for p, g, head in zip(params, grads, self._zero_heads()):
+                g = torch.zeros_like(p) if g is None else g.clone()
+                if head:
+                    g.view(-1)[:head] = 0.0
+                if clip is not None:
+                    g = clip_grad(g, *clip)
+                if wd:
+                    g = g + wd * p
+                full.append(g)
+            learner = opt["learner"]
+            if learner == "sparse_adam":
+                lazy_adam_step(params, full, [state["mu"][n] for n in names],
+                               [state["nu"][n] for n in names], state["count"], lr=lr,
+                               b1=self.ADAM_B1, b2=self.ADAM_B2, eps=self.ADAM_EPS)
+                return
+            for n, p, g in zip(names, params, full):
+                if learner == "adagrad":
+                    t = state["sum_of_squares"][n]
+                    t.copy_(g * g + t)
+                    g = torch.where(t > 0, torch.rsqrt(t + 1e-7),
+                                    torch.zeros((), device=t.device)) * g
+                elif learner == "rmsprop":
+                    nu = state["nu"][n]
+                    nu.copy_((1 - 0.9) * g ** 2 + 0.9 * nu)
+                    g = torch.rsqrt(nu + 1e-8) * g
+                p.add_(-lr * g)
 
     def _fused_adam_apply(self, grads):
         """One Adam step over every parameter, in place, in one launch on the
         card (parity: trainer.py:317-354, same defaults as optax.adam; with
-        ``weight_decay``, the optax chain of build_optimizer, trainer.py:64-75).
+        ``weight_decay``, ``clip_grad_norm`` or adamw, the optax chain of
+        build_optimizer, trainer.py:39-75: the clip's norm is computed on the
+        device and read by the kernel).
         ``grads`` holds one gradient a parameter in ``named_parameters()``
         order, None for a leaf the loss does not reach (a zero gradient, as
         jax.grad gives it). c1 and c2 come from the integer step count on the
@@ -380,8 +561,11 @@ class Trainer:
         t = self.opt_state["count"]
         c1 = 1.0 / (1.0 - b1 ** t)
         c2 = 1.0 / (1.0 - b2 ** t)
+        dwd = ADAMW_DECAY if self.optimizer["learner"] == "adamw" else 0.0
+        max_norm = self.optimizer["max_norm"]
         adam_multi(self._step_leaves(), grads, c1, c2, b1=b1, b2=b2, lr=lr, eps=eps,
-                   wd=self.optimizer["weight_decay"])
+                   wd=self.optimizer["weight_decay"],
+                   clip=None if max_norm is None else (None, max_norm), dwd=dwd)
 
     def _step_leaves(self):
         """The AdamLeaves of the parameters and the optimizer state's moments,
@@ -393,11 +577,9 @@ class Trainer:
         built = self._adam_leaves
         if built is None or built[0] is not mu or built[1] is not nu:
             params = dict(self.model.named_parameters())
-            pad_zero = getattr(self.model, "pad_zero_params", ())
             built = (mu, nu, AdamLeaves(
                 [p.data for p in params.values()], [mu[n] for n in params],
-                [nu[n] for n in params],
-                [p[0].numel() if n in pad_zero else 0 for n, p in params.items()]))
+                [nu[n] for n in params], self._zero_heads()))
             self._adam_leaves = built
         return built[2]
 
@@ -420,7 +602,7 @@ class Trainer:
             loss = sum(out) if isinstance(out, tuple) else out
             # None for a leaf the loss does not reach (LR never reads the
             # embedding of a float field): Adam reads it as a zero gradient
-            self._fused_adam_apply(torch.autograd.grad(loss, params, allow_unused=True))
+            self._apply_gradients(torch.autograd.grad(loss, params, allow_unused=True))
             if isinstance(out, tuple):
                 return torch.stack([part.detach() for part in out])
             return loss.detach()
@@ -605,11 +787,8 @@ class Trainer:
             "best_valid_result": self.best_valid_result,
             "params": {n: p.detach().cpu() for n, p in self.model.named_parameters()},
             "buffers": {n: b.detach().cpu() for n, b in self._state_buffers().items()},
-            "opt_state": {
-                "count": self.opt_state["count"],
-                "mu": {n: t.cpu() for n, t in self.opt_state["mu"].items()},
-                "nu": {n: t.cpu() for n, t in self.opt_state["nu"].items()},
-            },
+            "opt_state": {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v)
+                          for k, v in self.opt_state.items()},
             "rng": self.generator.get_state(),
         }
         torch.save(state, self.saved_model_file)
@@ -632,12 +811,9 @@ class Trainer:
         self.best_valid_score = state["best_valid_score"]
         self.best_valid_result = state.get("best_valid_result")
         self._load_params(state)
-        opt = state["opt_state"]
-        self.opt_state = {
-            "count": opt["count"],
-            "mu": {n: t.to(self.device) for n, t in opt["mu"].items()},
-            "nu": {n: t.to(self.device) for n, t in opt["nu"].items()},
-        }
+        self.opt_state = {k: ({n: t.to(self.device) for n, t in v.items()}
+                              if isinstance(v, dict) else v)
+                          for k, v in state["opt_state"].items()}
         self.generator.set_state(state["rng"])
         if state["config"].get("model") != self.config["model"]:
             self.logger.warning("Architecture configuration given in config file is "
@@ -650,7 +826,7 @@ class Trainer:
 
     # ------------------------------------------------------------- evaluation
 
-    def _make_full_sort_eval_step(self, eval_data, metrics, max_k):
+    def _make_full_sort_eval_step(self, eval_data, metrics, max_k, needs_gauc=False):
         """Full-sort step: the loader's device transform, then [PAD] masked
         always and the user's earlier-phase items unless the loader has
         ``mask_history = False``, then the hits reduce to metric partial
@@ -665,17 +841,23 @@ class Trainer:
         one (parity: trainer.py:1052-1075): float32 scores from
         ``full_sort_predict`` or, for a model with neither, from chunks of
         ``score_items`` (a ``full_sort_fallback`` model's always); NEG_INF in
-        the [PAD] column and added at the history, ``torch.topk``."""
+        the [PAD] column and added at the history, ``torch.topk``.
+
+        ``eval_score_dtype: bfloat16`` (parity: trainer.py:936, :981-983,
+        :1028-1038): the fused step rounds the query and the table to
+        bfloat16 (exact products, fp32 sums: the kernel's bf16 instance);
+        the chunked ``score_items`` step runs with every float32 parameter
+        rounded to bfloat16 (``bf16_parameters``); ``full_sort_predict`` is
+        unchanged. With GAUC (``needs_gauc``) the non-fused step runs and
+        its masked scores also give ``gauc_metric_sums`` over all n_items
+        (parity: :960-963, :1075-1081)."""
         model = self.model
         uid_f = self.config["USER_ID_FIELD"]
-        if str(self.config["eval_score_dtype"]).lower() != "float32":
-            raise NotImplementedError(
-                "eval_score_dtype other than float32 is not ported yet "
-                "(ROADMAP Queue 1, item 5)")
+        bf16 = eval_bf16(self.config)
         # a model's full_sort_fallback (KGCN past one hop) sends it to the
         # chunked score_items step (parity: trainer.py:930-932, :951)
         fallback = bool(getattr(model, "full_sort_fallback", False))
-        fused = fused_full_sort(type(model)) and not fallback
+        fused = fused_full_sort(type(model)) and not fallback and not needs_gauc
         has_full_sort = (type(model).full_sort_predict
                          is not AbstractRecommender.full_sort_predict and not fallback)
         consts = {"hist": None, "hlen": None}
@@ -705,7 +887,9 @@ class Trainer:
             n_chunks = -(-n_items // chunk)
             items = (torch.arange(n_chunks * chunk, device=self.device) % n_items).reshape(
                 n_chunks, chunk)
-            scores = [model.score_items(batch, c[None, :].expand(B, chunk)) for c in items]
+            with bf16_parameters(model, bf16):
+                scores = [model.score_items(batch, c[None, :].expand(B, chunk)).to(torch.float32)
+                          for c in items]
             return torch.cat(scores, dim=1)[:, :n_items]
 
         def eval_step(consts, batch):
@@ -715,31 +899,39 @@ class Trainer:
             if transform is not None:
                 batch = transform(batch, consts)
             user_id = batch[uid_f]
-            invalid = invalid_item_mask(user_id, consts["hist"], consts["hlen"],
-                                        n_items)
             scores = None
             if fused:
                 query, table = model.full_sort_query(batch)
+                if bf16:
+                    query, table = query.to(torch.bfloat16), table.to(torch.bfloat16)
                 if masked_topk_fits(query.shape[1], max_k):
+                    invalid = invalid_item_mask(user_id, consts["hist"], consts["hlen"],
+                                                n_items)
                     _, topk_idx = masked_topk(query.contiguous(), table.contiguous(),
                                               invalid, max_k)
                 else:
                     # wider than the kernel's 512 or k past its 128: the
                     # non-fused step on the same query, the product that
                     # full_sort_predict gives for a model on the fused rule
-                    scores = query @ table.T
+                    # (rounded operands: exact products summed in fp32)
+                    scores = query.to(torch.float32) @ table.to(torch.float32).T
             else:
                 scores = all_item_scores(batch)
             if scores is not None:
-                scores = scores.to(torch.float32)
-                scores = torch.where(invalid > 0, scores + NEG_INF, scores)
-                scores[:, 0] = NEG_INF
+                scores = history_masked_scores(scores, user_id, consts["hist"], consts["hlen"])
                 _, topk_idx = torch.topk(scores, max_k, dim=1)
             pos_valid = (torch.arange(pos_items.shape[1], device=pos_items.device)[None, :]
                          < pos_len[:, None])
             pos_index = ((topk_idx[:, :, None].long() == pos_items[:, None, :])
                          & pos_valid[:, None, :]).any(dim=-1).to(torch.int32)
-            return topk_metric_sums(metrics, pos_index, pos_len, mask)
+            sums = topk_metric_sums(metrics, pos_index, pos_len, mask)
+            if needs_gauc:
+                B = user_id.shape[0]
+                pos_matrix = torch.zeros((B, n_items), dtype=torch.int32, device=scores.device)
+                pos_matrix.scatter_reduce_(1, pos_items.long(), pos_valid.to(torch.int32), "amax")
+                user_len = torch.full((B,), float(n_items), device=scores.device)
+                sums.update(gauc_metric_sums(scores, pos_matrix, pos_len, user_len, mask))
+            return sums
 
         return eval_step, consts
 
@@ -769,11 +961,11 @@ class Trainer:
                 collector.collect(batch[label_f], self.model.predict(batch))
         return collector.evaluate()
 
-    def _make_sampled_eval_step(self, eval_data, metrics, max_k):
+    def _make_sampled_eval_step(self, eval_data, metrics, max_k, needs_gauc=False):
         """Sampled step (uni<k>/pop<k>; parity: trainer.py:1086-1154): each
         user's P positive slots, then P*k negatives drawn on the device by
         ``draw_negatives``, k for each valid positive; the model's
-        ``score_items`` over the candidates, ranked by ``candidate_hits``."""
+        ``score_items`` over the candidates, ranked by ``candidate_metric_sums``."""
         model = self.model
         cfg = self.config
         uid_f = cfg["USER_ID_FIELD"]
@@ -806,16 +998,17 @@ class Trainer:
             slot = torch.arange(P * (1 + k), device=cand.device)[None, :]
             cand_valid = torch.where(slot < P, slot < pos_len[:, None],
                                      slot - P < (pos_len * k)[:, None])
-            pos_index = candidate_hits(model.score_items(batch, cand), cand_valid, pos_len, max_k)
-            return topk_metric_sums(metrics, pos_index, pos_len, mask)
+            return candidate_metric_sums(
+                metrics, model.score_items(batch, cand), cand_valid, pos_len, P, max_k, mask,
+                (pos_len * (1 + k)).to(torch.float32) if needs_gauc else None)
 
         return eval_step, consts
 
-    def _make_labeled_eval_step(self, eval_data, metrics, max_k):
+    def _make_labeled_eval_step(self, eval_data, metrics, max_k, needs_gauc=False):
         """Ranking over the dataset's own labeled candidates (the fork's
         GeneralNegFromDatasetDataLoader protocol; parity: trainer.py:
         1156-1203): each user's label-1 items, then their label-0 items, no
-        history mask, ranked by ``candidate_hits``."""
+        history mask, ranked by ``candidate_metric_sums``."""
         model = self.model
 
         def eval_step(consts, batch):
@@ -829,8 +1022,9 @@ class Trainer:
             slot = torch.arange(P + N, device=cand.device)[None, :]
             cand_valid = torch.where(slot < P, slot < pos_len[:, None],
                                      slot - P < neg_len[:, None])
-            pos_index = candidate_hits(model.score_items(batch, cand), cand_valid, pos_len, max_k)
-            return topk_metric_sums(metrics, pos_index, pos_len, mask)
+            return candidate_metric_sums(
+                metrics, model.score_items(batch, cand), cand_valid, pos_len, P, max_k, mask,
+                (pos_len + neg_len).to(torch.float32) if needs_gauc else None)
 
         return eval_step, {}
 
@@ -843,6 +1037,7 @@ class Trainer:
         collector = TopKCollector(self.config)
         metrics = tuple(collector.topk_metrics)
         max_k = collector.max_k
+        needs_gauc = collector.needs_gauc
         # routed by the loader, as the JAX trainer does (trainer.py:1297-1308)
         if hasattr(eval_data, "neg_items"):
             make = self._make_labeled_eval_step
@@ -850,10 +1045,10 @@ class Trainer:
             make = self._make_sampled_eval_step
         else:
             make = self._make_full_sort_eval_step
-        key = (id(eval_data), metrics, max_k)
+        key = (id(eval_data), metrics, max_k, needs_gauc)
         cached = self._eval_step_cache.get(key)
         if cached is None or cached[0] is not eval_data:
-            cached = (eval_data,) + make(eval_data, metrics, max_k)
+            cached = (eval_data,) + make(eval_data, metrics, max_k, needs_gauc)
             self._eval_step_cache[key] = cached
         _, step, consts = cached
         # metric partial sums accumulate on the device; one host transfer
@@ -940,16 +1135,47 @@ class KGATTrainer(Trainer):
                 + (kg if isinstance(kg, tuple) else (kg,)))
 
 
-_KG_TRAINERS = {"MKR": MKRTrainer, "KGAT": KGATTrainer}
+class S3RecTrainer(Trainer):
+    """S3Rec's two stages (parity: trainer.py:1548-1576, reference
+    S3RecTrainer, trainer.py:511-567): with ``train_stage: pretrain`` the
+    epochs run with no validation and the model is saved every
+    ``save_step`` epochs (10 unless set) and at the last one, the checkpoint
+    a finetuning run names as ``pre_model_path``; finetuning is the normal
+    ``fit``."""
+
+    def fit(self, train_data, valid_data=None, verbose=True, saved=True,
+            show_progress=False, callback_fn=None):
+        if getattr(self.model, "train_stage", "finetune") != "pretrain":
+            return super().fit(train_data, valid_data, verbose, saved, show_progress,
+                               callback_fn)
+        if saved:
+            ensure_dir(self.checkpoint_dir)
+        self.prepare(train_data)
+        save_step = self.config["save_step"] or 10
+        for epoch_idx in range(self.start_epoch, self.epochs):
+            t0 = time.time()
+            loss = self._train_epoch(train_data, epoch_idx)
+            self.train_loss_dict[epoch_idx] = sum(loss) if isinstance(loss, tuple) else loss
+            if verbose:
+                self.logger.info("pretrain epoch %d [time: %.2fs, loss: %.4f]", epoch_idx,
+                                 time.time() - t0, self.train_loss_dict[epoch_idx])
+            if saved and ((epoch_idx + 1) % save_step == 0 or epoch_idx == self.epochs - 1):
+                self._save_checkpoint(epoch_idx)
+                if verbose:
+                    self.logger.info("Saving pretrained model: %s", self.saved_model_file)
+        return self.best_valid_score, self.best_valid_result
+
+
+_MODEL_TRAINERS = {"MKR": MKRTrainer, "KGAT": KGATTrainer, "S3Rec": S3RecTrainer}
 
 
 def get_trainer(model_type, model_name):
     """parity: reference get_trainer (utils/utils.py:78-96), the JAX
     package's trainer.py:1675-1690. The port has the base Trainer, which
     serves the general, context and sequential families, KGTrainer, the
-    knowledge family's default, MKRTrainer and KGATTrainer."""
-    if model_name in _KG_TRAINERS:
-        return _KG_TRAINERS[model_name]
+    knowledge family's default, MKRTrainer, KGATTrainer and S3RecTrainer."""
+    if model_name in _MODEL_TRAINERS:
+        return _MODEL_TRAINERS[model_name]
     if model_type is ModelType.KNOWLEDGE:
         return KGTrainer
     if model_type not in (ModelType.GENERAL, ModelType.CONTEXT, ModelType.SEQUENTIAL):

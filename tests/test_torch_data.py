@@ -161,10 +161,10 @@ def test_unported_paths_raise(synth_dataset_dir, tmp_path, monkeypatch):
     assert type(valid) is SampledEvalLoader and type(test) is FullSortEvalLoader
     assert (valid.neg_k, valid.distribution) == (1000, "uniform")
     assert valid.num_candidates == valid.max_pos * 1001
-    for bad in ({"learner": "sgd"}, {"clip_grad_norm": 5.0}):
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP Queue 1, item 5\)"):
-            build_optimizer(Config("BPR", "synth", config_dict={**cfg, **bad},
-                                   _parse_cmd_line=False))
+    # the other learners and the clip build since they were ported
+    opt = build_optimizer(Config("BPR", "synth", _parse_cmd_line=False,
+                                 config_dict={**cfg, "learner": "sgd", "clip_grad_norm": 5.0}))
+    assert (opt["learner"], opt["max_norm"]) == ("sgd", 5.0)
     assert build_optimizer(Config("BPR", "synth", config_dict={**cfg, "weight_decay": 1e-4},
                                   _parse_cmd_line=False))["weight_decay"] == 1e-4
     with pytest.raises(NotImplementedError, match="native"):

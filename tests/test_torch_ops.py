@@ -801,6 +801,131 @@ def test_masked_topk_kernel_one_kernel_a_call_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D", [(4096, 3707, 64), (943, 1683, 64), (37, 100, 8),
+                                   (130, 2000, 24), (64, 700, 512)])
+def test_masked_topk_bf16_kernel_matches_plain_on_card(cuda_device, B, N, D):
+    """The bf16-operand instance (eval_score_dtype bfloat16) against the
+    plain version on the same bf16 operands (widened to fp32, cuBLAS fp32
+    product): values at rtol 1e-5 / atol 1e-6 (both sum exact products in
+    fp32, in other orders), ids equal but where two scores lie within that;
+    one launch a call, through the dispatcher too, and two runs the same
+    bits."""
+    q, items, mask = (torch.from_numpy(a).to(cuda_device)
+                      for a in _topk_inputs(B, N, D, seed=8, history=N // 20))
+    q, items = q.to(torch.bfloat16), items.to(torch.bfloat16)
+    k = 10
+    before = port_topk.masked_topk_cuda.launches
+    v, i = port_topk.masked_topk(q, items, mask, k)
+    v2, i2 = port_topk.masked_topk_cuda(q, items, mask, k)
+    assert port_topk.masked_topk_cuda.launches == before + 2
+    assert v.dtype == torch.float32 and torch.equal(v, v2) and torch.equal(i, i2)
+    v_ref, i_ref = port_topk.masked_topk_torch(q, items, mask, k)
+    torch.testing.assert_close(v, v_ref, rtol=1e-5, atol=1e-6)
+    scores = torch.where(mask > 0, torch.full((), -1e15, device=cuda_device),
+                         q.float() @ items.float().T)
+    differ = i != i_ref
+    torch.testing.assert_close(torch.gather(scores, 1, i.long())[differ],
+                               torch.gather(scores, 1, i_ref.long())[differ],
+                               rtol=1e-5, atol=1e-6)
+    assert not torch.gather(mask, 1, i.long()).any()
+
+
+@pytest.mark.cuda
+def test_masked_topk_bf16_dispatcher_pads_to_a_multiple_of_8_on_card(cuda_device):
+    """bf16 widths the kernel refuses (not a multiple of 8) are zero-padded
+    by the dispatcher: the plain version's ids and values."""
+    for D in (4, 20, 61):
+        q, items, mask = (torch.from_numpy(a).to(cuda_device)
+                          for a in _topk_inputs(300, 900, D, seed=D, history=30))
+        q, items = q.to(torch.bfloat16), items.to(torch.bfloat16)
+        v, i = port_topk.masked_topk(q, items, mask, 10)
+        v_ref, _ = port_topk.masked_topk_torch(q, items, mask, 10)
+        torch.testing.assert_close(v, v_ref, rtol=1e-5, atol=1e-6)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            port_topk.masked_topk_cuda(q, items, mask, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip,dwd,wd", [("below", 0.0, 0.0), ("above", 0.0, 0.0),
+                                         ("off", 1e-4, 0.0), ("below", 1e-4, 1e-2)])
+def test_adam_multi_kernel_clip_and_adamw_bits_on_card(cuda_device, clip, dwd, wd):
+    """The clip scale (the norm read from the device) and adamw's decoupled
+    term in the kernel against the plain version, bit for bit, over three
+    steps of SASRec's 36 leaves (its [PAD] row a zero head), max_norm 10x
+    below every step's norm (every gradient scaled) or 10x above (none);
+    the launcher takes the norm itself, two launches of the norm kernels."""
+    shapes, heads = ADAM_SETS["sasrec"]
+    rng = np.random.RandomState(41)
+    p0 = [np.asarray(rng.randn(*s) * 0.1, np.float32) for s in shapes]
+    for a, h in zip(p0, heads):
+        a.reshape(-1)[:h] = 0.0
+    grads = [[torch.from_numpy(np.asarray(rng.randn(*s) * 1e-3, np.float32)).to(cuda_device)
+              for s in shapes] for _ in range(3)]
+    norms = [float(fused_adam.global_grad_norm(g, heads)) for g in grads]
+    max_norm = {"below": 0.1 * min(norms), "above": 10.0 * max(norms), "off": None}[clip]
+    out = {}
+    for name, fn in (("kernel", fused_adam.adam_multi_cuda),
+                     ("plain", fused_adam.adam_multi_torch)):
+        leaves = fused_adam.AdamLeaves([torch.from_numpy(a.copy()).to(cuda_device) for a in p0],
+                                       [torch.zeros(s, device=cuda_device) for s in shapes],
+                                       [torch.zeros(s, device=cuda_device) for s in shapes],
+                                       heads)
+        for t, g in enumerate(grads, start=1):
+            # the trainer's route: the launcher takes the norm with the norm
+            # kernels itself; the plain version is handed theirs
+            cl = None
+            if max_norm is not None:
+                cl = (None if name == "kernel" else fused_adam.grad_norm_cuda(leaves, g),
+                      max_norm)
+            before = fused_adam.grad_norm_cuda.launches
+            fn(leaves, g, 1.0 / (1.0 - B1 ** t), 1.0 / (1.0 - B2 ** t), b1=B1, b2=B2, lr=LR,
+               eps=EPS, wd=wd, clip=cl, dwd=dwd)
+            assert fused_adam.grad_norm_cuda.launches == before + 2 * (
+                name == "kernel" and max_norm is not None)
+        torch.cuda.synchronize()
+        out[name] = leaves
+    for i in range(len(shapes)):
+        for a, b in ((out["kernel"].p[i], out["plain"].p[i]),
+                     (out["kernel"].m[i], out["plain"].m[i]),
+                     (out["kernel"].v[i], out["plain"].v[i])):
+            assert torch.equal(a, b), (i, float((a - b).abs().max()))
+    assert not out["kernel"].p[0][0].any() and not out["kernel"].m[0][0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_set", ["sasrec", "edge", "many"])
+def test_grad_norm_kernels_match_the_plain_norm_on_card(cuda_device, leaf_set):
+    """The clip's norm by the two norm kernels against global_grad_norm at
+    rtol 1e-5 (another order of the fp32 sums): SASRec's 36 leaves (its
+    [PAD] row a zero head), odd leaves with zero heads, a missing gradient
+    and an empty leaf, and 600 leaves (two launches of partial sums); the
+    same bits twice; None when no gradient is present."""
+    if leaf_set == "sasrec":
+        shapes, heads = ADAM_SETS["sasrec"]
+    elif leaf_set == "edge":
+        shapes, heads = [(2053,), (3, 7), (), (4096,), (2047,), (37, 9), (0,)], [6, 0, 0, 2, 0,
+                                                                                  9, 0]
+    else:
+        shapes, heads = [(int(n),) for n in np.arange(600) % 97 + 1], [1] * 600
+    rng = np.random.RandomState(7)
+    grads = [None if (leaf_set == "edge" and i == 1) else
+             torch.from_numpy(np.asarray(rng.randn(*s), np.float32)).to(cuda_device)
+             for i, s in enumerate(shapes)]
+    leaves = fused_adam.AdamLeaves([torch.zeros(s, device=cuda_device) for s in shapes],
+                                   [torch.zeros(s, device=cuda_device) for s in shapes],
+                                   [torch.zeros(s, device=cuda_device) for s in shapes], heads)
+    before = fused_adam.grad_norm_cuda.launches
+    got = fused_adam.grad_norm_cuda(leaves, grads)
+    groups = 1 + len(shapes) // fused_adam.MAX_LEAVES
+    assert fused_adam.grad_norm_cuda.launches == before + groups + 1
+    ref = fused_adam.global_grad_norm(grads, heads)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+    assert torch.equal(got, fused_adam.grad_norm_cuda(leaves, grads))
+    assert fused_adam.grad_norm_cuda(leaves, [None] * len(shapes)) is None
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(6041, 64), (3707, 64)])
 def test_adam_kernel_matches_plain_on_card(cuda_device, shape):
     """Three steps of the kernel through the one-leaf dispatcher against the

@@ -443,8 +443,9 @@ def test_candidate_ties_rank_as_jax_top_k():
     valid = np.array([[1, 1, 1, 1, 1, 1], [1, 0, 1, 1, 1, 1], [1, 1, 1, 0, 0, 0]], bool)
     pos_len = np.array([1, 2, 2])
     for max_k in (3, 8):
-        got = trainer_mod.candidate_hits(torch.as_tensor(scores), torch.as_tensor(valid),
-                                         torch.as_tensor(pos_len), max_k)
+        got = trainer_mod.candidate_hits(trainer_mod.masked_candidate_scores(
+            torch.as_tensor(scores), torch.as_tensor(valid), max_k), torch.as_tensor(pos_len),
+            max_k)
         ref = np.where(valid, scores, trainer_mod.NEG_INF)
         ref = np.pad(ref, ((0, 0), (0, max(0, max_k - 6))),
                      constant_values=trainer_mod.NEG_INF)

@@ -731,12 +731,14 @@ def test_sasrec_one_adam_call_matches_the_per_leaf_step_with_the_pad_fill(synth_
 
 
 def test_gauc_refusal_cites_its_roadmap_item():
-    """GAUC is ROADMAP Queue 1 item 5's work (trainer and evaluator
-    leftovers), and the refusal says so."""
+    """GAUC was ROADMAP Queue 1 item 5's work and is ported: the collector
+    takes it (a rank metric beside the top-k ones); a name that is no
+    ranking metric of the port still raises."""
     from recbole_tpu_torch.evaluator.evaluator import TopKCollector
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP Queue 1, item 5\)"):
-        TopKCollector({"metrics": ["Recall", "GAUC"], "topk": [10],
-                       "metric_decimal_place": 4})
+    col = TopKCollector({"metrics": ["Recall", "GAUC"], "topk": [10], "metric_decimal_place": 4})
+    assert col.needs_gauc and col.topk_metrics == ["recall"] and col.rank_metrics == ["gauc"]
+    with pytest.raises(NotImplementedError, match="not ranking metrics"):
+        TopKCollector({"metrics": ["Recall", "AUC"], "topk": [10], "metric_decimal_place": 4})
 
 
 def test_eval_mask_of_a_sequential_split_holds_only_pad(synth_dataset_dir, tmp_path):

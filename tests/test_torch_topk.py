@@ -91,7 +91,8 @@ def test_launcher_loads_the_library_once(monkeypatch):
         argtypes = restype = None
 
     class Lib:
-        masked_topk_f32 = Fn()
+        # the fp32 and bf16-operand instances
+        masked_topk_f32, masked_topk_bf16 = Fn(), Fn()
 
     def load(name):
         calls.append(name)
