@@ -314,6 +314,30 @@ ML100K_RIPPLE = {"epochs": 40}
 RIPPLE_JAX_SPREAD = "0.1756-0.1953 (seeds 2020-2022: 0.1877, 0.1756, 0.1953)"
 RIPPLE_RECALL_FLOOR = 0.155
 
+# DIEN's extractor GRU at the ml-1m-shaped item file: H = fields x
+# embedding size = (the id, title, year, genre) x 10, on the pointwise train
+# batch (2,048 rows and a negative each) and the eval pair block (4,096)
+DIEN_GRU = dict(B=4096, L=50, H=40)
+# RecBole's atomic ml-1m .user: ages, 21 occupations, zip codes (3,439 in
+# ml-1m)
+ML1M_AGES, ML1M_OCCUPATIONS, ML1M_ZIPS = (1, 18, 25, 35, 45, 50, 56), 21, 3439
+# the pretrained KG tables that GRU4RecKG and KSR take as preload_weight,
+# written from a seed at the ml-1m KG shape: an entity vector a KG entity,
+# a relation vector a relation
+KG_PRELOAD_DIM = 64
+# the GRU users on ml-100k under the TO_LS full-sort protocol, 5 epochs:
+# test recall@10 of the JAX package on the CPU at seeds 2020 / 2021 / 2022
+# (python run.py --model=<M> --dataset=ml-100k --epochs=5 --seed=<s>
+# --eval_setting=TO_LS,full --training_neg_sample_num=0
+# --valid_full_to_uni1000=False; GRU4RecF with --load_col="{'inter':
+# ['user_id', 'item_id', 'rating', 'timestamp'], 'item': '*'}"; KSR with the
+# bundled .kg and .link and random entity and relation tables), and the
+# floor, about 0.9x the lowest
+ML100K_GRU_USERS_EPOCHS = 5
+ML100K_GRU_USERS = {"GRU4RecF": ("0.1241 / 0.1188 / 0.1092", 0.098),
+                    "RepeatNet": ("0.0880 / 0.0827 / 0.0954", 0.074),
+                    "KSR": ("0.0806 / 0.0997 / 0.0689", 0.062)}
+
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
 # embedding gradients: the kernels add a row's cotangents in fp32 in the
@@ -1267,7 +1291,8 @@ def check_gru(torch):
     forward and gradients; then through fused_gru and autograd at 512
     sequences at H 132, 256 and the cluster limit (the bf16 instance's
     cluster kernels), the limit + 4, 704 and H 10 (padded), and at 5
-    sequences H 7,268 (the global route with its rows in device memory)."""
+    sequences H 7,268 (the global route with its rows in device memory);
+    and the fp32 instance at DIEN's extractor width (DIEN_GRU)."""
     from recbole_tpu_torch.models.layers import GRU
     from recbole_tpu_torch.ops import fused_gru as fg
     L, E, H = GRU4REC["L"], GRU4REC["E"], GRU4REC["H"]
@@ -1355,14 +1380,16 @@ def check_gru(torch):
     # sequences a block), and H 10 (zero-padded to 12 by the dispatcher);
     # then, at 5 sequences of 3 steps, H 7,268, past the last width whose
     # backward rows fit a block (one sequence a block, its rows in device
-    # memory)
+    # memory); and DIEN's extractor at its step and pair block (fp32 only,
+    # the instance it runs: B 4,096, H 40 on the one-block 3xTF32 route)
     lib = fg._lib()
     limit = lib.fused_gru_max_cluster_hidden()
-    widths = [(H2, 512, L) for H2 in (132, 256, limit, limit + 4, 704, 10)]
-    widths.append((lib.fused_gru_max_hidden() + 4, 5, 3))
-    for H2, B2, L2 in widths:
+    widths = [(H2, 512, L, (True, False)) for H2 in (132, 256, limit, limit + 4, 704, 10)]
+    widths.append((lib.fused_gru_max_hidden() + 4, 5, 3, (True, False)))
+    widths.append((DIEN_GRU["H"], DIEN_GRU["B"], DIEN_GRU["L"], (False,)))
+    for H2, B2, L2, instances in widths:
         Hp = fg.padded_hidden(H2)
-        for bf16 in (True, False):
+        for bf16 in instances:
             route = GRU_ROUTES[lib.fused_gru_route(Hp, bf16)]
             plan = ""
             if route == "cluster":
@@ -2065,14 +2092,15 @@ def phase_lightgcn(torch, tmp):
 
 
 def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, must_launch,
-              must_not, dataset="ml-1m-shape", saved=False):
+              must_not, dataset="ml-1m-shape", saved=False, keep=None, profiled=20):
     """One sequential model on the ml-1m-shaped file (written by phase_bpr;
-    ``dataset``: another name for it, beside an item file) under TO_LS,full
+    ``dataset``: another name for it, beside an item file; ``keep``: a dict
+    that gets the train loader) under TO_LS,full
     through Config -> data_preparation -> get_model -> get_trainer -> fit
     with validation (``saved``: writing its checkpoints) -> evaluate(test),
     with every kernel's launch count set to 0 just before and read just
-    after; then 20 steady steps under the profiler. Returns (launches,
-    model, widths)."""
+    after; then ``profiled`` steady steps under the profiler. Returns
+    (launches, model, widths)."""
     from recbole_tpu_torch.config.configurator import Config
     from recbole_tpu_torch.data.utils import create_dataset, data_preparation
     from recbole_tpu_torch.models import get_model
@@ -2091,6 +2119,8 @@ def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, mu
     train, valid, test = data_preparation(config, create_dataset(config))
     log(f"[{tag}] dataset, TO_LS splits and loaders in {time.time() - t0:.1f}s: train "
         f"{train.n} valid {valid.n} test {test.n} examples, eval batch {valid.batch_size}")
+    if keep is not None:
+        keep["train"] = train
     model = get_model(model_name)(config, train.dataset)
     widths = {k: config[k] for k in widths_keys}
     log(f"[{tag}] widths {widths}; compute dtype {model.compute_dtype} (cdt {model.cdt}); "
@@ -2124,7 +2154,7 @@ def seq_phase(torch, tmp, tag, model_name, config_extra, epochs, widths_keys, mu
         f"ms/step (last epoch): {1e3 * times['train'][-1] / len(train):.3f}")
     log(f"[{tag}] full-sort valid pass seconds {times['eval']}")
     log(f"[{tag}] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    profile_steps(torch, trainer, train, tag)
+    profile_steps(torch, trainer, train, tag, profiled)
     return launches, model, widths
 
 
@@ -2802,6 +2832,159 @@ def phase_protocols(torch, tmp):
     return out
 
 
+def write_ml1m_users(path, seed=46):
+    """An atomic .user file in the shape of RecBole's ml-1m .user for the
+    ml-1m-shaped file's users: user_id:token, age:token (ml-1m's seven age
+    groups), gender:token, occupation:token (21) and zip_code:token (3,439
+    codes), from a seed."""
+    rng = np.random.RandomState(seed)
+    n = ML1M[0]
+    ages = rng.choice(ML1M_AGES, n)
+    genders = rng.choice(("M", "F"), n)
+    jobs = rng.randint(0, ML1M_OCCUPATIONS, n)
+    zips = rng.randint(0, ML1M_ZIPS, n)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write("user_id:token\tage:token\tgender:token\toccupation:token\tzip_code:token\n")
+        fh.writelines(f"{u + 1}\t{ages[u]}\t{genders[u]}\t{jobs[u]}\tz{zips[u]}\n"
+                      for u in range(n))
+
+
+def write_kg_preload(directory, name, seed=47):
+    """The pretrained KG tables of the ml-1m KG shape (write_ml1m_kg's
+    entity and relation tokens) as additional feature files: <name>.ent, a
+    KG_PRELOAD_DIM-float vector an entity (79,388 rows), and <name>.rel, one
+    a relation (51 rows), N(0, 0.1) from a seed."""
+    n_ent, _, n_rel = ML1M_KG
+    rng = np.random.RandomState(seed)
+    for suffix, field, n, tok in (("ent", "ent", n_ent, "e"), ("rel", "rel", n_rel, "r")):
+        vecs = (0.1 * rng.randn(n, KG_PRELOAD_DIM)).astype(np.float32)
+        with open(os.path.join(directory, f"{name}.{suffix}"), "w") as fh:
+            fh.write(f"{field}_id:token\t{field}_vec:float_seq\n")
+            np.savetxt(fh, np.concatenate([np.arange(n)[:, None], vecs], axis=1),
+                       fmt=tok + "%d\t" + " ".join(["%.6f"] * KG_PRELOAD_DIM))
+
+
+# the GRU users' paths: every GRU launch the fp32 instance on the one-block
+# 3xTF32 route (H 64, 128, DIEN's 40), and what they must not launch
+GRU_FP32 = ("fused_gru_fwd_tf32", "fused_gru_bwd_tf32")
+GRU_USERS_OFF = ("trm_layer_fwd", "fused_transformer_layer_fwd", "windowed_grad",
+                 "fused_attention_fwd", "fused_attention_whole_fwd", "rel_apply_fwd",
+                 "bit_rows_matmul", "bit_cols_matmul", "fused_gru_fwd_tc", "fused_gru_bwd_tc",
+                 "fused_gru_fwd_cluster", "fused_gru_bwd_cluster")
+SEQ_INTER = ["user_id", "item_id", "timestamp"]
+
+
+def phase_gru_users(torch, tmp):
+    """The GRU users, then STAMP and SRGNN, at their default_config widths
+    on the ml-1m-shaped file, 1 epoch each (cut), a valid and a test pass,
+    then 20 steps each under the profiler (DIEN and KSR 5), with every
+    kernel's launch count set to 0 just before and read just after each
+    run:
+    GRU4RecF (the item file's three features; two fp32 GRUs, H 128),
+    RepeatNet (H 64; its own full sort), DIN and DIEN under TO_LS,uni100
+    (their pair scoring: a full sort at this shape is 6,040 x 3,707 pairs
+    through a 50-step attention MLP, and DIEN's two recurrences, each pass;
+    DIN launches Adam alone: its id table is frozen; DIEN's extractor GRU at
+    H 40 and the user file's four features), GRU4RecKG and KSR on the
+    ml-1m KG shape with its pretrained entity table (and KSR's relation
+    table) as preload_weight (the KGSeqDataset; GRU4RecKG's entity table
+    frozen, KSR's relation table never trained: both checked unchanged
+    after the epoch), STAMP (its own full sort) and SRGNN (the session
+    GNN; the masked top-k)."""
+    data = os.path.join(tmp, "data")
+    inter = os.path.join(data, "ml-1m-shape", "ml-1m-shape.inter")
+    t0 = time.time()
+    users = os.path.join(data, "ml-1m-users")
+    os.makedirs(users, exist_ok=True)
+    os.symlink(inter, os.path.join(users, "ml-1m-users.inter"))
+    os.symlink(os.path.join(data, "ml-1m-items", "ml-1m-items.item"),
+               os.path.join(users, "ml-1m-users.item"))
+    write_ml1m_users(os.path.join(users, "ml-1m-users.user"))
+    kgseq = os.path.join(data, "ml-1m-kgseq")
+    os.makedirs(kgseq, exist_ok=True)
+    for suffix in ("inter", "kg", "link"):
+        os.symlink(os.path.join(data, "ml-1m-shape", f"ml-1m-shape.{suffix}"),
+                   os.path.join(kgseq, f"ml-1m-kgseq.{suffix}"))
+    write_kg_preload(kgseq, "ml-1m-kgseq")
+    log(f"[gru_users] wrote the ml-1m-shaped .user ({ML1M[0]} users) and the KG preload "
+        f"tables ({ML1M_KG[0]} entities and {ML1M_KG[2]} relations x {KG_PRELOAD_DIM}) in "
+        f"{time.time() - t0:.1f}s")
+    items = {"load_col": {"inter": SEQ_INTER, "item": "*"}}
+    both = {"load_col": {"inter": SEQ_INTER, "item": "*", "user": "*"}}
+    ent = {"additional_feat_suffix": ["ent"], "preload_weight": {"ent_id": "ent_vec"},
+           "load_col": {"inter": SEQ_INTER, "ent": ["ent_id", "ent_vec"]}}
+    ent_rel = {"additional_feat_suffix": ["ent", "rel"],
+               "preload_weight": {"ent_id": "ent_vec", "rel_id": "rel_vec"},
+               "load_col": {"inter": SEQ_INTER, "ent": ["ent_id", "ent_vec"],
+                            "rel": ["rel_id", "rel_vec"]}}
+    uni100 = {"eval_setting": "TO_LS,uni100"}
+    gru = ("fused_gru_fwd", "fused_gru_bwd") + GRU_FP32
+    base = ("adam_leaf",)
+    onehot, topk = ("onehot_matmul_grad",), ("masked_topk",)
+    seq_keys = ("embedding_size", "hidden_size", "dropout_prob", "train_batch_size")
+    ctr_keys = ("embedding_size", "mlp_hidden_size", "dropout_prob", "pooling_mode",
+                "training_neg_sample_num", "train_batch_size")
+    runs = (
+        ("gru4recf", "GRU4RecF", "ml-1m-items", items, gru + onehot + base + topk, (),
+         seq_keys + ("num_layers", "pooling_mode"), (64, 128, 0.3, 2048, 1, "sum")),
+        ("repeatnet", "RepeatNet", "ml-1m-shape", {}, gru + onehot + base, topk,
+         ("embedding_size", "hidden_size", "joint_train", "train_batch_size"),
+         (64, 64, False, 2048)),
+        ("din", "DIN", "ml-1m-items", {**items, **uni100}, base,
+         topk + onehot + ("fused_gru_fwd",), ctr_keys,
+         (10, [256, 256, 256], 0.0, "mean", 1, 2048)),
+        ("dien", "DIEN", "ml-1m-users", {**both, **uni100}, gru + base, topk + onehot,
+         ctr_keys + ("alpha", "neg_seq_resample_rounds"),
+         (10, [256, 256, 256], 0.0, "mean", 1, 2048, 1.0, 4)),
+        ("gru4reckg", "GRU4RecKG", "ml-1m-kgseq", ent, gru + onehot + base + topk, (),
+         seq_keys + ("freeze_kg",), (64, 128, 0.1, 2048, True)),
+        ("ksr", "KSR", "ml-1m-kgseq", ent_rel, gru + onehot + base, topk,
+         seq_keys + ("freeze_kg", "gamma"), (64, 128, 0.1, 2048, False, 10)),
+        ("stamp", "STAMP", "ml-1m-shape", {}, onehot + base, topk + ("fused_gru_fwd",),
+         ("embedding_size", "loss_type", "train_batch_size"), (64, "CE", 2048)),
+        ("srgnn", "SRGNN", "ml-1m-shape", {}, onehot + base + topk, ("fused_gru_fwd",),
+         ("embedding_size", "step", "train_batch_size"), (64, 1, 2048)))
+    out = {}
+    for tag, model_name, dataset, extra, must, off, keys, want in runs:
+        t_run = time.time()
+        kept_data = {}
+        # DIEN's and KSR's loops make 1,700-2,700 launches a step, and the
+        # profiler's trace of 20 of them took 25-30 s each: 5 steps (a cut)
+        launches, model, widths = seq_phase(torch, tmp, tag, model_name, extra, 1, keys, must,
+                                            GRU_USERS_OFF + off, dataset=dataset,
+                                            keep=kept_data,
+                                            profiled=5 if model_name in ("DIEN", "KSR") else 20)
+        if list(widths.values()) != list(want):
+            raise AssertionError(f"{model_name} was not built at its defaults: {widths}")
+        for way in ("fwd", "bwd"):
+            if launches[f"fused_gru_{way}_tf32"] != launches[f"fused_gru_{way}"]:
+                raise AssertionError(f"{model_name}'s GRU {way} ran off the fp32 3xTF32 route")
+        if model_name == "DIEN" and model.feat_dim != DIEN_GRU["H"]:
+            raise AssertionError(f"DIEN's extractor runs at H {model.feat_dim}, "
+                                 f"{DIEN_GRU['H']} expected")
+        if model_name in ("GRU4RecKG", "KSR"):
+            # the preloaded tables that do not train stay as loaded
+            pre = {"entity_embedding": "ent_id", "relation_embedding": "rel_id"}
+            kept = ["relation_embedding"] if model_name == "KSR" else ["entity_embedding"]
+            for leaf in kept:
+                table = getattr(model, leaf).detach().cpu().numpy()
+                loaded = np.zeros_like(table)
+                w = kept_data["train"].dataset.get_preload_weight(pre[leaf])
+                n = min(len(table), len(w))
+                loaded[:n] = w[:n]
+                if leaf == "entity_embedding":
+                    loaded[0] = 0.0
+                if not np.array_equal(table, loaded):
+                    raise AssertionError(f"{model_name}'s {leaf} moved in training")
+            log(f"[{tag}] {', '.join(kept)} unchanged after the epoch, bit for bit")
+        log(f"[{tag}] the whole run {time.time() - t_run:.1f}s")
+        out[tag] = launches
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_routes(torch, tmp):
     """Shapes the kernels refused until routed before launch, on the
     ml-1m-shaped file: BPR at embedding_size 10 (the masked top-k,
@@ -3140,6 +3323,43 @@ def phase_quality_protocols(torch, tmp):
     log(f"[quality] ml-100k BPR, uniform-1000 validation, 20 epochs: {time.time() - t0:.1f}s; "
         f"best valid recall@10 {result['best_valid_result']['recall@10']} (JAX package on the "
         f"CPU, seed 2020: {BPR_UNI1000_JAX}); test {json.dumps(result['test_result'])}")
+
+
+def phase_quality_gru_users(torch, tmp):
+    """ml-100k test recall@10 of GRU4RecF (the bundled item file's
+    features), RepeatNet and KSR (the bundled .kg and .link, random entity
+    and relation tables) under the TO_LS full-sort protocol, 5 epochs, each
+    held to its floor (ML100K_GRU_USERS); each run must go through the fp32
+    GRU kernels. DIN and DIEN have no floor: their pair scoring's full sort
+    at ml-100k is 943 x 1,683 pairs a pass through the attention MLP, and
+    under a sampled protocol the JAX package has no CPU reference to hold
+    them to."""
+    from recbole_tpu_torch import run_recbole
+    from recbole_tpu_torch.ops import fused_gru as fg
+    for model, (ref, floor) in ML100K_GRU_USERS.items():
+        items = ({"load_col": {"inter": ["user_id", "item_id", "rating", "timestamp"],
+                               "item": "*"}} if model == "GRU4RecF" else {})
+        before = fg.fused_gru_bwd_cuda.launches_tf32
+        t0 = time.time()
+        result = run_recbole(model=model, dataset="ml-100k", config_dict={
+            **ML100K_SEQ, **items, "epochs": ML100K_GRU_USERS_EPOCHS,
+            "valid_full_to_uni1000": False, "device": "cuda",
+            "checkpoint_dir": os.path.join(tmp, "saved100k"),
+            "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING",
+            "show_progress": False})
+        test = result["test_result"]
+        ran = fg.fused_gru_bwd_cuda.launches_tf32 - before
+        log(f"[quality] ml-100k {model} (TO_LS full-sort, {ML100K_GRU_USERS_EPOCHS} epochs) "
+            f"{time.time() - t0:.1f}s; fp32 GRU backward launches {ran}; best valid "
+            f"{result['best_valid_result']}")
+        log(f"[quality]   test {json.dumps(test)}   JAX package on the CPU, seeds 2020 / 2021 "
+            f"/ 2022, same protocol: recall@10 {ref}; floor {floor}")
+        check_result(result, JAX_ML100K)
+        if ran <= 0:
+            raise AssertionError(f"the ml-100k {model} run did not go through the fp32 GRU "
+                                 "kernels")
+        if test["recall@10"] < floor:
+            raise AssertionError(f"ml-100k {model} test recall@10 {test['recall@10']} < {floor}")
 
 
 def adam_copies(shapes):
@@ -3793,13 +4013,20 @@ def time_gru(torch):
     cluster geometry (cluster size, rows a block, clusters and the clusters
     the card holds) and the per-step floor: the forward's L - 1 steps of
     the h exchange and the cluster barrier alone, and with the recurrent
-    product."""
+    product. The "dien" entry is the fp32 instance at DIEN's extractor
+    (DIEN_GRU: B 4,096, H 40; nn.GRU 40 -> 40)."""
     from recbole_tpu_torch.ops import fused_gru as fg
-    B, L, E = (GRU4REC[k] for k in ("B", "L", "E"))
+    L = GRU4REC["L"]
     out = {}
     # GRU4Rec's hidden 128 in both instances (wh in shared memory), then
-    # hidden 256 in the bf16 instance (the cluster kernels), the "h256" entry
-    for H, bf16 in ((GRU4REC["H"], True), (GRU4REC["H"], False), (256, True)):
+    # hidden 256 in the bf16 instance (the cluster kernels), the "h256"
+    # entry; then DIEN's extractor (row 8d, the "dien" entry): the fp32
+    # instance at B 4,096 and H 40, nn.GRU over its 40-wide input
+    for H, bf16, B, E, label in (
+            (GRU4REC["H"], True, GRU4REC["B"], GRU4REC["E"], None),
+            (GRU4REC["H"], False, GRU4REC["B"], GRU4REC["E"], "fp32"),
+            (256, True, GRU4REC["B"], GRU4REC["E"], "h256"),
+            (DIEN_GRU["H"], False, DIEN_GRU["B"], DIEN_GRU["H"], "dien")):
         xi, hinit, wh, bh, dout = gru_inputs(torch, B, L, H, 41, bf16, False)
         y = fg.fused_gru_fwd_cuda(xi, hinit, wh, bh)
         dt = torch.bfloat16 if bf16 else torch.float32
@@ -3861,12 +4088,10 @@ def time_gru(torch):
                         t[name] = cuda_ms(torch, lambda: fg.fused_gru_cluster_floor_cuda(
                             B, L, H, "cuda", product), 20)
             key = f"fused_gru_{way}"
-            if H != GRU4REC["H"]:
-                out[key][f"h{H}"] = t
-            elif bf16:
-                out[key] = t
+            if label:
+                out[key][label] = t
             else:
-                out[key]["fp32"] = t
+                out[key] = t
             log(f"[time] {key} {'bf16' if bf16 else 'fp32'} B={B} L={L} H={H} "
                 f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; library nn.GRU {E}->{H} "
                 f"with its input projection): {t}")
@@ -4195,12 +4420,16 @@ def main():
         clock("routes")
         by_path.update(phase_protocols(torch, tmp))
         clock("protocols")
+        by_path.update(phase_gru_users(torch, tmp))
+        clock("gru_users")
         phase_quality(torch, tmp)
         clock("quality")
         phase_quality_kg(torch, tmp)
         clock("quality_kg")
         phase_quality_protocols(torch, tmp)
         clock("quality_protocols")
+        phase_quality_gru_users(torch, tmp)
+        clock("quality_gru_users")
     timing = phase_timing(torch)
     clock("timing")
     kernels = [{"name": kname, **KERNEL_META[kname],

@@ -22,9 +22,13 @@ packages from the same weights.
 A JAX tree's ``_const`` subtree (dataset-derived arrays: a graph operator,
 packed-bit images) is skipped both ways: the port rebuilds those arrays from
 the dataset as non-persistent buffers of the module. The exception is random
-state kept there: SASRecF's and FDSA's frozen N(0, 1) feature tables
-(``_const.feat_<field>``), which the module holds as persistent buffers
-(``embedder.feat_<field>``); a module with a ``const_state_map()`` names
+state kept there: the frozen N(0, 1) feature tables of SASRecF, FDSA,
+GRU4RecF, DIN and DIEN (``_const.feat_<field>``), and DIN's and DIEN's
+frozen id tables (``_const.item_embedding``, DIEN's user side
+``_const.user_embedding`` beside its user feature tables), which the module
+holds as persistent buffers (``embedder.feat_<field>``,
+``embedder.item_embedding``, ``user_embedder.<...>``); a module with a
+``const_state_map()`` names
 those leaves ({``_const`` leaf: state_dict name}), and they are carried both
 ways. What the rest of the
 tree holds is the module's ``state_dict``: its parameters and its persistent

@@ -9,8 +9,9 @@ is full-sort and no benchmark split files are given,
 ``valid_full_to_uni1000`` downgrades VALIDATION to uniform-1000 sampled
 ranking (reference data/utils.py:84-88). Sampled protocols (uni<k>/pop<k>)
 get the sampled loaders, general and sequential, and
-``eval_use_dataset_negatives`` the dataset-negative loader; the social and
-KG-sequential datasets are not ported yet and raise.
+``eval_use_dataset_negatives`` the dataset-negative loader. A model may
+name its own Dataset class (``DATASET_REGISTRY``: GRU4RecKG and KSR run on
+the KG-sequential diamond); the social dataset is not ported yet and raises.
 """
 
 import numpy as np
@@ -25,14 +26,33 @@ from ..utils.enums import ModelType, EvaluatorType
 from ..utils.logger import get_logger
 
 
+# name-keyed Dataset overrides: <Model> -> Dataset subclass (parity:
+# data/utils.py:21-41; the reference's customized_dataset.py:17-26)
+DATASET_REGISTRY = {}
+
+
+def register_dataset(model_name):
+    def deco(cls):
+        DATASET_REGISTRY[model_name] = cls
+        return cls
+    return deco
+
+
+def _register_builtin_datasets():
+    from .kg_seq_dataset import KGSeqDataset
+    # the KG-enhanced sequential models run on the diamond dataset
+    DATASET_REGISTRY.setdefault("GRU4RecKG", KGSeqDataset)
+    DATASET_REGISTRY.setdefault("KSR", KGSeqDataset)
+
+
 def create_dataset(config):
-    """The Dataset subclass for the model's family (parity:
-    data/utils.py:44-60). The social and KG-sequential datasets are not
-    ported yet."""
+    """The Dataset subclass: the model-name registry first, then the model's
+    family (parity: data/utils.py:44-60). The social dataset is not ported
+    yet."""
     model_type = config["MODEL_TYPE"]
-    if config["model"] in ("GRU4RecKG", "KSR"):
-        raise NotImplementedError(
-            "kg_seq_dataset is not ported yet (ROADMAP Queue 1, item 10)")
+    _register_builtin_datasets()
+    if config["model"] in DATASET_REGISTRY:
+        return DATASET_REGISTRY[config["model"]](config)
     if model_type is ModelType.SEQUENTIAL:
         from .seq_dataset import SequentialDataset
         return SequentialDataset(config)

@@ -5,13 +5,14 @@ Port of recbole_tpu/models/__init__.py. Models self-register with
 lazily on first lookup (case-insensitive, exact-case preferred). Ported so
 far: the general family's BPR, LightGCN, MFSimple, GMF, MLP and NCF, the
 context family's base with DeepFM, FM and LR, the sequential family's base
-with SASRec, GRU4Rec, NARM and the transformer users BERT4Rec, SASRecF,
-FDSA, GCSAN and S3Rec, and the knowledge family's base with all eight of
-its models (RippleNet, CKE, CFKG, KTUP, KGCN, KGNNLS, MKR and KGAT). The
-other graph models of the general family raise ``NotImplementedError``
-naming ROADMAP Queue 1, item 8; any other name raises ``ValueError``; the
-other 11 context models, the other 17 sequential models and the remaining
-families are ROADMAP Queue 1.
+with SASRec, GRU4Rec, NARM, the transformer users BERT4Rec, SASRecF,
+FDSA, GCSAN and S3Rec, the GRU users GRU4RecF, RepeatNet, DIN, DIEN,
+GRU4RecKG and KSR, and STAMP and SRGNN, and the knowledge family's base with
+all eight of its models (RippleNet, CKE, CFKG, KTUP, KGCN, KGNNLS, MKR and
+KGAT). The other graph models of the general family raise
+``NotImplementedError`` naming ROADMAP Queue 1, item 8; any other name
+raises ``ValueError``; the other 11 context models, the other 9 sequential
+models and the remaining families are ROADMAP Queue 1.
 """
 
 import importlib

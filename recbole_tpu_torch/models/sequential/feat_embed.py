@@ -1,10 +1,11 @@
 """Item-feature embedding for the feature-rich sequential models.
 
 Port of recbole_tpu/models/sequential/feat_embed.py (parity target: the
-reference's FeatureSeqEmbLayer, recbole/model/layers.py:554-826, used by
-SASRecF and FDSA): per-field embeddings of an item's side features, token
-fields looked up, token_seq fields pooled (mean, max or sum), float fields
-scaling a one-row table.
+reference's ContextSeqEmbLayer / FeatureSeqEmbLayer,
+recbole/model/layers.py:554-826, used by SASRecF, FDSA, GRU4RecF, DIN and
+DIEN): per-field embeddings of an item's (or, with ``side="user"``, a
+user's) side features, token fields looked up, token_seq fields pooled
+(mean, max or sum), float fields scaling a one-row table.
 
 The aligned feature table (row i = item id i) lives on the device as
 non-persistent buffers built from the dataset, so embedding a batch of ids
@@ -14,7 +15,9 @@ and out of ``state_dict`` (layers.py:566-611); the JAX package keeps them
 under ``params["_const"]`` (:79-111). Here they are persistent buffers,
 ``feat_<field>``: random state that the checkpoint carries and that no
 optimizer sees. ``convert.py`` maps them to and from the JAX tree's
-``_const`` (``const_state_map``).
+``_const`` (``const_state_map``). DIN's and DIEN's id table is one of them
+too (``frozen_id``: the reference keeps it in the same unregistered layer),
+``item_embedding`` or, on the user side, ``user_embedding``.
 """
 
 import numpy as np
@@ -26,21 +29,28 @@ from ...utils.enums import FeatureType
 
 
 class ItemFeatEmbedder(nn.Module):
-    """Embeds item ids into per-field feature vectors: (..., F, D).
+    """Embeds item ids (user ids with ``side="user"``, DIEN's user stream,
+    JAX :30-42) into per-field feature vectors: (..., F, D).
 
-    Field 0 is the item id itself when ``include_item_id`` (the caller's
-    trainable table; the JAX package's frozen id table of DIN and DIEN,
-    ``frozen_item_id``, comes with those models); the others follow
+    Field 0 is the id itself when ``include_item_id``: from the caller's
+    trainable table, or from the frozen one that ``init_tables(...,
+    frozen_id=True)`` draws (DIN's and DIEN's); the others follow
     ``selected_features`` order when given (the reference's field_names
-    iteration, layers.py:576-587), else the dataset's item-feature order."""
+    iteration, layers.py:576-587), else the dataset's feature order."""
 
     def __init__(self, dataset, selected_features=None, pooling="mean", include_item_id=True,
-                 device="cpu"):
+                 device="cpu", side="item"):
         super().__init__()
         self.pooling = pooling
         self.include_item_id = include_item_id
-        feat = dataset.item_feat or {}
-        key_field = dataset.iid_field
+        if side == "item":
+            feat, key_field, self.n_rows = dataset.item_feat or {}, dataset.iid_field, \
+                dataset.item_num
+        else:
+            feat, key_field, self.n_rows = dataset.user_feat or {}, dataset.uid_field, \
+                dataset.user_num
+        self.id_key = f"{side}_embedding"
+        self.frozen_id = False
         self.device_ = torch.device(device)
         if selected_features is not None:
             names = [f for f in selected_features if f in feat]
@@ -81,20 +91,26 @@ class ItemFeatEmbedder(nn.Module):
                 + len(self.float_fields) + len(self.seq_fields))
 
     def table_names(self):
-        """The frozen tables' names (``feat_<field>``), in the JAX init's
-        draw order: token, float, then token_seq fields."""
-        return ([f"feat_{f}" for f, _ in self.token_fields]
+        """The frozen tables' names, in the JAX init's draw order: the id
+        table when frozen, then ``feat_<field>`` of the token, float and
+        token_seq fields."""
+        return (([self.id_key] if self.frozen_id else [])
+                + [f"feat_{f}" for f, _ in self.token_fields]
                 + [f"feat_{f}" for f in self.float_fields]
                 + [f"feat_{f}" for f, _ in self.seq_fields])
 
-    def init_tables(self, generator, emb_size):
+    def init_tables(self, generator, emb_size, frozen_id=False):
         """N(0, 1) frozen tables as persistent buffers (parity: init,
-        :79-111, with ``frozen_item_id=False``, as SASRecF and FDSA call
-        it): a token or token_seq field's (vocab, D), a float field's
-        (1, D)."""
+        :79-111): with ``frozen_id`` (DIN, DIEN) the id table (n_rows, D)
+        first, then a token or token_seq field's (vocab, D), a float
+        field's (1, D). SASRecF and FDSA train their own id table and pass
+        ``frozen_id=False``, as they pass ``frozen_item_id=False``."""
         def normal(shape):
             return torch.randn(shape, generator=generator, device=self.device_)
 
+        if self.include_item_id and frozen_id:
+            self.frozen_id = True
+            self.register_buffer(self.id_key, normal((self.n_rows, emb_size)))
         for field, vocab in self.token_fields:
             self.register_buffer(f"feat_{field}", normal((vocab, emb_size)))
         for field in self.float_fields:
@@ -104,12 +120,14 @@ class ItemFeatEmbedder(nn.Module):
 
     def embed(self, items, id_table=None):
         """items: int tensor of any shape -> (*items.shape, F, D). Field
-        order: the id (from ``id_table``, the caller's trainable item
-        table, with ``include_item_id``), token fields, token_seq fields,
-        then float fields (the reference's [sparse, dense] concatenation,
-        layers.py:755-766)."""
+        order: the id (with ``include_item_id``: from ``id_table``, the
+        caller's trainable table, or, when it is None, the frozen one),
+        token fields, token_seq fields, then float fields (the reference's
+        [sparse, dense] concatenation, layers.py:755-766)."""
         parts = []
-        if self.include_item_id:
+        if self.include_item_id and id_table is None:
+            parts.append(getattr(self, self.id_key)[items][..., None, :])
+        elif self.include_item_id:
             # the lookup's gradient through the embedding-gradient kernels, as
             # the sequential base's embed_seq takes it (the library's
             # sort-based index backward was half of SASRecF's step on the card)

@@ -495,7 +495,7 @@ def test_unported_sequential_paths_raise(synth_dataset_dir, tmp_path):
     with pytest.raises(ValueError, match="leave-one-out"):
         data_preparation(pc, create_dataset(pc))
     with pytest.raises(ValueError, match="not found"):
-        get_model("GRU4RecF")
+        get_model("Caser")
 
 
 # --------------------------------------------------- (e): SASRec loss and grads
