@@ -121,11 +121,28 @@ Phases:
         SASRecF and FDSA (item features; FDSA's two encoders), GCSAN, and
         S3Rec's pretraining epoch under S3RecTrainer and a finetuning epoch
         from its checkpoint;
+     o. the GRU users GRU4RecF, RepeatNet, DIN, DIEN, GRU4RecKG and KSR,
+        then STAMP and SRGNN, at their default_config widths on the same
+        file (with an ml-1m-shaped user file and KG preload tables), 1
+        epoch each and a test pass, then 20 steps each under
+        torch.profiler (DIEN and KSR 5);
+     p. the last nine sequential models (Caser, NextItNet, TransRec,
+        FPMC, HGN, HRM, NPE, SHAN, FOSSIL) on one set of TO_LS full-sort
+        loaders of the same file, and the five context models FFM, FwFM,
+        FNN, WideDeep and xDeepFM on one set at the DeepFM-Criteo shape,
+        each at its default_config: 200 train steps, a valid and a test
+        pass, then 5 steps under torch.profiler; Adam on every path, the
+        one-hot gradient on every sequential one but TransRec's and
+        FPMC's, the masked top-k on the seven that keep the sequential
+        base's scoring, the one-hot and windowed gradients on the context
+        ones;
   5. quality on the bundled ml-100k under PARITY.md's protocols: BPR's,
      SASRec's, BERT4Rec's and FDSA's (5 epochs), LightGCN's, GRU4Rec's,
      NARM's, RippleNet's and the seven knowledge models' (10 epochs) test
      recall@10 and DeepFM's test AUC,
-     and MFSimple's test recall@10 under the fork's labeled protocol, each
+     and MFSimple's test recall@10 under the fork's labeled protocol,
+     GRU4RecF's, RepeatNet's, KSR's, Caser's and FPMC's (5 epochs) test
+     recall@10 and xDeepFM's (10 epochs) test AUC, each
      held to a floor; BPR's best valid recall@10 under the uniform-1,000
      validation beside the JAX package's;
   6. timing with CUDA events at the main paths' shapes: kernel, plain
@@ -148,6 +165,7 @@ It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 imports nothing of JAX or of the JAX package recbole_tpu.
 """
 
+import gc
 import glob
 import itertools
 import json
@@ -193,6 +211,12 @@ CRITEO_BATCH, CRITEO_DIM = 2048, 11
 # over 39 fields x 10, and the output layer
 DEEPFM_LEAF_SHAPES = [(sum(CRITEO["vocabs"]), CRITEO_DIM), (13, 10), (13,), (), (390, 128),
                       (128,), (128, 128), (128,), (128, 128), (128,), (128, 1), (1,)]
+# the leaves Adam sweeps in one FFM step at that shape (phase 4p): the
+# context family's first four, then the (ids, fields, 10) field-aware token
+# table (1,000,619,880 elements, 4.0 GB: past 2^32 bytes) and the float one
+FFM_FIELDS = len(CRITEO["vocabs"]) + CRITEO["n_float"]
+FFM_LEAF_SHAPES = DEEPFM_LEAF_SHAPES[:4] + [(sum(CRITEO["vocabs"]), FFM_FIELDS, 10),
+                                            (CRITEO["n_float"], FFM_FIELDS, 10)]
 # the 36 leaves Adam sweeps in one SASRec step at the ml-1m shape: item and
 # position embeddings, the input LayerNorm, and per layer the four (64, 64)
 # projections, their four biases, two LayerNorms, and the FFN's two matrices
@@ -337,6 +361,36 @@ ML100K_GRU_USERS_EPOCHS = 5
 ML100K_GRU_USERS = {"GRU4RecF": ("0.1241 / 0.1188 / 0.1092", 0.098),
                     "RepeatNet": ("0.0880 / 0.0827 / 0.0954", 0.074),
                     "KSR": ("0.0806 / 0.0997 / 0.0689", 0.062)}
+
+# the last nine sequential models and five context models (phase 4p): the
+# train steps each takes at its default_config before a valid and a test
+# pass (a cut: an ml-1m-shaped epoch is 480 steps, a Criteo-shaped one
+# 896), and its profiled steady steps
+REST_STEPS, REST_PROFILED = 200, 5
+# the kernels a path of phase 4p must not launch unless it names them:
+# no transformer, attention, GRU, relation or packed-bit kernel is on any
+# of their paths
+REST_KERNELS = ("masked_topk", "onehot_matmul_grad", "windowed_grad", "trm_layer_fwd",
+                "fused_transformer_layer_fwd", "fused_attention_fwd", "fused_attention_whole_fwd",
+                "fused_gru_fwd", "rel_apply_fwd", "bit_rows_matmul", "bit_cols_matmul")
+
+
+def rest_off(must):
+    """The kernels of REST_KERNELS a phase 4p path does not name."""
+    return tuple(k for k in REST_KERNELS if k not in must)
+
+# Caser and FPMC on ml-100k under the TO_LS full-sort protocol, 5 epochs,
+# and xDeepFM under DeepFM's CTR protocol (ML100K_CTR), 10 epochs: test
+# recall@10 and test AUC of the JAX package on the CPU at seeds 2020 /
+# 2021 / 2022 (python run.py --model=<M> --dataset=ml-100k --epochs=5
+# --seed=<s> --eval_setting=TO_LS,full --training_neg_sample_num=<0;
+# FPMC 1, its pairwise default> --valid_full_to_uni1000=False; Caser with
+# --scan_epochs=False, whose scanned epoch did not finish in 30 minutes
+# on the CPU; xDeepFM --epochs=10 --threshold="{'rating': 4}" and
+# ML100K_CTR's load_col), and the floor, about 0.9x the lowest
+ML100K_REST = {"Caser": ("recall@10", 5, "0.0721 / 0.0764 / 0.0636", 0.057),
+               "FPMC": ("recall@10", 5, "0.0806 / 0.0647 / 0.0795", 0.058),
+               "xDeepFM": ("auc", 10, "0.7702 / 0.7745 / 0.7703", 0.693)}
 
 # masked_topk: the kernel's fp32 sums run in another order than cuBLAS's
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
@@ -722,7 +776,7 @@ def check_topk(torch, B, N, D, k, seed, pad_only=False, dup=False, dispatch=Fals
 
 
 def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=None, wd=0.0,
-               clip=None, dwd=0.0):
+               clip=None, dwd=0.0, card_draws=False):
     """Three steps of the kernel over a whole leaf set at once against
     adam_multi_torch on the same inputs: p, m and v must be the plain
     version's bits (the kernel rounds each operation once in the plain
@@ -736,36 +790,61 @@ def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=No
     the trainer's: the launcher's own, by the norm kernels over the leaf
     table (``grad_norm_cuda``, held to the plain ``global_grad_norm`` at
     NORM_RTOL), which the plain version is handed; ``dwd``: adamw's
-    decoupled decay.
+    decoupled decay; ``card_draws``: p and each step's gradients drawn on
+    the card from a torch.Generator seeded from ``seed`` (a step's drawn
+    again for each side), for a leaf set too large to draw on the host;
+    the last CHUNK elements of its largest leaf must then have moved, so
+    that the kernel is seen to reach the end of a leaf past 2^32 bytes.
     A leaf's zero head starts at 0, as a [PAD] row does, and must stay 0 in
     p, m and v at every weight decay. Returns the largest |difference|."""
-    from recbole_tpu_torch.ops.fused_adam import (AdamLeaves, adam_multi_cuda, adam_multi_torch,
-                                                  global_grad_norm, grad_norm_cuda)
-    rng = np.random.RandomState(seed)
-    p0 = [np.asarray(rng.standard_normal(s) * 0.1, np.float32) for s in shapes]
+    from recbole_tpu_torch.ops.fused_adam import (CHUNK, AdamLeaves, adam_multi_cuda,
+                                                  adam_multi_torch, global_grad_norm,
+                                                  grad_norm_cuda)
+    if card_draws:
+        gen = torch.Generator(device="cuda")
+
+        def draw(shape, scale, k):
+            gen.manual_seed(seed * 1000 + k)
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        p0 = [draw(s, 0.1, i) for i, s in enumerate(shapes)]
+
+        def step_grads(t):
+            return [None if i in none else draw(s, 1e-3, 100 * t + i)
+                    for i, s in enumerate(shapes)]
+    else:
+        rng = np.random.RandomState(seed)
+        p0 = [np.asarray(rng.standard_normal(s) * 0.1, np.float32) for s in shapes]
+        host = [[None if i in none else np.asarray(rng.standard_normal(s) * 1e-3, np.float32)
+                 for i, s in enumerate(shapes)] for _ in range(3)]
+
+        def step_grads(t):
+            return host[t - 1]
     for a, h in zip(p0, heads):
         a.reshape(-1)[:h] = 0.0
-    grads = [[None if i in none else np.asarray(rng.standard_normal(s) * 1e-3, np.float32)
-              for i, s in enumerate(shapes)] for _ in range(3)]
 
     def on_card(a, at=offset):
-        buf = torch.empty(at + a.size, device="cuda")
-        buf[at:] = torch.from_numpy(a.reshape(-1)).cuda()
+        a = torch.as_tensor(a)
+        buf = torch.empty(at + a.numel(), device="cuda")
+        buf[at:] = a.reshape(-1)
         return buf[at:].view(a.shape)
+
+    def zeros(shape):
+        return torch.zeros(offset + int(np.prod(shape)), device="cuda")[offset:].view(shape)
 
     g_at = offset if g_offset is None else g_offset
     max_norm = None
     if clip is not None:
-        norms = [float(global_grad_norm([None if a is None else torch.from_numpy(a)
-                                         for a in g], heads)) for g in grads]
+        norms = [float(global_grad_norm([None if a is None else torch.as_tensor(a)
+                                         for a in step_grads(t)], heads)) for t in (1, 2, 3)]
         max_norm = 0.1 * min(norms) if clip == "below" else 10.0 * max(norms)
     state, step_norms, norm_err = {}, [], 0.0
     for kind, fn in (("kernel", adam_multi_cuda), ("plain", adam_multi_torch)):
-        leaves = AdamLeaves([on_card(a) for a in p0], [on_card(np.zeros_like(a)) for a in p0],
-                            [on_card(np.zeros_like(a)) for a in p0], heads)
-        for t, g in enumerate(grads, start=1):
+        leaves = AdamLeaves([on_card(a) for a in p0], [zeros(a.shape) for a in p0],
+                            [zeros(a.shape) for a in p0], heads)
+        for t in (1, 2, 3):
             c1, c2 = 1.0 / (1.0 - 0.9 ** t), 1.0 / (1.0 - 0.999 ** t)
-            tg = [None if a is None else on_card(a, g_at) for a in g]
+            tg = [None if a is None else on_card(a, g_at) for a in step_grads(t)]
             cl = None
             if kind == "kernel" and max_norm is not None:
                 norm, ref = grad_norm_cuda(leaves, tg), global_grad_norm(tg, heads)
@@ -795,11 +874,18 @@ def check_adam(torch, label, shapes, heads, seed, none=(), offset=0, g_offset=No
     if any(h and bool(t[i].reshape(-1)[:h].any())
            for i, h in enumerate(heads) for t in (kern.p, kern.m, kern.v)):
         raise AssertionError(f"adam_multi moved a zero head off 0 on {label}")
+    if card_draws:
+        big = max(range(len(shapes)), key=lambda i: int(np.prod(shapes[i])))
+        tail = kern.p[big].reshape(-1)[-CHUNK:]
+        if not bool((tail != p0[big].reshape(-1)[-CHUNK:]).all()):
+            raise AssertionError(f"adam_multi left elements of the last chunk of {label}'s "
+                                 f"leaf {big} {shapes[big]} where they were")
     log(f"[check] adam_multi {label}: {len(shapes)} leaves "
         f"({sum(int(np.prod(s)) for s in shapes)} elements) in one launch a step, x3 steps, "
         f"weight decay {wd}, clip {clip} (max_norm {max_norm}"
         + (f"; the norm kernels' norm within {norm_err:.2e} of the plain version's"
-           if clip else "") + f"), adamw decay {dwd}: max|err| {err:.3e}, bit for bit")
+           if clip else "") + f"), adamw decay {dwd}: max|err| {err:.3e}, bit for bit"
+        + ("; drawn on the card, the largest leaf's last chunk moved" if card_draws else ""))
     return err
 
 
@@ -2364,43 +2450,80 @@ def seq_loaders(torch, tmp, model_name, extra):
     return train, valid
 
 
-def short_run(torch, tmp, tag, model_name, extra, loaders, steps, must_launch, must_not):
-    """``steps`` train steps and a full-sort valid pass of a sequential
-    model through get_model -> get_trainer -> the trainer's step and
-    evaluate, on the given loaders, with the launch counts set to 0 just
-    before and read just after."""
+def short_run(torch, tmp, tag, model_name, extra, loaders, steps, must_launch, must_not,
+              dataset="ml-1m-shape", keys=(), leaves=None, profiled=0):
+    """``steps`` train steps of a model through get_model -> get_trainer ->
+    the trainer's step, then a valid pass and, when ``loaders`` holds a test
+    loader after the valid one, a test pass, with every kernel's launch
+    count set to 0 just before and read just after: ``must_launch`` must
+    have launched, ``must_not`` must not. ``keys``: config keys that must
+    hold the model's default_config (at batch 2,048 and 50 positions);
+    ``leaves``: the parameter shapes the model must have; ``profiled``: that
+    many steady steps under the profiler after the run. Returns the
+    launches."""
     from recbole_tpu_torch.config.configurator import Config
     from recbole_tpu_torch.models import get_model
     from recbole_tpu_torch.trainer.trainer import get_trainer
-    train, valid = loaders
-    config = Config(model_name, "ml-1m-shape", config_dict={
+    train, valid, *test = loaders
+    config = Config(model_name, dataset, config_dict={
         "data_path": os.path.join(tmp, "data"), "device": "cuda",
         "valid_full_to_uni1000": False, "checkpoint_dir": os.path.join(tmp, "saved"),
         "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False,
         **extra}, _parse_cmd_line=False)
     reset_launches()
-    t0 = time.time()
+    t_run = time.time()
     model = get_model(model_name)(config, train.dataset)
+    widths = {k: config[k] for k in keys}
+    if keys and (widths != {k: type(model).default_config[k] for k in keys}
+                 or train.batch_size != 2048 or getattr(model, "max_seq_length", 50) != 50):
+        raise AssertionError(f"{model_name} was not built at its defaults: {widths} "
+                             f"(batch {train.batch_size})")
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    if leaves is not None and shapes != [tuple(s) for s in leaves]:
+        raise AssertionError(f"{model_name}'s leaves are {shapes}, not {leaves}")
     trainer = get_trainer(config["MODEL_TYPE"], model_name)(config, model)
     trainer.prepare(train)
     mode = trainer._build_mode(train)
     B = train.batch_size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
     losses = [mode["step"](trainer._take_batch(mode["tables"], torch.arange(
         i * B, (i + 1) * B, device="cuda")), mode["consts"]) for i in range(steps)]
-    result = trainer.evaluate(valid, load_best_model=False)
+    losses = [float(x.sum()) for x in losses]
+    t_train = time.time() - t0
+    train_peak = torch.cuda.max_memory_allocated()
+    result = {"best_valid_result": trainer.evaluate(valid, load_best_model=False)}
+    t_valid = time.time() - t0 - t_train
+    result["test_result"] = (trainer.evaluate(test[0], load_best_model=False) if test
+                             else result["best_valid_result"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches(tag, must_launch)
     ran = {k: launches[k] for k in must_not if launches.get(k)}
     if ran:
         raise AssertionError(f"kernels off the {tag} path were launched: {ran}")
-    losses = [float(x.sum()) for x in losses]
-    log(f"[{tag}] {model_name} {extra}: {steps} steps at batch {B}, losses "
-        f"{[round(x, 4) for x in losses]}, valid {json.dumps(result)}; {wall:.1f}s with the "
-        "valid pass")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: non-finite loss {losses}")
-    check_result({"best_valid_result": result, "test_result": result}, JAX_ML100K)
+    check_result(result, ("auc", "logloss") if dataset == "criteo-shape" else JAX_ML100K)
+    log(f"[{tag}] {model_name} {widths if keys else extra}: "
+        f"{sum(int(np.prod(s)) for s in shapes)} parameters in {len(shapes)} leaves; {steps} "
+        f"steps {t_train:.2f}s ({1e3 * t_train / steps:.3f} ms/step, {steps * B / t_train:.1f} "
+        f"examples/s), losses {[round(x, 4) for x in losses[:3]]} ... {losses[-1]:.4f}; valid "
+        f"pass {t_valid:.3f}s, eval {wall - t_train:.3f}s; {json.dumps(result)}")
+    log(f"[{tag}] launches per step: " + ", ".join(
+        f"{k} {launches[k] / steps:.2f}" for k in must_launch)
+        + "; forward kernels count the eval batches too")
+    log(f"[{tag}] max_memory_allocated {train_peak} bytes in the steps, "
+        f"{torch.cuda.max_memory_allocated()} with the eval passes "
+        f"(batch {getattr(valid, 'batch_size', None)})")
+    if profiled:
+        profile_steps(torch, trainer, train, tag, profiled)
+    log(f"[{tag}] the whole run {time.time() - t_run:.1f}s")
+    # the step's closures hold the model in a cycle: collect it before the
+    # next model's peak is read
+    del trainer, model, mode
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2985,6 +3108,82 @@ def phase_gru_users(torch, tmp):
     return out
 
 
+def phase_rest(torch, tmp):
+    """Phase 4p: the last nine sequential models and five context models,
+    each at its default_config, REST_STEPS train steps, a valid and a test
+    pass and REST_PROFILED profiled steps (short_run). The sequential nine
+    share one set of TO_LS full-sort loaders of the ml-1m-shaped file
+    (their input types differ only in the trainer's negatives: TransRec,
+    FPMC and HGN pairwise with one, the rest CE): the seven that keep the
+    sequential base's scoring take the masked top-k, TransRec and FPMC
+    (their own full_sort_predict) the non-fused step; every one but
+    TransRec and FPMC (plain gathers, as in the JAX package) takes the
+    one-hot gradient in embed_seq. The five context models share one set of
+    loaders at the DeepFM-Criteo shape (synth_ctr_dataset, as phase_deepfm
+    builds it): the field-grouped gradient's one-hot and windowed kernels;
+    FFM's (2,565,692, 39, 10) field-aware table takes a plain gather, as in
+    the JAX package, and Adam sweeps its 1.0 B elements each step."""
+    from recbole_tpu_torch.config.configurator import Config
+    from recbole_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_tpu_torch.utils.logger import init_logger
+    from recbole_tpu_torch.utils.utils import init_seed
+    t0 = time.time()
+    config = Config("Caser", "ml-1m-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "device": "cuda",
+        "load_col": {"inter": SEQ_INTER}, "valid_full_to_uni1000": False,
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False},
+        _parse_cmd_line=False)
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    loaders = data_preparation(config, create_dataset(config))
+    log(f"[rest] ml-1m-shape TO_LS loaders in {time.time() - t0:.1f}s: train {loaders[0].n} "
+        f"valid {loaders[1].n} test {loaders[2].n}")
+    base, onehot, topk = ("adam_leaf",), ("onehot_matmul_grad",), ("masked_topk",)
+    seq = ("embedding_size", "loss_type")
+    runs = (("caser", "Caser", seq + ("nv", "nh", "dropout_prob"), base + onehot + topk),
+            ("nextitnet", "NextItNet", seq + ("block_num", "dilations", "kernel_size"),
+             base + onehot + topk),
+            ("transrec", "TransRec", ("embedding_size", "training_neg_sample_num"), base),
+            ("fpmc", "FPMC", ("embedding_size", "training_neg_sample_num"), base),
+            ("hgn", "HGN", seq + ("pooling_type", "training_neg_sample_num"),
+             base + onehot + topk),
+            ("hrm", "HRM", seq + ("high_order", "dropout_prob"), base + onehot + topk),
+            ("npe", "NPE", seq + ("dropout_prob",), base + onehot + topk),
+            ("shan", "SHAN", seq + ("short_item_length",), base + onehot + topk),
+            ("fossil", "FOSSIL", seq + ("order_len", "alpha"), base + onehot + topk))
+    out = {}
+    for tag, model_name, keys, must in runs:
+        out[tag] = short_run(torch, tmp, tag, model_name, {"load_col": {"inter": SEQ_INTER}},
+                             loaders, REST_STEPS, must, rest_off(must), keys=keys,
+                             profiled=REST_PROFILED)
+    del loaders
+    t0 = time.time()
+    config = Config("FFM", "criteo-shape", config_dict={
+        "data_path": os.path.join(tmp, "data"), "device": "cuda",
+        "USER_ID_FIELD": None, "ITEM_ID_FIELD": None, "LABEL_FIELD": "label",
+        "TIME_FIELD": None, "train_batch_size": CRITEO_BATCH,
+        "log_dir": os.path.join(tmp, "log"), "state": "INFO", "show_progress": False},
+        _parse_cmd_line=False)
+    init_seed(config["seed"], config["reproducibility"])
+    loaders = data_preparation(config, synth_ctr_dataset(config, CRITEO))
+    log(f"[rest] criteo-shaped dataset and splits in {time.time() - t0:.1f}s: train "
+        f"{loaders[0].n} valid {loaders[1].n} test {loaders[2].n}")
+    ctr = {"USER_ID_FIELD": None, "ITEM_ID_FIELD": None, "LABEL_FIELD": "label",
+           "TIME_FIELD": None, "train_batch_size": CRITEO_BATCH}
+    grads = ("adam_leaf", "onehot_matmul_grad", "windowed_grad")
+    for tag, model_name, keys, leaves in (
+            ("ffm", "FFM", ("embedding_size",), FFM_LEAF_SHAPES),
+            ("fwfm", "FwFM", ("embedding_size", "dropout_prob"), None),
+            ("fnn", "FNN", ("embedding_size", "mlp_hidden_size", "dropout_prob"), None),
+            ("widedeep", "WideDeep", ("embedding_size", "mlp_hidden_size", "dropout_prob"), None),
+            ("xdeepfm", "xDeepFM", ("embedding_size", "mlp_hidden_size", "cin_layer_size",
+                                    "direct", "reg_weight", "train_cin_weights"), None)):
+        out[tag] = short_run(torch, tmp, tag, model_name, ctr, loaders, REST_STEPS, grads,
+                             rest_off(grads), dataset="criteo-shape", keys=keys, leaves=leaves,
+                             profiled=REST_PROFILED)
+    return out
+
+
 def phase_routes(torch, tmp):
     """Shapes the kernels refused until routed before launch, on the
     ml-1m-shaped file: BPR at embedding_size 10 (the masked top-k,
@@ -3360,6 +3559,32 @@ def phase_quality_gru_users(torch, tmp):
                                  "kernels")
         if test["recall@10"] < floor:
             raise AssertionError(f"ml-100k {model} test recall@10 {test['recall@10']} < {floor}")
+
+
+def phase_quality_rest(torch, tmp):
+    """ml-100k test recall@10 of Caser and FPMC under the TO_LS full-sort
+    protocol, 5 epochs, and xDeepFM's test AUC under DeepFM's CTR protocol,
+    10 epochs, each held to its floor (ML100K_REST)."""
+    from recbole_tpu_torch import run_recbole
+    for model, (metric, epochs, ref, floor) in ML100K_REST.items():
+        if model == "xDeepFM":
+            extra = {**ML100K_CTR, "epochs": epochs}
+        else:
+            extra = {**ML100K_SEQ, "epochs": epochs, "valid_full_to_uni1000": False,
+                     "training_neg_sample_num": 1 if model == "FPMC" else 0}
+        t0 = time.time()
+        result = run_recbole(model=model, dataset="ml-100k", config_dict={
+            **extra, "device": "cuda", "checkpoint_dir": os.path.join(tmp, "saved100k"),
+            "log_dir": os.path.join(tmp, "log100k"), "state": "WARNING",
+            "show_progress": False})
+        test = result["test_result"]
+        log(f"[quality] ml-100k {model} ({epochs} epochs) {time.time() - t0:.1f}s; best valid "
+            f"{result['best_valid_result']}")
+        log(f"[quality]   test {json.dumps(test)}   JAX package on the CPU, seeds 2020 / 2021 "
+            f"/ 2022, same protocol: {metric} {ref}; floor {floor}")
+        check_result(result, ("auc", "logloss") if metric == "auc" else JAX_ML100K)
+        if test[metric] < floor:
+            raise AssertionError(f"ml-100k {model} test {metric} {test[metric]} < {floor}")
 
 
 def adam_copies(shapes):
@@ -4372,6 +4597,12 @@ def main():
                           [(2053,), (3, 7), (), (4096,), (2047,), (37, 9)],
                           [6, 0, 0, 2, 0, 9], seed=45, none=(1,), offset=1, clip="below",
                           dwd=1e-4))}
+    # FFM's leaf set at the Criteo shape, as phase 4p's steps give it (no
+    # pad_zero_params: no zero head): 1.03 B elements, a 4.0 GB leaf
+    err["adam_leaf"] = max(err["adam_leaf"], check_adam(
+        torch, "ffm_criteo", FFM_LEAF_SHAPES, [0] * len(FFM_LEAF_SHAPES), seed=46,
+        card_draws=True))
+    torch.cuda.empty_cache()
     clock("masked top-k and Adam checks")
     for kname, cases in embed_grad_cases(torch).items():
         err[kname] = check_embed_grad(torch, kname, cases)
@@ -4422,6 +4653,8 @@ def main():
         clock("protocols")
         by_path.update(phase_gru_users(torch, tmp))
         clock("gru_users")
+        by_path.update(phase_rest(torch, tmp))
+        clock("rest")
         phase_quality(torch, tmp)
         clock("quality")
         phase_quality_kg(torch, tmp)
@@ -4430,6 +4663,8 @@ def main():
         clock("quality_protocols")
         phase_quality_gru_users(torch, tmp)
         clock("quality_gru_users")
+        phase_quality_rest(torch, tmp)
+        clock("quality_rest")
     timing = phase_timing(torch)
     clock("timing")
     kernels = [{"name": kname, **KERNEL_META[kname],

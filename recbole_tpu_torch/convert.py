@@ -27,10 +27,11 @@ GRU4RecF, DIN and DIEN (``_const.feat_<field>``), and DIN's and DIEN's
 frozen id tables (``_const.item_embedding``, DIEN's user side
 ``_const.user_embedding`` beside its user feature tables), which the module
 holds as persistent buffers (``embedder.feat_<field>``,
-``embedder.item_embedding``, ``user_embedder.<...>``); a module with a
-``const_state_map()`` names
-those leaves ({``_const`` leaf: state_dict name}), and they are carried both
-ways. What the rest of the
+``embedder.item_embedding``, ``user_embedder.<...>``), and xDeepFM's
+frozen CIN weights (``_const.cin.<i>.w`` / ``b``, the buffers
+``cin.<i>.w`` / ``b``); a module with a ``const_state_map()`` names
+those leaves ({dotted path under ``_const``: state_dict name}), and they
+are carried both ways. What the rest of the
 tree holds is the module's ``state_dict``: its parameters and its persistent
 buffers, the state that is not trained (KGAT's ``edge_attention``). The
 tree is loaded through ``load_state_dict``, so a module's own post-hooks
@@ -88,7 +89,7 @@ def _const_map(model):
 def load_jax_params(model, params):
     own = model.state_dict()
     flat = flatten_tree({k: v for k, v in params.items() if k != CONST_KEY})
-    const = params.get(CONST_KEY, {})
+    const = flatten_tree(params.get(CONST_KEY, {}))
     for leaf, name in _const_map(model).items():
         flat[name] = const[leaf]
     if set(flat) != set(own):
@@ -109,5 +110,5 @@ def export_params(model):
     const = {leaf: state.pop(name) for leaf, name in _const_map(model).items()}
     tree = unflatten_tree(state)
     if const:
-        tree[CONST_KEY] = const
+        tree[CONST_KEY] = unflatten_tree(const)
     return tree

@@ -4,14 +4,15 @@ Port of recbole_tpu/models/__init__.py. Models self-register with
 @register_model at import time; get_model imports the category packages
 lazily on first lookup (case-insensitive, exact-case preferred). Ported so
 far: the general family's BPR, LightGCN, MFSimple, GMF, MLP and NCF, the
-context family's base with DeepFM, FM and LR, the sequential family's base
-with SASRec, GRU4Rec, NARM, the transformer users BERT4Rec, SASRecF,
-FDSA, GCSAN and S3Rec, the GRU users GRU4RecF, RepeatNet, DIN, DIEN,
-GRU4RecKG and KSR, and STAMP and SRGNN, and the knowledge family's base with
-all eight of its models (RippleNet, CKE, CFKG, KTUP, KGCN, KGNNLS, MKR and
-KGAT). The other graph models of the general family raise
-``NotImplementedError`` naming ROADMAP Queue 1, item 8; any other name
-raises ``ValueError``; the other 11 context models, the other 9 sequential
+context family's base with DeepFM, FM, LR, FFM, FwFM, FNN, WideDeep and
+xDeepFM, the sequential family's base with all 25 of its models (SASRec,
+GRU4Rec, NARM, the transformer users BERT4Rec, SASRecF, FDSA, GCSAN and
+S3Rec, the GRU users GRU4RecF, RepeatNet, DIN, DIEN, GRU4RecKG and KSR,
+STAMP, SRGNN, Caser, NextItNet, TransRec, FPMC, HGN, HRM, NPE, SHAN and
+FOSSIL), and the knowledge family's base with all eight of its models
+(RippleNet, CKE, CFKG, KTUP, KGCN, KGNNLS, MKR and KGAT). The other graph
+models of the general family raise ``NotImplementedError`` naming ROADMAP
+Queue 1, item 8; any other name raises ``ValueError``; the other 6 context
 models and the remaining families are ROADMAP Queue 1.
 """
 

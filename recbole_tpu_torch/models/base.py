@@ -163,8 +163,14 @@ class SequentialRecommender(AbstractRecommender):
         return getattr(self, self.item_embedding_key)
 
     def calculate_loss(self, batch, generator=None):
+        return self.output_loss(self.forward(batch, generator), batch)
+
+    def output_loss(self, out, batch):
+        """The base loss of ``forward``'s output ``out`` (B, D): BPR against
+        the negative column, or CE over the item table. Models that add a
+        regulariser on the same output (FOSSIL) take it from here rather
+        than run ``forward`` twice."""
         from .losses import bpr_loss, ce_loss
-        out = self.forward(batch, generator)
         pos = batch[self.POS_ITEM_ID]
         w = batch.get("_weight")
         table = self._item_table()

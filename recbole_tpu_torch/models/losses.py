@@ -1,8 +1,8 @@
 """Loss functions.
 
 Port of recbole_tpu/models/losses.py's ``bpr_loss``, ``bce_loss``,
-``ce_loss``, ``mse_loss``, ``mask_rows``, ``emb_loss`` and
-``emb_margin_loss``. Each loss takes an optional per-row ``weight``; padding
+``ce_loss``, ``mse_loss``, ``mask_rows``, ``fro_norm``, ``emb_loss``,
+``reg_loss`` and ``emb_margin_loss``. Each loss takes an optional per-row ``weight``; padding
 rows carry weight 0 and the mean is taken over the weight sum.
 """
 
@@ -49,6 +49,13 @@ def mask_rows(w, *tensors):
     return tuple(t * w.reshape((-1,) + (1,) * (t.dim() - 1)).to(t.dtype) for t in tensors)
 
 
+def fro_norm(t):
+    """Frobenius norm of a whole tensor, the sum of squares clamped at 1e-12
+    before the root (parity: losses.py:65-68, the reference's
+    ``weight.norm(2)`` regulariser)."""
+    return torch.sqrt(torch.clamp(torch.sum(t ** 2), min=1e-12))
+
+
 def emb_loss(*embeddings, norm=2):
     """Sum of each embedding's p-norm over its looked-up rows, divided by
     the last embedding's batch size (parity: EmbLoss, loss.py:70-84; each
@@ -57,6 +64,15 @@ def emb_loss(*embeddings, norm=2):
     for e in embeddings:
         total = total + torch.clamp(torch.sum(torch.abs(e) ** norm), min=1e-12) ** (1.0 / norm)
     return total / max(embeddings[-1].shape[0], 1)
+
+
+def reg_loss(params, norm=2):
+    """Sum of each tensor's p-norm over all its elements (parity: RegLoss,
+    loss.py:52; losses.py:82-87)."""
+    total = 0.0
+    for p in params:
+        total = total + torch.linalg.vector_norm(p.reshape(-1), ord=norm)
+    return total
 
 
 def emb_margin_loss(*embeddings, power=2):

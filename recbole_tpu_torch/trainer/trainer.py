@@ -945,11 +945,13 @@ class Trainer:
         (parity: trainer.py:1205-1257; reference LossEvaluator,
         evaluators.py:289-367). The eval table is uploaded once and kept
         with the loader; batches are sliced on the device; the metrics are
-        computed there and only their values return to the host."""
+        computed there and only their values return to the host. The upload
+        is keyed on the device, not on the trainer, so that a loader shared
+        by several trainers keeps none of them (nor their models) alive."""
         label_f = self.config["LABEL_FIELD"]
         cached = getattr(eval_data, "_individual_cache", None)
-        if cached is None or cached[0] is not self:
-            cached = (self, self._upload_table(eval_data.fields))
+        if cached is None or cached[0] != self.device:
+            cached = (self.device, self._upload_table(eval_data.fields))
             eval_data._individual_cache = cached
         tables = cached[1]
         n, B = eval_data.n, eval_data.batch_size

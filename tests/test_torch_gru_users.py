@@ -391,16 +391,21 @@ def test_preloaded_kg_tables_match_jax(model, tmp_path):
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=RTOL)
     _grads_close(pmodel, jgrads)
-    # without the files' weights: random tables and a warning
+    # without the files' weights: random tables and a warning; the level
+    # is set here, since a run_recbole earlier in the process leaves the
+    # port logger at its config's state
     logger = logging.getLogger("recbole_tpu_torch")
     records = []
     handler = logging.Handler()
     handler.emit = records.append
     logger.addHandler(handler)
+    level = logger.level
+    logger.setLevel(logging.WARNING)
     try:
         plain = get_model(model)(pmodel.config, _plain_dataset(model, tmp_path, root))
     finally:
         logger.removeHandler(handler)
+        logger.setLevel(level)
     assert any("no preloaded ent_id" in r.getMessage() for r in records)
     assert plain.entity_embedding.shape == pmodel.entity_embedding.shape
     assert not torch.equal(plain.entity_embedding, pmodel.entity_embedding)

@@ -3,6 +3,9 @@ trajectory from the same weights, batches and negatives, full-sort and
 value metrics from the same weights, end-to-end smoke runs (BPR, DeepFM),
 and checkpoint resume."""
 
+import gc
+import weakref
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -271,6 +274,26 @@ def test_evaluate_individual_batches_do_not_change_the_result(synth_dataset_dir,
     assert valid.batch_size >= 65536 and len(valid) == 1
     valid.batch_size = 37
     assert trainer.evaluate(valid, load_best_model=False) == whole
+
+
+def test_eval_loader_keeps_no_trainer_alive(synth_dataset_dir, tmp_path):
+    """The value-metric pass keeps its uploaded table with the loader, keyed
+    on the device: a second trainer on the same loader reuses the upload,
+    and once the first trainer and its model are dropped, nothing holds
+    them."""
+    cfg = _cfg(synth_dataset_dir, tmp_path, **CTR)
+    trainer, model, _, valid, _ = _port_pipeline(cfg, "DeepFM")
+    first = trainer.evaluate(valid, load_best_model=False)
+    upload = valid._individual_cache[1]
+    dead_trainer, dead_model = weakref.ref(trainer), weakref.ref(model)
+    del trainer, model
+    gc.collect()
+    assert dead_trainer() is None and dead_model() is None
+    pc = Config("DeepFM", "synth", config_dict=cfg, _parse_cmd_line=False)
+    init_seed(pc["seed"])
+    again = Trainer(pc, get_model("DeepFM")(pc, valid.dataset))
+    assert again.evaluate(valid, load_best_model=False) == first
+    assert valid._individual_cache[1] is upload
 
 
 @pytest.mark.parametrize("model", ["DeepFM", "FM", "LR"])
